@@ -1,0 +1,190 @@
+"""Batch-proof (de)serialization: the reference's packed wire format.
+
+Counterpart of the packed encoding in ``tendermintx_tpu/stark/serialize.py``:
+every felt list is base64 of 8-byte big-endian words, paths are the
+concatenation of their 4-felt digests, ext values interleave (c0, c1). A
+dict written by either package reads back in the other.
+"""
+
+from __future__ import annotations
+
+import base64
+
+from ..ops.goldilocks import P
+from .fri import FriProof
+
+
+def _felt(v) -> int:
+    """Range-validated field element: malformed proofs fail here."""
+    x = int(v)
+    if not 0 <= x < P:
+        raise ValueError(f"field element out of range: {x}")
+    return x
+
+
+def _pack(xs) -> str:
+    return base64.b64encode(b"".join(int(v).to_bytes(8, "big") for v in xs)).decode()
+
+
+def _unpack(s: str, expect: int | None = None) -> list[int]:
+    raw = base64.b64decode(str(s), validate=True)
+    if len(raw) % 8:
+        raise ValueError("packed felt blob not a multiple of 8 bytes")
+    out = [int.from_bytes(raw[i : i + 8], "big") for i in range(0, len(raw), 8)]
+    for x in out:
+        if x >= P:
+            raise ValueError(f"field element out of range: {x}")
+    if expect is not None and len(out) != expect:
+        raise ValueError(f"expected {expect} felts, got {len(out)}")
+    return out
+
+
+def _pack_path(path) -> str:
+    return _pack([v for digest in path for v in digest])
+
+
+def _unpack_path(s: str) -> list[list[int]]:
+    flat = _unpack(s)
+    if len(flat) % 4:
+        raise ValueError("packed path not a multiple of 4 felts")
+    return [flat[i : i + 4] for i in range(0, len(flat), 4)]
+
+
+def _pack_exts(vals) -> str:
+    return _pack([c for v in vals for c in (v[0], v[1])])
+
+
+def _unpack_exts(s: str) -> list[tuple[int, int]]:
+    flat = _unpack(s)
+    if len(flat) % 2:
+        raise ValueError("packed ext blob not a multiple of 2 felts")
+    return [(flat[i], flat[i + 1]) for i in range(0, len(flat), 2)]
+
+
+def _pack_cap(cap) -> str:
+    return _pack([v for digest in cap for v in digest])
+
+
+def _unpack_cap(s: str) -> list[list[int]]:
+    flat = _unpack(s)
+    if not flat or len(flat) % 4:
+        raise ValueError("packed cap not a multiple of 4 felts")
+    return [flat[i : i + 4] for i in range(0, len(flat), 4)]
+
+
+def fri_proof_to_dict_packed(p: FriProof) -> dict:
+    return {
+        "pow_nonce": str(int(p.pow_nonce)),
+        "layer_caps": [_pack_cap(c) for c in p.layer_caps],
+        "final_poly": _pack_exts(p.final_poly),
+        # per query: [val_i | val_j packed, path_i, path_j] per layer
+        "query_rounds": [
+            [
+                [_pack_exts([vi, vj]), _pack_path(pi), _pack_path(pj)]
+                for (vi, vj, pi, pj) in per_layer
+            ]
+            for per_layer in p.query_rounds
+        ],
+    }
+
+
+def fri_proof_from_dict_packed(d: dict) -> FriProof:
+    query_rounds = []
+    for per_layer in d["query_rounds"]:
+        out = []
+        for vals, pi, pj in per_layer:
+            v = _unpack_exts(vals)
+            if len(v) != 2:
+                raise ValueError("expected exactly val_i, val_j")
+            out.append((v[0], v[1], _unpack_path(pi), _unpack_path(pj)))
+        query_rounds.append(out)
+    return FriProof(
+        pow_nonce=_felt(d.get("pow_nonce", 0)),
+        layer_caps=[_unpack_cap(c) for c in d["layer_caps"]],
+        final_poly=_unpack_exts(d["final_poly"]),
+        query_rounds=query_rounds,
+    )
+
+
+def statement_to_dict(p, include_publics: bool = True) -> dict:
+    """batch.StatementProof -> dict; include_publics=False drops the public
+    inputs (the composite reconstructs them)."""
+    d = {
+        "n_rows": p.n_rows,
+        "trace_cap": _pack_cap(p.trace_cap),
+        "quotient_cap": _pack_cap(p.quotient_cap),
+        "aux_cap": _pack_cap(p.aux_cap) if p.aux_cap is not None else None,
+        "ood_trace": [_pack_exts(per) for per in p.ood_trace],
+        "ood_quotient": _pack_exts(p.ood_quotient),
+        "openings": [
+            [int(idx), _pack(trow), _pack_path(tpath), _pack(arow),
+             _pack_path(apath), _pack(qrow), _pack_path(qpath)]
+            for idx, (trow, tpath, arow, apath, qrow, qpath) in sorted(p.openings.items())
+        ],
+    }
+    if include_publics:
+        d["public_inputs"] = _pack(p.public_inputs)
+    return d
+
+
+def statement_from_dict(d: dict, publics: list[int] | None = None):
+    """dict -> batch.StatementProof; `publics` supplies reconstructed
+    public inputs when the dict omits them."""
+    from .batch import StatementProof
+
+    if publics is None:
+        publics = _unpack(d["public_inputs"])
+    aux_cap = d.get("aux_cap")
+    openings = {}
+    for entry in d["openings"]:
+        if len(entry) != 7:
+            raise ValueError("malformed opening entry")
+        idx, trow, tpath, arow, apath, qrow, qpath = entry
+        openings[int(idx)] = (
+            _unpack(trow),
+            _unpack_path(tpath),
+            _unpack(arow),
+            _unpack_path(apath),
+            _unpack(qrow),
+            _unpack_path(qpath),
+        )
+    return StatementProof(
+        n_rows=int(d["n_rows"]),
+        public_inputs=[_felt(v) for v in publics],
+        trace_cap=_unpack_cap(d["trace_cap"]),
+        quotient_cap=_unpack_cap(d["quotient_cap"]),
+        aux_cap=_unpack_cap(aux_cap) if aux_cap is not None else None,
+        ood_trace=[_unpack_exts(per) for per in d["ood_trace"]],
+        ood_quotient=_unpack_exts(d["ood_quotient"]),
+        openings=openings,
+    )
+
+
+def batch_proof_to_dict(p, publics_flags: list[bool] | None = None) -> dict:
+    """batch.BatchStarkProof -> dict; publics_flags[i]=False omits
+    statement i's publics."""
+    flags = publics_flags or [True] * len(p.statements)
+    return {
+        "statements": [
+            statement_to_dict(s, include_publics=f) for s, f in zip(p.statements, flags)
+        ],
+        "fri": fri_proof_to_dict_packed(p.fri_proof),
+    }
+
+
+def batch_proof_from_dict(d: dict, publics_list: list | None = None):
+    """dict -> batch.BatchStarkProof; publics_list[i] (or None) supplies
+    reconstructed publics for statements serialized without them."""
+    from .batch import BatchStarkProof
+
+    stmts_d = d["statements"]
+    if publics_list is None:
+        publics_list = [None] * len(stmts_d)
+    if len(publics_list) != len(stmts_d):
+        raise ValueError("publics_list length mismatch")
+    return BatchStarkProof(
+        statements=[
+            statement_from_dict(sd, publics=pub) for sd, pub in zip(stmts_d, publics_list)
+        ],
+        fri_proof=fri_proof_from_dict_packed(d["fri"]),
+    )
