@@ -7,10 +7,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc;
   3. kernels   - each kernel against its plain torch version on the same
-                 CUDA tensors (exact equality: integer field arithmetic),
-                 Poseidon also against the host oracle, with both times;
+                 CUDA tensors (exact equality: integer field arithmetic)
+                 at every batch size the main paths give it, up to 2^21
+                 states, Poseidon also against the host oracle, with both
+                 times;
   4. parity    - an N=4 skip composite proven on cuda and on cpu (plain
-                 versions) at a small config: the proofs' bytes must match;
+                 versions) at a small config, then recursion-wrapped on each
+                 device at a small wrap config: the proofs' bytes must match,
+                 the unwrapped ones and the wrapped ones;
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -19,10 +23,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  warm); each is prove + verify. Every kernel must have been
                  launched by this phase. The per-statement phase seconds that
                  ``stark/batch.py`` logs are in the line under ``phases``;
-  6. profile   - only with --profile: one more warm prove under
+  6. step      - an N=128 step composite 4 -> 5 at DEFAULT_COMPOSITE_CONFIG,
+                 proven on the card, verified after a wire round trip;
+  7. wrap      - wrap_composite of the warm N=128 skip proof at
+                 default_wrap_config() on the card, as bench.py times it
+                 (``n128_wrap_seconds``), then to_bytes / from_bytes and
+                 verify_skip_composite at the 100-bit floor on both configs
+                 (``n128_wrapped_verify_seconds``,
+                 ``n128_wrapped_proof_gz_bytes``); peak device memory; the
+                 same wrap once more (host tables warm), byte-identical;
+                 with --profile that second wrap runs under torch.profiler
+                 and the line times its plain torch programs
+                 (expand_perm_states and the EvalAir aux pieces);
+  8. profile   - only with --profile: one more warm prove under
                  torch.profiler (device time by kernel, the card's busy
                  share of the wall time) and one under cProfile (the host
-                 functions with the most cumulative time).
+                 functions with the most cumulative time), the wrapped
+                 verify under cProfile, and the cold build of the wrap
+                 FRI's host fold tables alone.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -125,9 +143,13 @@ def phase_kernels() -> dict:
     rng = np.random.default_rng(SEED)
     rows = {}
 
-    # Poseidon permutation: kernel == plain on every batch, == host oracle
+    # Poseidon permutation: kernel == plain on every batch, == host oracle.
+    # The main paths' batches run up to 2^21 states (EvalAir's leaf sponge
+    # over its 2^21-point LDE); 2^18 is the grinding batch, 2^19 WrapAir's
+    # leaves, 1000003 an odd tail.
+    batches = (1, 7, 4096, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1000003)
     err = 0.0
-    for b in (1, 7, 4096, 1 << 20, 1000003):
+    for b in batches:
         st = _field_tensor(rng, (b, ps.WIDTH), dev)
         got = ps.permute_cuda(st)
         want = ps.permute_plain(st)
@@ -146,6 +168,7 @@ def phase_kernels() -> dict:
         "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
         "replaces": "tendermintx_tpu/ops/poseidon_pallas.py:182",
         "shape": [1 << 20, ps.WIDTH],
+        "checked_batches": list(batches),
         "max_abs_err": err,
         "ms": _time_ms(lambda: ps.permute_cuda(big)),
         "plain_ms": _time_ms(lambda: ps.permute_plain(big), reps=2),
@@ -175,24 +198,41 @@ class SkipChain:
         inputs = self.fetcher.get_skip_inputs(trusted_h, trusted, target_h, max_validators=self.n)
         return trusted, self.chain.headers[target_h].hash(), inputs
 
+    def step(self, prev_h: int):
+        """(prev hash, StepInputs) for prev_h -> prev_h + 1."""
+        prev = self.chain.headers[prev_h].hash()
+        return prev, self.fetcher.get_step_inputs(prev_h, prev, max_validators=self.n)
+
 
 def phase_parity(workdir: str) -> dict:
-    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+    """The N=4 skip composite and its wrap on both devices, at the small
+    configs of the reference's wrapped tests (base rate 3, 6 queries,
+    final 64, PoW 4; wrap rate 3, 6 queries, final 32, PoW 2)."""
+    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite, wrap_composite
     from tendermintx_tpu_torch.stark.prover import StarkConfig
 
-    cfg = StarkConfig(rate_bits=2, n_queries=8, final_poly_len=16, proof_of_work_bits=4)
+    cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4)
+    wrap_cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=32, proof_of_work_bits=2)
     trusted, _, inputs = SkipChain(4, os.path.join(workdir, "n4")).skip(1, 5)
-    t0 = time.perf_counter()
-    on_cuda = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cuda").to_bytes()
-    t1 = time.perf_counter()
-    on_cpu = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cpu").to_bytes()
-    t2 = time.perf_counter()
-    if on_cuda != on_cpu:
+    out = {"phase": "parity", "n_validators": 4}
+    blobs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        proof = prove_skip_composite(1, trusted, 5, inputs, cfg, device=dev)
+        t1 = time.perf_counter()
+        wrapped = wrap_composite(proof, cfg, wrap_cfg, device=dev)
+        t2 = time.perf_counter()
+        blobs[dev] = (proof.to_bytes(), wrapped.to_bytes())
+        out[f"{dev}_seconds"] = t1 - t0
+        out[f"{dev}_wrap_seconds"] = t2 - t1
+    if blobs["cuda"][0] != blobs["cpu"][0]:
         raise AssertionError("N=4 composite proofs differ between cuda and cpu")
-    out = {
-        "phase": "parity", "n_validators": 4, "identical": True,
-        "proof_bytes": len(on_cuda), "cuda_seconds": t1 - t0, "cpu_seconds": t2 - t1,
-    }
+    if blobs["cuda"][1] != blobs["cpu"][1]:
+        raise AssertionError("N=4 wrapped composite proofs differ between cuda and cpu")
+    out.update(
+        identical=True, wrapped_identical=True,
+        proof_bytes=len(blobs["cuda"][0]), wrapped_proof_bytes=len(blobs["cuda"][1]),
+    )
     emit(out)
     return out
 
@@ -210,7 +250,8 @@ def _reset_launch_counts():
 
 
 class _PhaseLog(logging.Handler):
-    """Collects the per-statement phase lines that stark/batch.py logs."""
+    """Collects the per-statement phase lines that stark/batch.py logs,
+    while used as a context manager."""
 
     def __init__(self):
         super().__init__(logging.INFO)
@@ -219,8 +260,15 @@ class _PhaseLog(logging.Handler):
     def emit(self, record):
         self.lines.append(record.getMessage())
 
+    def __enter__(self):
+        logging.getLogger("tendermintx_tpu_torch.stark.batch").addHandler(self)
+        return self
 
-def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> dict:
+    def __exit__(self, *exc):
+        logging.getLogger("tendermintx_tpu_torch.stark.batch").removeHandler(self)
+
+
+def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dict, object]:
     """One timed N-validator skip: prove on the card, verify on the host,
     as bench.py's ``_run`` times it (inputs fetched before the clock)."""
     from tendermintx_tpu_torch.circuits.composite import (
@@ -231,10 +279,7 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> dict:
     )
 
     trusted, target, inputs = sc.skip(trusted_h, target_h)
-    phases = _PhaseLog()
-    batch_log = logging.getLogger("tendermintx_tpu_torch.stark.batch")
-    batch_log.addHandler(phases)
-    try:
+    with _PhaseLog() as phases:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         proof = prove_skip_composite(
@@ -242,8 +287,6 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> dict:
         )
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    finally:
-        batch_log.removeHandler(phases)
     blob = proof.to_bytes()
     t2 = time.perf_counter()
     result = verify_skip_composite(CompositeProof.from_bytes(blob), CHAIN_ID, SKIP_MAX)
@@ -258,20 +301,24 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> dict:
         "proof_bytes": len(blob),
         "ed_lanes": proof.n_ed_segments,
         "phases": phases.lines,
-    }
+    }, proof
 
 
-def phase_slice(sc: SkipChain) -> tuple[dict, dict]:
+def _check_launched(launches: dict, path: str):
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the {path} path")
+
+
+def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    cold = _prove_and_verify(sc, 1, 5)
+    cold, _ = _prove_and_verify(sc, 1, 5)
     cold_launches = _launch_counts()
-    warm = _prove_and_verify(sc, 2, 6)
+    warm, warm_proof = _prove_and_verify(sc, 2, 6)
     launches = _launch_counts()
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the main path")
+    _check_launched(launches, "skip")
     out = {
         "phase": "slice",
         "n_validators": sc.n,
@@ -285,21 +332,193 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict]:
         "warm": warm,
     }
     emit(out)
+    return out, launches, warm_proof
+
+
+def phase_step(sc: SkipChain) -> tuple[dict, dict]:
+    """An N=128 step composite 4 -> 5, proven on the card and verified by
+    verify_step_composite after a wire round trip."""
+    from tendermintx_tpu_torch.circuits.composite import (
+        DEFAULT_COMPOSITE_CONFIG,
+        CompositeProof,
+        prove_step_composite,
+        verify_step_composite,
+    )
+
+    prev, inputs = sc.step(4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with _PhaseLog() as phases:
+        t0 = time.perf_counter()
+        proof = prove_step_composite(4, prev, inputs, DEFAULT_COMPOSITE_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = _launch_counts()
+    _check_launched(launches, "step")
+    blob = proof.to_bytes()
+    t2 = time.perf_counter()
+    result = verify_step_composite(CompositeProof.from_bytes(blob), CHAIN_ID)
+    t3 = time.perf_counter()
+    if result != (4, prev, inputs.next_header):
+        raise AssertionError(f"N={sc.n} step composite 4->5 failed to verify: {result!r}")
+    out = {
+        "phase": "step",
+        "n_validators": sc.n,
+        "step": [4, 5],
+        "prove_seconds": t1 - t0,
+        "verify_seconds": t3 - t2,
+        "proof_bytes": len(blob),
+        "launches": launches,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "phases": phases.lines,
+    }
+    emit(out)
     return out, launches
 
 
-def phase_profile(sc: SkipChain) -> dict:
-    """A warm prove under torch.profiler, then one under cProfile."""
-    import cProfile
+PLAIN_RANGES = ("expand_perm_states", "eval_terms", "eval_scan", "eval_assemble")
+
+
+def _range_times(prof, names) -> dict:
+    """Seconds of each named record_function range in a torch.profiler
+    run: `host` is the range's wall time, `device` the summed time of the
+    kernels launched inside it. Raises if a range is missing."""
+    from torch.autograd import DeviceType
+
+    def kernel_us(evt):
+        own = sum(k.duration for k in evt.kernels if k.name != evt.name)
+        return own + sum(kernel_us(ch) for ch in evt.cpu_children)
+
+    out: dict[str, dict] = {}
+    for evt in prof.events():
+        if evt.name in names and evt.device_type == DeviceType.CPU:
+            row = out.setdefault(evt.name, {"count": 0, "host_seconds": 0.0, "device_seconds": 0.0})
+            row["count"] += 1
+            row["host_seconds"] += evt.cpu_time_total / 1e6
+            row["device_seconds"] += kernel_us(evt) / 1e6
+    missing = [n for n in names if n not in out]
+    if missing:
+        raise AssertionError(f"the profiled run passed through no range {missing}")
+    return out
+
+
+def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
+    """wrap_composite of the warm N=128 skip proof at default_wrap_config()
+    on the card, timed as bench.py times it, then verified after a wire
+    round trip at the default 100-bit floor on both configs. With
+    `profile`, the second wrap runs under torch.profiler and the line
+    gives the times of the plain torch programs (PLAIN_RANGES) in it."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from tendermintx_tpu_torch.circuits.composite import (
+        CompositeProof,
+        verify_skip_composite,
+        wrap_composite,
+    )
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    with _PhaseLog() as phases:
+        t0 = time.perf_counter()
+        wrapped = wrap_composite(proof, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = _launch_counts()
+    _check_launched(launches, "wrap")
+    peak = torch.cuda.max_memory_allocated()
+    # the same wrap again: first-use host tables (FRI inverse tables of
+    # the 2^21-point domain, the N=128 eval tape) are built by now
+    plain_programs = None
+    if profile:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_again = time.perf_counter()
+            again = wrap_composite(proof, device="cuda")
+            torch.cuda.synchronize()
+            second_wrap_seconds = time.perf_counter() - t_again
+        plain_programs = _range_times(prof, PLAIN_RANGES)
+    else:
+        t_again = time.perf_counter()
+        again = wrap_composite(proof, device="cuda")
+        torch.cuda.synchronize()
+        second_wrap_seconds = time.perf_counter() - t_again
+    blob = wrapped.to_bytes()
+    if again.to_bytes() != blob:
+        raise AssertionError("two wraps of one proof differ")
+    t2 = time.perf_counter()
+    result = verify_skip_composite(CompositeProof.from_bytes(blob), CHAIN_ID, SKIP_MAX)
+    t3 = time.perf_counter()
+    trusted, target = sc.chain.headers[2].hash(), sc.chain.headers[6].hash()
+    if result != (2, trusted, 6, target):
+        raise AssertionError(f"N={sc.n} wrapped composite 2->6 failed to verify: {result!r}")
+    out = {
+        "phase": "wrap",
+        "n_validators": sc.n,
+        "skip": [2, 6],
+        f"n{sc.n}_wrap_seconds": t1 - t0,
+        "second_wrap_seconds": second_wrap_seconds,
+        "second_wrap_profiled": profile,
+        f"n{sc.n}_wrapped_verify_seconds": t3 - t2,
+        f"n{sc.n}_wrapped_proof_gz_bytes": len(blob),
+        "unwrapped_proof_gz_bytes": len(proof.to_bytes()),
+        "wrapped_proof_json_bytes": len(json.dumps(wrapped.to_dict(), separators=(",", ":"))),
+        "wrap_rows": [st.n_rows for st in wrapped.batch.wrapper.statements],
+        "launches": launches,
+        "max_memory_allocated": peak,
+        "phases": phases.lines,
+    }
+    if plain_programs is not None:
+        out["wrap_plain_program_seconds"] = plain_programs
+    emit(out)
+    return out, launches, blob
+
+
+def _time_fri_tables(n: int, config) -> float:
+    """Seconds to build, cache cold, the host FRI fold tables of one batch
+    FRI over an n-point domain (first use of stark/fri.py::_inv_x_table)."""
+    from tendermintx_tpu_torch.stark import fri
+
+    fri._inv_x_table.cache_clear()
+    stop = config.final_poly_len << config.rate_bits
+    cur_n, cur_shift = n, config.shift % GL_P
+    t0 = time.perf_counter()
+    while cur_n > stop:
+        fri._inv_x_table(cur_n.bit_length() - 1, cur_shift)
+        cur_shift = cur_shift * cur_shift % GL_P
+        cur_n //= 2
+    return time.perf_counter() - t0
+
+
+def _top_cumulative(prof, k: int) -> list[dict]:
+    """The k functions with the most cumulative time under cProfile."""
     import pstats
+
+    stats = pstats.Stats(prof)
+    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][3])[:k]
+    return [
+        {"function": f"{os.path.basename(fn)}:{line}:{name}", "cumulative_seconds": v[3]}
+        for (fn, line, name), v in top
+    ]
+
+
+def phase_profile(sc: SkipChain, wrapped_blob: bytes, wrap_rows: list[int]) -> dict:
+    """A warm prove under torch.profiler, then one under cProfile, then the
+    wrapped proof's verify under cProfile, then the cold build of the wrap
+    FRI's host fold tables alone."""
+    import cProfile
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from tendermintx_tpu_torch.circuits.composite import (
         DEFAULT_COMPOSITE_CONFIG,
+        CompositeProof,
         prove_skip_composite,
+        verify_skip_composite,
     )
+    from tendermintx_tpu_torch.stark.recursion import default_wrap_config
 
     def prove(trusted_h, target_h):
         trusted, _, inputs = sc.skip(trusted_h, target_h)
@@ -325,8 +544,20 @@ def phase_profile(sc: SkipChain) -> dict:
     host.enable()
     host_wall = prove(3, 7)
     host.disable()
-    stats = pstats.Stats(host)
-    top = sorted(stats.stats.items(), key=lambda kv: -kv[1][3])[:15]
+    top = _top_cumulative(host, 15)
+
+    # the wrapped verify on the host, under cProfile
+    host = cProfile.Profile()
+    host.enable()
+    t0 = time.perf_counter()
+    result = verify_skip_composite(CompositeProof.from_bytes(wrapped_blob), CHAIN_ID, SKIP_MAX)
+    verify_wall = time.perf_counter() - t0
+    host.disable()
+    if result is None:
+        raise AssertionError("the profiled wrapped proof failed to verify")
+
+    wrap_cfg = default_wrap_config()
+    wrap_n = max(wrap_rows) << wrap_cfg.rate_bits
 
     out = {
         "phase": "profile",
@@ -339,13 +570,12 @@ def phase_profile(sc: SkipChain) -> dict:
                 {"name": k, "seconds": t, "count": c} for k, t, c in by_kernel[:15] if t > 0
             ],
         },
-        "cprofile": {
-            "wall_seconds": host_wall,
-            "top_cumulative": [
-                {"function": f"{os.path.basename(fn)}:{line}:{name}", "cumulative_seconds": v[3]}
-                for (fn, line, name), v in top
-            ],
+        "cprofile": {"wall_seconds": host_wall, "top_cumulative": top},
+        "wrapped_verify_cprofile": {
+            "wall_seconds": verify_wall,
+            "top_cumulative": _top_cumulative(host, 25),
         },
+        "wrap_fri_tables": {"domain": wrap_n, "cold_seconds": _time_fri_tables(wrap_n, wrap_cfg)},
     }
     emit(out)
     return out
@@ -367,12 +597,16 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         phase_parity(workdir)
         n128 = SkipChain(128, os.path.join(workdir, "n128"))
-        _, launches = phase_slice(n128)
-        if "--profile" in argv:
-            phase_profile(n128)
+        _, launches, warm_proof = phase_slice(n128)
+        _, step_launches = phase_step(n128)
+        profile = "--profile" in argv
+        wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
+        if profile:
+            phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
     kernels = [
-        {"name": name, **{k: v for k, v in row.items() if k != "shape"},
-         "launches": launches[name]}
+        {"name": name, **{k: v for k, v in row.items() if k not in ("shape", "checked_batches")},
+         "launches": launches[name],
+         "launches_by_path": {"skip": launches[name], "step": step_launches[name], "wrap": wrap_launches[name]}}
         for name, row in rows.items()
     ]
     emit({"kernels": kernels})

@@ -1,11 +1,13 @@
-"""One proof object for the whole skip statement.
+"""One proof object for a whole skip or step statement.
 
-Counterpart of ``tendermintx_tpu/circuits/composite.py`` for the skip
-proof: ``prove_skip_composite(..., device=...)`` runs the three statements'
-device work on one torch device, ``verify_skip_composite`` is host logic,
-and the wire format (``to_dict``/``to_bytes``) is the reference's v5, so
-either package reads the other's proofs. Not ported yet: the step composite,
-the recursion wrap (a wrapped proof is refused at parse time), the device
+Counterpart of ``tendermintx_tpu/circuits/composite.py``:
+``prove_skip_composite`` / ``prove_step_composite`` (..., device=...) run
+the three statements' device work on one torch device,
+``wrap_composite(..., device=...)`` recursion-wraps a proof into its
+near-constant-size deliverable (stark/recursion.py), and the
+``verify_*_composite`` functions are host logic for both forms. The wire
+format (``to_dict``/``to_bytes``) is the reference's v5, wrapped or not,
+so either package reads the other's proofs. Not ported yet: the device
 mesh and the runtime's environment-configured settings.
 
 The upstream TendermintX deliverable is a single SNARK whose public inputs
@@ -74,7 +76,13 @@ from ..stark.sha512_air import (
     sha512_publics,
 )
 from ..stark.prover import StarkConfig
-from ..stark.serialize import batch_proof_from_dict, batch_proof_to_dict
+from ..stark.recursion import WrappedBatchProof, default_wrap_config, verify_wrapped_batch, wrap_batch
+from ..stark.serialize import (
+    batch_proof_from_dict,
+    batch_proof_to_dict,
+    wrapped_batch_from_dict,
+    wrapped_batch_to_dict,
+)
 from ..stark.sha256_air import PUB_PER_SEGMENT as PUB_PER_HASH_SEGMENT, Sha256Air
 from .hashing import (
     SEGMENT_ROWS as HASH_SEGMENT_ROWS,
@@ -82,10 +90,13 @@ from .hashing import (
     build_step_plan,
     check_plan,
     check_skip_hash_publics,
+    check_step_hash_publics,
     plan_publics,
     skip_hash_statement,
+    step_hash_statement,
 )
 from .skip import decode_skip_input, encode_skip_input
+from .step import decode_step_input, encode_step_input
 
 # 100 conjectured bits: rate_bits * n_queries + pow = 3*28 + 16.
 DEFAULT_COMPOSITE_CONFIG = StarkConfig(
@@ -356,10 +367,16 @@ class CompositeProof:
             "hash_aunts": _pack_blobs(hash_aunts),
             "signers": _pack_blobs(signer_blobs),
             "ed_finals": _pack_blobs(final_blobs),
-            "batch": batch_proof_to_dict(
+            "batch": (wrapped_batch_to_dict if self.is_wrapped else batch_proof_to_dict)(
                 self.batch, publics_flags=[False, False, False]
             ),
         }
+
+    @property
+    def is_wrapped(self) -> bool:
+        """True when the batch is recursion-wrapped: openings and FRI query
+        rounds replaced by one wrap batch (stark/recursion.py)."""
+        return isinstance(self.batch, WrappedBatchProof)
 
     def to_bytes(self) -> bytes:
         """Compact transport encoding: gzip of the canonical JSON (the
@@ -457,10 +474,6 @@ class CompositeProof:
             raise ValueError("bad sha512 block count")
 
         batch_d = d["batch"]
-        if batch_d.get("wrapped"):
-            raise ValueError(
-                "recursion-wrapped composite proofs are not supported yet"
-            )
         stmts = batch_d["statements"]
         if len(stmts) != 3:
             raise ValueError("composite batch must have 3 statements")
@@ -490,9 +503,9 @@ class CompositeProof:
             kind, nb, nb_trusted, n_hash_segments, hash_publics, signers,
             ed_finals, B,
         )
-        batch = batch_proof_from_dict(
-            batch_d, publics_list=[hash_publics, ed_publics, sha_publics]
-        )
+        publics_list = [hash_publics, ed_publics, sha_publics]
+        from_dict = wrapped_batch_from_dict if batch_d.get("wrapped") else batch_proof_from_dict
+        batch = from_dict(batch_d, publics_list=publics_list)
         return cls(
             kind=kind,
             abi_inputs=bytes.fromhex(d["abi_inputs"]),
@@ -726,13 +739,102 @@ def prove_skip_composite(
     )
 
 
+def prove_step_composite(
+    prev_block: int,
+    prev_header: bytes,
+    inputs,
+    config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
+    *,
+    device,
+) -> CompositeProof:
+    """inputs: ``inputs.fetcher.StepInputs`` for prev_block -> prev_block + 1.
+    device: the torch device the statements' work runs on (required, as
+    for prove_skip_composite)."""
+    abi_in = encode_step_input(prev_block, prev_header)
+    abi_out = inputs.next_header
+    air_h, trace_h, pub_h, nb = step_hash_statement(inputs, device=device)
+    air_e, trace_e, pub_e, B, signers, signer_pks = _ed_statement(
+        inputs.next_block_validators, inputs.nb_validators, device
+    )
+    air_c, trace_c, pub_c, n_blocks = _sha512_statement(signers, signer_pks, device)
+    seed = _seed_felts(abi_in, abi_out)
+    batch = prove_batch(
+        [air_h, air_e, air_c],
+        [trace_h, trace_e, trace_c],
+        [pub_h, pub_e, pub_c],
+        config,
+        transcript_seed=seed,
+    )
+    return CompositeProof(
+        kind="step",
+        abi_inputs=abi_in,
+        abi_output=abi_out,
+        round=inputs.round,
+        nb=nb,
+        nb_trusted=0,
+        n_hash_segments=len(pub_h) // PUB_PER_HASH_SEGMENT,
+        n_ed_segments=B,
+        n_sha512_blocks=n_blocks,
+        signers=signers,
+        ed_finals=_ed_finals_from_publics(pub_e, B),
+        batch=batch,
+    )
+
+
+def _composite_airs(proof: CompositeProof) -> list:
+    return [
+        Sha256Air(proof.n_hash_segments),
+        Ed25519Air(proof.n_ed_segments),
+        Sha512Air(proof.n_sha512_blocks),
+    ]
+
+
+def wrap_composite(
+    proof: CompositeProof,
+    config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
+    wrap_config: StarkConfig | None = None,
+    *,
+    device,
+) -> CompositeProof:
+    """Recursion-wrap a composite on `device`: replace the batch's openings
+    and FRI query rounds with ONE wrap batch (stark/recursion.py), making
+    the serialized proof's size independent of the validator count. The
+    result verifies through the same verify_skip/step_composite entry
+    points (the wrapped branch).
+
+    Raises ValueError when `proof` does not verify: wrapping re-checks
+    every opening against the caps while building the wrapper witness."""
+    if proof.is_wrapped:
+        raise ValueError("composite is already wrapped")
+    wrapped = wrap_batch(
+        _composite_airs(proof), proof.batch, config,
+        transcript_seed=_seed_felts(proof.abi_inputs, proof.abi_output),
+        wrap_config=wrap_config, device=device,
+    )
+    return CompositeProof(
+        kind=proof.kind,
+        abi_inputs=proof.abi_inputs,
+        abi_output=proof.abi_output,
+        round=proof.round,
+        nb=proof.nb,
+        nb_trusted=proof.nb_trusted,
+        n_hash_segments=proof.n_hash_segments,
+        n_ed_segments=proof.n_ed_segments,
+        n_sha512_blocks=proof.n_sha512_blocks,
+        signers=list(proof.signers),
+        ed_finals=[list(f) for f in proof.ed_finals],
+        batch=wrapped,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Verification — needs ONLY the proof object + chain config
 # ---------------------------------------------------------------------------
 
 
 def _verify_batch_and_common(
-    proof: CompositeProof, config: StarkConfig, min_security_bits: int
+    proof: CompositeProof, config: StarkConfig, min_security_bits: int,
+    wrap_config: StarkConfig | None = None,
 ):
     """Shape checks, ONE batch verification, then the shared wiring
     checks: parse the proven validator encodings, pin each signer lane,
@@ -766,13 +868,19 @@ def _verify_batch_and_common(
         return None
     if st_c.n_rows != proof.n_sha512_blocks * SHA512_SEGMENT_ROWS:
         return None
-    airs = [
-        Sha256Air(proof.n_hash_segments),
-        Ed25519Air(B),
-        Sha512Air(proof.n_sha512_blocks),
-    ]
+    airs = _composite_airs(proof)
     seed = _seed_felts(proof.abi_inputs, proof.abi_output)
-    if not verify_batch(airs, proof.batch, config, transcript_seed=seed):
+    if proof.is_wrapped:
+        # Recursion-wrapped: native transcript replay + the two-statement
+        # wrap batch (WrapAir for every opening/fold, EvalAir for every
+        # OOD constraint evaluation). The wrapper config is the VERIFIER'S
+        # choice, never the proof's, and meets the same security floor.
+        wcfg = wrap_config or default_wrap_config()
+        if wcfg.fri.security_bits < min_security_bits:
+            return None
+        if not verify_wrapped_batch(airs, proof.batch, config, transcript_seed=seed, wrap_config=wcfg):
+            return None
+    elif not verify_batch(airs, proof.batch, config, transcript_seed=seed):
         return None
 
     # Reconstructed-publics consistency: a CompositeProof built in-process
@@ -851,6 +959,7 @@ def verify_skip_composite(
     skip_max: int,
     config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
     min_security_bits: int = MIN_SECURITY_BITS,
+    wrap_config: StarkConfig | None = None,
 ) -> tuple[int, bytes, int, bytes] | None:
     """Returns (trusted_block, trusted_header, target_block, target_header)
     on success, None otherwise — NEVER an exception (a structurally broken
@@ -859,7 +968,7 @@ def verify_skip_composite(
     verify_skip (verify.rs:528-563) with every hash/signature fact proven."""
     try:
         return _verify_skip_inner(
-            proof, chain_id, skip_max, config, min_security_bits
+            proof, chain_id, skip_max, config, min_security_bits, wrap_config
         )
     except _VERIFY_EXC:
         return None
@@ -871,6 +980,7 @@ def _verify_skip_inner(
     skip_max: int,
     config: StarkConfig,
     min_security_bits: int,
+    wrap_config: StarkConfig | None,
 ) -> tuple[int, bytes, int, bytes] | None:
     if proof.kind != "skip" or len(proof.abi_inputs) != 48:
         return None
@@ -884,7 +994,7 @@ def _verify_skip_inner(
     if not (trusted_block + 1 < target_block <= trusted_block + skip_max):
         return None
 
-    common = _verify_batch_and_common(proof, config, min_security_bits)
+    common = _verify_batch_and_common(proof, config, min_security_bits, wrap_config)
     if common is None:
         return None
     st_h, st_e = common
@@ -921,3 +1031,59 @@ def _verify_skip_inner(
         return None
 
     return trusted_block, trusted_header, target_block, target_header
+
+
+def verify_step_composite(
+    proof: CompositeProof,
+    chain_id: str,
+    config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
+    min_security_bits: int = MIN_SECURITY_BITS,
+    wrap_config: StarkConfig | None = None,
+) -> tuple[int, bytes, bytes] | None:
+    """Returns (prev_block, prev_header, next_header) on success, None
+    otherwise — NEVER an exception (see verify_skip_composite). Mirrors
+    reference verify_step (verify.rs:469-506): full header verification of
+    prev+1 plus the prev-hash and next-validators-hash links (both enforced
+    inside the hash STARK's statement bindings)."""
+    try:
+        return _verify_step_inner(proof, chain_id, config, min_security_bits, wrap_config)
+    except _VERIFY_EXC:
+        return None
+
+
+def _verify_step_inner(
+    proof: CompositeProof,
+    chain_id: str,
+    config: StarkConfig,
+    min_security_bits: int,
+    wrap_config: StarkConfig | None,
+) -> tuple[int, bytes, bytes] | None:
+    if proof.kind != "step" or len(proof.abi_inputs) != 40:
+        return None
+    prev_block, prev_header = decode_step_input(proof.abi_inputs)
+    next_header = proof.abi_output
+    if len(next_header) != 32:
+        return None
+
+    common = _verify_batch_and_common(proof, config, min_security_bits, wrap_config)
+    if common is None:
+        return None
+    st_h, st_e = common
+    facts = check_step_hash_publics(
+        [int(v) for v in st_h.public_inputs],
+        proof.n_hash_segments,
+        proof.nb,
+        chain_id,
+        prev_header,
+        next_header,
+        prev_block + 1,
+    )
+    if facts is None:
+        return None
+    lane_out = _common_lane_checks(
+        proof, facts.encodings, next_header, prev_block + 1,
+        [int(v) for v in st_e.public_inputs],
+    )
+    if lane_out is None:
+        return None
+    return prev_block, prev_header, next_header

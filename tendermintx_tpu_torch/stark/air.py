@@ -296,6 +296,21 @@ def flatten_host_constraints(constraints) -> list:
     return out
 
 
+def public_columns_u64(cols, n: int) -> np.ndarray:
+    """An AIR's public columns as one (len(cols), n) uint64 array, every
+    value reduced mod p: uint64 arrays in one vectorised step (a uint64 is
+    below 2p), other columns value by value."""
+    arr = np.zeros((len(cols), n), dtype=np.uint64)
+    for i, col in enumerate(cols):
+        if len(col) != n:
+            raise ValueError("public column length differs from the trace")
+        if isinstance(col, np.ndarray) and col.dtype == np.uint64:
+            arr[i] = np.where(col >= np.uint64(P), col - np.uint64(P), col)
+        else:
+            arr[i] = [int(v) % P for v in col]
+    return arr
+
+
 class Air:
     """Subclass and override. See the reference's Air for the contract:
     `n_cols`, `n_public`, `n_public_cols`, `constraint_degree`,

@@ -28,7 +28,7 @@ from ..ops import ntt as nttmod
 from ..ops.ext import GF2, ext_add, ext_mul
 from ..ops.goldilocks import GF, MULTIPLICATIVE_GENERATOR, P, tensor_from_u64, to_int_array
 from ..ops.merkle import MerkleTree
-from .air import Air, DeviceAlgebra, Frame
+from .air import Air, DeviceAlgebra, Frame, public_columns_u64
 from .challenger import Challenger
 from .fri import FriConfig, FriProof
 
@@ -497,11 +497,7 @@ def _prove_statement(
     )
     pcols = air.public_columns(list(public_inputs), n)
     if pcols:
-        arr = np.zeros((len(pcols), n), dtype=np.uint64)
-        for i, col in enumerate(pcols):
-            if len(col) != n:
-                raise ValueError("public column length differs from the trace")
-            arr[i] = [int(v) % P for v in col]
+        arr = public_columns_u64(pcols, n)
         _, pc_lde = trace_lde(GF(tensor_from_u64(arr, dev)), rate_bits, shift)
         public_cols = tuple(pc_lde[i] for i in range(len(pcols)))
     else:

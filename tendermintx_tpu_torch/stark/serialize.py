@@ -188,3 +188,64 @@ def batch_proof_from_dict(d: dict, publics_list: list | None = None):
         ],
         fri_proof=fri_proof_from_dict_packed(d["fri"]),
     )
+
+
+# ---------------------------------------------------------------------------
+# Recursive wrapper wire format (stark/recursion.py)
+# ---------------------------------------------------------------------------
+
+
+def wrapped_batch_to_dict(w, publics_flags: list[bool] | None = None) -> dict:
+    """recursion.WrappedBatchProof -> dict. The statements carry NO
+    openings and the FRI data NO query rounds: the wrap batch (WrapAir
+    query-phase proof + EvalAir OOD-evaluation proof) stands in for both."""
+    flags = publics_flags or [True] * len(w.statements)
+    return {
+        "wrapped": True,
+        "statements": [
+            statement_to_dict(s, include_publics=f) for s, f in zip(w.statements, flags)
+        ],
+        "layer_caps": [_pack_cap(c) for c in w.layer_caps],
+        "final_poly": _pack_exts(w.final_poly),
+        "pow_nonce": str(int(w.pow_nonce)),
+        # both wrap-batch statements' public-input vectors are rebuilt by
+        # the verifier from the wire header and the transcript, so they
+        # never ship
+        "wrapper": batch_proof_to_dict(
+            w.wrapper, publics_flags=[False] * len(w.wrapper.statements)
+        ),
+    }
+
+
+def wrapped_batch_from_dict(d: dict, publics_list: list | None = None):
+    """dict -> recursion.WrappedBatchProof. A wrapped statement that
+    carries openings, or a wrap batch without exactly 2 statements,
+    raises ValueError."""
+    from .recursion import WrappedBatchProof
+
+    stmts_d = d["statements"]
+    if publics_list is None:
+        publics_list = [None] * len(stmts_d)
+    if len(publics_list) != len(stmts_d):
+        raise ValueError("publics_list length mismatch")
+    statements = [statement_from_dict(sd, publics=pub) for sd, pub in zip(stmts_d, publics_list)]
+    for st in statements:
+        if st.openings:
+            raise ValueError("wrapped statement must not carry openings")
+    wrapper_d = d["wrapper"]
+    if len(wrapper_d.get("statements", ())) != 2:
+        raise ValueError("wrap batch must have exactly 2 statements")
+    return WrappedBatchProof(
+        statements=statements,
+        layer_caps=[_unpack_cap(c) for c in d["layer_caps"]],
+        final_poly=_unpack_exts(d["final_poly"]),
+        pow_nonce=_felt(d.get("pow_nonce", 0)),
+        # publics are omitted on the wire ([] placeholder: the verifier
+        # substitutes its own derived vectors); a dict that SMUGGLES
+        # publics is parsed as-is so the verifier's equality check can
+        # reject a mismatch
+        wrapper=batch_proof_from_dict(
+            wrapper_d,
+            publics_list=[None if "public_inputs" in sd else [] for sd in wrapper_d["statements"]],
+        ),
+    )

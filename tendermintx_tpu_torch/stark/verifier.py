@@ -14,7 +14,7 @@ from ..ops import ntt as nttmod
 from ..ops.ext import ext_add, ext_inv, ext_mul, ext_pow, ext_sub
 from ..ops.goldilocks import P
 from ..ops.merkle import cap_levels, verify_opening
-from .air import Air, Frame, HostAlgebra, HostFelt, flatten_host_constraints
+from .air import Air, Frame, HostAlgebra, HostFelt, flatten_host_constraints, public_columns_u64
 from .challenger import Challenger
 from .prover import StarkConfig
 
@@ -235,8 +235,6 @@ def _public_cols_at_z_batched(pub_cols, z, n: int):
     from ..ops.goldilocks import GF, tensor_from_u64
     from .prover import coset_intt, ood_values
 
-    arr = np.zeros((len(pub_cols), n), dtype=np.uint64)
-    for i, col in enumerate(pub_cols):
-        arr[i] = [int(v) % P for v in col]
+    arr = public_columns_u64(pub_cols, n)
     coeffs = coset_intt(GF(tensor_from_u64(arr, "cpu")), 1)
     return ood_values(coeffs, [z])[0]

@@ -1,9 +1,9 @@
-"""The port's composite skip prover end to end on the CPU (its plain
-versions), held against the JAX package: an N=4 skip composite from a
-synthetic chain, proven by the port, must be accepted by both packages'
-verifiers and rejected when its statement is changed. The port reads its
-inputs through its own copy of the input modules, which must give the
-reference's skip inputs. Exact equality: the wire bytes are integers."""
+"""The port's composite skip and step provers end to end on the CPU (their
+plain versions), held against the JAX package: N=4 skip and step composites
+from a synthetic chain, proven by the port, must be accepted by both
+packages' verifiers and rejected when their statement is changed. The port
+reads its inputs through its own copy of the input modules, which must give
+the reference's skip inputs. Exact equality: the wire bytes are integers."""
 
 import copy
 import dataclasses
@@ -24,7 +24,9 @@ from tendermintx_tpu_torch.circuits.composite import (
     MAX_ED_LANES,
     CompositeProof,
     prove_skip_composite,
+    prove_step_composite,
     verify_skip_composite,
+    verify_step_composite,
 )
 from tendermintx_tpu_torch.inputs import fetcher as tfetcher
 from tendermintx_tpu_torch.inputs import testchain as ttestchain
@@ -39,16 +41,28 @@ JCFG = JStarkConfig(rate_bits=2, n_queries=8, final_poly_len=16, proof_of_work_b
 MIN_BITS = 20
 
 
-def _inputs(fixture_dir: str, testchain=ttestchain, fetcher=tfetcher):
-    """(trusted hash, target hash, SkipInputs 1 -> 5) of a 4-validator test
-    chain, through one package's input modules."""
+def _chain(fixture_dir: str, testchain=ttestchain, fetcher=tfetcher):
+    """A 4-validator test chain written as fixtures, and a fetcher over
+    them, through one package's input modules."""
     chain = testchain.TestChain(n_validators=4, chain_id=CHAIN_ID)
     for _ in range(6):
         chain.extend()
     chain.write_fixtures(fixture_dir)
-    f = fetcher.InputDataFetcher(fixture_path=fixture_dir, mode=fetcher.InputDataMode.FIXTURE)
+    return chain, fetcher.InputDataFetcher(fixture_path=fixture_dir, mode=fetcher.InputDataMode.FIXTURE)
+
+
+def _inputs(fixture_dir: str, testchain=ttestchain, fetcher=tfetcher):
+    """(trusted hash, target hash, SkipInputs 1 -> 5)."""
+    chain, f = _chain(fixture_dir, testchain, fetcher)
     trusted = chain.headers[1].hash()
     return trusted, chain.headers[5].hash(), f.get_skip_inputs(1, trusted, 5, max_validators=8)
+
+
+def _step_inputs(fixture_dir: str, testchain=ttestchain, fetcher=tfetcher):
+    """(prev hash, StepInputs 3 -> 4)."""
+    chain, f = _chain(fixture_dir, testchain, fetcher)
+    prev = chain.headers[3].hash()
+    return prev, f.get_step_inputs(3, prev, max_validators=8)
 
 
 def _jax_inputs(fixture_dir: str):
@@ -70,6 +84,12 @@ def test_port_inputs_equal_jax_inputs(tmp_path):
     assert port[:2] == ref[:2]
     assert type(port[2]).__module__ == "tendermintx_tpu_torch.inputs.fetcher"
     assert dataclasses.asdict(port[2]) == dataclasses.asdict(ref[2])
+
+
+@pytest.fixture(scope="module")
+def step_proven(tmp_path_factory):
+    prev, inputs = _step_inputs(str(tmp_path_factory.mktemp("step-chain")))
+    return prev, inputs, prove_step_composite(3, prev, inputs, CFG, device="cpu")
 
 
 def test_prove_requires_a_device(proven):
@@ -102,10 +122,51 @@ def test_jax_verifier_accepts_port_proof(proven):
     assert jcomp.verify_skip_composite(bad, CHAIN_ID, SKIP_MAX, JCFG, min_security_bits=MIN_BITS) is None
 
 
-def test_wrapped_proofs_refused(proven):
+def test_step_composite_accepted_by_both_verifiers(step_proven):
+    prev, inputs, proof = step_proven
+    p2 = CompositeProof.from_bytes(proof.to_bytes())
+    assert p2.kind == "step" and not p2.is_wrapped
+    want = (3, prev, inputs.next_header)
+    assert verify_step_composite(p2, CHAIN_ID, CFG, MIN_BITS) == want
+    jproof = jcomp.CompositeProof.from_dict(proof.to_dict())
+    assert jproof.to_dict() == proof.to_dict()
+    assert jcomp.verify_step_composite(jproof, CHAIN_ID, JCFG, min_security_bits=MIN_BITS) == want
+    # a step proof is not a skip proof
+    assert verify_skip_composite(p2, CHAIN_ID, SKIP_MAX, CFG, MIN_BITS) is None
+
+
+@pytest.mark.parametrize("change", ["abi_output", "abi_inputs", "chain"])
+def test_changed_step_statement_rejected(step_proven, change):
+    prev, _, proof = step_proven
+    bad = copy.deepcopy(proof)
+    chain_id = CHAIN_ID
+    if change == "abi_output":
+        bad.abi_output = bytes(32)
+    elif change == "abi_inputs":
+        bad.abi_inputs = (4).to_bytes(8, "big") + prev
+    else:
+        chain_id = "other-chain"
+    assert verify_step_composite(bad, chain_id, CFG, MIN_BITS) is None
+    jbad = jcomp.CompositeProof.from_dict(bad.to_dict())
+    assert jcomp.verify_step_composite(jbad, chain_id, JCFG, min_security_bits=MIN_BITS) is None
+
+
+@pytest.mark.parametrize("n_wrap_statements", [1, 3])
+def test_wrapped_proofs_refused(proven, n_wrap_statements):
+    """A wrapped dict is parsed now; one whose wrap batch does not have
+    exactly 2 statements is refused at the boundary."""
     d = copy.deepcopy(proven[3].to_dict())
-    d["batch"]["wrapped"] = True
-    with pytest.raises(ValueError):
+    batch = d["batch"]
+    stmts = [dict(sd, openings=[]) for sd in batch["statements"]]
+    d["batch"] = {
+        "wrapped": True,
+        "statements": stmts,
+        "layer_caps": batch["fri"]["layer_caps"],
+        "final_poly": batch["fri"]["final_poly"],
+        "pow_nonce": batch["fri"]["pow_nonce"],
+        "wrapper": {"statements": stmts[:1] * n_wrap_statements, "fri": batch["fri"]},
+    }
+    with pytest.raises(ValueError, match="exactly 2 statements"):
         CompositeProof.from_dict(d)
 
 
@@ -118,3 +179,12 @@ def test_port_proof_byte_identical_to_jax(proven, tmp_path):
     jproof = jcomp.prove_skip_composite(1, trusted, 5, jinputs, JCFG)
     assert json.dumps(jproof.to_dict()) == json.dumps(proof.to_dict())
     assert gzip.decompress(jproof.to_bytes()) == gzip.decompress(proof.to_bytes())
+
+
+@pytest.mark.slow  # the JAX prover compiles the Ed25519 statement's large XLA graphs
+def test_port_step_proof_byte_identical_to_jax(step_proven, tmp_path):
+    prev, _, proof = step_proven
+    jprev, jinputs = _step_inputs(str(tmp_path), jtestchain, jfetcher)
+    assert jprev == prev
+    jproof = jcomp.prove_step_composite(3, prev, jinputs, JCFG)
+    assert json.dumps(jproof.to_dict()) == json.dumps(proof.to_dict())

@@ -47,6 +47,19 @@ def test_permute_plain_matches_jax_and_oracle(b):
     assert got[:8] == [ps.permute_ints(s) for s in states[:8]]
 
 
+def test_permute_plain_across_cpu_blocks_matches_oracle():
+    """A CPU batch larger than one block of rows is permuted block by
+    block: rows on both sides of each block edge equal the host oracle."""
+    n = 2 * ps._CPU_BLOCK + 3
+    rng = np.random.default_rng(31)
+    u = rng.integers(0, 2**63, size=(n, 12), dtype=np.uint64) * np.uint64(2)
+    u[u >= np.uint64(P)] -= np.uint64(P)
+    got = ps.permute_plain(torch.from_numpy(u.view(np.int64))).numpy().view(np.uint64)
+    edge = ps._CPU_BLOCK
+    for i in (0, edge - 1, edge, 2 * edge - 1, 2 * edge, n - 1):
+        assert got[i].tolist() == ps.permute_ints(u[i].tolist()), i
+
+
 def test_host_oracle_python_path_matches_native():
     for s in _states(4, seed=9):
         assert ps._permute_ints_py(s) == ps.permute_ints(s)

@@ -20,7 +20,7 @@ from tendermintx_tpu.stark.serialize import batch_proof_from_dict as j_from_dict
 from tendermintx_tpu.stark.serialize import batch_proof_to_dict as j_to_dict
 from tendermintx_tpu_torch.ops.goldilocks import GF, P
 from tendermintx_tpu_torch.stark import prover as pr
-from tendermintx_tpu_torch.stark.air import Air
+from tendermintx_tpu_torch.stark.air import Air, public_columns_u64
 from tendermintx_tpu_torch.stark.batch import prove_batch, verify_batch
 from tendermintx_tpu_torch.stark.prover import StarkConfig
 from tendermintx_tpu_torch.stark.serialize import batch_proof_from_dict, batch_proof_to_dict
@@ -143,3 +143,13 @@ def test_blocked_quotient_and_deep_byte_identical(proofs, monkeypatch):
         [fib_pub, mix_pub], CFG, transcript_seed=SEED,
     )
     assert json.dumps(batch_proof_to_dict(blocked)) == json.dumps(batch_proof_to_dict(port))
+
+
+def test_public_columns_u64_reduces_every_form():
+    """Public columns as uint64 arrays and as int lists give one canonical
+    array; a column of the wrong length raises."""
+    vals = [0, 1, P - 1, P, P + 5, 2**64 - 1]
+    arr = public_columns_u64([np.array(vals, dtype=np.uint64), [-1, 2**70, 3, P, 7, 8]], 6)
+    assert arr.tolist() == [[v % P for v in vals], [P - 1, 2**70 % P, 3, 0, 7, 8]]
+    with pytest.raises(ValueError):
+        public_columns_u64([np.zeros(1, dtype=np.uint64)], 6)
