@@ -6,11 +6,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc;
-  3. kernels   - each kernel against its plain torch version on the same
-                 CUDA tensors (exact equality: integer field arithmetic)
-                 at every batch size the main paths give it, up to 2^21
-                 states, Poseidon also against the host oracle, with both
-                 times;
+                 the line gives each kernel function's registers and spill
+                 bytes from ptxas (-v); a spill fails;
+  3. kernels   - each Poseidon entry (poseidon_permute,
+                 poseidon_sponge_cols, poseidon_merkle_layer) against its
+                 plain torch version on the same CUDA tensors (exact
+                 equality: integer field arithmetic) at every shape the main
+                 paths give it, and against the host oracle, with its time
+                 and its plain version's at one shape, and its bound
+                 (multiply-adds of the sparse partial-round form at the
+                 card's maximum SM clock, or bytes at 3.35 TB/s; the bound
+                 of the kernel's own dense count beside it);
   4. parity    - an N=4 skip composite proven on cuda and on cpu (plain
                  versions) at a small config, then recursion-wrapped on each
                  device at a small wrap config: the proofs' bytes must match,
@@ -21,7 +27,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  skip 1 -> 5 first (``skip_composite_n128_cold_seconds``,
                  host tables cold), then 2 -> 6 (``skip_composite_n128_seconds``,
                  warm); each is prove + verify. Every kernel must have been
-                 launched by this phase. The per-statement phase seconds that
+                 launched by this phase, the warm prove's column sponge once
+                 per column-major tree. The per-statement phase seconds that
                  ``stark/batch.py`` logs are in the line under ``phases``;
   6. step      - an N=128 step composite 4 -> 5 at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card, verified after a wire round trip;
@@ -36,8 +43,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  and the line times its plain torch programs
                  (expand_perm_states and the EvalAir aux pieces);
   8. profile   - only with --profile: one more warm prove under
-                 torch.profiler (device time by kernel, the card's busy
-                 share of the wall time) and one under cProfile (the host
+                 torch.profiler (device time by kernel, Poseidon's and the
+                 copies' totals, the card's busy share of the wall time)
+                 and one under cProfile (the host
                  functions with the most cumulative time), the wrapped
                  verify under cProfile, and the cold build of the wrap
                  FRI's host fold tables alone.
@@ -90,6 +98,8 @@ def phase_device() -> dict:
 
 
 def phase_build() -> dict:
+    """Build every kernel library; the line gives each kernel function's
+    registers and spill bytes as ptxas reported them. Spills fail."""
     from tendermintx_tpu_torch.ops import cuda_build
 
     out = {"phase": "build"}
@@ -97,7 +107,16 @@ def phase_build() -> dict:
         t0 = time.perf_counter()
         path = cuda_build.build(name)
         cuda_build.load_library(name)
-        out[name] = {"seconds": time.perf_counter() - t0, "library": os.path.relpath(path)}
+        report = cuda_build.ptxas_report(name)
+        out[name] = {
+            "seconds": time.perf_counter() - t0,
+            "library": os.path.relpath(path),
+            "ptxas": report,
+        }
+        spills = {k: v for k, v in report.items() if v.get("spill_stores") or v.get("spill_loads")}
+        if not report or spills:
+            emit(out)
+            raise AssertionError(f"{name}: ptxas reports spills or no kernel: {spills or report}")
     emit(out)
     return out
 
@@ -136,44 +155,226 @@ def _field_tensor(rng, shape, dev) -> torch.Tensor:
     return tensor_from_u64(u, dev)
 
 
+def _nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+# The bound of a Poseidon entry: 32-bit multiply-adds at Hopper's 64 per
+# clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) at the card's maximum SM clock, or its
+# bytes at 3.35 TB/s (H100 SXM data sheet), whichever is longer. The
+# multiply-adds are those of the cheapest known form of the same
+# permutation, plonky2's sparse partial rounds: 8 full rounds of 12 S-boxes
+# (4 field products of 4 partial products each) and the dense 7-bit MDS (144
+# entries x 2 halves); once, an 11 x 11 layer of full field products; then
+# each of the 22 partial rounds one S-box, a first row of 11 full products
+# and one 7-bit product, and a rank-one update of 11 full products.
+FULL_ROUND_MULS = 12 * 4 * 4 + 144 * 2
+MULS_PER_PERMUTATION = 8 * FULL_ROUND_MULS + 11 * 11 * 4 + 22 * (4 * 4 + 11 * 4 + 2 + 11 * 4)  # 6,656
+# The kernel's own count: the dense MDS in every round, as the reference
+# defines the rounds; its bound (design_bound_ms) is printed beside.
+DESIGN_MULS_PER_PERMUTATION = 118 * 4 * 4 + 30 * 144 * 2  # 10,528
+MULS_PER_CLOCK_PER_SM = 64
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _bound(permutations: int, nbytes: int, clock_mhz: float) -> dict:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    ops_ms = permutations * MULS_PER_PERMUTATION / muls_per_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "operations_bound_ms": ops_ms,
+        "bytes_bound_ms": bytes_ms,
+        "design_bound_ms": max(permutations * DESIGN_MULS_PER_PERMUTATION / muls_per_ms, bytes_ms),
+        "permutations": permutations,
+        "bytes": nbytes,
+    }
+
+
+def _timed_once(fn):
+    """(fn(), its ms between two CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _u64_rows(t: torch.Tensor) -> list[list[int]]:
+    return t.cpu().numpy().view(np.uint64).tolist()
+
+
+def _check_equal(got: torch.Tensor, want: torch.Tensor, what: str):
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{what} disagrees with its plain version: max_abs_err {err}")
+
+
+def _kernel_permute(ps, rng, dev, clock_mhz: float) -> dict:
+    """The permutation == plain on every batch the main paths give it (each
+    power of two up to 2^21: grinding at 2^18, the FRI layer trees, the
+    row-major leaves; 7 and 1000003 as odd tails); 8 rows == the host
+    oracle."""
+    batches = [1 << k for k in range(22)] + [7, 1000003]
+    for b in batches:
+        st = _field_tensor(rng, (b, ps.WIDTH), dev)
+        got = ps.permute_cuda(st)
+        _check_equal(got, ps.permute_plain(st), f"poseidon_permute at B={b}")
+        if b <= 4096:
+            want = [ps.permute_ints(row) for row in _u64_rows(st[:8])]
+            if _u64_rows(got[:8]) != want:
+                raise AssertionError(f"poseidon_permute disagrees with the host oracle at B={b}")
+    n = 1 << 20
+    big = _field_tensor(rng, (n, ps.WIDTH), dev)
+    bound = _bound(n, 2 * n * ps.WIDTH * 8, clock_mhz)
+    return {
+        "route": "cuda",
+        "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
+        "replaces": "tendermintx_tpu/ops/poseidon_pallas.py:182",
+        "shape": [n, ps.WIDTH],
+        "checked_batches": batches,
+        "max_abs_err": 0.0,
+        "ms": _time_ms(lambda: ps.permute_cuda(big), 500),
+        "plain_ms": _time_ms(lambda: ps.permute_plain(big), reps=2),
+        **bound,
+        "library_ms": None,
+    }
+
+
+def _random_cols(shape, gen, dev) -> torch.Tensor:
+    """Canonical felts below 2^63 made on the card from a seeded generator
+    (the full Ed25519 LDE is 6 GB), the edge values in column 0."""
+    from tendermintx_tpu_torch.ops.goldilocks import tensor_from_u64
+
+    x = torch.randint(0, 2**63 - 1, shape, dtype=torch.int64, device=dev, generator=gen)
+    k = min(len(EDGES), shape[1])
+    x[0, :k] = tensor_from_u64(np.array(EDGES[:k], dtype=np.uint64), dev)
+    return x
+
+
+# The timed shape, then every column-major tree of the N=128 paths,
+# (columns, LDE rows): trace, aux and quotient (2 x chunks) of each
+# statement. The timed shape is the Ed25519 trace and aux together
+# (2,031 + 898 columns): the same 367 absorbs per leaf as its two trees.
+SPONGE_TIMED = (2929, 1 << 18)
+MAIN_PATH_TREES = (
+    (2031, 1 << 18), (898, 1 << 18), (8, 1 << 18),  # Ed25519
+    (170, 1 << 19), (6, 1 << 19),  # SHA-256 plan, skip
+    (170, 1 << 18), (6, 1 << 18),  # SHA-256 plan, step
+    (340, 1 << 18),  # SHA-512 table (its quotient is (6, 2^18) above)
+    (136, 1 << 19), (14, 1 << 19),  # WrapAir, rate 4
+    (8, 1 << 21), (10, 1 << 21), (4, 1 << 21),  # EvalAir, rate 4
+)
+
+
+def _kernel_sponge(ps, rng, dev, clock_mhz: float) -> dict:
+    """The column sponge == plain on its whole output at SPONGE_TIMED and
+    every tree of the main paths (MAIN_PATH_TREES), and at the ragged and
+    exact small widths on 1,024 leaves, where 8 leaves of each == hash_ints
+    of the zero-padded row. Kernel and plain are timed at SPONGE_TIMED: the
+    plain version once, in its check."""
+    widths = (1, 7, 8, 9, 170, 340, 2929)
+    for L in widths:
+        cols = _field_tensor(rng, (L, 1024), dev)
+        got = ps.sponge_cols_cuda(cols)
+        _check_equal(got, ps.hash_no_pad_cols_plain(cols), f"poseidon_sponge_cols at L={L}")
+        rows = _u64_rows(cols[:, :8].t())
+        want = [ps.hash_ints(r + [0] * ((-L) % ps.RATE)) for r in rows]
+        if _u64_rows(got[:8]) != want:
+            raise AssertionError(f"poseidon_sponge_cols disagrees with the host oracle at L={L}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    timed = None
+    for L, n in (SPONGE_TIMED, *MAIN_PATH_TREES):
+        cols = _random_cols((L, n), gen, dev)
+        want, plain_ms = _timed_once(lambda: ps.hash_no_pad_cols_plain(cols))
+        _check_equal(ps.sponge_cols_cuda(cols), want, f"poseidon_sponge_cols at ({L}, {n})")
+        del want
+        if timed is None:
+            timed = {
+                "shape": [L, n],
+                "ms": _time_ms(lambda: ps.sponge_cols_cuda(cols), 6),
+                "plain_ms": plain_ms,
+                **_bound(n * -(-L // ps.RATE), L * n * 8 + n * ps.DIGEST * 8, clock_mhz),
+            }
+        del cols
+    return {
+        "route": "cuda",
+        "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
+        "replaces": "tendermintx_tpu/ops/poseidon_pallas.py:182",
+        "replaces_program": "tendermintx_tpu/ops/poseidon.py:394 (hash_no_pad_cols)",
+        "checked_widths": list(widths),
+        "checked_trees": [list(t) for t in MAIN_PATH_TREES],
+        "max_abs_err": 0.0,
+        **timed,
+        "library_ms": None,
+    }
+
+
+def _kernel_layer(ps, rng, dev, clock_mhz: float) -> dict:
+    """One tree layer == plain at every layer size the main paths build,
+    n = 2 .. 2^21 digests (EvalAir's leaves are 2^21); 8 parents ==
+    two_to_one_ints."""
+    sizes = [1 << k for k in range(1, 22)]
+    for n in sizes:
+        d = _field_tensor(rng, (n, ps.DIGEST), dev)
+        got = ps.merkle_layer_cuda(d)
+        _check_equal(got, ps.merkle_layer_plain(d), f"poseidon_merkle_layer at n={n}")
+        rows = _u64_rows(d[:16])
+        want = [ps.two_to_one_ints(rows[2 * i], rows[2 * i + 1]) for i in range(min(8, n // 2))]
+        if _u64_rows(got[: len(want)]) != want:
+            raise AssertionError(f"poseidon_merkle_layer disagrees with the host oracle at n={n}")
+    n = 1 << 18
+    d = _field_tensor(rng, (n, ps.DIGEST), dev)
+    bound = _bound(n // 2, n * ps.DIGEST * 8 + (n // 2) * ps.DIGEST * 8, clock_mhz)
+    return {
+        "route": "cuda",
+        "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
+        "replaces": "tendermintx_tpu/ops/poseidon_pallas.py:182",
+        "replaces_program": "tendermintx_tpu/ops/merkle.py:57 (_inner_layers)",
+        "shape": [n, ps.DIGEST],
+        "checked_sizes": [sizes[0], sizes[-1]],
+        "max_abs_err": 0.0,
+        "ms": _time_ms(lambda: ps.merkle_layer_cuda(d), 4000),
+        "plain_ms": _time_ms(lambda: ps.merkle_layer_plain(d), reps=2),
+        **bound,
+        "library_ms": None,
+    }
+
+
 def phase_kernels() -> dict:
+    """Each Poseidon entry against its plain torch version on the same
+    CUDA tensors (exact: integer field arithmetic) and the host oracle,
+    with its time, its plain version's, and its bound."""
     from tendermintx_tpu_torch.ops import poseidon as ps
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
-    rows = {}
-
-    # Poseidon permutation: kernel == plain on every batch, == host oracle.
-    # The main paths' batches run up to 2^21 states (EvalAir's leaf sponge
-    # over its 2^21-point LDE); 2^18 is the grinding batch, 2^19 WrapAir's
-    # leaves, 1000003 an odd tail.
-    batches = (1, 7, 4096, 1 << 18, 1 << 19, 1 << 20, 1 << 21, 1000003)
-    err = 0.0
-    for b in batches:
-        st = _field_tensor(rng, (b, ps.WIDTH), dev)
-        got = ps.permute_cuda(st)
-        want = ps.permute_plain(st)
-        torch.cuda.synchronize()
-        err = max(err, _max_abs_err(got, want))
-        if b <= 4096:
-            host = [ps.permute_ints([int(v) for v in row]) for row in
-                    st[:8].cpu().numpy().view(np.uint64).tolist()]
-            if got[:8].cpu().numpy().view(np.uint64).tolist() != host:
-                raise AssertionError(f"poseidon kernel disagrees with the host oracle at B={b}")
-    if err:
-        raise AssertionError(f"poseidon kernel disagrees with permute_plain: {err}")
-    big = _field_tensor(rng, (1 << 20, ps.WIDTH), dev)
-    rows["poseidon_permute"] = {
-        "route": "cuda",
-        "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
-        "replaces": "tendermintx_tpu/ops/poseidon_pallas.py:182",
-        "shape": [1 << 20, ps.WIDTH],
-        "checked_batches": list(batches),
-        "max_abs_err": err,
-        "ms": _time_ms(lambda: ps.permute_cuda(big)),
-        "plain_ms": _time_ms(lambda: ps.permute_plain(big), reps=2),
+    clock_mhz = float(_nvidia_smi("clocks.max.sm"))
+    rows = {
+        "poseidon_permute": _kernel_permute(ps, rng, dev, clock_mhz),
+        "poseidon_sponge_cols": _kernel_sponge(ps, rng, dev, clock_mhz),
+        "poseidon_merkle_layer": _kernel_layer(ps, rng, dev, clock_mhz),
     }
-    emit({"phase": "kernels", **rows})
+    for row in rows.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["design_bound_share"] = row["design_bound_ms"] / row["ms"]
+    emit({
+        "phase": "kernels",
+        "clocks_max_sm_mhz": clock_mhz,
+        "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+        **rows,
+    })
     return rows
 
 
@@ -237,16 +438,24 @@ def phase_parity(workdir: str) -> dict:
     return out
 
 
+LAUNCH_COUNTERS = {
+    "poseidon_permute": "permute_kernel_launches",
+    "poseidon_sponge_cols": "sponge_kernel_launches",
+    "poseidon_merkle_layer": "layer_kernel_launches",
+}
+
+
 def _launch_counts() -> dict:
     from tendermintx_tpu_torch.ops import poseidon as ps
 
-    return {"poseidon_permute": ps.permute_kernel_launches}
+    return {name: getattr(ps, counter) for name, counter in LAUNCH_COUNTERS.items()}
 
 
 def _reset_launch_counts():
     from tendermintx_tpu_torch.ops import poseidon as ps
 
-    ps.permute_kernel_launches = 0
+    for counter in LAUNCH_COUNTERS.values():
+        setattr(ps, counter, 0)
 
 
 class _PhaseLog(logging.Handler):
@@ -319,20 +528,30 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     warm, warm_proof = _prove_and_verify(sc, 2, 6)
     launches = _launch_counts()
     _check_launched(launches, "skip")
+    warm_launches = {k: launches[k] - cold_launches[k] for k in launches}
+    # one sponge launch per column-major tree: trace, quotient and (where
+    # the AIR has one) aux commitment of every statement
+    trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)
+    if warm_launches["poseidon_sponge_cols"] != trees:
+        raise AssertionError(
+            f"the warm prove commits {trees} column-major trees with "
+            f"{warm_launches['poseidon_sponge_cols']} sponge launches"
+        )
     out = {
         "phase": "slice",
         "n_validators": sc.n,
         "skip_composite_n128_seconds": warm["seconds"],
         "skip_composite_n128_cold_seconds": cold["seconds"],
-        "permute_kernel_launches": launches["poseidon_permute"],
         "launches": launches,
         "cold_launches": cold_launches,
+        "warm_launches": warm_launches,
+        "warm_column_trees": trees,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "cold": cold,
         "warm": warm,
     }
     emit(out)
-    return out, launches, warm_proof
+    return out, cold_launches, warm_launches, warm_proof
 
 
 def phase_step(sc: SkipChain) -> tuple[dict, dict]:
@@ -540,6 +759,15 @@ def phase_profile(sc: SkipChain, wrapped_blob: bytes, wrap_rows: list[int]) -> d
     )
     device_s = sum(r[1] for r in by_kernel)
 
+    def total(rows) -> dict:
+        return {"seconds": sum(r[1] for r in rows), "count": sum(r[2] for r in rows)}
+
+    poseidon = [r for r in by_kernel if "tmx_poseidon" in r[0]]
+    copies = {
+        "memcpy": total([r for r in by_kernel if r[0].startswith("Memcpy")]),
+        "copy_kernels": total([r for r in by_kernel if "copy" in r[0].lower() and not r[0].startswith("Memcpy")]),
+    }
+
     host = cProfile.Profile()
     host.enable()
     host_wall = prove(3, 7)
@@ -566,6 +794,9 @@ def phase_profile(sc: SkipChain, wrapped_blob: bytes, wrap_rows: list[int]) -> d
             "device_seconds": device_s,
             "device_busy_share": device_s / wall,
             "device_events": sum(r[2] for r in by_kernel),
+            "poseidon": {**total(poseidon),
+                         "by_entry": [{"name": k, "seconds": t, "count": c} for k, t, c in poseidon]},
+            "copies": copies,
             "by_kernel": [
                 {"name": k, "seconds": t, "count": c} for k, t, c in by_kernel[:15] if t > 0
             ],
@@ -597,16 +828,19 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         phase_parity(workdir)
         n128 = SkipChain(128, os.path.join(workdir, "n128"))
-        _, launches, warm_proof = phase_slice(n128)
+        _, cold_launches, warm_launches, warm_proof = phase_slice(n128)
         _, step_launches = phase_step(n128)
         profile = "--profile" in argv
         wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
         if profile:
             phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
+    kept = ("route", "source", "replaces", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "bound_share", "library_ms")
     kernels = [
-        {"name": name, **{k: v for k, v in row.items() if k not in ("shape", "checked_batches")},
-         "launches": launches[name],
-         "launches_by_path": {"skip": launches[name], "step": step_launches[name], "wrap": wrap_launches[name]}}
+        {"name": name, **{k: row[k] for k in kept},
+         "launches": cold_launches[name] + warm_launches[name],
+         "launches_by_path": {"skip_cold": cold_launches[name], "skip_warm": warm_launches[name],
+                              "step": step_launches[name], "wrap": wrap_launches[name]}}
         for name, row in rows.items()
     ]
     emit({"kernels": kernels})

@@ -1,139 +1,373 @@
-// Batched width-12 Poseidon permutation over Goldilocks on Hopper.
+// Width-12 Poseidon over Goldilocks on Hopper: the permutation, the
+// column-major leaf sponge and one Merkle tree layer.
 //
 // Replaces the reference's TPU kernel tendermintx_tpu/ops/poseidon_pallas.py
-// (`_kernel`, reached through `pl.pallas_call` at :182) and its XLA twin
-// ops/poseidon.py::_permute_xla: 30 rounds (4 full, 22 partial, 4 full),
-// x^7 S-box, and an MDS matrix with 7-bit entries. The TPU kernel emulates
-// 64-bit products with 16-bit pieces and runs the MDS layer as eight exact
-// bf16 limb-plane dots on the MXU, because the TPU has neither a 64-bit
-// multiply nor an integer matrix unit. Hopper has a native 64x64 -> 128-bit
-// product (`*` plus `__umul64hi`), so none of that carries over.
+// (`_kernel`, reached through `pl.pallas_call` at :182), its XLA twin
+// ops/poseidon.py::_permute_xla, and the XLA programs that drive it for
+// commitments: ops/poseidon.py::hash_no_pad_cols (a `lax.scan` of one
+// permutation per 8-column absorb) and ops/merkle.py::_inner_layers (one
+// `two_to_one` per tree layer). Round structure as the reference: 4 full,
+// 22 partial and 4 full rounds, x^7 S-box, the dense 7-bit MDS matrix in
+// every round.
 //
-// Bound: integer multiply throughput. A permutation is ~470 full field
-// multiplies (S-boxes) and 360 7-bit x 64-bit MDS products against only 192
-// bytes of state traffic. The design keeps everything in registers: one
-// thread per state, the 12 limbs as uint64_t, round constants and the MDS
-// matrix in __constant__ memory (every thread of a warp reads the same
-// entry, the broadcast case constant memory serves in one access). Each MDS
-// row accumulates its 12 products (< 2^71 each) in a 128-bit (lo, carry)
-// pair and reduces once, as the Pallas kernel does after its carry chain.
+// Bound: 32-bit integer multiply-adds. A permutation is 118 S-boxes x 4
+// field products x 4 partial products (1,888) plus 30 MDS layers x 144
+// entries x 2 halves (8,640): 10,528 multiply-adds against 192 bytes of
+// state traffic, so bytes never bind. (The sparse partial-round form of the
+// same permutation needs 6,656; chip_smoke.py's bound counts that form.)
+// The design follows from that:
 //
-// Layout: row-major (B, 12) canonical uint64 states, the layout of the
-// port's `permute` API. The kernel allocates nothing; the wrapper
-// (tendermintx_tpu_torch/ops/poseidon.py) allocates the output.
+//   * One thread per state, the 12 lanes as uint64_t in registers. Values
+//     stay in [0, 2^64) between operations (any representative mod p) and
+//     are made canonical once, at the end of the permutation.
+//   * A field product is four 32x32->64 multiplies (IMAD.WIDE.U32) and
+//     one reduction of the 128-bit product, all as PTX carry chains: the
+//     compiler's own 64-bit code for the same C++ spent about as many
+//     instructions on compares, selects and zero-extensions as on the
+//     multiplies.
+//   * The MDS layer multiplies the 32-bit halves of each lane by the 7-bit
+//     entries: each product is below 2^39, each row's two 12-term sums below
+//     2^43, so they accumulate in plain 64-bit registers with one
+//     IMAD.WIDE.U32 per entry and half. One reduction per row.
+//   * The MDS entries are template constants (poseidon_params.cuh), so each
+//     becomes an immediate of its multiply-add. Each MDS row's reduction
+//     also adds the next round's constant, so no round spends a separate
+//     carry chain on it. The round loops stay rolled to keep the code
+//     small for the instruction cache (one full and one partial round
+//     body); they read the round constants from __constant__ memory,
+//     initialised at compile time from the same header (no upload).
+//   * __launch_bounds__ caps a thread at 128 registers, so 4 blocks of 128
+//     threads (16 warps) are resident per SM; ptxas reports no spills
+//     (chip_smoke.py's build line).
+//
+// Entries, each with a plain C interface (loaded with ctypes by
+// tendermintx_tpu_torch/ops/poseidon.py, launched on the caller's stream,
+// returning cudaGetLastError()):
+//   tmx_poseidon_permute       (B, 12) row-major states -> (B, 12);
+//   tmx_poseidon_sponge_cols   (L, N) column-major matrix -> (N, 4) digests,
+//                              one thread per leaf absorbing all ceil(L/8)
+//                              chunks (a ragged last chunk is zero-filled);
+//   tmx_poseidon_merkle_layer  (n, 4) digests -> (n/2, 4), out[i] =
+//                              two_to_one(d[2i], d[2i+1]).
+// The kernels allocate nothing; the wrappers allocate the outputs.
 
 #include <cstdint>
+#include <climits>
+#include <utility>
+
 #include <cuda_runtime.h>
+
+#include "poseidon_params.cuh"
 
 namespace {
 
-constexpr int WIDTH = 12;
-constexpr int N_ROUNDS = 30;
-constexpr int HALF_FULL = 4;
-constexpr int PARTIAL = 22;
+using tmx_poseidon::HALF_FULL_ROUNDS;
+using tmx_poseidon::N_ROUNDS;
+using tmx_poseidon::PARTIAL_ROUNDS;
+using tmx_poseidon::WIDTH;
+
+constexpr int RATE = 8;
+constexpr int DIGEST = 4;
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 4;
 constexpr uint64_t P = 0xFFFFFFFF00000001ULL;
-constexpr uint64_t EPS = 0xFFFFFFFFULL;
+constexpr uint64_t EPS = 0xFFFFFFFFULL;  // 2^64 mod p
 
-__constant__ uint64_t c_rc[N_ROUNDS][WIDTH];
-__constant__ uint64_t c_mds[WIDTH][WIDTH];
+// One row past the last round: zeros, the constants "added" after the last
+// MDS layer.
+__constant__ uint64_t c_rc[N_ROUNDS + 1][WIDTH] = TMX_POSEIDON_RC_INIT;
 
-__device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
-    uint64_t s = a + b;
-    if (s < a) s += EPS;
-    return s >= P ? s - P : s;
+template <int I, int J>
+struct Mds {
+    static constexpr uint64_t value = tmx_poseidon::POSEIDON_MDS[I][J];
+};
+
+using Lanes = std::make_integer_sequence<int, WIDTH>;
+
+// The field arithmetic is written as PTX carry chains on 32-bit halves,
+// about one SASS instruction a line (IADD3 with carry, or IMAD.WIDE.U32),
+// with no 64-bit compares or zero-extension moves.
+
+// x + k (mod p) for x < 2^64 and a canonical constant k; result < 2^64.
+__device__ __forceinline__ uint64_t add_const(uint64_t x, uint64_t k) {
+    uint64_t r;
+    asm("{\n\t"
+        ".reg .u32 x0, x1, k0, k1, c;\n\t"
+        "mov.b64 {x0, x1}, %1;\n\t"
+        "mov.b64 {k0, k1}, %2;\n\t"
+        "add.cc.u32 x0, x0, k0;\n\t"
+        "addc.cc.u32 x1, x1, k1;\n\t"
+        "addc.u32 c, 0, 0;\n\t"
+        "sub.u32 c, 0, c;\n\t"  // a carry of 2^64 == EPS (0 or 0xFFFFFFFF)
+        "add.cc.u32 x0, x0, c;\n\t"  // below 2^64 again: the wrapped sum < k
+        "addc.u32 x1, x1, 0;\n\t"
+        "mov.b64 %0, {x0, x1};\n\t"
+        "}"
+        : "=l"(r)
+        : "l"(x), "l"(k));
+    return r;
 }
 
-__device__ __forceinline__ uint64_t gl_reduce128(uint64_t lo, uint64_t hi) {
-    uint64_t hi_hi = hi >> 32;
-    uint64_t hi_lo = hi & 0xFFFFFFFFULL;
-    uint64_t t = lo - hi_hi;
-    if (lo < hi_hi) t -= EPS;
-    uint64_t m = (hi_lo << 32) - hi_lo;
-    uint64_t s = t + m;
-    if (s < t) s += EPS;
-    return s >= P ? s - P : s;
+// a * b (mod p) for a, b < 2^64: four 32x32->64 products, then the 128-bit
+// product lo + 2^64 (r2 + 2^32 r3) reduced with 2^64 == EPS, 2^96 == -1.
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
+    uint64_t r;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, b0, b1, r0, r1, r2, r3, s0, s1, t0, t1, c;\n\t"
+        ".reg .u64 p00, p11, p01, p10, m;\n\t"
+        "mov.b64 {a0, a1}, %1;\n\t"
+        "mov.b64 {b0, b1}, %2;\n\t"
+        "mul.wide.u32 p00, a0, b0;\n\t"
+        "mul.wide.u32 p11, a1, b1;\n\t"
+        "mul.wide.u32 p01, a0, b1;\n\t"
+        "mul.wide.u32 p10, a1, b0;\n\t"
+        "mov.b64 {r0, r1}, p00;\n\t"
+        "mov.b64 {r2, r3}, p11;\n\t"
+        "mov.b64 {s0, s1}, p01;\n\t"
+        "mov.b64 {t0, t1}, p10;\n\t"
+        "add.cc.u32 r1, r1, s0;\n\t"
+        "addc.cc.u32 r2, r2, s1;\n\t"
+        "addc.u32 r3, r3, 0;\n\t"
+        "add.cc.u32 r1, r1, t0;\n\t"
+        "addc.cc.u32 r2, r2, t1;\n\t"
+        "addc.u32 r3, r3, 0;\n\t"
+        // lo - r3; on a borrow take back EPS (stays >= 0)
+        "sub.cc.u32 r0, r0, r3;\n\t"
+        "subc.cc.u32 r1, r1, 0;\n\t"
+        "subc.u32 c, 0, 0;\n\t"
+        "sub.cc.u32 r0, r0, c;\n\t"
+        "subc.u32 r1, r1, 0;\n\t"
+        // + r2 * EPS; on a carry add EPS (no second carry)
+        "mul.wide.u32 m, r2, 0xFFFFFFFF;\n\t"
+        "mov.b64 {s0, s1}, m;\n\t"
+        "add.cc.u32 r0, r0, s0;\n\t"
+        "addc.cc.u32 r1, r1, s1;\n\t"
+        "addc.u32 c, 0, 0;\n\t"
+        "sub.u32 c, 0, c;\n\t"
+        "add.cc.u32 r0, r0, c;\n\t"
+        "addc.u32 r1, r1, 0;\n\t"
+        "mov.b64 %0, {r0, r1};\n\t"
+        "}"
+        : "=l"(r)
+        : "l"(a), "l"(b));
+    return r;
 }
 
-__device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-    return gl_reduce128(a * b, __umul64hi(a, b));
+__device__ __forceinline__ uint64_t sbox(uint64_t x) {
+    const uint64_t x2 = mul(x, x);
+    const uint64_t x3 = mul(x2, x);
+    const uint64_t x4 = mul(x2, x2);
+    return mul(x3, x4);
 }
 
-__device__ __forceinline__ uint64_t sbox7(uint64_t x) {
-    uint64_t x2 = gl_mul(x, x);
-    uint64_t x3 = gl_mul(x2, x);
-    uint64_t x4 = gl_mul(x2, x2);
-    return gl_mul(x3, x4);
+// a * B + c and a * B for a 32-bit a and an immediate B: one IMAD.WIDE.U32.
+template <uint64_t B>
+__device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint64_t c) {
+    uint64_t d;
+    asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(d) : "r"(a), "n"((uint32_t)B), "l"(c));
+    return d;
 }
 
-__device__ __forceinline__ void mds_apply(uint64_t s[WIDTH]) {
-    uint64_t out[WIDTH];
+template <uint64_t B>
+__device__ __forceinline__ uint64_t mul_wide(uint32_t a) {
+    uint64_t d;
+    asm("mul.wide.u32 %0, %1, %2;" : "=l"(d) : "r"(a), "n"((uint32_t)B));
+    return d;
+}
+
+// acc_lo + 2^32 acc_hi + k (mod p) for acc_lo, acc_hi < 2^44 and k < 2^64;
+// result < 2^64. The sum is l0 + 2^32 r1 + 2^64 r2 with r2 < 2^13, and
+// 2^64 == EPS.
+__device__ __forceinline__ uint64_t mds_reduce(uint64_t acc_lo, uint64_t acc_hi, uint64_t k) {
+    uint64_t r;
+    asm("{\n\t"
+        ".reg .u32 l0, l1, h0, h1, k0, k1, r1, r2, m0, m1, c;\n\t"
+        ".reg .u64 m;\n\t"
+        "mov.b64 {l0, l1}, %1;\n\t"
+        "mov.b64 {h0, h1}, %2;\n\t"
+        "mov.b64 {k0, k1}, %3;\n\t"
+        "add.cc.u32 r1, l1, h0;\n\t"
+        "addc.u32 r2, h1, 0;\n\t"
+        "add.cc.u32 l0, l0, k0;\n\t"
+        "addc.cc.u32 r1, r1, k1;\n\t"
+        "addc.u32 r2, r2, 0;\n\t"
+        "mul.wide.u32 m, r2, 0xFFFFFFFF;\n\t"
+        "mov.b64 {m0, m1}, m;\n\t"
+        "add.cc.u32 l0, l0, m0;\n\t"
+        "addc.cc.u32 r1, r1, m1;\n\t"
+        "addc.u32 c, 0, 0;\n\t"
+        "sub.u32 c, 0, c;\n\t"
+        "add.cc.u32 l0, l0, c;\n\t"
+        "addc.u32 r1, r1, 0;\n\t"
+        "mov.b64 %0, {l0, r1};\n\t"
+        "}"
+        : "=l"(r)
+        : "l"(acc_lo), "l"(acc_hi), "l"(k));
+    return r;
+}
+
+// Row I of the MDS layer plus the next round's constant k: sum_J M[I][J] *
+// s[J] + k (mod p) from the halves of the lanes. Each product is < 2^39,
+// each 12-term sum < 2^43.
+template <int I, int J0, int... J>
+__device__ __forceinline__ uint64_t mds_row(const uint32_t (&lo)[WIDTH], const uint32_t (&hi)[WIDTH],
+                                            uint64_t k, std::integer_sequence<int, J0, J...>) {
+    uint64_t acc_lo = mul_wide<Mds<I, J0>::value>(lo[J0]);
+    uint64_t acc_hi = mul_wide<Mds<I, J0>::value>(hi[J0]);
+    ((acc_lo = mad_wide<Mds<I, J>::value>(lo[J], acc_lo)), ...);
+    ((acc_hi = mad_wide<Mds<I, J>::value>(hi[J], acc_hi)), ...);
+    return mds_reduce(acc_lo, acc_hi, k);
+}
+
+// s = M s + rc_next, the MDS layer of one round fused with the constant
+// addition of the next.
+template <int... I>
+__device__ __forceinline__ void mds_layer(uint64_t (&s)[WIDTH], const uint64_t* rc_next,
+                                          std::integer_sequence<int, I...>) {
+    uint32_t lo[WIDTH], hi[WIDTH];
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) {
-        uint64_t lo = 0, hi = 0;
+    for (int j = 0; j < WIDTH; ++j) {
+        lo[j] = (uint32_t)s[j];
+        hi[j] = (uint32_t)(s[j] >> 32);
+    }
+    const uint64_t out[WIDTH] = {mds_row<I>(lo, hi, rc_next[I], Lanes{})...};
 #pragma unroll
-        for (int j = 0; j < WIDTH; ++j) {
-            uint64_t m = c_mds[i][j];
-            uint64_t plo = m * s[j];
-            uint64_t phi = __umul64hi(m, s[j]);
-            lo += plo;
-            hi += phi + (lo < plo);
+    for (int j = 0; j < WIDTH; ++j) s[j] = out[j];
+}
+
+// The permutation, in place on 12 registers; canonical output. Round r is
+// S-boxes then MDS on s + rc[r]; each MDS layer adds the next round's
+// constants (zeros after the last).
+__device__ __forceinline__ void permute_state(uint64_t (&s)[WIDTH]) {
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) s[j] = add_const(s[j], c_rc[0][j]);
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll 1
+        for (int k = 0; k < HALF_FULL_ROUNDS; ++k) {
+            const int r = half * (HALF_FULL_ROUNDS + PARTIAL_ROUNDS) + k;
+#pragma unroll
+            for (int j = 0; j < WIDTH; ++j) s[j] = sbox(s[j]);
+            mds_layer(s, c_rc[r + 1], Lanes{});
         }
-        out[i] = gl_reduce128(lo, hi);
+        if (half == 0) {
+#pragma unroll 1
+            for (int r = HALF_FULL_ROUNDS; r < HALF_FULL_ROUNDS + PARTIAL_ROUNDS; ++r) {
+                s[0] = sbox(s[0]);
+                mds_layer(s, c_rc[r + 1], Lanes{});
+            }
+        }
     }
 #pragma unroll
-    for (int i = 0; i < WIDTH; ++i) s[i] = out[i];
+    for (int j = 0; j < WIDTH; ++j) s[j] = s[j] >= P ? s[j] - P : s[j];
 }
 
-__global__ void poseidon_permute_kernel(const uint64_t* __restrict__ in,
-                                        uint64_t* __restrict__ out,
-                                        int64_t n) {
-    int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; b < n;
-         b += stride) {
-        uint64_t s[WIDTH];
-#pragma unroll
-        for (int j = 0; j < WIDTH; ++j) s[j] = in[b * WIDTH + j];
-        int r = 0;
-        for (int k = 0; k < HALF_FULL; ++k, ++r) {
-#pragma unroll
-            for (int j = 0; j < WIDTH; ++j) s[j] = sbox7(gl_add(s[j], c_rc[r][j]));
-            mds_apply(s);
-        }
-        for (int k = 0; k < PARTIAL; ++k, ++r) {
-#pragma unroll
-            for (int j = 0; j < WIDTH; ++j) s[j] = gl_add(s[j], c_rc[r][j]);
-            s[0] = sbox7(s[0]);
-            mds_apply(s);
-        }
-        for (int k = 0; k < HALF_FULL; ++k, ++r) {
-#pragma unroll
-            for (int j = 0; j < WIDTH; ++j) s[j] = sbox7(gl_add(s[j], c_rc[r][j]));
-            mds_apply(s);
-        }
-#pragma unroll
-        for (int j = 0; j < WIDTH; ++j) out[b * WIDTH + j] = s[j];
-    }
+__device__ __forceinline__ int64_t thread_index() {
+    return (int64_t)blockIdx.x * THREADS + threadIdx.x;
 }
 
 }  // namespace
 
-// Copy the round constants (N_ROUNDS x WIDTH) and the MDS matrix
-// (WIDTH x WIDTH), both host uint64 arrays, to the current device.
-extern "C" int tmx_poseidon_set_params(const uint64_t* rc, const uint64_t* mds) {
-    cudaError_t e = cudaMemcpyToSymbol(c_rc, rc, sizeof(c_rc));
-    if (e != cudaSuccess) return (int)e;
-    e = cudaMemcpyToSymbol(c_mds, mds, sizeof(c_mds));
-    return (int)e;
+// (n, 12) -> (n, 12); both 16-byte aligned (the wrapper checks).
+extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tmx_poseidon_permute_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                            int64_t n) {
+    const int64_t b = thread_index();
+    if (b >= n) return;
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(in + b * WIDTH);
+    uint64_t s[WIDTH];
+#pragma unroll
+    for (int k = 0; k < WIDTH / 2; ++k) {
+        const ulonglong2 v = src[k];
+        s[2 * k] = v.x;
+        s[2 * k + 1] = v.y;
+    }
+    permute_state(s);
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + b * WIDTH);
+#pragma unroll
+    for (int k = 0; k < WIDTH / 2; ++k) dst[k] = make_ulonglong2(s[2 * k], s[2 * k + 1]);
 }
 
-// Permute n states: in/out are device pointers to (n, 12) uint64.
-extern "C" int tmx_poseidon_permute(const void* in, void* out, int64_t n,
-                                    void* stream) {
+// cols (L, n) column-major -> (n, 4) digests. Thread i hashes leaf i; a
+// warp's loads of one column are 32 neighbouring words.
+extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tmx_poseidon_sponge_cols_kernel(const uint64_t* __restrict__ cols, uint64_t* __restrict__ out,
+                                int64_t L, int64_t n) {
+    const int64_t i = thread_index();
+    if (i >= n) return;
+    uint64_t s[WIDTH] = {};
+#pragma unroll 1
+    for (int64_t c0 = 0; c0 < L; c0 += RATE) {
+#pragma unroll
+        for (int j = 0; j < RATE; ++j) {
+            const int64_t c = c0 + j;
+            s[j] = c < L ? cols[c * n + i] : 0;  // overwrite mode; ragged tail zero-filled
+        }
+        permute_state(s);
+    }
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + i * DIGEST);
+    dst[0] = make_ulonglong2(s[0], s[1]);
+    dst[1] = make_ulonglong2(s[2], s[3]);
+}
+
+// (2 * n_out, 4) digests -> (n_out, 4): the 8 rate lanes of state i are the
+// 64 contiguous bytes of digests 2i and 2i + 1.
+extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tmx_poseidon_merkle_layer_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                                 int64_t n_out) {
+    const int64_t i = thread_index();
+    if (i >= n_out) return;
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(in + i * 2 * DIGEST);
+    uint64_t s[WIDTH] = {};
+#pragma unroll
+    for (int k = 0; k < DIGEST; ++k) {
+        const ulonglong2 v = src[k];
+        s[2 * k] = v.x;
+        s[2 * k + 1] = v.y;
+    }
+    permute_state(s);
+    ulonglong2* dst = reinterpret_cast<ulonglong2*>(out + i * DIGEST);
+    dst[0] = make_ulonglong2(s[0], s[1]);
+    dst[1] = make_ulonglong2(s[2], s[3]);
+}
+
+namespace {
+
+int blocks_for(int64_t n, int* blocks) {
+    const int64_t want = (n + THREADS - 1) / THREADS;
+    if (want > INT_MAX) return (int)cudaErrorInvalidValue;
+    *blocks = (int)want;
+    return 0;
+}
+
+}  // namespace
+
+extern "C" int tmx_poseidon_permute(const void* in, void* out, int64_t n, void* stream) {
     if (n <= 0) return 0;
-    const int threads = 128;
-    int64_t want = (n + threads - 1) / threads;
-    int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
-    poseidon_permute_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    int blocks;
+    if (int e = blocks_for(n, &blocks)) return e;
+    tmx_poseidon_permute_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)in, (uint64_t*)out, n);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int tmx_poseidon_sponge_cols(const void* cols, void* out, int64_t L, int64_t n,
+                                        void* stream) {
+    if (n <= 0) return 0;
+    if (L <= 0) return (int)cudaErrorInvalidValue;
+    int blocks;
+    if (int e = blocks_for(n, &blocks)) return e;
+    tmx_poseidon_sponge_cols_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)cols, (uint64_t*)out, L, n);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int tmx_poseidon_merkle_layer(const void* in, void* out, int64_t n_out,
+                                         void* stream) {
+    if (n_out <= 0) return 0;
+    int blocks;
+    if (int e = blocks_for(n_out, &blocks)) return e;
+    tmx_poseidon_merkle_layer_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, n_out);
     return (int)cudaGetLastError();
 }

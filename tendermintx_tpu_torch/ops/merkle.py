@@ -2,9 +2,10 @@
 
 Counterpart of ``tendermintx_tpu/ops/merkle.py``. Leaves are rows of an
 (n_leaves, width) field matrix, zero-padded to a RATE multiple and sponge
-hashed; inner nodes are ``two_to_one(left, right)``. The layers stay on the
-device; openings gather only the queried sibling digests. Commitments may
-be CAPS: the 2^k digests at depth k from the root.
+hashed; an inner node is the 2-to-1 compression of its two children, one
+``merkle_layer`` per level. The layers stay on the device; openings gather only the queried
+sibling digests. Commitments may be CAPS: the 2^k digests at depth k from
+the root.
 """
 
 from __future__ import annotations
@@ -73,13 +74,11 @@ class MerkleTree:
     @classmethod
     def build_cols(cls, cols: GF) -> "MerkleTree":
         """Column-major build: cols (width, n_leaves). Digest-identical to
-        build(cols.T) without the row-major copy."""
+        build(cols.T) without the row-major copy; the sponge zero-fills a
+        ragged last chunk itself, so the columns are not padded either."""
         n = int(cols.shape[1])
         if n & (n - 1):
             raise ValueError("n_leaves must be a power of two")
-        extra = (-int(cols.shape[0])) % ps.RATE
-        if extra:
-            cols = GF.concatenate([cols, GF.zeros((extra, n), cols.device)], axis=0)
         return cls._from_leaves(ps.hash_no_pad_cols(cols), n)
 
     @classmethod
@@ -87,7 +86,7 @@ class MerkleTree:
         layers = [leaves]
         cur = leaves
         while int(cur.shape[0]) > 1:
-            cur = ps.two_to_one(cur[0::2], cur[1::2])
+            cur = ps.merkle_layer(cur)
             layers.append(cur)
         return cls(layers)
 

@@ -9,10 +9,13 @@ Three implementations compute the same permutation:
   * ``permute_ints``: the sequential host oracle (native C++ core when it
     builds, pure Python otherwise) for the challenger and verifier;
   * ``permute_plain``: int64 torch ops on (..., 12) tensors, any device;
-  * the hand-written CUDA kernel in ``csrc/poseidon.cu``.
+  * the hand-written CUDA kernels in ``csrc/poseidon.cu``.
 
-``permute`` takes ``permute_plain`` only for a CPU tensor. For a CUDA tensor
-it launches the kernel or raises: there is no probe and no fallback.
+The kernels have three entries, each beside its plain version: the
+permutation (``permute``), the column-major leaf sponge
+(``hash_no_pad_cols``) and one Merkle tree layer (``merkle_layer``). Each
+takes its plain version only for a CPU tensor. For a CUDA tensor it
+launches the kernel or raises: there is no probe and no fallback.
 """
 
 from __future__ import annotations
@@ -249,11 +252,13 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Batched permutation: CUDA kernel (csrc/poseidon.cu)
+# CUDA kernels (csrc/poseidon.cu)
 # ---------------------------------------------------------------------------
 
-# Incremented exactly where the kernel is launched.
+# One count per kernel entry, incremented exactly where it is launched.
 permute_kernel_launches = 0
+sponge_kernel_launches = 0
+layer_kernel_launches = 0
 
 
 @cache
@@ -261,46 +266,45 @@ def _library():
     from .cuda_build import load_library
 
     lib = load_library("poseidon")
-    lib.tmx_poseidon_set_params.restype = ctypes.c_int
-    lib.tmx_poseidon_set_params.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.tmx_poseidon_permute.restype = ctypes.c_int
-    lib.tmx_poseidon_permute.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-    ]
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    for fn, n_ints in (
+        (lib.tmx_poseidon_permute, 1),
+        (lib.tmx_poseidon_sponge_cols, 2),
+        (lib.tmx_poseidon_merkle_layer, 1),
+    ):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ptr, ptr] + [i64] * n_ints + [ptr]
     return lib
 
 
-@cache
-def _params_on(device_index: int) -> bool:
-    """Copy the constants into the kernel's __constant__ memory of one
-    device (once per device)."""
-    rc = np.ascontiguousarray(_rc_u64())
-    mds = np.ascontiguousarray(_mds_u64())
-    with torch.cuda.device(device_index):
-        err = _library().tmx_poseidon_set_params(rc.ctypes.data, mds.ctypes.data)
+def _check_cuda_operand(x: torch.Tensor, entry: str, align: int):
+    if x.device.type != "cuda" or x.dtype != torch.int64:
+        raise TypeError(f"{entry} takes an int64 CUDA tensor")
+    if not x.is_contiguous():
+        raise ValueError(f"{entry} takes a contiguous tensor")
+    if x.data_ptr() % align:
+        raise ValueError(f"{entry} takes a {align}-byte aligned tensor")
+
+
+def _launch(entry: str, x: torch.Tensor, out: torch.Tensor, *ints: int):
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(_library(), entry)(x.data_ptr(), out.data_ptr(), *ints, stream)
     if err != 0:
-        raise RuntimeError(f"poseidon parameter upload failed: CUDA error {err}")
-    return True
+        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
 
 
 def permute_cuda(state: torch.Tensor) -> torch.Tensor:
-    """Launch the Poseidon kernel on (..., 12) int64 CUDA states."""
+    """Launch the permutation kernel on contiguous (..., 12) int64 CUDA states."""
     global permute_kernel_launches
-    if state.device.type != "cuda" or state.dtype != torch.int64:
-        raise TypeError("permute_cuda takes an int64 CUDA tensor")
-    if state.shape[-1] != WIDTH:
+    _check_cuda_operand(state, "permute_cuda", 16)
+    if state.dim() == 0 or state.shape[-1] != WIDTH:
         raise ValueError(f"last dim must be {WIDTH}, got {tuple(state.shape)}")
-    s = state.contiguous()
-    out = torch.empty_like(s)
-    n = s.numel() // WIDTH
+    out = torch.empty_like(state)
+    n = state.numel() // WIDTH
     if n == 0:
         return out
-    _params_on(s.device.index)
-    with torch.cuda.device(s.device):
-        stream = torch.cuda.current_stream(s.device).cuda_stream
-        err = _library().tmx_poseidon_permute(s.data_ptr(), out.data_ptr(), n, stream)
-    if err != 0:
-        raise RuntimeError(f"poseidon kernel launch failed: CUDA error {err}")
+    _launch("tmx_poseidon_permute", state, out, n)
     permute_kernel_launches += 1
     return out
 
@@ -325,7 +329,7 @@ def permute(state: GF) -> GF:
 
 
 def hash_no_pad(inputs: GF) -> GF:
-    """Batched sponge hash: inputs (..., L) -> digest (..., 4)."""
+    """Batched sponge hash: inputs (..., L) -> contiguous digests (..., 4)."""
     x = inputs.v
     L = x.shape[-1]
     state = torch.zeros(x.shape[:-1] + (WIDTH,), dtype=torch.int64, device=x.device)
@@ -333,28 +337,89 @@ def hash_no_pad(inputs: GF) -> GF:
         chunk = x[..., i : i + RATE]
         state = torch.cat([chunk, state[..., chunk.shape[-1] :]], dim=-1)
         state = permute_tensor(state)
-    return GF(state[..., :DIGEST])
+    return GF(state[..., :DIGEST].contiguous())
+
+
+def _check_cols(x: torch.Tensor):
+    if x.dim() != 2 or x.shape[0] < 1:
+        raise ValueError(f"columns must be (L >= 1, N), got {tuple(x.shape)}")
+
+
+def hash_no_pad_cols_plain(x: torch.Tensor) -> torch.Tensor:
+    """(L, N) columns -> (N, 4) digests of the rows zero-padded to a RATE
+    multiple, one transposed (RATE, N) chunk per absorb."""
+    _check_cols(x)
+    L, N = int(x.shape[0]), int(x.shape[1])
+    state = torch.zeros((N, WIDTH), dtype=torch.int64, device=x.device)
+    for i in range(0, L, RATE):
+        chunk = x[i : i + RATE]
+        k = int(chunk.shape[0])
+        state[:, :k] = chunk.t()
+        state[:, k:RATE] = 0
+        state = permute_plain(state)
+    return state[:, :DIGEST].contiguous()
+
+
+def sponge_cols_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch the column sponge kernel: contiguous (L, N) int64 CUDA
+    columns -> (N, 4) digests, all ceil(L / RATE) absorbs in one launch."""
+    global sponge_kernel_launches
+    _check_cuda_operand(x, "sponge_cols_cuda", 8)
+    _check_cols(x)
+    L, N = int(x.shape[0]), int(x.shape[1])
+    out = torch.empty((N, DIGEST), dtype=torch.int64, device=x.device)
+    if N == 0:
+        return out
+    _launch("tmx_poseidon_sponge_cols", x, out, L, N)
+    sponge_kernel_launches += 1
+    return out
 
 
 def hash_no_pad_cols(cols: GF) -> GF:
-    """Column-major sponge: cols (L, N) -> digests (N, 4), equal to
-    ``hash_no_pad`` on the (N, L) rows without a transposed copy of the
-    whole matrix (each absorb transposes one (RATE, N) chunk). L must be a
-    positive RATE multiple (ops/merkle.py pads)."""
+    """Column-major sponge: cols (L, N), any L >= 1 -> digests (N, 4), equal
+    to ``hash_no_pad`` on the (N, L) rows zero-padded to a RATE multiple
+    (``merkle.pad_row_width``), without a transposed or padded copy."""
     x = cols.v
-    L, N = int(x.shape[0]), int(x.shape[1])
-    if L % RATE or L < RATE:
-        raise ValueError(f"column count {L} is not a positive multiple of {RATE}")
-    state = torch.zeros((N, WIDTH), dtype=torch.int64, device=x.device)
-    for i in range(0, L, RATE):
-        state[:, :RATE] = x[i : i + RATE].t()
-        state = permute_tensor(state)
-    return GF(state[:, :DIGEST])
+    if x.device.type == "cpu":
+        return GF(hash_no_pad_cols_plain(x))
+    if x.device.type == "cuda":
+        return GF(sponge_cols_cuda(x))
+    raise ValueError(f"no Poseidon sponge for device {x.device}")
 
 
-def two_to_one(left: GF, right: GF) -> GF:
-    """Batched 2-to-1 compression: (..., 4), (..., 4) -> (..., 4)."""
-    l = left.v
-    zeros = torch.zeros(l.shape[:-1] + (WIDTH - 2 * DIGEST,), dtype=torch.int64, device=l.device)
-    state = torch.cat([l, right.v, zeros], dim=-1)
-    return GF(permute_tensor(state)[..., :DIGEST])
+def _check_layer(d: torch.Tensor):
+    n = int(d.shape[0]) if d.dim() == 2 else 0
+    if d.dim() != 2 or d.shape[1] != DIGEST or n < 2 or n % 2:
+        raise ValueError(f"a tree layer is (n, 4) with n even and >= 2, got {tuple(d.shape)}")
+
+
+def merkle_layer_plain(d: torch.Tensor) -> torch.Tensor:
+    """(n, 4) digests -> (n/2, 4): out[i] is the 2-to-1 compression of
+    d[2i] and d[2i+1] (the permutation of [d[2i], d[2i+1], 0, 0, 0, 0],
+    first 4 lanes), as ``two_to_one_ints``."""
+    _check_layer(d)
+    half = int(d.shape[0]) // 2
+    zeros = torch.zeros((half, WIDTH - 2 * DIGEST), dtype=torch.int64, device=d.device)
+    return permute_plain(torch.cat([d.reshape(half, 2 * DIGEST), zeros], dim=1))[:, :DIGEST].contiguous()
+
+
+def merkle_layer_cuda(d: torch.Tensor) -> torch.Tensor:
+    """Launch the tree layer kernel on contiguous (n, 4) int64 CUDA digests."""
+    global layer_kernel_launches
+    _check_cuda_operand(d, "merkle_layer_cuda", 16)
+    _check_layer(d)
+    half = int(d.shape[0]) // 2
+    out = torch.empty((half, DIGEST), dtype=torch.int64, device=d.device)
+    _launch("tmx_poseidon_merkle_layer", d, out, half)
+    layer_kernel_launches += 1
+    return out
+
+
+def merkle_layer(layer: GF) -> GF:
+    """One Merkle tree layer: (n, 4) digests -> (n/2, 4) parents."""
+    d = layer.v
+    if d.device.type == "cpu":
+        return GF(merkle_layer_plain(d))
+    if d.device.type == "cuda":
+        return GF(merkle_layer_cuda(d))
+    raise ValueError(f"no Poseidon tree layer for device {d.device}")
