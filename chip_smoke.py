@@ -8,7 +8,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   2. build     - compiles every hand-written kernel from csrc/ with nvcc;
                  the line gives each kernel function's registers and spill
                  bytes from ptxas (-v); a spill fails;
-  3. kernels   - each Poseidon entry (poseidon_permute,
+  3. parity    - an N=4 skip composite proven on cuda and on cpu (plain
+                 versions) at a small config, then recursion-wrapped on each
+                 device at a small wrap config: the proofs' bytes must match,
+                 the unwrapped ones and the wrapped ones. The card's prove
+                 and wrap run here; the CPU prove and the CPU wrap (of the
+                 card's proof bytes) run in two spawned low-priority
+                 processes beside phases 4-8, and the line is printed when
+                 both have ended, after phase 8;
+  4. kernels   - each Poseidon entry (poseidon_permute,
                  poseidon_sponge_cols, poseidon_merkle_layer) against its
                  plain torch version on the same CUDA tensors (exact
                  equality: integer field arithmetic) at every shape the main
@@ -17,10 +25,6 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  (multiply-adds of the sparse partial-round form at the
                  card's maximum SM clock, or bytes at 3.35 TB/s; the bound
                  of the kernel's own dense count beside it);
-  4. parity    - an N=4 skip composite proven on cuda and on cpu (plain
-                 versions) at a small config, then recursion-wrapped on each
-                 device at a small wrap config: the proofs' bytes must match,
-                 the unwrapped ones and the wrapped ones;
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -42,7 +46,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  with --profile that second wrap runs under torch.profiler
                  and the line times its plain torch programs
                  (expand_perm_states and the EvalAir aux pieces);
-  8. profile   - only with --profile: one more warm prove under
+  8. runtime   - the port's entry points on the card at N=128, in this
+                 process: ``cli build`` and a witness-only ``cli prove`` of
+                 skip 2 -> 6 (valid, header 6); skip_verify timed on the
+                 card (with --profile also sha256_blocks, sha512_blocks,
+                 straus_verify, verify_bound and step_verify, and each
+                 one's torch op count: the launches of eager torch); a
+                 ProverService on
+                 the card that prewarms and answers a wrapped skip 2 -> 6
+                 and a step 4 -> 5 request through ProverClient, each
+                 proof byte-identical to the wrap and step phases' and
+                 accepted by ``cli verify`` (a tampered abi_output exits
+                 1); an operator with prove_stark on a MockContract for
+                 one tick (the head moves, the leaf STARK verifies); peak
+                 memory and Poseidon launches;
+  9. profile   - only with --profile: one more warm prove under
                  torch.profiler (device time by kernel, Poseidon's and the
                  copies' totals, the card's busy share of the wall time)
                  and one under cProfile (the host
@@ -71,6 +89,9 @@ CHAIN_ID = "smoke-chain"
 SKIP_MAX = 100
 SEED = 20261016
 GL_P = 0xFFFFFFFF00000001
+# the device of the runtime phase's entry points (the card; a CPU rehearsal
+# of the phase's control flow may set "cpu")
+RUNTIME_DEVICE = "cuda"
 EDGES = [0, 1, GL_P - 1, 2**32 - 1, 2**32, 2**63 % GL_P, GL_P - 2**32]
 
 
@@ -391,6 +412,7 @@ class SkipChain:
         for _ in range(8):
             self.chain.extend()
         self.chain.write_fixtures(workdir)
+        self.fixture_path = workdir
         self.fetcher = InputDataFetcher(fixture_path=workdir, mode=InputDataMode.FIXTURE)
 
     def skip(self, trusted_h: int, target_h: int):
@@ -405,35 +427,136 @@ class SkipChain:
         return prev, self.fetcher.get_step_inputs(prev_h, prev, max_validators=self.n)
 
 
-def phase_parity(workdir: str) -> dict:
-    """The N=4 skip composite and its wrap on both devices, at the small
-    configs of the reference's wrapped tests (base rate 3, 6 queries,
-    final 64, PoW 4; wrap rate 3, 6 queries, final 32, PoW 2)."""
-    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite, wrap_composite
+def _parity_configs():
+    """The small configs of the reference's wrapped tests: base rate 3, 6
+    queries, final 64, PoW 4; wrap rate 3, 6 queries, final 32, PoW 2."""
     from tendermintx_tpu_torch.stark.prover import StarkConfig
 
-    cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4)
-    wrap_cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=32, proof_of_work_bits=2)
+    return (
+        StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4),
+        StarkConfig(rate_bits=3, n_queries=6, final_poly_len=32, proof_of_work_bits=2),
+    )
+
+
+# torch threads of the parity phase's two CPU processes on the 8-core
+# host (the CPU prove and the CPU wrap), and their niceness: they run
+# while the card phases do, whose host work goes first
+PARITY_PROVE_THREADS = 3
+PARITY_WRAP_THREADS = 5
+PARITY_NICE = 19
+
+
+def _parity_cpu_prove(trusted: bytes, inputs) -> bytes:
+    """The N=4 skip composite proven on the CPU: its bytes."""
+    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+
+    return prove_skip_composite(1, trusted, 5, inputs, _parity_configs()[0], device="cpu").to_bytes()
+
+
+def _parity_cpu_wrap(blob: bytes) -> bytes:
+    """A composite proof, read from its bytes, wrapped on the CPU: the
+    wrapped proof's bytes."""
+    from tendermintx_tpu_torch.circuits.composite import CompositeProof, wrap_composite
+
+    cfg, wrap_cfg = _parity_configs()
+    return wrap_composite(CompositeProof.from_bytes(blob), cfg, wrap_cfg, device="cpu").to_bytes()
+
+
+def _cpu_job_main(fn, args, threads: int, conn):
+    """Body of a spawned CPU process: fn(*args) at niceness PARITY_NICE on
+    `threads` torch threads; sends (result, seconds) through `conn`."""
+    os.nice(PARITY_NICE)
+    torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    out = fn(*args)
+    conn.send((out, time.perf_counter() - t0))
+    conn.close()
+
+
+class _CpuJob:
+    """fn(*args) in a spawned low-priority process (no CUDA in it)."""
+
+    def __init__(self, fn, args: tuple, threads: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._recv, send = ctx.Pipe(duplex=False)
+        self.threads = threads
+        self.process = ctx.Process(target=_cpu_job_main, args=(fn, args, threads, send), daemon=True)
+        self.process.start()
+        send.close()
+
+    def result(self):
+        """(fn's result, its seconds); raises if the process failed."""
+        try:
+            out = self._recv.recv()  # EOFError if the process died
+        finally:
+            self.stop(timeout=60)
+        if self.process.exitcode != 0:
+            raise AssertionError(f"a parity CPU process exited with {self.process.exitcode}")
+        return out
+
+    def stop(self, timeout: float = 0):
+        """Join the process, killing it if it still runs after `timeout` s."""
+        self.process.join(timeout=timeout)
+        if self.process.is_alive():
+            self.process.kill()
+            self.process.join()
+
+
+def parity_start(workdir: str) -> dict:
+    """The card half of the parity phase: the N=4 skip composite proven
+    and then wrapped on the card at _parity_configs(). The CPU half starts
+    as two spawned low-priority processes, which run while the later
+    phases use the card: the CPU prove of the same inputs, and the CPU
+    wrap of the card's proof read from its bytes (as the card's wrap reads
+    it). phase_parity collects them."""
+    from tendermintx_tpu_torch.circuits.composite import (
+        CompositeProof,
+        prove_skip_composite,
+        wrap_composite,
+    )
+
+    cfg, wrap_cfg = _parity_configs()
     trusted, _, inputs = SkipChain(4, os.path.join(workdir, "n4")).skip(1, 5)
     out = {"phase": "parity", "n_validators": 4}
-    blobs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        proof = prove_skip_composite(1, trusted, 5, inputs, cfg, device=dev)
-        t1 = time.perf_counter()
-        wrapped = wrap_composite(proof, cfg, wrap_cfg, device=dev)
-        t2 = time.perf_counter()
-        blobs[dev] = (proof.to_bytes(), wrapped.to_bytes())
-        out[f"{dev}_seconds"] = t1 - t0
-        out[f"{dev}_wrap_seconds"] = t2 - t1
-    if blobs["cuda"][0] != blobs["cpu"][0]:
-        raise AssertionError("N=4 composite proofs differ between cuda and cpu")
-    if blobs["cuda"][1] != blobs["cpu"][1]:
-        raise AssertionError("N=4 wrapped composite proofs differ between cuda and cpu")
+    t0 = time.perf_counter()
+    proof = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cuda")
+    t1 = time.perf_counter()
+    blob = proof.to_bytes()
+    jobs = {
+        "prove": _CpuJob(_parity_cpu_prove, (trusted, inputs), PARITY_PROVE_THREADS),
+        "wrap": _CpuJob(_parity_cpu_wrap, (blob,), PARITY_WRAP_THREADS),
+    }
+    t_jobs = time.perf_counter()
+    wrapped = wrap_composite(CompositeProof.from_bytes(blob), cfg, wrap_cfg, device="cuda")
+    t2 = time.perf_counter()
+    out.update(cuda_seconds=t1 - t0, cuda_wrap_seconds=t2 - t1)
+    return {"line": out, "cuda": (blob, wrapped.to_bytes()), "jobs": jobs, "jobs_started": t_jobs}
+
+
+def phase_parity(state: dict) -> dict:
+    """The CPU half of the parity phase, collected: the proofs' bytes must
+    match the card's, the unwrapped ones and the wrapped ones. The line
+    gives each CPU job's seconds, both jobs' wall from their start, and
+    how long this process waited for them at the end."""
+    out, jobs = state["line"], state["jobs"]
+    t_wait = time.perf_counter()
+    (cpu_proof, cpu_seconds), (cpu_wrapped, cpu_wrap_seconds) = jobs["prove"].result(), jobs["wrap"].result()
+    t_done = time.perf_counter()
     out.update(
-        identical=True, wrapped_identical=True,
-        proof_bytes=len(blobs["cuda"][0]), wrapped_proof_bytes=len(blobs["cuda"][1]),
+        cpu_seconds=cpu_seconds, cpu_wrap_seconds=cpu_wrap_seconds,
+        cpu_concurrent_seconds=t_done - state["jobs_started"],
+        cpu_wait_seconds=t_done - t_wait,
+        cpu_threads={name: job.threads for name, job in jobs.items()},
+        cpu_nice=PARITY_NICE,
     )
+    blob, wrapped_blob = state["cuda"]
+    if cpu_proof != blob:
+        raise AssertionError("N=4 composite proofs differ between cuda and cpu")
+    if cpu_wrapped != wrapped_blob:
+        raise AssertionError("N=4 wrapped composite proofs differ between cuda and cpu")
+    out.update(identical=True, wrapped_identical=True, proof_bytes=len(blob), wrapped_proof_bytes=len(wrapped_blob))
     emit(out)
     return out
 
@@ -554,7 +677,7 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     return out, cold_launches, warm_launches, warm_proof
 
 
-def phase_step(sc: SkipChain) -> tuple[dict, dict]:
+def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
     """An N=128 step composite 4 -> 5, proven on the card and verified by
     verify_step_composite after a wire round trip."""
     from tendermintx_tpu_torch.circuits.composite import (
@@ -593,7 +716,7 @@ def phase_step(sc: SkipChain) -> tuple[dict, dict]:
         "phases": phases.lines,
     }
     emit(out)
-    return out, launches
+    return out, launches, blob
 
 
 PLAIN_RANGES = ("expand_perm_states", "eval_terms", "eval_scan", "eval_assemble")
@@ -692,6 +815,232 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         out["wrap_plain_program_seconds"] = plain_programs
     emit(out)
     return out, launches, blob
+
+
+class _OpCount:
+    """Counts the torch operators dispatched to CUDA tensors (views
+    excluded) while used as a context manager: each is about one kernel
+    launch of eager torch."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if not func.is_view:
+                    outs = out if isinstance(out, (tuple, list)) else (out,)
+                    if any(isinstance(o, torch.Tensor) and o.is_cuda for o in outs):
+                        counter.ops += 1
+                return out
+
+        self.ops = 0
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def _card_seconds(fn):
+    """(fn's result, seconds between CUDA events around one call)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
+def _witness_programs(sc: SkipChain, profile: bool) -> dict:
+    """The witness programs at N=128 on the card: seconds of one call
+    (CUDA events; the CLI's witness prove ran the same programs at the
+    same shapes before) of skip_verify on the skip 2 -> 6 witness and,
+    with `profile`, of each program below (step_verify on the step 4 -> 5
+    witness) and the torch ops one call dispatches."""
+    from tendermintx_tpu_torch.circuits import gadgets
+    from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
+    from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
+    from tendermintx_tpu_torch.ops import ed25519, sha256, sha512
+
+    trusted, _, inputs = sc.skip(2, 6)
+    w = pack_skip_witness(inputs).to(RUNTIME_DEVICE)
+    cl, cn = chain_id_leaf_const(CHAIN_ID)
+    lanes = w.lanes
+    ladder = (lanes.table_x, lanes.table_y, lanes.table_t, lanes.bits2, lanes.rx, lanes.ry)
+    leaf_blocks = gadgets.bytes_to_blocks(lanes.leaf_bytes, lanes.leaf_len, 1)
+    chal_blocks = sha512.bytes_to_blocks512(
+        torch.cat([lanes.sig_r, lanes.sig_pubkeys, lanes.messages], 1), lanes.msg_len + 64, 2
+    )
+    trusted_t = torch.frombuffer(bytearray(trusted), dtype=torch.uint8)
+    programs = {
+        "sha256_blocks": (lambda: sha256.sha256_blocks(*leaf_blocks), f"{sc.n} lanes x 1 block"),
+        "sha512_blocks": (lambda: sha512.sha512_blocks(*chal_blocks), f"{sc.n} lanes x 2 blocks"),
+        "straus_verify": (lambda: ed25519.straus_verify(*ladder), f"{sc.n} lanes"),
+        "verify_bound": (
+            lambda: ed25519.verify_bound(
+                *ladder, lanes.sig_r, lanes.sig_s, lanes.sig_pubkeys, lanes.messages, lanes.msg_len, lanes.k_q
+            ),
+            f"{sc.n} lanes",
+        ),
+        "skip_verify": (
+            lambda: skip_verify(w, trusted_t, 2, 0, 6, 0, cl, cn, SKIP_MAX)[0], f"N={sc.n} skip 2->6"
+        ),
+    }
+    if profile:
+        prev, step_inputs = sc.step(4)
+        sw = pack_step_witness(step_inputs).to(RUNTIME_DEVICE)
+        prev_t = torch.frombuffer(bytearray(prev), dtype=torch.uint8)
+        programs["step_verify"] = (lambda: step_verify(sw, prev_t, 4, 0, cl, cn)[0], f"N={sc.n} step 4->5")
+    else:
+        programs = {"skip_verify": programs["skip_verify"]}
+    out, valid = {}, {}
+    for name, (fn, shape) in programs.items():
+        valid[name], seconds = _card_seconds(fn)
+        out[name] = {"shape": shape, "card_seconds": seconds}
+        if profile:
+            with _OpCount() as count:
+                fn()
+            out[name]["torch_ops"] = count.ops
+    if not all(bool(valid[k]) for k in ("skip_verify", "step_verify") if k in valid):
+        raise AssertionError("the N=128 witness programs rejected valid witnesses")
+    return out
+
+
+def _cli_quiet(argv: list[str]) -> tuple[int, str]:
+    """tendermintx_tpu_torch.runtime.cli.main(argv) with its stdout captured."""
+    import contextlib
+    import io
+
+    from tendermintx_tpu_torch.runtime import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def _cli_verify_file(path: str, proof_file: dict) -> tuple[int, str]:
+    with open(path, "w") as f:
+        json.dump(proof_file, f)
+    return _cli_quiet(["verify", "--proof", path])
+
+
+def phase_runtime(
+    sc: SkipChain, workdir: str, wrapped_blob: bytes, step_blob: bytes, profile: bool
+) -> tuple[dict, dict]:
+    """The port's entry points on the card: CLI, prover service, operator;
+    with `profile`, the witness programs' torch op counts too."""
+    from tendermintx_tpu_torch.circuits.composite import CompositeProof
+    from tendermintx_tpu_torch.circuits.proving import verify_leaf_bundle
+    from tendermintx_tpu_torch.circuits.skip import encode_skip_input
+    from tendermintx_tpu_torch.circuits.step import encode_step_input
+    from tendermintx_tpu_torch.runtime.cli import submit_file
+    from tendermintx_tpu_torch.runtime.operator import MockContract, OperatorConfig, TendermintXOperator
+    from tendermintx_tpu_torch.runtime.service import ProverClient, ProverService
+
+    rt = os.path.join(workdir, "runtime")
+    os.makedirs(rt)
+    headers = sc.chain.headers
+    skip_hex = "0x" + encode_skip_input(2, headers[2].hash(), 6).hex()
+    step_hex = "0x" + encode_step_input(4, headers[4].hash()).hex()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    out = {"phase": "runtime", "n_validators": sc.n}
+
+    # 1. cli build + witness-only cli prove of skip 2 -> 6
+    build = os.path.join(rt, "build")
+    t0 = time.perf_counter()
+    rc, _ = _cli_quiet(["build", "--circuit", "skip", "--chain", CHAIN_ID,
+                        "--max-validators", str(sc.n), "--out", build])
+    t1 = time.perf_counter()
+    with open(os.path.join(rt, "input.json"), "w") as f:
+        json.dump({"input": skip_hex}, f)
+    rc_prove, _ = _cli_quiet(["prove", "--artifact", build, "--input", os.path.join(rt, "input.json"),
+                              "--out", os.path.join(rt, "witness.json"),
+                              "--fixture-path", sc.fixture_path, "--device", RUNTIME_DEVICE])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with open(os.path.join(rt, "witness.json")) as f:
+        witness = json.load(f)
+    if rc or rc_prove or witness["valid"] is not True or witness["output"] != "0x" + headers[6].hash().hex():
+        raise AssertionError(f"cli build/prove: rc {rc}/{rc_prove}, {witness}")
+    out["cli"] = {"build_seconds": t1 - t0, "witness_prove_seconds": t2 - t1, "valid": True, "output_is_header_6": True}
+    out["witness_programs"] = _witness_programs(sc, profile)
+
+    # 2. the prover service: prewarm, a wrapped skip and a step request
+    svc = ProverService(allowed_fixture_roots=[workdir], device=RUNTIME_DEVICE)
+    prewarm_seconds = svc.prewarm()
+    svc.start()
+    try:
+        client = ProverClient(svc.url)
+        t0 = time.perf_counter()
+        rid = client.submit("skip", CHAIN_ID, skip_hex, max_validators=sc.n,
+                            fixture_path=sc.fixture_path, wrap=True)
+        wrapped = client.wait(rid, timeout=900, poll=0.2)
+        t1 = time.perf_counter()
+        rid = client.submit("step", CHAIN_ID, step_hex, max_validators=sc.n, fixture_path=sc.fixture_path)
+        step = client.wait(rid, timeout=900, poll=0.2)
+        t2 = time.perf_counter()
+    finally:
+        svc.stop()
+    service = {"prewarm_seconds": prewarm_seconds, "wrapped_skip_seconds": t1 - t0, "step_seconds": t2 - t1}
+    for name, res, hexin, circuit, blob, header in (
+        ("wrapped_skip", wrapped, skip_hex, "skip", wrapped_blob, headers[6].hash()),
+        ("step", step, step_hex, "step", step_blob, headers[5].hash()),
+    ):
+        got = CompositeProof.from_dict(res["proof"]).to_bytes()
+        if got != blob:
+            raise AssertionError(f"the service's {name} proof differs from the {name} phase's proof")
+        if res["output"] != "0x" + header.hex():
+            raise AssertionError(f"the service's {name} output is {res['output']}")
+        proof_file = submit_file(hexin, circuit, CHAIN_ID, sc.n, res)
+        t0 = time.perf_counter()
+        rc, said = _cli_verify_file(os.path.join(rt, f"{name}.json"), proof_file)
+        t1 = time.perf_counter()
+        if rc != 0 or "composite proof: OK" not in said:
+            raise AssertionError(f"cli verify of the service's {name} proof: rc {rc}, {said!r}")
+        proof_file["composite_proof"]["abi_output"] = "00" * 32
+        rc_bad, _ = _cli_verify_file(os.path.join(rt, f"{name}_tampered.json"), proof_file)
+        if rc_bad != 1:
+            raise AssertionError(f"cli verify accepted a tampered {name} proof (rc {rc_bad})")
+        service[f"{name}_proof_bytes"] = len(got)
+        service[f"{name}_identical_to_phase"] = True
+        service[f"{name}_cli_verify_seconds"] = t1 - t0
+    out["service"] = service
+
+    # 3. the operator, prove_stark, one tick on a MockContract: step 6 -> 7
+    contract = MockContract(6, headers[6].hash(), skip_max=SKIP_MAX)
+    op = TendermintXOperator(
+        OperatorConfig(chain_id=CHAIN_ID, max_validators=sc.n, fixture_path=sc.fixture_path,
+                       prove_stark=True, device=RUNTIME_DEVICE),
+        contract=contract, fetcher=sc.fetcher,
+    )
+    t0 = time.perf_counter()
+    moved = op.tick(chain_tip=7)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, step_inputs = sc.step(6)
+    bundle_ok = verify_leaf_bundle(op.last_bundle, step_inputs.next_block_validators)
+    t2 = time.perf_counter()
+    if moved != ("step", 7) or contract.latest_block() != 7 or contract.header_hash(7) != headers[7].hash():
+        raise AssertionError(f"the operator did not move the head to 7: {moved}, {contract.latest_block()}")
+    if not bundle_ok:
+        raise AssertionError("the operator's leaf STARK bundle failed to verify")
+    out["operator"] = {"tick": list(moved), "tick_seconds": t1 - t0, "bundle_verify_seconds": t2 - t1,
+                       "head": contract.latest_block(), "leaf_bundle_ok": True}
+
+    launches = _launch_counts()
+    _check_launched(launches, "runtime")
+    out["launches"] = launches
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out, launches
 
 
 def _time_fri_tables(n: int, config) -> float:
@@ -824,23 +1173,30 @@ def main(argv: list[str]) -> int:
     logging.getLogger("tendermintx_tpu_torch.stark.batch").setLevel(logging.INFO)
     phase_device()
     phase_build()
-    rows = phase_kernels()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        phase_parity(workdir)
-        n128 = SkipChain(128, os.path.join(workdir, "n128"))
-        _, cold_launches, warm_launches, warm_proof = phase_slice(n128)
-        _, step_launches = phase_step(n128)
-        profile = "--profile" in argv
-        wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
-        if profile:
-            phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
+        parity = parity_start(workdir)
+        try:
+            rows = phase_kernels()
+            n128 = SkipChain(128, os.path.join(workdir, "n128"))
+            _, cold_launches, warm_launches, warm_proof = phase_slice(n128)
+            _, step_launches, step_blob = phase_step(n128)
+            profile = "--profile" in argv
+            wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
+            _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile)
+            phase_parity(parity)  # before the profile, which the CPU jobs would disturb
+            if profile:
+                phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
+        finally:
+            for job in parity["jobs"].values():
+                job.stop()
     kept = ("route", "source", "replaces", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "bound_share", "library_ms")
     kernels = [
         {"name": name, **{k: row[k] for k in kept},
          "launches": cold_launches[name] + warm_launches[name],
          "launches_by_path": {"skip_cold": cold_launches[name], "skip_warm": warm_launches[name],
-                              "step": step_launches[name], "wrap": wrap_launches[name]}}
+                              "step": step_launches[name], "wrap": wrap_launches[name],
+                              "runtime": runtime_launches[name]}}
         for name, row in rows.items()
     ]
     emit({"kernels": kernels})

@@ -7,8 +7,10 @@ the three statements' device work on one torch device,
 near-constant-size deliverable (stark/recursion.py), and the
 ``verify_*_composite`` functions are host logic for both forms. The wire
 format (``to_dict``/``to_bytes``) is the reference's v5, wrapped or not,
-so either package reads the other's proofs. Not ported yet: the device
-mesh and the runtime's environment-configured settings.
+so either package reads the other's proofs. ``runtime_configs`` gives the
+runtime layer (CLI, service, operator) its settings from the environment,
+and refuses a security floor below ``MIN_SECURITY_BITS``. Not ported yet:
+the device mesh.
 
 The upstream TendermintX deliverable is a single SNARK whose public inputs
 are the abi.encodePacked circuit IO, consumed by the TendermintX contract
@@ -49,6 +51,7 @@ bits. Verifiers reject configs below MIN_SECURITY_BITS.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 from ..inputs.conversion import (
@@ -103,6 +106,33 @@ DEFAULT_COMPOSITE_CONFIG = StarkConfig(
     rate_bits=3, n_queries=28, final_poly_len=64, proof_of_work_bits=16
 )
 MIN_SECURITY_BITS = 100
+
+
+def _env_stark_config(var: str, default: StarkConfig) -> StarkConfig:
+    """A config from the environment: 'rate_bits,n_queries,final_poly_len,
+    pow_bits'. Read by the runtime surfaces only (service, CLI, operator);
+    library callers pass configs explicitly."""
+    s = os.environ.get(var)
+    if not s:
+        return default
+    r, q, f, p = (int(x) for x in s.split(","))
+    return StarkConfig(rate_bits=r, n_queries=q, final_poly_len=f, proof_of_work_bits=p)
+
+
+def runtime_configs() -> tuple[StarkConfig, StarkConfig, int]:
+    """(base config, wrap config, min security bits) for the runtime
+    layer, from TMX_FRI_CONFIG / TMX_WRAP_FRI_CONFIG /
+    TMX_MIN_SECURITY_BITS. A floor below MIN_SECURITY_BITS raises
+    ValueError: the runtime never verifies at less than 100 bits (library
+    callers may still pass a lower min_security_bits to the verifiers)."""
+    base = _env_stark_config("TMX_FRI_CONFIG", DEFAULT_COMPOSITE_CONFIG)
+    wrap = _env_stark_config("TMX_WRAP_FRI_CONFIG", default_wrap_config())
+    min_bits = int(os.environ.get("TMX_MIN_SECURITY_BITS", MIN_SECURITY_BITS))
+    if min_bits < MIN_SECURITY_BITS:
+        raise ValueError(
+            f"TMX_MIN_SECURITY_BITS={min_bits} is below the {MIN_SECURITY_BITS}-bit floor"
+        )
+    return base, wrap, min_bits
 
 
 # Parse-time work bound: reconstruction costs per-lane native work (point

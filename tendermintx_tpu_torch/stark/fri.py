@@ -9,7 +9,9 @@ arity 2:
 with x_{i + N/2} = -x_i on the coset shift*<w_N>, so a fold pairs positions
 (i, i + N/2). The transcript runs on the host challenger: caps are fetched
 as they are committed (a local card answers in microseconds, so the
-reference's device-resident transcript is left for later).
+reference's device-resident transcript is left for later). ``fri_prove``
+/ ``fri_verify`` take one codeword (a single-statement STARK),
+``fri_prove_batch`` / ``fri_verify_batch`` several (the composite batch).
 """
 
 from __future__ import annotations
@@ -180,12 +182,23 @@ def fri_prove_batch(
         cur_shift = cur_shift * cur_shift % P
         cur_n //= 2
 
-    # final polynomial: host iNTT of the small last layer
+    return _finish(
+        cur, cur_shift, max(cur_n >> config.rate_bits, 1), layers, trees, caps, n,
+        challenger, config,
+    )
+
+
+def _finish(
+    cur: GF2, cur_shift: int, keep: int, layers: list[GF2], trees: list[MerkleTree],
+    caps: list, n: int, challenger: Challenger, config: FriConfig,
+) -> FriProof:
+    """After the commit phase: the final polynomial (host iNTT of the
+    small last layer, its first `keep` coefficients), grinding, query
+    sampling and the query rounds."""
     fin0, fin1 = cur.to_ints()
     final_coeffs = _coset_intt_ext(
         [(int(a), int(b)) for a, b in zip(fin0, fin1)], cur_shift
     )
-    keep = max(cur_n >> config.rate_bits, 1)
     if any(c != (0, 0) for c in final_coeffs[keep:]):
         raise RuntimeError("final poly degree too high")
     final_coeffs = final_coeffs[:keep]
@@ -193,7 +206,7 @@ def fri_prove_batch(
         challenger.observe_ext(c)
 
     pow_seed = challenger.sample()
-    pow_nonce = grind(pow_seed, config.proof_of_work_bits, device)
+    pow_nonce = grind(pow_seed, config.proof_of_work_bits, cur.device)
     challenger.observe_element(pow_nonce)
 
     query_indices = challenger.sample_indices(config.n_queries, n)
@@ -205,6 +218,153 @@ def fri_prove_batch(
         query_indices=query_indices,
         pow_nonce=pow_nonce,
     )
+
+
+# ---------------------------------------------------------------------------
+# Single-codeword FRI (one statement's DEEP codeword)
+# ---------------------------------------------------------------------------
+
+
+def fri_prove(
+    evals: GF2,
+    challenger: Challenger,
+    config: FriConfig,
+    shift: int = MULTIPLICATIVE_GENERATOR,
+) -> FriProof:
+    """Prove that `evals` (on coset shift*<w_N>, natural order) is the LDE
+    of a polynomial of degree < N / 2^rate_bits. Folds on the device of
+    `evals`; the transcript is the host challenger."""
+    n = int(evals.shape[0])
+    if n & (n - 1):
+        raise ValueError("codeword size must be a power of two")
+    layers: list[GF2] = [evals]
+    trees: list[MerkleTree] = []
+    caps: list[list[list[int]]] = []
+    cur, cur_n, cur_shift = evals, n, shift % P
+    # commit phase: fold until the claimed degree fits in final_poly_len
+    while cur_n > config.final_poly_len << config.rate_bits:
+        tree = _commit_layer(cur)
+        trees.append(tree)
+        cap = tree.cap(config.cap_bits)
+        caps.append(cap)
+        challenger.observe_cap(cap)
+        beta = ext_scalar(challenger.sample_ext(), cur.device)
+        invx = GF(tensor_from_u64(_inv_x_table(cur_n.bit_length() - 1, cur_shift), cur.device))
+        cur = _fold_layer(cur, beta, invx)
+        cur_shift = cur_shift * cur_shift % P
+        cur_n //= 2
+        layers.append(cur)
+    return _finish(
+        cur, cur_shift, cur_n >> config.rate_bits, layers, trees, caps, n, challenger, config
+    )
+
+
+def fri_verify(
+    proof: FriProof,
+    degree_bound: int,
+    n: int,
+    challenger: Challenger,
+    config: FriConfig,
+    shift: int = MULTIPLICATIVE_GENERATOR,
+    layer0_check=None,
+) -> bool:
+    """Verify a FRI proof for evals of size n claiming degree <
+    degree_bound. `layer0_check(index, ext_value) -> bool`, when given,
+    confirms an opened layer-0 value against an externally recomputed one
+    (the DEEP composition in a STARK)."""
+    if degree_bound << config.rate_bits != n:
+        return False
+    n_layers = len(proof.layer_caps)
+    cur_n = n
+    expected_layers = 0
+    while cur_n > config.final_poly_len << config.rate_bits:
+        expected_layers += 1
+        cur_n //= 2
+    if n_layers != expected_layers:
+        return False
+    if not _caps_well_formed(proof.layer_caps, n, config.cap_bits):
+        return False
+    if len(proof.final_poly) > (cur_n >> config.rate_bits):
+        return False
+
+    betas = []
+    for cap in proof.layer_caps:
+        challenger.observe_cap(cap)
+        betas.append(challenger.sample_ext())
+    for c in proof.final_poly:
+        challenger.observe_ext(c)
+    pow_seed = challenger.sample()
+    if not check_grind(pow_seed, proof.pow_nonce, config.proof_of_work_bits):
+        return False
+    if not 0 <= proof.pow_nonce < P:
+        return False
+    challenger.observe_element(proof.pow_nonce)
+    query_indices = challenger.sample_indices(config.n_queries, n)
+    if len(proof.query_rounds) != config.n_queries:
+        return False
+
+    if n_layers == 0:
+        # no committed layer: the recomputed layer-0 value must equal the
+        # final polynomial at the query's domain point
+        w = nttmod.primitive_root_of_unity(n.bit_length() - 1)
+        for q, per_layer in zip(query_indices, proof.query_rounds):
+            if per_layer:
+                return False
+            pt = shift * pow(w, q, P) % P
+            acc = (0, 0)
+            for c in reversed(proof.final_poly):
+                acc = ext_add(ext_mul(acc, (pt, 0)), tuple(c))
+            if layer0_check is not None and not layer0_check(q, acc):
+                return False
+        return True
+
+    inv2 = pow(2, P - 2, P)
+    for q, per_layer in zip(query_indices, proof.query_rounds):
+        if len(per_layer) != n_layers:
+            return False
+        idx = q
+        prev_folded = None
+        cur_shift = shift % P
+        for l, (val_i, val_j, path_i, path_j) in enumerate(per_layer):
+            size = n >> l
+            half = size // 2
+            i = idx % half
+            j = i + half
+            cap = proof.layer_caps[l]
+            lv = cap_levels(size, config.cap_bits)
+            val_i = tuple(val_i)
+            val_j = tuple(val_j)
+            if not verify_opening(cap, i, [val_i[0], val_i[1]], path_i, lv):
+                return False
+            if not verify_opening(cap, j, [val_j[0], val_j[1]], path_j, lv):
+                return False
+            value_at_idx = val_i if idx < half else val_j
+            if l == 0:
+                if layer0_check is not None and not layer0_check(q, value_at_idx):
+                    return False
+            elif value_at_idx != prev_folded:
+                return False
+            w = nttmod.primitive_root_of_unity(size.bit_length() - 1)
+            x_i = cur_shift * pow(w, i, P) % P
+            s = ext_add(val_i, val_j)
+            d = ext_sub(val_i, val_j)
+            invx = pow(2 * x_i % P, P - 2, P)
+            prev_folded = ext_add(
+                (s[0] * inv2 % P, s[1] * inv2 % P),
+                ext_mul(betas[l], (d[0] * invx % P, d[1] * invx % P)),
+            )
+            idx = i
+            cur_shift = cur_shift * cur_shift % P
+        # final layer: the folded value equals final_poly at the domain point
+        size = n >> n_layers
+        w = nttmod.primitive_root_of_unity(size.bit_length() - 1)
+        pt = cur_shift * pow(w, idx, P) % P
+        acc = (0, 0)
+        for c in reversed(proof.final_poly):
+            acc = ext_add(ext_mul(acc, (pt, 0)), tuple(c))
+        if acc != prev_folded:
+            return False
+    return True
 
 
 def _query_phase(

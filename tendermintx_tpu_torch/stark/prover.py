@@ -8,7 +8,8 @@ Counterpart of ``tendermintx_tpu/stark/prover.py`` (the DEEP-ALI pipeline):
      committed.
   4. Out-of-domain values at z * g^k for every frame offset k.
   5. DEEP composition F(x) = sum_g (G(x) - G(z_g)) / (x - z_g), proven
-     low-degree by the batch FRI.
+     low-degree by FRI: ``prove`` runs one statement with its own FRI,
+     ``stark/batch.py`` several statements with one batch FRI.
 
 Device work runs eagerly on the trace's torch device; the transcript runs
 on the host challenger.
@@ -30,7 +31,7 @@ from ..ops.goldilocks import GF, MULTIPLICATIVE_GENERATOR, P, tensor_from_u64, t
 from ..ops.merkle import MerkleTree
 from .air import Air, DeviceAlgebra, Frame, public_columns_u64
 from .challenger import Challenger
-from .fri import FriConfig, FriProof
+from .fri import FriConfig, FriProof, fri_prove
 
 log = logging.getLogger(__name__)
 
@@ -617,3 +618,44 @@ def _statement_openings(ctx: _StmtCtx, indices) -> dict:
             quot_paths[q],
         )
     return openings
+
+
+def prove(
+    air: Air,
+    trace_cols: GF,
+    public_inputs: list[int],
+    config: StarkConfig = StarkConfig(),
+    transcript_seed: list[int] | None = None,
+) -> StarkProof:
+    """One statement, its own FRI. trace_cols: (n_cols, n_rows) GF on the
+    device the proof runs on (row i = step i); n_rows a power of two >= 4.
+    transcript_seed: field elements absorbed before the public inputs (the
+    verifier must supply the same seed)."""
+    challenger = Challenger()
+    if transcript_seed:
+        challenger.observe_elements(transcript_seed)
+    ctx, F = _prove_statement(air, trace_cols, public_inputs, config, challenger)
+    t0 = time.perf_counter()
+    fri_proof = fri_prove(F, challenger, config.fri, config.shift)
+    ctx.phases.append(("fri", time.perf_counter() - t0))
+    del F
+    t0 = time.perf_counter()
+    openings = _statement_openings(ctx, fri_proof.query_indices)
+    ctx.phases.append(("openings", time.perf_counter() - t0))
+    log.info(
+        "prove[%s n=%d N=%d cols=%d] %s total=%.2fs",
+        type(air).__name__, ctx.n, ctx.N, air.n_cols + air.n_aux_cols,
+        " ".join(f"{k}={v:.2f}" for k, v in ctx.phases),
+        sum(v for _, v in ctx.phases),
+    )
+    return StarkProof(
+        n_rows=ctx.n,
+        public_inputs=list(public_inputs),
+        trace_cap=ctx.trace_cap,
+        quotient_cap=ctx.quot_cap,
+        ood_trace=ctx.ood_trace,
+        ood_quotient=ctx.ood_quotient,
+        fri_proof=fri_proof,
+        openings=openings,
+        aux_cap=ctx.aux_cap,
+    )

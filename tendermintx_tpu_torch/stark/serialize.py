@@ -1,17 +1,22 @@
-"""Batch-proof (de)serialization: the reference's packed wire format.
+"""Proof (de)serialization in the reference's wire formats.
 
-Counterpart of the packed encoding in ``tendermintx_tpu/stark/serialize.py``:
-every felt list is base64 of 8-byte big-endian words, paths are the
-concatenation of their 4-felt digests, ext values interleave (c0, c1). A
-dict written by either package reads back in the other.
+Counterpart of ``tendermintx_tpu/stark/serialize.py``. Single-statement
+proofs (v3) are JSON-compatible dicts with field elements as decimal
+strings and digests as 4-element lists. Batch and wrapped proofs use the
+packed encoding: every felt list is base64 of 8-byte big-endian words,
+paths are the concatenation of their 4-felt digests, ext values
+interleave (c0, c1). A dict written by either package reads back in the
+other.
 """
 
 from __future__ import annotations
 
 import base64
+import json
 
 from ..ops.goldilocks import P
 from .fri import FriProof
+from .prover import StarkProof
 
 
 def _felt(v) -> int:
@@ -20,6 +25,137 @@ def _felt(v) -> int:
     if not 0 <= x < P:
         raise ValueError(f"field element out of range: {x}")
     return x
+
+
+def _ints(xs):
+    return [str(int(v)) for v in xs]
+
+
+def _unints(xs):
+    return [_felt(v) for v in xs]
+
+
+def _ext(v):
+    return [str(int(v[0])), str(int(v[1]))]
+
+
+def _unext(v):
+    return (_felt(v[0]), _felt(v[1]))
+
+
+def _cap(cap):
+    return [_ints(d) for d in cap]
+
+
+def _uncap(cap):
+    out = [_unints(d) for d in cap]
+    for d in out:
+        if len(d) != 4:
+            raise ValueError("bad digest length in cap")
+    return out
+
+
+def fri_proof_to_dict(p: FriProof) -> dict:
+    return {
+        "pow_nonce": str(int(p.pow_nonce)),
+        "layer_caps": [_cap(c) for c in p.layer_caps],
+        "final_poly": [_ext(c) for c in p.final_poly],
+        "query_rounds": [
+            [
+                {
+                    "val_i": _ext(vi),
+                    "val_j": _ext(vj),
+                    "path_i": [_ints(s) for s in pi],
+                    "path_j": [_ints(s) for s in pj],
+                }
+                for (vi, vj, pi, pj) in per_layer
+            ]
+            for per_layer in p.query_rounds
+        ],
+    }
+
+
+def fri_proof_from_dict(d: dict) -> FriProof:
+    return FriProof(
+        pow_nonce=_felt(d.get("pow_nonce", 0)),
+        layer_caps=[_uncap(c) for c in d["layer_caps"]],
+        final_poly=[_unext(c) for c in d["final_poly"]],
+        query_rounds=[
+            [
+                (
+                    _unext(q["val_i"]),
+                    _unext(q["val_j"]),
+                    [_unints(s) for s in q["path_i"]],
+                    [_unints(s) for s in q["path_j"]],
+                )
+                for q in per_layer
+            ]
+            for per_layer in d["query_rounds"]
+        ],
+    )
+
+
+def stark_proof_to_dict(p: StarkProof) -> dict:
+    return {
+        "version": 3,
+        "n_rows": p.n_rows,
+        "public_inputs": _ints(p.public_inputs),
+        "trace_cap": _cap(p.trace_cap),
+        "aux_cap": _cap(p.aux_cap) if p.aux_cap is not None else None,
+        "quotient_cap": _cap(p.quotient_cap),
+        "ood_trace": [[_ext(v) for v in per] for per in p.ood_trace],
+        "ood_quotient": [_ext(v) for v in p.ood_quotient],
+        "fri": fri_proof_to_dict(p.fri_proof),
+        "openings": {
+            str(idx): {
+                "trace_row": _ints(trow),
+                "trace_path": [_ints(s) for s in tpath],
+                "aux_row": _ints(arow),
+                "aux_path": [_ints(s) for s in apath],
+                "quot_row": _ints(qrow),
+                "quot_path": [_ints(s) for s in qpath],
+            }
+            for idx, (trow, tpath, arow, apath, qrow, qpath) in p.openings.items()
+        },
+    }
+
+
+def stark_proof_from_dict(d: dict) -> StarkProof:
+    aux_cap = d.get("aux_cap")
+    return StarkProof(
+        n_rows=int(d["n_rows"]),
+        public_inputs=_unints(d["public_inputs"]),
+        trace_cap=_uncap(d["trace_cap"]),
+        quotient_cap=_uncap(d["quotient_cap"]),
+        ood_trace=[[_unext(v) for v in per] for per in d["ood_trace"]],
+        ood_quotient=[_unext(v) for v in d["ood_quotient"]],
+        fri_proof=fri_proof_from_dict(d["fri"]),
+        openings={
+            int(k): (
+                _unints(v["trace_row"]),
+                [_unints(s) for s in v["trace_path"]],
+                _unints(v.get("aux_row", [])),
+                [_unints(s) for s in v.get("aux_path", [])],
+                _unints(v["quot_row"]),
+                [_unints(s) for s in v["quot_path"]],
+            )
+            for k, v in d["openings"].items()
+        },
+        aux_cap=_uncap(aux_cap) if aux_cap is not None else None,
+    )
+
+
+def proof_to_json(p: StarkProof) -> str:
+    return json.dumps(stark_proof_to_dict(p))
+
+
+def proof_from_json(s: str) -> StarkProof:
+    return stark_proof_from_dict(json.loads(s))
+
+
+# ---------------------------------------------------------------------------
+# Compact packed encoding: batch and wrapped proofs
+# ---------------------------------------------------------------------------
 
 
 def _pack(xs) -> str:

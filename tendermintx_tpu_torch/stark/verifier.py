@@ -1,9 +1,10 @@
-"""STARK statement verifier (host-side, Python ints).
+"""STARK verifier (host-side, Python ints).
 
-Counterpart of ``check_statement``/``replay_statement``/``ood_identity`` in
-``tendermintx_tpu/stark/verifier.py``: it replays one statement's
-transcript exactly as the prover ran it and checks the OOD composition
-identity natively.
+Counterpart of ``tendermintx_tpu/stark/verifier.py``: ``verify`` checks a
+single-statement proof (stark/prover.py::prove); ``check_statement`` /
+``replay_statement`` / ``ood_identity`` replay one statement's transcript
+exactly as the prover ran it and check the OOD composition identity
+natively, for ``verify`` and for the batch verifier.
 """
 
 from __future__ import annotations
@@ -16,7 +17,40 @@ from ..ops.goldilocks import P
 from ..ops.merkle import cap_levels, verify_opening
 from .air import Air, Frame, HostAlgebra, HostFelt, flatten_host_constraints, public_columns_u64
 from .challenger import Challenger
-from .prover import StarkConfig
+from .fri import fri_verify
+from .prover import StarkConfig, StarkProof
+
+
+def verify(
+    air: Air,
+    proof: StarkProof,
+    config: StarkConfig = StarkConfig(),
+    transcript_seed: list[int] | None = None,
+) -> bool:
+    """False (never an exception) on any malformed or invalid proof."""
+    try:
+        return _verify_inner(air, proof, config, transcript_seed)
+    except (ValueError, AssertionError, KeyError, IndexError, TypeError, OverflowError):
+        return False
+
+
+def _verify_inner(air: Air, proof: StarkProof, config: StarkConfig, transcript_seed) -> bool:
+    challenger = Challenger()
+    if transcript_seed:
+        challenger.observe_elements(transcript_seed)
+    eval_at = check_statement(air, proof, config, challenger, config.shift)
+    if eval_at is None:
+        return False
+    n = proof.n_rows
+    return fri_verify(
+        proof.fri_proof,
+        degree_bound=n,
+        n=n << config.rate_bits,
+        challenger=challenger,
+        config=config.fri,
+        shift=config.shift,
+        layer0_check=lambda idx, val: eval_at(idx) == tuple(val),
+    )
 
 
 def check_statement(air: Air, proof, config: StarkConfig, challenger: Challenger, shift: int):

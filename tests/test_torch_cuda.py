@@ -134,3 +134,90 @@ def test_row_major_tree_on_card_matches_cpu(dev):
     assert len(card.dev_layers) == len(host.dev_layers) == 7
     for a, b in zip(card.dev_layers, host.dev_layers):
         assert torch.equal(a.v.cpu(), b.v)
+
+
+# ---------------------------------------------------------------------------
+# Witness programs and the prover service on the card
+# ---------------------------------------------------------------------------
+
+
+def _chain(tmp_path, n_validators=6, heights=5):
+    from tendermintx_tpu_torch.inputs.fetcher import InputDataFetcher, InputDataMode
+    from tendermintx_tpu_torch.inputs.testchain import TestChain
+
+    chain = TestChain(n_validators=n_validators, chain_id="cuda-chain")
+    for _ in range(heights):
+        chain.extend()
+    chain.write_fixtures(str(tmp_path))
+    return chain, InputDataFetcher(fixture_path=str(tmp_path), mode=InputDataMode.FIXTURE)
+
+
+def test_hashes_on_card_match_cpu(dev):
+    from tendermintx_tpu_torch.ops import sha256, sha512
+
+    rng = np.random.default_rng(4)
+    msgs = [rng.bytes(int(n)) for n in (0, 3, 55, 64, 119, 200)]
+    assert sha256.sha256_many(msgs, device=dev) == sha256.sha256_many(msgs, device="cpu")
+    assert sha512.sha512_many(msgs, device=dev) == sha512.sha512_many(msgs, device="cpu")
+
+
+def test_ladder_and_binding_on_card_match_cpu(dev, tmp_path):
+    from tendermintx_tpu_torch.inputs.conversion import get_validator_data_from_block, signature_lanes
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    chain, _ = _chain(tmp_path, heights=1)
+    lanes = get_validator_data_from_block(chain.val_set, chain.commits[2], chain.chain_id, 8)
+    pks, msgs, sigs = (list(x) for x in signature_lanes(lanes))
+    msgs[1] = msgs[1][:-1] + bytes([msgs[1][-1] ^ 1])  # one failing lane
+    card = ed.verify_batch_bound(pks, msgs, sigs, device=dev)
+    host = ed.verify_batch_bound(pks, msgs, sigs, device="cpu")
+    assert card.tolist() == host.tolist() and not card[1] and card[0]
+
+
+def test_skip_and_step_programs_on_card_match_cpu(dev, tmp_path):
+    from tendermintx_tpu_torch.circuits.config import TendermintConfig
+    from tendermintx_tpu_torch.circuits.skip import SkipCircuit, encode_skip_input
+    from tendermintx_tpu_torch.circuits.step import StepCircuit, encode_step_input
+
+    chain, f = _chain(tmp_path)
+    cfg = TendermintConfig(chain_id="cuda-chain")
+    skip_in = encode_skip_input(1, chain.headers[1].hash(), 5)
+    step_in = encode_step_input(2, chain.headers[2].hash())
+    for circuit, inp in ((SkipCircuit, skip_in), (StepCircuit, step_in)):
+        card = circuit(8, cfg, f, device=dev).run(inp)
+        assert card == circuit(8, cfg, f, device="cpu").run(inp)
+    bad = SkipCircuit(8, TendermintConfig(chain_id="other"), f, device=dev)
+    with pytest.raises(ValueError, match="skip verification failed"):
+        bad.run(skip_in)
+
+
+def test_service_round_trip_on_card(dev, tmp_path, monkeypatch):
+    """A step request through the HTTP service, proven on the card at a
+    100-bit config; the proof verifies on the host and equals the CPU's."""
+    from tendermintx_tpu_torch.circuits.composite import (
+        CompositeProof,
+        prove_step_composite,
+        runtime_configs,
+        verify_step_composite,
+    )
+    from tendermintx_tpu_torch.circuits.step import encode_step_input
+    from tendermintx_tpu_torch.runtime.service import ProverClient, ProverService
+
+    monkeypatch.setenv("TMX_FRI_CONFIG", "2,42,16,16")
+    chain, f = _chain(tmp_path, n_validators=4, heights=3)
+    svc = ProverService(allowed_fixture_roots=[str(tmp_path)], device=dev)
+    svc.start()
+    try:
+        client = ProverClient(svc.url)
+        rid = client.submit("step", "cuda-chain", "0x" + encode_step_input(2, chain.headers[2].hash()).hex(),
+                            max_validators=4, fixture_path=str(tmp_path))
+        out = client.wait(rid, timeout=600, poll=0.2)
+    finally:
+        svc.stop()
+    assert out["output"] == "0x" + chain.headers[3].hash().hex()
+    proof = CompositeProof.from_dict(out["proof"])
+    base, wrap, bits = runtime_configs()
+    assert verify_step_composite(proof, "cuda-chain", config=base, min_security_bits=bits) is not None
+    inputs = f.get_step_inputs(2, chain.headers[2].hash(), 4)
+    host = prove_step_composite(2, chain.headers[2].hash(), inputs, base, device="cpu")
+    assert proof.to_bytes() == host.to_bytes()

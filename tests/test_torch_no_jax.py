@@ -37,6 +37,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "tendermintx_tpu_torch.circuits.composite" in mods
     assert "tendermintx_tpu_torch.inputs.testchain" in mods
+    for m in ("runtime.cli", "runtime.service", "runtime.operator", "circuits.verify", "ops.ed25519"):
+        assert f"tendermintx_tpu_torch.{m}" in mods
     code = BLOCK + (
         "import importlib\n"
         f"for m in {mods!r}:\n"
