@@ -14,8 +14,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  the unwrapped ones and the wrapped ones. The card's prove
                  and wrap run here; the CPU prove and the CPU wrap (of the
                  card's proof bytes) run in two spawned low-priority
-                 processes beside phases 4-8, and the line is printed when
-                 both have ended, after phase 8;
+                 processes beside phases 4-9, and the line is printed when
+                 both have ended, after phase 9;
   4. kernels   - each Poseidon entry (poseidon_permute,
                  poseidon_sponge_cols, poseidon_merkle_layer) against its
                  plain torch version on the same CUDA tensors (exact
@@ -60,7 +60,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  1); an operator with prove_stark on a MockContract for
                  one tick (the head moves, the leaf STARK verifies); peak
                  memory and Poseidon launches;
-  9. profile   - only with --profile: one more warm prove under
+  9. mesh      - multi-device proving on a 4-shard lane mesh
+                 ([cuda:i % cards for i in range(4)]: all four on cuda:0 on
+                 a one-card host): the N=128 skip 2 -> 6 at
+                 DEFAULT_COMPOSITE_CONFIG with mesh= (bytes equal to the
+                 slice phase's warm proof, verified; prove and verify
+                 seconds, peak memory; the column sponge launched once per
+                 shard for each column-major tree), sharded_lane_checks over
+                 its 128 lanes (equal to single-device verify_bound,
+                 hash_validator_leaves and Python-int sums), the card's N=4
+                 parity proof wrapped with mesh= (equal to its single-device
+                 wrap), the sharded Poseidon batch at 2^20 states and the
+                 four-step NTT at 2^20 (each equal to its single-device
+                 function, both timed), and dryrun_multichip(4);
+ 10. profile   - only with --profile: one more warm prove under
                  torch.profiler (device time by kernel, Poseidon's and the
                  copies' totals, the card's busy share of the wall time)
                  and one under cProfile (the host
@@ -296,11 +309,19 @@ MAIN_PATH_TREES = (
     (136, 1 << 19), (14, 1 << 19),  # WrapAir, rate 4
     (8, 1 << 21), (10, 1 << 21), (4, 1 << 21),  # EvalAir, rate 4
 )
+# the mesh path's row blocks: each tree of the N=128 skip over 4 shards
+# (the mesh phase's MESH_SHARDS), (columns, LDE rows / 4); (2,929, 2^16)
+# is the Ed25519 trace and aux together
+MESH_PATH_TREES = (
+    (2929, 1 << 16), (2031, 1 << 16), (898, 1 << 16), (8, 1 << 16),
+    (170, 1 << 17), (6, 1 << 17), (340, 1 << 16), (6, 1 << 16),
+)
 
 
 def _kernel_sponge(ps, rng, dev, clock_mhz: float) -> dict:
-    """The column sponge == plain on its whole output at SPONGE_TIMED and
-    every tree of the main paths (MAIN_PATH_TREES), and at the ragged and
+    """The column sponge == plain on its whole output at SPONGE_TIMED,
+    every tree of the main paths (MAIN_PATH_TREES) and every row block of
+    the mesh path (MESH_PATH_TREES), and at the ragged and
     exact small widths on 1,024 leaves, where 8 leaves of each == hash_ints
     of the zero-padded row. Kernel and plain are timed at SPONGE_TIMED: the
     plain version once, in its check."""
@@ -316,7 +337,7 @@ def _kernel_sponge(ps, rng, dev, clock_mhz: float) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     timed = None
-    for L, n in (SPONGE_TIMED, *MAIN_PATH_TREES):
+    for L, n in (SPONGE_TIMED, *MAIN_PATH_TREES, *MESH_PATH_TREES):
         cols = _random_cols((L, n), gen, dev)
         want, plain_ms = _timed_once(lambda: ps.hash_no_pad_cols_plain(cols))
         _check_equal(ps.sponge_cols_cuda(cols), want, f"poseidon_sponge_cols at ({L}, {n})")
@@ -336,6 +357,7 @@ def _kernel_sponge(ps, rng, dev, clock_mhz: float) -> dict:
         "replaces_program": "tendermintx_tpu/ops/poseidon.py:394 (hash_no_pad_cols)",
         "checked_widths": list(widths),
         "checked_trees": [list(t) for t in MAIN_PATH_TREES],
+        "checked_mesh_blocks": [list(t) for t in MESH_PATH_TREES],
         "max_abs_err": 0.0,
         **timed,
         "library_ms": None,
@@ -1043,6 +1065,161 @@ def phase_runtime(
     return out, launches
 
 
+# shards of the mesh phase: on a one-card host all four live on cuda:0
+MESH_SHARDS = 4
+
+
+def _mesh_devices() -> list:
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(MESH_SHARDS)]
+
+
+def _timed_pair(sharded, single) -> tuple[dict, object, object]:
+    """Both functions' results and ms (CUDA events, after a warm-up)."""
+    got, want = sharded(), single()
+    return {"ms": _time_ms(sharded, 3), "single_ms": _time_ms(single, 3)}, got, want
+
+
+def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
+    """The port's multi-device proving on a MESH_SHARDS-shard lane mesh:
+    the N=128 skip 2 -> 6 proven with mesh= (bytes equal to the slice
+    phase's warm proof, verified), the sharded lane checks over its 128
+    lanes (equal to single-device verify_bound, hash_validator_leaves and
+    exact Python-int sums), the card's N=4 parity proof wrapped with mesh=
+    (bytes equal to its single-device wrap), the sharded Poseidon batch at
+    2^20 states and the four-step NTT at 2^20 (each equal to its
+    single-device function), and dryrun_multichip. The N=128 prove must
+    launch the column sponge once per shard for each column-major tree;
+    its launch counts, read right after it, are the mesh path's."""
+    from tendermintx_tpu_torch import graft_entry
+    from tendermintx_tpu_torch.circuits import gadgets as g
+    from tendermintx_tpu_torch.circuits.composite import (
+        DEFAULT_COMPOSITE_CONFIG,
+        CompositeProof,
+        prove_skip_composite,
+        verify_skip_composite,
+        wrap_composite,
+    )
+    from tendermintx_tpu_torch.circuits.variables import pack_validator_lanes
+    from tendermintx_tpu_torch.ops import ed25519, ntt as nttmod, poseidon as ps
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+    from tendermintx_tpu_torch.parallel import prover as shp
+    from tendermintx_tpu_torch.parallel.sharding import (
+        make_lane_mesh,
+        sharded_lane_checks,
+        sharded_poseidon_throughput,
+    )
+
+    devices = _mesh_devices()
+    mesh = make_lane_mesh(MESH_SHARDS, devices)
+    dev = mesh.first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    out = {"phase": "mesh", "n_validators": sc.n, "shards": MESH_SHARDS,
+           "devices": [str(d) for d in devices], "cards": torch.cuda.device_count()}
+
+    # 1. N=128 skip 2 -> 6 with mesh=, at full width; the path's launch
+    #    counts are this prove's alone
+    trusted, target, inputs = sc.skip(2, 6)
+    with _PhaseLog() as phases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = prove_skip_composite(2, trusted, 6, inputs, DEFAULT_COMPOSITE_CONFIG, mesh=mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    launches = _launch_counts()
+    _check_launched(launches, "mesh")
+    prove_peak = torch.cuda.max_memory_allocated()
+    sponges = launches["poseidon_sponge_cols"]
+    blob = proof.to_bytes()
+    if blob != warm_proof.to_bytes():
+        raise AssertionError("the N=128 mesh proof differs from the slice phase's warm proof")
+    t2 = time.perf_counter()
+    result = verify_skip_composite(CompositeProof.from_bytes(blob), CHAIN_ID, SKIP_MAX)
+    t3 = time.perf_counter()
+    if result != (2, trusted, 6, target):
+        raise AssertionError(f"the N=128 mesh proof failed to verify: {result!r}")
+    trees = sum(2 + (st.aux_cap is not None) for st in proof.batch.statements)
+    if sponges != MESH_SHARDS * trees:
+        raise AssertionError(
+            f"the mesh prove commits {trees} column-major trees over {MESH_SHARDS} shards "
+            f"with {sponges} sponge launches"
+        )
+    out["skip"] = {
+        "skip": [2, 6], "prove_seconds": t1 - t0, "verify_seconds": t3 - t2,
+        "seconds": (t1 - t0) + (t3 - t2), "proof_bytes": len(blob), "identical_to_slice": True,
+        "sponge_launches": sponges, "column_trees": trees, "max_memory_allocated": prove_peak,
+        "phases": phases.lines,
+    }
+    del proof
+
+    # 2. the sharded lane checks over the N=128 skip's 128 lanes
+    lanes = inputs.target_block_validators
+    lv = pack_validator_lanes(lanes).to(dev)
+    args = (lv.table_x, lv.table_y, lv.table_t, lv.bits2, lv.rx, lv.ry, lv.sig_r, lv.sig_s,
+            lv.sig_pubkeys, lv.messages, lv.msg_len, lv.k_q, lv.leaf_bytes, lv.leaf_len,
+            lv.vp_lo, lv.vp_hi, lv.signed, lv.enabled)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sig_ok, digests, signed, total = sharded_lane_checks(mesh)(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    flags = ed25519.verify_bound(*args[:12])
+    power = lambda pair: int(pair[0]) | (int(pair[1]) << 32)
+    want_total = sum(l.voting_power for l in lanes if l.enabled)
+    want_signed = sum(l.voting_power for l in lanes if l.enabled and l.signed)
+    if not (bool(sig_ok) and bool(flags.all())):
+        raise AssertionError("the N=128 lane signatures do not all verify")
+    if not torch.equal(digests, g.hash_validator_leaves(lv.leaf_bytes, lv.leaf_len)):
+        raise AssertionError("the sharded leaf digests differ from hash_validator_leaves")
+    if (power(total), power(signed)) != (want_total, want_signed):
+        raise AssertionError(f"sharded voting sums {power(total)}, {power(signed)} != {want_total}, {want_signed}")
+    out["lane_checks"] = {"lanes": len(lanes), "seconds": t1 - t0, "identical": True,
+                          "total_power": want_total, "signed_power": want_signed}
+
+    # 3. the card's N=4 parity proof wrapped with mesh= at the parity's wrap config
+    cfg, wrap_cfg = _parity_configs()
+    n4_blob, n4_wrapped = parity["cuda"]
+    t0 = time.perf_counter()
+    wrapped = wrap_composite(CompositeProof.from_bytes(n4_blob), cfg, wrap_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if wrapped.to_bytes() != n4_wrapped:
+        raise AssertionError("the N=4 mesh wrap differs from the card's single-device wrap")
+    out["n4_wrap"] = {"seconds": t1 - t0, "identical": True, "wrapped_proof_bytes": len(n4_wrapped)}
+
+    # 4. sharded Poseidon batch and the four-step NTT at 2^20, each against
+    #    its single-device function
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    states = _random_cols((1 << 20, ps.WIDTH), gen, dev)
+    pos = sharded_poseidon_throughput(mesh)
+    times, got, want = _timed_pair(lambda: pos(GF(states)).v, lambda: ps.permute_tensor(states))
+    _check_equal(got, want, "sharded Poseidon batch")
+    out["poseidon"] = {"states": 1 << 20, "identical": True, **times}
+    log_n = 20
+    coeffs = _random_cols((1, 1 << log_n), gen, dev)[0]
+    ntt_fn = shp.sharded_ntt_fn(mesh, log_n)
+
+    def sharded_ntt():
+        return mesh.gather([b.v for b in ntt_fn([GF(b) for b in mesh.split(coeffs)])])
+
+    times, got, want = _timed_pair(sharded_ntt, lambda: nttmod.ntt(GF(coeffs)).v)
+    _check_equal(got, want, "four-step NTT")
+    out["ntt"] = {"log_n": log_n, "identical": True, **times}
+    del states, coeffs, got, want
+
+    # 5. the dry run
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(MESH_SHARDS, devices)
+    out["dryrun_seconds"] = time.perf_counter() - t0
+
+    out["launches"] = launches
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    emit(out)
+    return out, launches
+
+
 def _time_fri_tables(n: int, config) -> float:
     """Seconds to build, cache cold, the host FRI fold tables of one batch
     FRI over an n-point domain (first use of stark/fri.py::_inv_x_table)."""
@@ -1183,6 +1360,7 @@ def main(argv: list[str]) -> int:
             profile = "--profile" in argv
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
             _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile)
+            _, mesh_launches = phase_mesh(n128, warm_proof, parity)
             phase_parity(parity)  # before the profile, which the CPU jobs would disturb
             if profile:
                 phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
@@ -1196,7 +1374,7 @@ def main(argv: list[str]) -> int:
          "launches": cold_launches[name] + warm_launches[name],
          "launches_by_path": {"skip_cold": cold_launches[name], "skip_warm": warm_launches[name],
                               "step": step_launches[name], "wrap": wrap_launches[name],
-                              "runtime": runtime_launches[name]}}
+                              "runtime": runtime_launches[name], "mesh": mesh_launches[name]}}
         for name, row in rows.items()
     ]
     emit({"kernels": kernels})

@@ -2,15 +2,16 @@
 
 Counterpart of ``tendermintx_tpu/circuits/composite.py``:
 ``prove_skip_composite`` / ``prove_step_composite`` (..., device=...) run
-the three statements' device work on one torch device,
-``wrap_composite(..., device=...)`` recursion-wraps a proof into its
-near-constant-size deliverable (stark/recursion.py), and the
-``verify_*_composite`` functions are host logic for both forms. The wire
-format (``to_dict``/``to_bytes``) is the reference's v5, wrapped or not,
-so either package reads the other's proofs. ``runtime_configs`` gives the
-runtime layer (CLI, service, operator) its settings from the environment,
-and refuses a security floor below ``MIN_SECURITY_BITS``. Not ported yet:
-the device mesh.
+the three statements' device work on one torch device, or with
+``mesh=`` (a parallel/sharding.LaneMesh) sharded over the mesh's devices,
+with the same proof bytes; ``wrap_composite(..., device= or mesh=)``
+recursion-wraps a proof into its near-constant-size deliverable
+(stark/recursion.py), and the ``verify_*_composite`` functions are host
+logic for both forms. The wire format (``to_dict``/``to_bytes``) is the
+reference's v5, wrapped or not, so either package reads the other's
+proofs. ``runtime_configs`` gives the runtime layer (CLI, service,
+operator) its settings from the environment, and refuses a security
+floor below ``MIN_SECURITY_BITS``.
 
 The upstream TendermintX deliverable is a single SNARK whose public inputs
 are the abi.encodePacked circuit IO, consumed by the TendermintX contract
@@ -59,6 +60,7 @@ from ..inputs.conversion import (
     DUMMY_PUBLIC_KEY,
     DUMMY_SIGNATURE,
 )
+from ..parallel.sharding import mesh_device
 from ..stark.batch import BatchStarkProof, prove_batch, verify_batch
 from ..stark.ed25519_air import (
     PUB_PER_SIG,
@@ -732,12 +734,18 @@ def prove_skip_composite(
     inputs,
     config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
     *,
-    device,
+    device=None,
+    mesh=None,
 ) -> CompositeProof:
     """inputs: ``inputs.fetcher.SkipInputs`` for (trusted_block, target_block).
     device: the torch device every statement's LDE/commit/quotient/DEEP
-    and the shared FRI run on; required, so that no caller proves on the
-    CPU without saying so."""
+    and the shared FRI run on; required without a mesh, so that no caller
+    proves on the CPU without saying so. mesh: optional LaneMesh: every
+    statement's LDE, leaf hashing, quotient and DEEP and the batch FRI's
+    large folds are sharded over it, the rest runs on its first device
+    (`device`, if given, must be that device); the proof bytes are those
+    of the single-device path."""
+    device = mesh_device(device, mesh)
     abi_in = encode_skip_input(trusted_block, trusted_header, target_block)
     abi_out = inputs.target_header
     air_h, trace_h, pub_h, nb, nbt = skip_hash_statement(inputs, device=device)
@@ -752,6 +760,7 @@ def prove_skip_composite(
         [pub_h, pub_e, pub_c],
         config,
         transcript_seed=seed,
+        mesh=mesh,
     )
     return CompositeProof(
         kind="skip",
@@ -775,11 +784,13 @@ def prove_step_composite(
     inputs,
     config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
     *,
-    device,
+    device=None,
+    mesh=None,
 ) -> CompositeProof:
     """inputs: ``inputs.fetcher.StepInputs`` for prev_block -> prev_block + 1.
-    device: the torch device the statements' work runs on (required, as
-    for prove_skip_composite)."""
+    device / mesh: where the statements' work runs, as for
+    prove_skip_composite."""
+    device = mesh_device(device, mesh)
     abi_in = encode_step_input(prev_block, prev_header)
     abi_out = inputs.next_header
     air_h, trace_h, pub_h, nb = step_hash_statement(inputs, device=device)
@@ -794,6 +805,7 @@ def prove_step_composite(
         [pub_h, pub_e, pub_c],
         config,
         transcript_seed=seed,
+        mesh=mesh,
     )
     return CompositeProof(
         kind="step",
@@ -824,13 +836,16 @@ def wrap_composite(
     config: StarkConfig = DEFAULT_COMPOSITE_CONFIG,
     wrap_config: StarkConfig | None = None,
     *,
-    device,
+    device=None,
+    mesh=None,
 ) -> CompositeProof:
     """Recursion-wrap a composite on `device`: replace the batch's openings
     and FRI query rounds with ONE wrap batch (stark/recursion.py), making
     the serialized proof's size independent of the validator count. The
     result verifies through the same verify_skip/step_composite entry
-    points (the wrapped branch).
+    points (the wrapped branch). With `mesh` the wrap batch is proven
+    sharded over the mesh, as prove_skip_composite does, to the same
+    bytes.
 
     Raises ValueError when `proof` does not verify: wrapping re-checks
     every opening against the caps while building the wrapper witness."""
@@ -839,7 +854,7 @@ def wrap_composite(
     wrapped = wrap_batch(
         _composite_airs(proof), proof.batch, config,
         transcript_seed=_seed_felts(proof.abi_inputs, proof.abi_output),
-        wrap_config=wrap_config, device=device,
+        wrap_config=wrap_config, device=device, mesh=mesh,
     )
     return CompositeProof(
         kind=proof.kind,

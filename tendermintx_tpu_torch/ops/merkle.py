@@ -72,14 +72,16 @@ class MerkleTree:
         return cls._from_leaves(ps.hash_no_pad(pad_row_width(rows)), n)
 
     @classmethod
-    def build_cols(cls, cols: GF) -> "MerkleTree":
-        """Column-major build: cols (width, n_leaves). Digest-identical to
-        build(cols.T) without the row-major copy; the sponge zero-fills a
-        ragged last chunk itself, so the columns are not padded either."""
-        n = int(cols.shape[1])
+    def from_leaves(cls, leaves: GF) -> "MerkleTree":
+        """A tree over already hashed (n_leaves, 4) leaf digests;
+        n_leaves a power of two. The prover's LDE trees hash their leaves
+        straight from column-major row blocks (``poseidon.hash_no_pad_cols``,
+        digest-identical to ``build`` of the transposed rows without the
+        row-major copy; the sponge zero-fills a ragged last chunk itself)."""
+        n = int(leaves.shape[0])
         if n & (n - 1):
             raise ValueError("n_leaves must be a power of two")
-        return cls._from_leaves(ps.hash_no_pad_cols(cols), n)
+        return cls._from_leaves(leaves, n)
 
     @classmethod
     def _from_leaves(cls, leaves: GF, n: int) -> "MerkleTree":

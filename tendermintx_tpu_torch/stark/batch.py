@@ -51,9 +51,15 @@ def prove_batch(
     publics_list: list[list[int]],
     config: StarkConfig = StarkConfig(),
     transcript_seed: list[int] | None = None,
+    *,
+    mesh=None,
 ) -> BatchStarkProof:
     """Prove all statements with a shared transcript and one batch FRI.
-    The traces' device is where the work runs."""
+    The traces' device is where the work runs, or with `mesh` (a
+    parallel.sharding.LaneMesh) every statement's LDE/leaf
+    hashing/quotient/DEEP and the batch FRI's large folds are sharded over
+    the mesh and the rest runs on its first device; the proof bytes are
+    the same."""
     if not airs or not len(airs) == len(traces) == len(publics_list):
         raise ValueError("need one trace and one publics list per AIR")
     challenger = Challenger()
@@ -66,12 +72,12 @@ def prove_batch(
     codewords = []
     for air, trace, publics, N_i in zip(airs, traces, publics_list, sizes):
         shift_i = pow(config.shift, n_max // N_i, P)
-        ctx, F = _prove_statement(air, trace, publics, config, challenger, shift=shift_i)
+        ctx, F = _prove_statement(air, trace, publics, config, challenger, shift=shift_i, mesh=mesh)
         ctxs.append(ctx)
         codewords.append(F)
 
     t0 = time.perf_counter()
-    fri_proof = fri_prove_batch(codewords, challenger, config.fri, config.shift)
+    fri_proof = fri_prove_batch(codewords, challenger, config.fri, config.shift, mesh=mesh)
     log.info("batch-fri[%d statements] %.2fs", len(codewords), time.perf_counter() - t0)
     del codewords
 

@@ -8,10 +8,13 @@ arity 2:
 
 with x_{i + N/2} = -x_i on the coset shift*<w_N>, so a fold pairs positions
 (i, i + N/2). The transcript runs on the host challenger: caps are fetched
-as they are committed (a local card answers in microseconds, so the
-reference's device-resident transcript is left for later). ``fri_prove``
-/ ``fri_verify`` take one codeword (a single-statement STARK),
-``fri_prove_batch`` / ``fri_verify_batch`` several (the composite batch).
+as they are committed (a local card answers in microseconds; the
+device-resident transcript, stark/challenger.DeviceChallenger, measured no
+end-to-end gain in the commit loops). With ``mesh=`` the folds of the large
+layers are row-sharded over a lane mesh (parallel/prover.py).
+``fri_prove`` / ``fri_verify`` take one codeword (a single-statement
+STARK), ``fri_prove_batch`` / ``fri_verify_batch`` several (the composite
+batch).
 """
 
 from __future__ import annotations
@@ -99,6 +102,31 @@ def _fold_layer(evals: GF2, beta: GF2, invx: GF) -> GF2:
     return s_half + beta * d_scaled
 
 
+def _sharded_fold(mesh):
+    """fold(cur, beta, invx) over the mesh's row shards, the result back
+    on the first device, for an even mesh (None otherwise): the
+    reference shards only the fold, and only of layers of at least 4D
+    values; commitments and small layers stay on one device."""
+    if mesh is None or mesh.size < 2 or mesh.size % 2:
+        return None
+    from ..parallel.prover import sharded_fold_fn
+
+    fold = sharded_fold_fn(mesh)
+
+    def run(cur: GF2, beta: GF2, invx: GF) -> GF2:
+        blocks = [GF2(GF(a), GF(b)) for a, b in zip(mesh.split(cur.c0.v), mesh.split(cur.c1.v))]
+        out = fold(blocks, invx, beta)
+        return GF2(GF(mesh.gather([o.c0.v for o in out])), GF(mesh.gather([o.c1.v for o in out])))
+
+    return run
+
+
+def _fold(cur: GF2, cur_n: int, beta: GF2, invx: GF, fold_sh, mesh) -> GF2:
+    if fold_sh is not None and cur_n >= 4 * mesh.size:
+        return fold_sh(cur, beta, invx)
+    return _fold_layer(cur, beta, invx)
+
+
 def _commit_layer(evals: GF2) -> MerkleTree:
     rows = GF.stack([evals.c0, evals.c1], axis=-1)  # (N, 2)
     return MerkleTree.build(rows)
@@ -141,15 +169,20 @@ def fri_prove_batch(
     challenger: Challenger,
     config: FriConfig,
     shift: int = MULTIPLICATIVE_GENERATOR,
+    *,
+    mesh=None,
 ) -> FriProof:
     """One FRI proof for several DEEP codewords of power-of-two sizes.
     Codeword i of size N_i lives on shift^(N_max/N_i) * <w_{N_i}>, the
     domain the running fold reaches after log2(N_max/N_i) halvings, where
-    it is mixed in with a fresh transcript challenge lambda_i."""
+    it is mixed in with a fresh transcript challenge lambda_i. mesh:
+    optional LaneMesh (even size) for the row-sharded folds of the large
+    layers; the codewords are on its first device."""
     sizes = [int(F.shape[0]) for F in codewords]
     if any(s & (s - 1) for s in sizes):
         raise ValueError("codeword sizes must be powers of two")
     device = codewords[0].device
+    fold_sh = _sharded_fold(mesh)
     order = batch_entry_order(sizes)
     n = sizes[order[0]]
     stop = config.final_poly_len << config.rate_bits
@@ -178,7 +211,7 @@ def fri_prove_batch(
         challenger.observe_cap(cap)
         beta = ext_scalar(challenger.sample_ext(), device)
         invx = GF(tensor_from_u64(_inv_x_table(cur_n.bit_length() - 1, cur_shift), device))
-        cur = _fold_layer(cur, beta, invx)
+        cur = _fold(cur, cur_n, beta, invx, fold_sh, mesh)
         cur_shift = cur_shift * cur_shift % P
         cur_n //= 2
 
@@ -230,10 +263,15 @@ def fri_prove(
     challenger: Challenger,
     config: FriConfig,
     shift: int = MULTIPLICATIVE_GENERATOR,
+    *,
+    mesh=None,
 ) -> FriProof:
     """Prove that `evals` (on coset shift*<w_N>, natural order) is the LDE
     of a polynomial of degree < N / 2^rate_bits. Folds on the device of
-    `evals`; the transcript is the host challenger."""
+    `evals`; the transcript is the host challenger. mesh: optional
+    LaneMesh (even size) whose row shards fold the layers of at least 4D
+    values; `evals` is on its first device. The proof is the same."""
+    fold_sh = _sharded_fold(mesh)
     n = int(evals.shape[0])
     if n & (n - 1):
         raise ValueError("codeword size must be a power of two")
@@ -250,7 +288,7 @@ def fri_prove(
         challenger.observe_cap(cap)
         beta = ext_scalar(challenger.sample_ext(), cur.device)
         invx = GF(tensor_from_u64(_inv_x_table(cur_n.bit_length() - 1, cur_shift), cur.device))
-        cur = _fold_layer(cur, beta, invx)
+        cur = _fold(cur, cur_n, beta, invx, fold_sh, mesh)
         cur_shift = cur_shift * cur_shift % P
         cur_n //= 2
         layers.append(cur)

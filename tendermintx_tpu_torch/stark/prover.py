@@ -11,8 +11,13 @@ Counterpart of ``tendermintx_tpu/stark/prover.py`` (the DEEP-ALI pipeline):
      low-degree by FRI: ``prove`` runs one statement with its own FRI,
      ``stark/batch.py`` several statements with one batch FRI.
 
-Device work runs eagerly on the trace's torch device; the transcript runs
-on the host challenger.
+Device work runs eagerly; the transcript runs on the host challenger. The
+statement phases are the sharded functions of parallel/prover.py: the LDEs
+column-sharded, the leaf hashing, quotient and DEEP row-sharded. With
+``mesh=`` (a parallel/sharding.LaneMesh) they run over its shards and the
+large FRI folds are row-sharded too; without one, over a one-device mesh
+of the trace's device, where every collective is the identity. The proof
+bytes do not depend on the mesh.
 """
 
 from __future__ import annotations
@@ -232,43 +237,6 @@ def _quotient_blocks(n_offsets: int, n_total: int, N: int) -> int:
     return n_blocks
 
 
-def quotient_evals(
-    air: Air, trace_lde: GF, aux_lde: GF | None, alpha_pows: GF2, pub: GF,
-    periodic, public_cols, zinvs, chal: GF, rate_bits: int,
-) -> GF2:
-    """Q evaluations over the LDE domain, row block by row block (exact:
-    the constraints are pointwise in the domain)."""
-    N = int(trace_lde.shape[1])
-    blowup = 1 << rate_bits
-    offsets = list(air.frame_offsets)
-    n_total = air.n_cols + air.n_aux_cols
-    n_blocks = _quotient_blocks(len(offsets), n_total, N)
-    B = N // n_blocks
-    dev = trace_lde.device
-    parts = []
-    for bi in range(n_blocks):
-        start = bi * B
-        base = torch.arange(start, start + B, device=dev)
-        idxs = [(base + k * blowup) % N for k in offsets]
-        frame = [trace_lde.v.index_select(1, i) for i in idxs]
-        if aux_lde is not None:
-            frame = [torch.cat([f, aux_lde.v.index_select(1, i)]) for f, i in zip(frame, idxs)]
-        stacked = GF(torch.stack(frame))
-        del frame
-        sl = slice(start, start + B)
-        parts.append(
-            _eval_quotient_core(
-                air, stacked, alpha_pows, pub,
-                tuple(p[sl] for p in periodic),
-                tuple(p[sl] for p in public_cols),
-                tuple(z[sl] for z in zinvs),
-                chal, B,
-            )
-        )
-        del stacked
-    return GF2.concatenate(parts, axis=0)
-
-
 def _eval_quotient_core(
     air, stacked: GF, alpha_pows: GF2, pub: GF, periodic, public_cols, zinvs, chal: GF, N: int
 ) -> GF2:
@@ -401,7 +369,7 @@ def deep_inverses(log_N: int, shift: int, zks: list[tuple[int, int]], device) ->
 @dataclass
 class _StmtCtx:
     """What a committed statement needs after FRI query sampling: the
-    trees and the column-major device matrices to gather openings from."""
+    trees and the LDE row blocks to gather openings from."""
 
     air: Air
     n: int
@@ -416,9 +384,11 @@ class _StmtCtx:
     ood_trace: list
     ood_quotient: list
     public_inputs: list[int]
-    trace_cols: GF
-    aux_cols: GF | None
-    quot_cols: GF
+    # the LDEs as contiguous (columns, N/D) row blocks, block i on mesh
+    # device i (one block without a mesh)
+    trace_rows: list
+    aux_rows: list | None
+    quot_rows: list
     phases: list
 
 
@@ -429,20 +399,32 @@ def _prove_statement(
     config: StarkConfig,
     challenger: Challenger,
     shift: int | None = None,
+    *,
+    mesh=None,
 ):
     """Steps 1-5 for ONE statement against a caller-owned transcript:
     observe publics, commit trace/aux/quotient, OOD, DEEP. Returns
     (_StmtCtx, F) with F the DEEP codeword over this statement's LDE
-    domain; batch.prove_batch folds every statement's F into one FRI."""
+    domain; batch.prove_batch folds every statement's F into one FRI.
+    mesh: optional LaneMesh; the statement's work is sharded over it,
+    what is not sharded runs on its first device (where F is returned).
+    Without one the same functions run on a one-device mesh of the
+    trace's device, where every collective is the identity."""
     n_cols, n = int(trace_cols.shape[0]), int(trace_cols.shape[1])
     log_n = n.bit_length() - 1
     if 1 << log_n != n:
         raise ValueError("trace length must be a power of two")
     rate_bits = config.rate_bits
     N = n << rate_bits
-    dev = trace_cols.device
     if shift is None:
         shift = config.shift
+    if mesh is None:
+        from ..parallel.sharding import LaneMesh
+
+        mesh = LaneMesh([trace_cols.device])
+    sh = _MeshFns(mesh, air, log_n, rate_bits, shift)
+    trace_cols = GF(trace_cols.v.to(mesh.first))
+    dev = trace_cols.device
 
     phases: list[tuple[str, float]] = []
     t0 = [time.perf_counter()]
@@ -455,9 +437,10 @@ def _prove_statement(
 
     challenger.observe_elements(public_inputs)
 
-    # 1. Trace LDE + commit (leaves hashed straight from the column-major LDE)
-    trace_coeffs, t_lde = trace_lde(trace_cols, rate_bits, shift)
-    trace_tree = MerkleTree.build_cols(t_lde)
+    # 1. Trace LDE + commit: column-sharded LDE, resharded to row blocks
+    #    whose leaves are hashed straight from their column-major layout
+    trace_coeffs, t_rows = sh.lde_rows(trace_cols)
+    trace_tree = MerkleTree.from_leaves(sh.leaves(t_rows))
     trace_cap = trace_tree.cap(config.cap_bits)
     challenger.observe_cap(trace_cap)
     challenges = [challenger.sample_ext() for _ in range(air.n_challenges)]
@@ -465,16 +448,16 @@ def _prove_statement(
 
     # 1b. Phase-2 (auxiliary) commitment
     n_aux = air.n_aux_cols
-    aux_tree = aux_cap = a_lde = None
+    aux_tree = aux_cap = a_rows = None
     all_coeffs = trace_coeffs
     if n_aux:
         gammas = [_ext_list_to_gf2([c], dev) for c in challenges]
         aux_cols = air.aux_columns(trace_cols, gammas, list(public_inputs))
         if tuple(aux_cols.shape) != (n_aux, n):
             raise ValueError(f"aux columns have shape {aux_cols.shape}")
-        aux_coeffs, a_lde = trace_lde(aux_cols, rate_bits, shift)
+        aux_coeffs, a_rows = sh.lde_rows(aux_cols)
         del aux_cols
-        aux_tree = MerkleTree.build_cols(a_lde)
+        aux_tree = MerkleTree.from_leaves(sh.leaves(a_rows))
         aux_cap = aux_tree.cap(config.cap_bits)
         challenger.observe_cap(aux_cap)
         all_coeffs = GF.concatenate([trace_coeffs, aux_coeffs], axis=0)
@@ -507,10 +490,11 @@ def _prove_statement(
     zinvs = tuple(GF(tensor_from_u64(z, dev)) for z in (fz, tz, cz, lz))
     chal_gf = GF.from_ints(np.array([c for ch in challenges for c in ch], dtype=object), dev) \
         if challenges else GF.zeros((0,), dev)
-    q_evals = quotient_evals(
-        air, t_lde, a_lde, alpha_pows, pub_gf, periodic, public_cols, zinvs,
-        chal_gf, rate_bits,
+    q_blocks = sh.quotient(t_rows, a_rows, alpha_pows, pub_gf, periodic, public_cols, zinvs, chal_gf)
+    q_evals = GF2(
+        GF(mesh.gather([q.c0.v for q in q_blocks])), GF(mesh.gather([q.c1.v for q in q_blocks]))
     )
+    del q_blocks
     del periodic, public_cols, zinvs
 
     # 3. Quotient -> coefficients -> degree-<n chunks -> LDE -> commit
@@ -524,7 +508,9 @@ def _prove_statement(
         torch.stack([qc.v[:, j * n : (j + 1) * n] for j in range(n_chunks)]).reshape(2 * n_chunks, n)
     )
     chunk_lde_all = nttmod.coset_lde(chunk_stack, rate_bits, shift)
-    quot_tree = MerkleTree.build_cols(chunk_lde_all)
+    q_rows = [GF(b.contiguous()) for b in mesh.split(chunk_lde_all.v, 1)]
+    del chunk_lde_all
+    quot_tree = MerkleTree.from_leaves(sh.leaves(q_rows))
     quot_cap = quot_tree.cap(config.cap_bits)
     challenger.observe_cap(quot_cap)
     z = challenger.sample_ext()
@@ -568,11 +554,12 @@ def _prove_statement(
         g0_list.append(G0)
     betas_t_gf2 = GF2.stack([_ext_list_to_gf2(r, dev) for r in betas_t], axis=0)
     invs = deep_inverses(log_n + rate_bits, shift, zk_list, dev)
-    chunks_gf2 = GF2(chunk_lde_all[0::2], chunk_lde_all[1::2])  # (n_chunks, N)
-    F = deep_composition(
-        t_lde, a_lde, chunks_gf2, betas_t_gf2, _ext_list_to_gf2(betas_q, dev),
-        _ext_list_to_gf2(g0_list, dev), invs,
+    F_blocks = sh.deep(
+        t_rows, a_rows, [GF2(q[0::2], q[1::2]) for q in q_rows], betas_t_gf2,
+        _ext_list_to_gf2(betas_q, dev), _ext_list_to_gf2(g0_list, dev), invs,
     )
+    F = GF2(GF(mesh.gather([f.c0.v for f in F_blocks])), GF(mesh.gather([f.c1.v for f in F_blocks])))
+    del F_blocks, invs
     mark("deep")
 
     ctx = _StmtCtx(
@@ -582,31 +569,59 @@ def _prove_statement(
         cap_bits=config.cap_bits,
         ood_trace=ood_trace, ood_quotient=ood_quot,
         public_inputs=list(public_inputs),
-        trace_cols=t_lde, aux_cols=a_lde, quot_cols=chunk_lde_all,
+        trace_rows=t_rows, aux_rows=a_rows, quot_rows=q_rows,
         phases=phases,
     )
     return ctx, F
 
 
+class _MeshFns:
+    """The sharded phase functions of one (AIR shape, mesh) pair; the
+    single-device path's mesh has one device."""
+
+    def __init__(self, mesh, air, log_n: int, rate_bits: int, shift: int):
+        from ..parallel import prover as shp
+
+        self.mesh = mesh
+        self._lde = shp.sharded_trace_lde(mesh, rate_bits, shift)
+        self.leaves = shp.sharded_leaf_hashes(mesh)
+        self.quotient = shp.sharded_quotient_fn(mesh, air, log_n, rate_bits)
+        self.deep = shp.sharded_deep_fn(mesh, air, log_n, rate_bits)
+
+    def lde_rows(self, cols: GF) -> tuple[GF, list]:
+        """(coefficients on the first device, contiguous LDE row blocks);
+        the column shards are freed once resharded."""
+        from ..parallel.prover import columns_to_rows
+
+        coeffs, col_blocks = self._lde(cols)
+        return coeffs, columns_to_rows(self.mesh, col_blocks, int(cols.shape[0]))
+
+
 def _statement_openings(ctx: _StmtCtx, indices) -> dict:
     """Openings at the given leaf indices: gather only the queried rows of
-    the column-major matrices and their sibling paths."""
+    the LDE row blocks and their sibling paths."""
     qs = sorted(set(int(q) for q in indices))
-    dev = ctx.trace_cols.device
-    qarr = torch.tensor(qs, device=dev)
 
-    def rows_at(cols: GF):
-        return to_int_array(cols.v.index_select(1, qarr).t())
+    def rows_at(blocks: list):
+        # leaf q is column q % Nb of row block q // Nb
+        nb = int(blocks[0].shape[1])
+        out = np.empty((len(qs), int(blocks[0].shape[0])), dtype=object)
+        for d, b in enumerate(blocks):
+            ks = [k for k, q in enumerate(qs) if q // nb == d]
+            if ks:
+                sel = torch.tensor([qs[k] % nb for k in ks], device=b.device)
+                out[ks] = to_int_array(b.v.index_select(1, sel).t())
+        return out
 
     def paths(tree: MerkleTree):
         g, uniq, n_inner = tree.sibling_gather(qs, ctx.cap_bits)
         return MerkleTree.decode_paths(to_int_array(g.v), uniq, n_inner)
 
-    trace_sel, trace_paths = rows_at(ctx.trace_cols), paths(ctx.trace_tree)
-    quot_sel, quot_paths = rows_at(ctx.quot_cols), paths(ctx.quot_tree)
+    trace_sel, trace_paths = rows_at(ctx.trace_rows), paths(ctx.trace_tree)
+    quot_sel, quot_paths = rows_at(ctx.quot_rows), paths(ctx.quot_tree)
     n_aux = ctx.air.n_aux_cols
     if n_aux:
-        aux_sel, aux_paths = rows_at(ctx.aux_cols), paths(ctx.aux_tree)
+        aux_sel, aux_paths = rows_at(ctx.aux_rows), paths(ctx.aux_tree)
     openings = {}
     for k_q, q in enumerate(qs):
         openings[q] = (
@@ -626,17 +641,23 @@ def prove(
     public_inputs: list[int],
     config: StarkConfig = StarkConfig(),
     transcript_seed: list[int] | None = None,
+    *,
+    mesh=None,
 ) -> StarkProof:
     """One statement, its own FRI. trace_cols: (n_cols, n_rows) GF on the
     device the proof runs on (row i = step i); n_rows a power of two >= 4.
     transcript_seed: field elements absorbed before the public inputs (the
-    verifier must supply the same seed)."""
+    verifier must supply the same seed). mesh: optional
+    parallel.sharding.LaneMesh: the LDEs, leaf hashing, quotient, DEEP and
+    large FRI folds are sharded over it and the rest runs on its first
+    device (the trace is moved there); the proof bytes are those of a
+    proof without it."""
     challenger = Challenger()
     if transcript_seed:
         challenger.observe_elements(transcript_seed)
-    ctx, F = _prove_statement(air, trace_cols, public_inputs, config, challenger)
+    ctx, F = _prove_statement(air, trace_cols, public_inputs, config, challenger, mesh=mesh)
     t0 = time.perf_counter()
-    fri_proof = fri_prove(F, challenger, config.fri, config.shift)
+    fri_proof = fri_prove(F, challenger, config.fri, config.shift, mesh=mesh)
     ctx.phases.append(("fri", time.perf_counter() - t0))
     del F
     t0 = time.perf_counter()

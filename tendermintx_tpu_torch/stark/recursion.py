@@ -1055,12 +1055,17 @@ def _assemble_publics(
     )
 
 
-def wrap_batch(airs, proof, config, transcript_seed=None, wrap_config=None, *, device):
+def wrap_batch(airs, proof, config, transcript_seed=None, wrap_config=None, *, device=None, mesh=None):
     """Prove the wrap batch ([WrapAir, EvalAir]) for a (valid)
     BatchStarkProof on `device` and return the WrappedBatchProof. Raises
     ValueError if the input proof does not verify: the witness walk
     re-checks every digest, fold and final value, and the eval tape
-    reaches its asserted zeros only on a sound OOD identity."""
+    reaches its asserted zeros only on a sound OOD identity. mesh:
+    optional LaneMesh the wrap batch is proven over (prove_batch's mesh=;
+    `device`, if given, must be its first device), to the same bytes."""
+    from ..parallel.sharding import mesh_device
+
+    device = mesh_device(device, mesh)
     from .batch import prove_batch
     from .challenger import Challenger
     from .evalair import EvalAir, assemble_inputs, tape_for
@@ -1105,7 +1110,7 @@ def wrap_batch(airs, proof, config, transcript_seed=None, wrap_config=None, *, d
     e_inputs = assemble_inputs(tape, ctxs)
     e_trace = air_e.witness_trace(e_inputs, device)
 
-    wrapper = prove_batch([air_w, air_e], [trace, e_trace], [publics, e_inputs], wrap_config)
+    wrapper = prove_batch([air_w, air_e], [trace, e_trace], [publics, e_inputs], wrap_config, mesh=mesh)
     return WrappedBatchProof(
         statements=[replace(st, openings={}) for st in proof.statements],
         layer_caps=[list(c) for c in proof.fri_proof.layer_caps],

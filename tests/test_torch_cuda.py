@@ -114,7 +114,7 @@ def test_each_entry_counts_its_launches(dev):
     from tendermintx_tpu_torch.ops.merkle import MerkleTree
 
     before = (ps.permute_kernel_launches, ps.sponge_kernel_launches, ps.layer_kernel_launches)
-    tree = MerkleTree.build_cols(gl.GF(_felts((9, 16), 7, dev)))
+    tree = MerkleTree.from_leaves(ps.hash_no_pad_cols(gl.GF(_felts((9, 16), 7, dev))))
     assert len(tree.dev_layers) == 5
     parents = ps.merkle_layer(gl.GF(_felts((6, 4), 8, dev)))
     assert parents.shape == (3, 4)
@@ -221,3 +221,102 @@ def test_service_round_trip_on_card(dev, tmp_path, monkeypatch):
     inputs = f.get_step_inputs(2, chain.headers[2].hash(), 4)
     host = prove_step_composite(2, chain.headers[2].hash(), inputs, base, device="cpu")
     assert proof.to_bytes() == host.to_bytes()
+
+
+# ---------------------------------------------------------------------------
+# The lane mesh on the card: four shards on cuda:0, each piece against
+# its run on a CPU mesh of four shards
+# ---------------------------------------------------------------------------
+
+
+def _meshes(dev):
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
+
+    return LaneMesh([dev] * 4), LaneMesh([torch.device("cpu")] * 4)
+
+
+def test_sharded_poseidon_and_sha256_on_card_match_cpu(dev):
+    from tendermintx_tpu_torch.ops import sha256
+    from tendermintx_tpu_torch.parallel.sharding import sharded_poseidon_throughput, sharded_sha256
+
+    card, host = _meshes(dev)
+    states = _felts((4096, 12), 21, dev)
+    before = ps.permute_kernel_launches
+    got = sharded_poseidon_throughput(card)(gl.GF(states))
+    assert ps.permute_kernel_launches == before + 4
+    assert torch.equal(got.v.cpu(), sharded_poseidon_throughput(host)(gl.GF(states.cpu())).v)
+    blocks, n_active = sha256.pad_messages([bytes([i]) * (5 + 11 * i) for i in range(8)])
+    assert torch.equal(sharded_sha256(card)(blocks.to(dev), n_active.to(dev)).cpu(),
+                       sharded_sha256(host)(blocks, n_active))
+
+
+def test_sharded_lde_leaves_fold_and_ntt_on_card_match_cpu(dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.parallel import prover as shp
+
+    card, host = _meshes(dev)
+    cols = _felts((13, 256), 22, dev)
+    outs = []
+    for mesh, c in ((card, cols), (host, cols.cpu())):
+        coeffs, blocks = shp.sharded_trace_lde(mesh, 2, 7)(gl.GF(c))
+        rows = shp.columns_to_rows(mesh, blocks, 13)
+        before = ps.sponge_kernel_launches
+        leaves = shp.sharded_leaf_hashes(mesh)(rows)
+        if mesh is card:
+            assert ps.sponge_kernel_launches == before + 4
+        outs.append([coeffs.v, mesh.gather([r.v for r in rows], dim=1), leaves.v])
+    for a, b in zip(*outs):
+        assert torch.equal(a.cpu(), b)
+    e0, e1, beta = _felts((1024,), 23, dev), _felts((1024,), 24, dev), _felts((2,), 25, dev)
+    invx = gl.tensor_from_u64(fri._inv_x_table(10, 7), dev)
+    folded = []
+    for mesh, d in ((card, dev), (host, torch.device("cpu"))):
+        blocks = [GF2(gl.GF(a), gl.GF(b)) for a, b in zip(mesh.split(e0.to(d)), mesh.split(e1.to(d)))]
+        out = shp.sharded_fold_fn(mesh)(blocks, gl.GF(invx.to(d)), GF2(gl.GF(beta[:1].to(d)), gl.GF(beta[1:].to(d))))
+        folded.append(torch.cat([mesh.gather([o.c0.v for o in out]), mesh.gather([o.c1.v for o in out])]))
+        x = e0.to(d)
+        ntt = shp.sharded_ntt_fn(mesh, 10)([gl.GF(b) for b in mesh.split(x)])
+        folded.append(mesh.gather([o.v for o in ntt]))
+    assert torch.equal(folded[0].cpu(), folded[2]) and torch.equal(folded[1].cpu(), folded[3])
+
+
+def test_sharded_prove_on_card_equals_cpu_and_dryrun(dev):
+    """prove(mesh=) of a 2-block Sha256Air (the quotient's halo exchange,
+    sharded DEEP and folds) on four card shards gives the CPU's single
+    proof, with one sponge launch per shard for each column-major tree;
+    the dry run passes on the card."""
+    from tendermintx_tpu_torch.graft_entry import dryrun_multichip
+    from tendermintx_tpu_torch.stark.prover import StarkConfig, prove
+    from tendermintx_tpu_torch.stark.serialize import stark_proof_to_dict
+    from tendermintx_tpu_torch.stark.sha256_air import Sha256Air, schedule_messages, sha256_batch_trace
+    from tendermintx_tpu_torch.stark.verifier import verify
+
+    card, _ = _meshes(dev)
+    blocks, chain_flags, _ = schedule_messages([b"ab", b"x" * 40])
+    trace, publics = sha256_batch_trace(blocks, chain_flags)
+    air = Sha256Air(len(blocks))
+    cfg = StarkConfig(rate_bits=2, n_queries=8, final_poly_len=8, proof_of_work_bits=4)
+    before = ps.sponge_kernel_launches
+    proof = prove(air, trace.to(dev), publics, cfg, mesh=card)
+    assert ps.sponge_kernel_launches == before + 4 * 2  # trace and quotient trees
+    assert stark_proof_to_dict(proof) == stark_proof_to_dict(prove(air, trace, publics, cfg))
+    assert verify(air, proof, cfg)
+    dryrun_multichip(4, [dev] * 4)
+
+
+def test_device_challenger_on_card_matches_host(dev):
+    """The device transcript samples what the host challenger samples,
+    its sponge through the permutation kernel."""
+    from tendermintx_tpu_torch.stark.challenger import Challenger, DeviceChallenger
+
+    host = Challenger()
+    host.observe_elements([3, 1, 4, 1, 5])
+    dc = DeviceChallenger(host, dev)
+    rows = _felts((16, 4), 26, dev)
+    before = ps.permute_kernel_launches
+    got = dc.observe_rows_sample(gl.GF(rows), 3)
+    assert ps.permute_kernel_launches > before
+    host.observe_elements(int(v) for v in gl.to_int_array(rows).reshape(-1))
+    assert [int(v) for v in gl.to_int_array(got)] == [host.sample() for _ in range(3)]
+    more = dc.sample_many(9)
+    assert [int(v) for v in gl.to_int_array(more)] == [host.sample() for _ in range(9)]

@@ -37,13 +37,33 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "tendermintx_tpu_torch.circuits.composite" in mods
     assert "tendermintx_tpu_torch.inputs.testchain" in mods
-    for m in ("runtime.cli", "runtime.service", "runtime.operator", "circuits.verify", "ops.ed25519"):
+    for m in ("runtime.cli", "runtime.service", "runtime.operator", "circuits.verify", "ops.ed25519",
+              "parallel.sharding", "parallel.prover", "stark.poseidon_air", "graft_entry"):
         assert f"tendermintx_tpu_torch.{m}" in mods
     code = BLOCK + (
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
     ) + CHECK + "print('ok', len(sys.modules))\n"
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_mesh_prove_without_jax():
+    """A sharded prove over a CPU lane mesh, and its verification, run with
+    jax and the JAX package blocked."""
+    code = BLOCK + (
+        "import torch\n"
+        "from tendermintx_tpu_torch.parallel.sharding import make_lane_mesh\n"
+        "from tendermintx_tpu_torch.stark.poseidon_air import PoseidonChainAir, poseidon_chain_trace\n"
+        "from tendermintx_tpu_torch.stark.prover import StarkConfig, prove\n"
+        "from tendermintx_tpu_torch.stark.verifier import verify\n"
+        "cfg = StarkConfig(rate_bits=3, n_queries=4, final_poly_len=8, proof_of_work_bits=2)\n"
+        "trace, publics = poseidon_chain_trace(list(range(12)), 2)\n"
+        "mesh = make_lane_mesh(4, [torch.device('cpu')] * 4)\n"
+        "assert verify(PoseidonChainAir(), prove(PoseidonChainAir(), trace, publics, cfg, mesh=mesh), cfg)\n"
+    ) + CHECK + "print('ok')\n"
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
