@@ -11,11 +11,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   3. parity    - an N=4 skip composite proven on cuda and on cpu (plain
                  versions) at a small config, then recursion-wrapped on each
                  device at a small wrap config: the proofs' bytes must match,
-                 the unwrapped ones and the wrapped ones. The card's prove
-                 and wrap run here; the CPU prove and the CPU wrap (of the
-                 card's proof bytes) run in two spawned low-priority
-                 processes beside phases 4-9, and the line is printed when
-                 both have ended, after phase 9;
+                 the unwrapped ones and the wrapped ones; and the N=4 skip
+                 HashBundle at DEFAULT_HASH_CONFIG proven on each device
+                 (the card's in phase 7), its JSON byte-identical. The
+                 card's prove and wrap run here; the CPU prove (then the
+                 CPU hash bundle) and the CPU wrap (of the card's proof
+                 bytes) run in two spawned low-priority processes beside
+                 phases 4-10, and the line is printed when both have ended,
+                 after phase 10;
   4. kernels   - each Poseidon entry (poseidon_permute,
                  poseidon_sponge_cols, poseidon_merkle_layer) against its
                  plain torch version on the same CUDA tensors (exact
@@ -36,7 +39,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  ``stark/batch.py`` logs are in the line under ``phases``;
   6. step      - an N=128 step composite 4 -> 5 at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card, verified after a wire round trip;
-  7. wrap      - wrap_composite of the warm N=128 skip proof at
+  7. hashes    - the standalone SHA-256 hash-plan proofs
+                 (circuits/hashing.py) at N=128 and DEFAULT_HASH_CONFIG:
+                 the skip 2 -> 6 and step 4 -> 5 HashBundles proven on the
+                 card, each read back through JSON and verified by the
+                 port, its facts equal to the chain (the 128 validator
+                 encodings, the validators hash) and every statement change
+                 of tests/test_hashing.py rejected; prove and verify
+                 seconds, JSON bytes and peak memory of each, beside the
+                 card's name and power limit; every Poseidon entry must be
+                 launched by the two proves. Then the N=4 skip bundle on
+                 the card, for the parity phase;
+  8. wrap      - wrap_composite of the warm N=128 skip proof at
                  default_wrap_config() on the card, as bench.py times it
                  (``n128_wrap_seconds``), then to_bytes / from_bytes and
                  verify_skip_composite at the 100-bit floor on both configs
@@ -46,7 +60,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  with --profile that second wrap runs under torch.profiler
                  and the line times its plain torch programs
                  (expand_perm_states and the EvalAir aux pieces);
-  8. runtime   - the port's entry points on the card at N=128, in this
+  9. runtime   - the port's entry points on the card at N=128, in this
                  process: ``cli build`` and a witness-only ``cli prove`` of
                  skip 2 -> 6 (valid, header 6); skip_verify timed on the
                  card (with --profile also sha256_blocks, sha512_blocks,
@@ -60,7 +74,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  1); an operator with prove_stark on a MockContract for
                  one tick (the head moves, the leaf STARK verifies); peak
                  memory and Poseidon launches;
-  9. mesh      - multi-device proving on a 4-shard lane mesh
+ 10. mesh      - multi-device proving on a 4-shard lane mesh
                  ([cuda:i % cards for i in range(4)]: all four on cuda:0 on
                  a one-card host): the N=128 skip 2 -> 6 at
                  DEFAULT_COMPOSITE_CONFIG with mesh= (bytes equal to the
@@ -72,8 +86,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  parity proof wrapped with mesh= (equal to its single-device
                  wrap), the sharded Poseidon batch at 2^20 states and the
                  four-step NTT at 2^20 (each equal to its single-device
-                 function, both timed), and dryrun_multichip(4);
- 10. profile   - only with --profile: one more warm prove under
+                 function, both timed), and dryrun_multichip(4) in each
+                 of its shapes (default, toy, full), each timed;
+ 11. profile   - only with --profile: one more warm prove under
                  torch.profiler (device time by kernel, Poseidon's and the
                  copies' totals, the card's busy share of the wall time)
                  and one under cProfile (the host
@@ -468,11 +483,21 @@ PARITY_WRAP_THREADS = 5
 PARITY_NICE = 19
 
 
-def _parity_cpu_prove(trusted: bytes, inputs) -> bytes:
-    """The N=4 skip composite proven on the CPU: its bytes."""
-    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+def _hash_bundle_json(bundle) -> str:
+    """A HashBundle's wire form: its dict as JSON with sorted keys."""
+    return json.dumps(bundle.to_dict(), sort_keys=True)
 
-    return prove_skip_composite(1, trusted, 5, inputs, _parity_configs()[0], device="cpu").to_bytes()
+
+def _parity_cpu_prove(trusted: bytes, inputs) -> tuple[bytes, str, float]:
+    """The N=4 skip composite proven on the CPU (its bytes), then the N=4
+    skip HashBundle at DEFAULT_HASH_CONFIG (its JSON, and its seconds)."""
+    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+    from tendermintx_tpu_torch.circuits.hashing import prove_skip_hashes
+
+    blob = prove_skip_composite(1, trusted, 5, inputs, _parity_configs()[0], device="cpu").to_bytes()
+    t0 = time.perf_counter()
+    hashes = _hash_bundle_json(prove_skip_hashes(inputs, device="cpu"))
+    return blob, hashes, time.perf_counter() - t0
 
 
 def _parity_cpu_wrap(blob: bytes) -> bytes:
@@ -540,7 +565,7 @@ def parity_start(workdir: str) -> dict:
     )
 
     cfg, wrap_cfg = _parity_configs()
-    trusted, _, inputs = SkipChain(4, os.path.join(workdir, "n4")).skip(1, 5)
+    trusted, target, inputs = SkipChain(4, os.path.join(workdir, "n4")).skip(1, 5)
     out = {"phase": "parity", "n_validators": 4}
     t0 = time.perf_counter()
     proof = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cuda")
@@ -554,20 +579,24 @@ def parity_start(workdir: str) -> dict:
     wrapped = wrap_composite(CompositeProof.from_bytes(blob), cfg, wrap_cfg, device="cuda")
     t2 = time.perf_counter()
     out.update(cuda_seconds=t1 - t0, cuda_wrap_seconds=t2 - t1)
-    return {"line": out, "cuda": (blob, wrapped.to_bytes()), "jobs": jobs, "jobs_started": t_jobs}
+    return {"line": out, "cuda": (blob, wrapped.to_bytes()), "jobs": jobs, "jobs_started": t_jobs,
+            "n4_skip": (trusted, target, inputs)}
 
 
 def phase_parity(state: dict) -> dict:
     """The CPU half of the parity phase, collected: the proofs' bytes must
-    match the card's, the unwrapped ones and the wrapped ones. The line
-    gives each CPU job's seconds, both jobs' wall from their start, and
-    how long this process waited for them at the end."""
+    match the card's, the unwrapped ones and the wrapped ones, and the
+    N=4 hash bundle's JSON the card's (phase_hashes). The line gives each
+    CPU job's seconds, both jobs' wall from their start, and how long this
+    process waited for them at the end."""
     out, jobs = state["line"], state["jobs"]
     t_wait = time.perf_counter()
-    (cpu_proof, cpu_seconds), (cpu_wrapped, cpu_wrap_seconds) = jobs["prove"].result(), jobs["wrap"].result()
+    ((cpu_proof, cpu_hashes, cpu_hashes_seconds), cpu_seconds), (cpu_wrapped, cpu_wrap_seconds) = (
+        jobs["prove"].result(), jobs["wrap"].result()
+    )
     t_done = time.perf_counter()
     out.update(
-        cpu_seconds=cpu_seconds, cpu_wrap_seconds=cpu_wrap_seconds,
+        cpu_seconds=cpu_seconds, cpu_hashes_seconds=cpu_hashes_seconds, cpu_wrap_seconds=cpu_wrap_seconds,
         cpu_concurrent_seconds=t_done - state["jobs_started"],
         cpu_wait_seconds=t_done - t_wait,
         cpu_threads={name: job.threads for name, job in jobs.items()},
@@ -578,7 +607,10 @@ def phase_parity(state: dict) -> dict:
         raise AssertionError("N=4 composite proofs differ between cuda and cpu")
     if cpu_wrapped != wrapped_blob:
         raise AssertionError("N=4 wrapped composite proofs differ between cuda and cpu")
-    out.update(identical=True, wrapped_identical=True, proof_bytes=len(blob), wrapped_proof_bytes=len(wrapped_blob))
+    if cpu_hashes != state["hashes_cuda"]:
+        raise AssertionError("N=4 skip hash bundles differ between cuda and cpu")
+    out.update(identical=True, wrapped_identical=True, proof_bytes=len(blob), wrapped_proof_bytes=len(wrapped_blob),
+               hash_bundle_identical=True, hash_bundle_json_bytes=len(cpu_hashes))
     emit(out)
     return out
 
@@ -603,23 +635,30 @@ def _reset_launch_counts():
         setattr(ps, counter, 0)
 
 
-class _PhaseLog(logging.Handler):
-    """Collects the per-statement phase lines that stark/batch.py logs,
-    while used as a context manager."""
+# the loggers of the per-statement phase lines: the batch prover's, and
+# the single-statement prover's (the hashes phase)
+PHASE_LOGGERS = ("tendermintx_tpu_torch.stark.batch", "tendermintx_tpu_torch.stark.prover")
 
-    def __init__(self):
+
+class _PhaseLog(logging.Handler):
+    """Collects the per-statement phase lines that stark/batch.py (or,
+    given its logger, stark/prover.py) logs, while used as a context
+    manager."""
+
+    def __init__(self, logger: str = PHASE_LOGGERS[0]):
         super().__init__(logging.INFO)
+        self.logger = logging.getLogger(logger)
         self.lines: list[str] = []
 
     def emit(self, record):
         self.lines.append(record.getMessage())
 
     def __enter__(self):
-        logging.getLogger("tendermintx_tpu_torch.stark.batch").addHandler(self)
+        self.logger.addHandler(self)
         return self
 
     def __exit__(self, *exc):
-        logging.getLogger("tendermintx_tpu_torch.stark.batch").removeHandler(self)
+        self.logger.removeHandler(self)
 
 
 def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dict, object]:
@@ -739,6 +778,129 @@ def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
     }
     emit(out)
     return out, launches, blob
+
+
+def _prove_bundle(prove_fn, inputs) -> tuple[object, dict]:
+    """A HashBundle proven on the card at DEFAULT_HASH_CONFIG, and its
+    prove seconds, peak device memory and the prover's phase line."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _PhaseLog(PHASE_LOGGERS[1]) as phases:
+        t0 = time.perf_counter()
+        bundle = prove_fn(inputs, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return bundle, {"prove_seconds": seconds, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "phases": phases.lines}
+
+
+def _verify_bundle(verify_fn, bundle, headers: tuple[bytes, bytes], height: int) -> tuple[object, dict]:
+    """The bundle read back from its JSON and verified (facts or None),
+    with the JSON's bytes and the read-back + verify seconds."""
+    from tendermintx_tpu_torch.circuits.hashing import HashBundle
+
+    text = _hash_bundle_json(bundle)
+    t0 = time.perf_counter()
+    facts = verify_fn(HashBundle.from_dict(json.loads(text)), CHAIN_ID, *headers, height)
+    return facts, {"verify_seconds": time.perf_counter() - t0, "json_bytes": len(text)}
+
+
+def _rejected(verify_fn, bundle, cases: dict) -> list[str]:
+    """Names of the statement changes (name -> (headers, height, chain
+    id)) that the verifier accepts: each must be rejected."""
+    return [
+        name for name, (headers, height, chain_id) in cases.items()
+        if verify_fn(bundle, chain_id, *headers, height) is not None
+    ]
+
+
+def phase_hashes(sc: SkipChain, parity: dict, card: str) -> tuple[dict, dict]:
+    """The standalone SHA-256 hash-plan proofs at N=128 and
+    DEFAULT_HASH_CONFIG on the card: the skip 2 -> 6 and step 4 -> 5
+    HashBundles, each read back through JSON and verified by the port, its
+    facts equal to the chain's (every validator's encoding, the validators
+    hash) and every statement change of tests/test_hashing.py rejected.
+    Every Poseidon entry must be launched by the two proves; their counts
+    are the hashes path's. Then the N=4 skip bundle on the card, whose JSON
+    phase_parity holds against the CPU's."""
+    import dataclasses
+
+    from tendermintx_tpu_torch.circuits.hashing import (
+        DEFAULT_HASH_CONFIG,
+        prove_skip_hashes,
+        prove_step_hashes,
+        verify_skip_hashes,
+        verify_step_hashes,
+    )
+
+    chain = sc.chain
+    encodings = [v.simple_encode() for v in chain.val_set]
+    trusted, target, skip_inputs = sc.skip(2, 6)
+    prev, step_inputs = sc.step(4)
+    nxt = chain.headers[5].hash()
+    _reset_launch_counts()
+    skip, skip_line = _prove_bundle(prove_skip_hashes, skip_inputs)
+    step, step_line = _prove_bundle(prove_step_hashes, step_inputs)
+    launches = _launch_counts()
+    _check_launched(launches, "hashes")
+
+    facts, more = _verify_bundle(verify_skip_hashes, skip, (trusted, target), 6)
+    skip_line.update(more)
+    if facts is None:
+        raise AssertionError(f"the N={sc.n} skip hash bundle 2->6 failed to verify")
+    if (facts.target_encodings, facts.trusted_encodings) != (encodings, encodings):
+        raise AssertionError("the skip hash bundle's validator encodings are not the chain's")
+    if (facts.target_validators_hash, facts.trusted_validators_hash) != (chain.vhash, chain.vhash):
+        raise AssertionError("the skip hash bundle's validators hashes are not the chain's")
+    flipped = list(skip.proof.public_inputs)
+    flipped[0] ^= 1
+    tampered = dataclasses.replace(skip, proof=dataclasses.replace(skip.proof, public_inputs=flipped))
+    skip_cases = {
+        "target_header": ((trusted, bytes(32)), 6, CHAIN_ID),
+        "height": ((trusted, target), 7, CHAIN_ID),
+        "chain_id": ((trusted, target), 6, "other-chain"),
+        "trusted_header": ((bytes(32), target), 6, CHAIN_ID),
+    }
+    tampered_cases = {"public_input": ((trusted, target), 6, CHAIN_ID)}
+    accepted = _rejected(verify_skip_hashes, skip, skip_cases)
+    accepted += _rejected(verify_skip_hashes, tampered, tampered_cases)
+
+    facts, more = _verify_bundle(verify_step_hashes, step, (prev, nxt), 5)
+    step_line.update(more)
+    if facts is None:
+        raise AssertionError(f"the N={sc.n} step hash bundle 4->5 failed to verify")
+    if (facts.encodings, facts.validators_hash) != (encodings, chain.vhash):
+        raise AssertionError("the step hash bundle's facts are not the chain's")
+    step_cases = {
+        "prev_header": ((bytes(32), nxt), 5, CHAIN_ID),
+        "next_header": ((prev, bytes(32)), 5, CHAIN_ID),
+    }
+    accepted += _rejected(verify_step_hashes, step, step_cases)
+    if accepted:
+        raise AssertionError(f"the hash bundle verifiers accepted changed statements: {accepted}")
+
+    # the N=4 skip bundle on the card; phase_parity compares the CPU's
+    n4_trusted, n4_target, n4_inputs = parity["n4_skip"]
+    n4, n4_line = _prove_bundle(prove_skip_hashes, n4_inputs)
+    facts, more = _verify_bundle(verify_skip_hashes, n4, (n4_trusted, n4_target), 5)
+    if facts is None:
+        raise AssertionError("the N=4 skip hash bundle 1->5 failed to verify")
+    parity["hashes_cuda"] = _hash_bundle_json(n4)
+
+    out = {
+        "phase": "hashes",
+        "card": card,
+        "n_validators": sc.n,
+        "config": dataclasses.asdict(DEFAULT_HASH_CONFIG),
+        "skip": {"skip": [2, 6], "rows": skip.proof.n_rows, "segments": skip.n_segments, **skip_line},
+        "step": {"step": [4, 5], "rows": step.proof.n_rows, "segments": step.n_segments, **step_line},
+        "facts_equal_chain": True,
+        "rejected": [*skip_cases, *tampered_cases, *step_cases],
+        "n4_skip": {"skip": [1, 5], "rows": n4.proof.n_rows, **n4_line, **more},
+        "launches": launches,
+    }
+    emit(out)
+    return out, launches
 
 
 PLAIN_RANGES = ("expand_perm_states", "eval_terms", "eval_scan", "eval_assemble")
@@ -1087,9 +1249,10 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     exact Python-int sums), the card's N=4 parity proof wrapped with mesh=
     (bytes equal to its single-device wrap), the sharded Poseidon batch at
     2^20 states and the four-step NTT at 2^20 (each equal to its
-    single-device function), and dryrun_multichip. The N=128 prove must
-    launch the column sponge once per shard for each column-major tree;
-    its launch counts, read right after it, are the mesh path's."""
+    single-device function), and dryrun_multichip in each shape. The N=128
+    prove must launch the column sponge once per shard for each
+    column-major tree; its launch counts, read right after it, are the
+    mesh path's."""
     from tendermintx_tpu_torch import graft_entry
     from tendermintx_tpu_torch.circuits import gadgets as g
     from tendermintx_tpu_torch.circuits.composite import (
@@ -1209,10 +1372,14 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     out["ntt"] = {"log_n": log_n, "identical": True, **times}
     del states, coeffs, got, want
 
-    # 5. the dry run
+    # 5. the dry run, in each of its shapes
     t0 = time.perf_counter()
     graft_entry.dryrun_multichip(MESH_SHARDS, devices)
     out["dryrun_seconds"] = time.perf_counter() - t0
+    for shape in ("toy", "full"):
+        t0 = time.perf_counter()
+        graft_entry.dryrun_multichip(MESH_SHARDS, devices, shape=shape)
+        out[f"dryrun_{shape}_seconds"] = time.perf_counter() - t0
 
     out["launches"] = launches
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
@@ -1347,8 +1514,9 @@ def main(argv: list[str]) -> int:
 
     # per-statement phase seconds of every prove, on stderr
     logging.basicConfig(format="%(asctime)s %(name)s %(message)s")
-    logging.getLogger("tendermintx_tpu_torch.stark.batch").setLevel(logging.INFO)
-    phase_device()
+    for name in PHASE_LOGGERS:
+        logging.getLogger(name).setLevel(logging.INFO)
+    card = phase_device()["nvidia_smi"]
     phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         parity = parity_start(workdir)
@@ -1357,6 +1525,7 @@ def main(argv: list[str]) -> int:
             n128 = SkipChain(128, os.path.join(workdir, "n128"))
             _, cold_launches, warm_launches, warm_proof = phase_slice(n128)
             _, step_launches, step_blob = phase_step(n128)
+            _, hashes_launches = phase_hashes(n128, parity, card)
             profile = "--profile" in argv
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
             _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile)
@@ -1373,7 +1542,8 @@ def main(argv: list[str]) -> int:
         {"name": name, **{k: row[k] for k in kept},
          "launches": cold_launches[name] + warm_launches[name],
          "launches_by_path": {"skip_cold": cold_launches[name], "skip_warm": warm_launches[name],
-                              "step": step_launches[name], "wrap": wrap_launches[name],
+                              "step": step_launches[name], "hashes": hashes_launches[name],
+                              "wrap": wrap_launches[name],
                               "runtime": runtime_launches[name], "mesh": mesh_launches[name]}}
         for name, row in rows.items()
     ]

@@ -1,8 +1,9 @@
 """Proven hashing statements: one SHA-256 STARK for the whole hash layer.
 
-Counterpart of ``tendermintx_tpu/circuits/hashing.py`` (plans, the hash
-statement fed to the composite prover, and the verifier's wiring checks;
-the standalone hash-bundle proofs are not ported). The upstream
+Counterpart of ``tendermintx_tpu/circuits/hashing.py``: plans, the hash
+statement fed to the composite prover, the verifier's wiring checks, and
+the standalone hash-bundle proof (``prove_{skip,step}_hashes`` on a torch
+device, ``verify_{skip,step}_hashes`` on the host). The upstream
 TendermintX circuits prove all SHA-256 work (validator leaves, CometBFT
 Merkle trees, header-field inclusion proofs) inside one SHA-256 table.
 Here every hash invocation of a skip statement becomes a *job* — a run of
@@ -33,6 +34,9 @@ from ..inputs.tendermint import (
     get_path_indices,
     get_split_point,
 )
+from ..stark.prover import StarkConfig, StarkProof, prove
+from ..stark.serialize import stark_proof_from_dict, stark_proof_to_dict
+from ..stark.verifier import verify
 from .consts import (
     BLOCK_HEIGHT_INDEX,
     CHAIN_ID_INDEX,
@@ -52,6 +56,8 @@ from ..stark.sha256_air import (
 
 HEADER_FIELDS_TOTAL = 14  # CometBFT header Merkle tree leaf count
 SEGMENT_ROWS = 64
+
+DEFAULT_HASH_CONFIG = StarkConfig(rate_bits=2, n_queries=28, final_poly_len=64)
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +215,22 @@ def plan_publics(
     fail, never accept a different statement."""
     blocks, chain, _total = _plan_blocks(plan, data_map, aunt_map, min_segments)
     return sha256_publics(blocks, chain)
+
+
+def prove_plan(
+    plan: Plan,
+    data_map: dict[int, bytes],
+    aunt_map: dict[int, bytes],
+    config: StarkConfig = DEFAULT_HASH_CONFIG,
+    min_segments: int = 32,
+    transcript_seed: list[int] | None = None,
+    *,
+    device,
+) -> StarkProof:
+    """Prove every job in `plan` as a standalone STARK on `device` (the
+    composite instead feeds plan_statement into the batch prover)."""
+    air, trace, publics = plan_statement(plan, data_map, aunt_map, min_segments, device)
+    return prove(air, trace, publics, config, transcript_seed=transcript_seed)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +442,42 @@ def _lane_leaf(lane) -> bytes:
     return b"\x00" + enc
 
 
+@dataclass
+class HashBundle:
+    """One SHA-256 STARK covering a step or skip statement's hash layer."""
+
+    kind: str  # "skip" | "step"
+    proof: StarkProof
+    n_segments: int
+    nb: int  # target/new validator count
+    nb_trusted: int  # skip only (0 for step)
+
+    def to_dict(self) -> dict:
+        return {
+            "kind": f"{self.kind}-hashes",
+            "n_segments": self.n_segments,
+            "nb": self.nb,
+            "nb_trusted": self.nb_trusted,
+            "proof": stark_proof_to_dict(self.proof),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HashBundle":
+        """Raises ValueError on a kind that is not a hash bundle's; other
+        malformed input raises ValueError, KeyError, TypeError,
+        AttributeError or IndexError (CompositeProof.from_dict's contract)."""
+        kind = str(d["kind"])
+        if not kind.endswith("-hashes"):
+            raise ValueError(f"not a hash-bundle kind: {kind!r}")
+        return cls(
+            kind=kind[: -len("-hashes")],
+            proof=stark_proof_from_dict(d["proof"]),
+            n_segments=int(d["n_segments"]),
+            nb=int(d["nb"]),
+            nb_trusted=int(d["nb_trusted"]),
+        )
+
+
 def _aunt_map_for(plan: Plan, root_jobs: list[tuple[int, list[bytes]]]) -> dict[int, bytes]:
     """Map each header-proof inner job to its aunt, walking up from each
     (leaf_job + 1 .. root) chain in plan order."""
@@ -461,6 +519,25 @@ def skip_hash_statement(inputs, min_segments: int = 32, device=None):
     return air, trace, publics, nb, nbt
 
 
+def _bundle(kind: str, air, trace, publics, config, transcript_seed, nb: int, nbt: int) -> HashBundle:
+    proof = prove(air, trace, publics, config, transcript_seed=transcript_seed)
+    total = len(proof.public_inputs) // PUB_PER_SEGMENT
+    return HashBundle(kind=kind, proof=proof, n_segments=total, nb=nb, nb_trusted=nbt)
+
+
+def prove_skip_hashes(
+    inputs,
+    config: StarkConfig = DEFAULT_HASH_CONFIG,
+    transcript_seed: list[int] | None = None,
+    *,
+    device,
+) -> HashBundle:
+    """inputs: fetcher.SkipInputs; the proof's device work runs on
+    `device`."""
+    air, trace, publics, nb, nbt = skip_hash_statement(inputs, device=device)
+    return _bundle("skip", air, trace, publics, config, transcript_seed, nb, nbt)
+
+
 def step_hash_statement(inputs, min_segments: int = 32, device=None):
     """(air, trace, publics, nb) for a step's hash layer."""
     nb = inputs.nb_validators
@@ -490,6 +567,29 @@ def step_hash_statement(inputs, min_segments: int = 32, device=None):
     return air, trace, publics, nb
 
 
+def prove_step_hashes(
+    inputs,
+    config: StarkConfig = DEFAULT_HASH_CONFIG,
+    transcript_seed: list[int] | None = None,
+    *,
+    device,
+) -> HashBundle:
+    """inputs: fetcher.StepInputs; the proof's device work runs on
+    `device`."""
+    air, trace, publics, nb = step_hash_statement(inputs, device=device)
+    return _bundle("step", air, trace, publics, config, transcript_seed, nb, 0)
+
+
+def _verified(bundle: HashBundle, kind: str, config: StarkConfig, transcript_seed) -> bool:
+    """The bundle is of `kind`, its row count matches its segments, and its
+    STARK verifies."""
+    if bundle.kind != kind or bundle.n_segments < 1:
+        return False
+    if bundle.n_segments * SEGMENT_ROWS != bundle.proof.n_rows:
+        return False
+    return verify(Sha256Air(bundle.n_segments), bundle.proof, config, transcript_seed=transcript_seed)
+
+
 @dataclass
 class SkipHashFacts:
     """What a verified skip HashBundle establishes (all extracted from
@@ -499,6 +599,26 @@ class SkipHashFacts:
     trusted_encodings: list[bytes]
     target_validators_hash: bytes
     trusted_validators_hash: bytes
+
+
+def verify_skip_hashes(
+    bundle: HashBundle,
+    chain_id: str,
+    trusted_header: bytes,
+    target_header: bytes,
+    target_height: int,
+    config: StarkConfig = DEFAULT_HASH_CONFIG,
+    transcript_seed: list[int] | None = None,
+) -> SkipHashFacts | None:
+    """The facts a skip bundle proves, or None when it does not verify or
+    binds another statement."""
+    if not _verified(bundle, "skip", config, transcript_seed):
+        return None
+    return check_skip_hash_publics(
+        bundle.proof.public_inputs, bundle.n_segments, bundle.nb,
+        bundle.nb_trusted, chain_id, trusted_header, target_header,
+        target_height,
+    )
 
 
 def check_skip_hash_publics(
@@ -560,6 +680,25 @@ def check_skip_hash_publics(
 class StepHashFacts:
     encodings: list[bytes]  # new-set SimpleValidator encodings
     validators_hash: bytes
+
+
+def verify_step_hashes(
+    bundle: HashBundle,
+    chain_id: str,
+    prev_header: bytes,
+    next_header: bytes,
+    next_height: int,
+    config: StarkConfig = DEFAULT_HASH_CONFIG,
+    transcript_seed: list[int] | None = None,
+) -> StepHashFacts | None:
+    """The facts a step bundle proves, or None when it does not verify or
+    binds another statement."""
+    if not _verified(bundle, "step", config, transcript_seed):
+        return None
+    return check_step_hash_publics(
+        bundle.proof.public_inputs, bundle.n_segments, bundle.nb, chain_id,
+        prev_header, next_header, next_height,
+    )
 
 
 def check_step_hash_publics(

@@ -320,3 +320,36 @@ def test_device_challenger_on_card_matches_host(dev):
     assert [int(v) for v in gl.to_int_array(got)] == [host.sample() for _ in range(3)]
     more = dc.sample_many(9)
     assert [int(v) for v in gl.to_int_array(more)] == [host.sample() for _ in range(9)]
+
+
+def test_hash_bundle_on_card_equals_cpu(dev, tmp_path):
+    """The N=4 skip hash bundle proven on the card is the CPU's, byte for
+    byte, and every Poseidon entry is launched by the card's prove."""
+    import json
+
+    from tendermintx_tpu_torch.circuits.hashing import prove_skip_hashes, verify_skip_hashes
+    from tendermintx_tpu_torch.inputs.fetcher import InputDataFetcher, InputDataMode
+    from tendermintx_tpu_torch.inputs.testchain import TestChain
+    from tendermintx_tpu_torch.stark.prover import StarkConfig
+
+    chain = TestChain(n_validators=4, chain_id="hash-chain")
+    for _ in range(4):
+        chain.extend()
+    chain.write_fixtures(str(tmp_path))
+    f = InputDataFetcher(fixture_path=str(tmp_path), mode=InputDataMode.FIXTURE)
+    trusted, target = chain.headers[1].hash(), chain.headers[5].hash()
+    inputs = f.get_skip_inputs(1, trusted, 5, max_validators=8)
+    cfg = StarkConfig(rate_bits=2, n_queries=4, final_poly_len=8, proof_of_work_bits=4)
+    before = (ps.permute_kernel_launches, ps.sponge_kernel_launches, ps.layer_kernel_launches)
+    card = prove_skip_hashes(inputs, cfg, device=dev)
+    after = (ps.permute_kernel_launches, ps.sponge_kernel_launches, ps.layer_kernel_launches)
+    assert all(a > b for a, b in zip(after, before))
+    cpu = prove_skip_hashes(inputs, cfg, device="cpu")
+    assert json.dumps(card.to_dict(), sort_keys=True) == json.dumps(cpu.to_dict(), sort_keys=True)
+    assert verify_skip_hashes(card, "hash-chain", trusted, target, 5, cfg) is not None
+
+
+def test_toy_dryrun_on_card(dev):
+    from tendermintx_tpu_torch.graft_entry import dryrun_multichip
+
+    dryrun_multichip(4, [dev] * 4, shape="toy")
