@@ -5,9 +5,10 @@
 Phases, each printing one JSON line; any failure raises (non-zero exit):
 
   1. device    - requires CUDA; prints the card's name and power limit;
-  2. build     - compiles every hand-written kernel from csrc/ with nvcc;
-                 the line gives each kernel function's registers and spill
-                 bytes from ptxas (-v); a spill fails;
+  2. build     - compiles every hand-written kernel from csrc/ with nvcc
+                 (poseidon.cu, quotient.cu); the line gives each kernel
+                 function's registers and spill bytes from ptxas (-v); a
+                 spill fails;
   3. parity    - an N=4 skip composite proven on cuda and on cpu (plain
                  versions) at a small config, then recursion-wrapped on each
                  device at a small wrap config: the proofs' bytes must match,
@@ -27,16 +28,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  and its plain version's at one shape, and its bound
                  (multiply-adds of the sparse partial-round form at the
                  card's maximum SM clock, or bytes at 3.35 TB/s; the bound
-                 of the kernel's own dense count beside it);
+                 of the kernel's own dense count beside it); then the
+                 quotient tape kernel (stark/quotient_tape.py,
+                 csrc/quotient.cu) against the plain DeviceAlgebra
+                 evaluation, exact on the whole output, for each AIR of the
+                 N=128 paths at its block shape (Ed25519, SHA-256, SHA-512,
+                 WrapAir, EvalAir) and PoseidonChainAir, each with its time,
+                 the plain version's, and its bound (frame bytes at 3.35
+                 TB/s, or 4 32-bit multiply-adds per field multiply);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
                  skip 1 -> 5 first (``skip_composite_n128_cold_seconds``,
                  host tables cold), then 2 -> 6 (``skip_composite_n128_seconds``,
                  warm); each is prove + verify. Every kernel must have been
-                 launched by this phase, the warm prove's column sponge once
-                 per column-major tree. The per-statement phase seconds that
-                 ``stark/batch.py`` logs are in the line under ``phases``;
+                 launched by each of the two proves, the warm prove's column
+                 sponge once per column-major tree, and the warm proof's
+                 statements must be the quotient check's. The per-statement
+                 phase seconds that ``stark/batch.py`` logs are in the line
+                 under ``phases``;
   6. step      - an N=128 step composite 4 -> 5 at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card, verified after a wire round trip;
   7. hashes    - the standalone SHA-256 hash-plan proofs
@@ -146,13 +156,17 @@ def phase_device() -> dict:
     return info
 
 
+# every csrc/<name>.cu the port launches
+KERNEL_LIBRARIES = ("poseidon", "quotient")
+
+
 def phase_build() -> dict:
     """Build every kernel library; the line gives each kernel function's
     registers and spill bytes as ptxas reported them. Spills fail."""
     from tendermintx_tpu_torch.ops import cuda_build
 
     out = {"phase": "build"}
-    for name in ("poseidon",):
+    for name in KERNEL_LIBRARIES:
         t0 = time.perf_counter()
         path = cuda_build.build(name)
         cuda_build.load_library(name)
@@ -410,10 +424,144 @@ def _kernel_layer(ps, rng, dev, clock_mhz: float) -> dict:
     }
 
 
+# The statements of the N=128 paths, as the composite builds them for
+# TestChain(128): skip 2 -> 6 proves a SHA-256 plan of 1,024 segments
+# (65,536 rows), 128 Ed25519 lanes and 256 SHA-512 blocks (32,768 rows);
+# phase_slice checks the warm proof's statements against these counts.
+N128_SKIP_STATEMENTS = {"sha256": 1024, "ed25519": 128, "sha512": 256}
+# rows of the PoseidonChainAir statement checked here: it is proven by the
+# port's tests and no N=128 path, so a chain of 512 permutations (2^14
+# rows at rate 3) stands for a real size
+POSEIDON_CHAIN_ROWS = 1 << 14
+
+
+def _quotient_airs() -> list[tuple[str, object, int]]:
+    """(name, AIR, LDE rows) of every AIR whose quotient the N=128 paths
+    evaluate: the skip composite's three statements at
+    DEFAULT_COMPOSITE_CONFIG, the wrap's WrapAir and EvalAir at
+    default_wrap_config(), and PoseidonChainAir."""
+    from tendermintx_tpu_torch.circuits.composite import DEFAULT_COMPOSITE_CONFIG
+    from tendermintx_tpu_torch.stark import ed25519_air, sha256_air, sha512_air
+    from tendermintx_tpu_torch.stark.evalair import EvalAir, tape_for
+    from tendermintx_tpu_torch.stark.poseidon_air import PoseidonChainAir
+    from tendermintx_tpu_torch.stark.recursion import WrapAir, default_wrap_config, wrap_n_rows, wrap_shape
+
+    n = N128_SKIP_STATEMENTS
+    mods = (sha256_air, ed25519_air, sha512_air)
+    composite = [sha256_air.Sha256Air(n["sha256"]), ed25519_air.Ed25519Air(n["ed25519"]),
+                 sha512_air.Sha512Air(n["sha512"])]
+    rows = [m.SEGMENT * n[k] for m, k in zip(mods, ("sha256", "ed25519", "sha512"))]
+    rate = DEFAULT_COMPOSITE_CONFIG.rate_bits
+    shape = wrap_shape(composite, DEFAULT_COMPOSITE_CONFIG, rows)
+    tape = tape_for(composite)
+    wrate = default_wrap_config().rate_bits
+    return [
+        ("ed25519", composite[1], rows[1] << rate),
+        ("sha256", composite[0], rows[0] << rate),
+        ("sha512", composite[2], rows[2] << rate),
+        ("wrap", WrapAir(shape), wrap_n_rows(shape) << wrate),
+        ("evalair", EvalAir(tape), tape.n_rows << wrate),
+        ("poseidon_chain", PoseidonChainAir(), POSEIDON_CHAIN_ROWS << rate),
+    ]
+
+
+def _quotient_inputs(air, B: int, gen, dev) -> tuple:
+    """Random canonical inputs of one (n_offsets, n_total, B) frame block,
+    made on the card: the frame, alpha powers, publics, periodic and
+    public columns, zerofier inverses, challenges."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+
+    n_off, n_total = len(air.frame_offsets), air.n_cols + air.n_aux_cols
+    cols = lambda k: _random_cols((max(k, 1), B), gen, dev)[:k]
+    vec = lambda k: GF(_random_cols((1, max(k, 1)), gen, dev)[0, :k].contiguous())
+    K = air.n_constraints
+    return (
+        GF(cols(n_off * n_total).reshape(n_off, n_total, B)),
+        GF2(vec(K), vec(K)),
+        vec(air.n_public),
+        tuple(GF(c) for c in cols(len(air.periodic_columns()))),
+        tuple(GF(c) for c in cols(air.n_public_cols)),
+        tuple(GF(c) for c in cols(4)),
+        vec(2 * air.n_challenges),
+    )
+
+
+def _kernel_quotient(dev, clock_mhz: float) -> dict:
+    """The tape kernel == the plain DeviceAlgebra evaluation on the whole
+    output, for every AIR of _quotient_airs at its main-path block shape
+    (the prover's row blocks: stark/prover.py::_quotient_blocks), each
+    with its time, the plain version's and its bound. The row's own
+    numbers are the Ed25519 block's, the widest."""
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+    from tendermintx_tpu_torch.stark.prover import _eval_quotient_plain, _quotient_blocks
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    airs = {}
+    for name, air, N in _quotient_airs():
+        n_off, n_total = len(air.frame_offsets), air.n_cols + air.n_aux_cols
+        B = N // _quotient_blocks(n_off, n_total, N)
+        t0 = time.perf_counter()
+        qt = qtm.quotient_tape(air)
+        record_s = time.perf_counter() - t0
+        args = _quotient_inputs(air, B, gen, dev)
+        want, plain_ms = _timed_once(lambda: _eval_quotient_plain(air, *args, B))
+        got, first_ms = _timed_once(lambda: qtm.quotient_cuda(air, *args))
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(got.c0.v, want.c0.v), _max_abs_err(got.c1.v, want.c1.v))
+        if err:
+            raise AssertionError(f"quotient kernel of {name} at B={B} disagrees with its plain version: "
+                                 f"max_abs_err {err}")
+        del want, got
+        counts = qt.counts()
+        n_rowvecs = qt.n_periodic + qt.n_public_cols + 4
+        nbytes = 8 * ((n_off * n_total + n_rowvecs + 2) * B + qt.n_public + qt.n_chal + 2 * qt.n_roots)
+        # 4 32-bit multiply-adds per field product (64 x 64 -> 128 bits)
+        ops_ms = 4 * counts["muls"] * B / muls_per_ms
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        reps = max(2, min(50, int(1000 / max(first_ms, 1e-3))))
+        ms = _time_ms(lambda: qtm.quotient_cuda(air, *args), reps)
+        airs[name] = {
+            "shape": [n_off, n_total, B],
+            "lde_rows": N,
+            "launches_per_block": -(-B // qtm.rows_per_launch(qt.n_slots, B)),
+            "scratch_bytes": 8 * qt.n_slots * qtm.rows_per_launch(qt.n_slots, B),
+            "record_seconds": record_s,
+            **counts,
+            "max_abs_err": 0.0,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "operations_bound_ms": ops_ms,
+            "bytes_bound_ms": bytes_ms,
+            "bytes": nbytes,
+        }
+        del args
+    top = airs["ed25519"]
+    return {
+        "route": "cuda",
+        "source": "tendermintx_tpu_torch/csrc/quotient.cu",
+        "replaces": "tendermintx_tpu/stark/prover.py:293",
+        "replaces_program": "tendermintx_tpu/stark/prover.py:379 (_eval_quotient_core, jax.jit at :363-364)",
+        "shape": top["shape"],
+        "max_abs_err": 0.0,
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "operations_bound_ms",
+                               "bytes_bound_ms", "bytes")},
+        "library_ms": None,
+        "airs": airs,
+    }
+
+
 def phase_kernels() -> dict:
     """Each Poseidon entry against its plain torch version on the same
     CUDA tensors (exact: integer field arithmetic) and the host oracle,
-    with its time, its plain version's, and its bound."""
+    and the quotient tape kernel against the plain DeviceAlgebra
+    evaluation for every AIR of the N=128 paths, each with its time, its
+    plain version's, and its bound."""
     from tendermintx_tpu_torch.ops import poseidon as ps
 
     dev = torch.device("cuda", 0)
@@ -423,10 +571,12 @@ def phase_kernels() -> dict:
         "poseidon_permute": _kernel_permute(ps, rng, dev, clock_mhz),
         "poseidon_sponge_cols": _kernel_sponge(ps, rng, dev, clock_mhz),
         "poseidon_merkle_layer": _kernel_layer(ps, rng, dev, clock_mhz),
+        "quotient": _kernel_quotient(dev, clock_mhz),
     }
     for row in rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        row["design_bound_share"] = row["design_bound_ms"] / row["ms"]
+    for name in ("poseidon_permute", "poseidon_sponge_cols", "poseidon_merkle_layer"):
+        rows[name]["design_bound_share"] = rows[name]["design_bound_ms"] / rows[name]["ms"]
     emit({
         "phase": "kernels",
         "clocks_max_sm_mhz": clock_mhz,
@@ -615,24 +765,27 @@ def phase_parity(state: dict) -> dict:
     return out
 
 
+# kernel -> (module of its wrapper, launch counter)
 LAUNCH_COUNTERS = {
-    "poseidon_permute": "permute_kernel_launches",
-    "poseidon_sponge_cols": "sponge_kernel_launches",
-    "poseidon_merkle_layer": "layer_kernel_launches",
+    "poseidon_permute": ("tendermintx_tpu_torch.ops.poseidon", "permute_kernel_launches"),
+    "poseidon_sponge_cols": ("tendermintx_tpu_torch.ops.poseidon", "sponge_kernel_launches"),
+    "poseidon_merkle_layer": ("tendermintx_tpu_torch.ops.poseidon", "layer_kernel_launches"),
+    "quotient": ("tendermintx_tpu_torch.stark.quotient_tape", "quotient_kernel_launches"),
 }
 
 
 def _launch_counts() -> dict:
-    from tendermintx_tpu_torch.ops import poseidon as ps
+    import importlib
 
-    return {name: getattr(ps, counter) for name, counter in LAUNCH_COUNTERS.items()}
+    return {name: getattr(importlib.import_module(mod), counter)
+            for name, (mod, counter) in LAUNCH_COUNTERS.items()}
 
 
 def _reset_launch_counts():
-    from tendermintx_tpu_torch.ops import poseidon as ps
+    import importlib
 
-    for counter in LAUNCH_COUNTERS.values():
-        setattr(ps, counter, 0)
+    for mod, counter in LAUNCH_COUNTERS.values():
+        setattr(importlib.import_module(mod), counter, 0)
 
 
 # the loggers of the per-statement phase lines: the batch prover's, and
@@ -711,8 +864,13 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     cold_launches = _launch_counts()
     warm, warm_proof = _prove_and_verify(sc, 2, 6)
     launches = _launch_counts()
-    _check_launched(launches, "skip")
     warm_launches = {k: launches[k] - cold_launches[k] for k in launches}
+    _check_launched(cold_launches, "cold skip")
+    _check_launched(warm_launches, "warm skip")
+    counts = {"sha256": warm_proof.n_hash_segments, "ed25519": warm_proof.n_ed_segments,
+              "sha512": warm_proof.n_sha512_blocks}
+    if counts != N128_SKIP_STATEMENTS:
+        raise AssertionError(f"the warm skip proves {counts}, the quotient check {N128_SKIP_STATEMENTS}")
     # one sponge launch per column-major tree: trace, quotient and (where
     # the AIR has one) aux commitment of every statement
     trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)

@@ -376,6 +376,13 @@ def build_tape(airs: list[Air]) -> Tape:
 
 
 def _optimize(alg: RecAlg, assert_nodes: list[int]) -> Tape:
+    return optimize_with_remap(alg, assert_nodes)[0]
+
+
+def optimize_with_remap(alg: RecAlg, assert_nodes: list[int]) -> tuple[Tape, dict[int, int]]:
+    """DCE from the root nodes `assert_nodes`, MAC fusion, compaction.
+    Returns the tape and the map from each kept recorded node to its tape
+    row (roots are never fused away, so every root has a row)."""
     ops = alg.ops
     T = len(ops)
     input_rows = set(alg.input_rows)
@@ -489,7 +496,7 @@ def _optimize(alg: RecAlg, assert_nodes: list[int]) -> Tape:
         if op in _READS_C:
             m[c_a[i]] += 1
 
-    return Tape(
+    tape = Tape(
         op=op_a,
         a=a_a,
         b=b_a,
@@ -500,6 +507,7 @@ def _optimize(alg: RecAlg, assert_nodes: list[int]) -> Tape:
         assert_rows=np.asarray(sorted(remap[i] for i in assert_nodes), dtype=np.uint32),
         m=m,
     )
+    return tape, remap
 
 
 def air_cache_key(air: Air) -> tuple:

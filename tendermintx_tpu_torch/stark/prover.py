@@ -216,14 +216,16 @@ def coset_intt(evals: GF, shift: int) -> GF:
 # elements for a 16 GB chip. On an 80 GB H100 the frame block is 2^29
 # int64 elements (4 GB). The widest AIR, Ed25519 at 128 lanes, has
 # 2 offsets x ~2,930 columns = 5,860 frame values per row, so a block is
-# 2^29 / 5,860 ~ 2^16 rows (4 blocks over its 2^18-row LDE). Its eager
-# constraint program keeps ~30,000 int64 temporaries per row alive at its
-# peak (the 15 mul witnesses' (15, 40) convolutions twice, the LogUp batch
-# products, the (K, rows) constraint stack and its alpha products), about
-# 5x the frame: ~24 GB per block beside ~8 GB of resident LDEs. Each plain
-# field multiply adds a few short-lived temporaries of its output's size on
-# top; the whole N=128 prove peaks at 38.7 GB on an 80 GB H100
-# (chip_smoke.py), so one block size serves the widest AIR with room left.
+# 2^29 / 5,860 ~ 2^16 rows (4 blocks over its 2^18-row LDE). On a card the
+# tape kernel (stark/quotient_tape.py) evaluates a block in one scratch
+# buffer of the tape's value slots (~6,300 x 8 bytes a row for Ed25519,
+# ~3.3 GB a block). The plain DeviceAlgebra program keeps ~30,000 int64
+# temporaries per row alive at its peak (the 15 mul witnesses' (15, 40)
+# convolutions twice, the LogUp batch products, the (K, rows) constraint
+# stack and its alpha products), about 5x the frame: ~24 GB per block
+# beside ~8 GB of resident LDEs. The N=128 prove peaks at 38.6 GB on an
+# 80 GB H100 with either one (chip_smoke.py; the peak is outside the
+# quotient), so one block size serves the widest AIR with room left.
 _QUOTIENT_BLOCK_ELEMS = 1 << 29
 # Blocks never go below this many rows (launch overhead would dominate).
 _MIN_BLOCK_ROWS = 4096
@@ -241,7 +243,22 @@ def _eval_quotient_core(
     air, stacked: GF, alpha_pows: GF2, pub: GF, periodic, public_cols, zinvs, chal: GF, N: int
 ) -> GF2:
     """Constraint quotient from a gathered (n_offsets, n_cols + n_aux, N)
-    frame block."""
+    frame block: the tape kernel (stark/quotient_tape.py, csrc/quotient.cu)
+    for a CUDA block, the plain DeviceAlgebra evaluation for a CPU one."""
+    if stacked.device.type == "cuda":
+        from .quotient_tape import quotient_cuda
+
+        return quotient_cuda(air, stacked, alpha_pows, pub, periodic, public_cols, zinvs, chal)
+    if stacked.device.type != "cpu":
+        raise ValueError(f"no constraint quotient for device {stacked.device}")
+    return _eval_quotient_plain(air, stacked, alpha_pows, pub, periodic, public_cols, zinvs, chal, N)
+
+
+def _eval_quotient_plain(
+    air, stacked: GF, alpha_pows: GF2, pub: GF, periodic, public_cols, zinvs, chal: GF, N: int
+) -> GF2:
+    """The quotient's plain version: the AIR evaluated under DeviceAlgebra
+    as int64 torch ops over the block's rows (any device)."""
     n_cols = air.n_cols + air.n_aux_cols
     rows = [
         [GF(stacked.v[ki, i]) for i in range(n_cols)]

@@ -1,7 +1,8 @@
-"""The hand-written CUDA Poseidon kernels (the permutation, the column
-sponge, the Merkle tree layer) against their plain torch versions on the
-card, at small shapes and with the edge values 0, 1, p-1, 2^32-1, 2^32 and
-2^63 mod p. Exact equality: integer field arithmetic has no tolerance.
+"""The hand-written CUDA kernels (the Poseidon permutation, column sponge
+and Merkle tree layer; the constraint quotient's tape kernel) against
+their plain torch versions on the card, at small shapes and with the edge
+values 0, 1, p-1, 2^32-1, 2^32 and 2^63 mod p. Exact equality: integer
+field arithmetic has no tolerance.
 
 Every test needs an NVIDIA GPU and skips without one (the kernel has no
 CPU mode). The file imports no jax, so on a GPU machine it runs without
@@ -134,6 +135,110 @@ def test_row_major_tree_on_card_matches_cpu(dev):
     assert len(card.dev_layers) == len(host.dev_layers) == 7
     for a, b in zip(card.dev_layers, host.dev_layers):
         assert torch.equal(a.v.cpu(), b.v)
+
+
+# ---------------------------------------------------------------------------
+# The constraint quotient's tape kernel (csrc/quotient.cu)
+# ---------------------------------------------------------------------------
+
+
+def _quotient_airs() -> dict:
+    from tendermintx_tpu_torch.graft_entry import dryrun_air
+    from tendermintx_tpu_torch.stark import evalair as ev
+    from tendermintx_tpu_torch.stark.ed25519_air import Ed25519Air
+    from tendermintx_tpu_torch.stark.poseidon_air import PoseidonChainAir
+    from tendermintx_tpu_torch.stark.prover import StarkConfig
+    from tendermintx_tpu_torch.stark.recursion import WrapAir, wrap_shape
+    from tendermintx_tpu_torch.stark.sha256_air import Sha256Air
+    from tendermintx_tpu_torch.stark.sha512_air import Sha512Air
+
+    return {
+        "poseidon_chain": PoseidonChainAir,
+        "evalair": lambda: ev.EvalAir(ev.build_tape([PoseidonChainAir()])),
+        "sha256": lambda: Sha256Air(2),
+        "sha512": lambda: Sha512Air(2),
+        "ed25519": lambda: Ed25519Air(2),
+        "wrap": lambda: WrapAir(
+            wrap_shape([Sha256Air(2), Ed25519Air(2), Sha512Air(2)], StarkConfig(), [128, 512, 64])
+        ),
+        "mix": lambda: dryrun_air(8)[0],
+    }
+
+
+def _quotient_args(air, rows: int, seed: int, dev) -> tuple:
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    n_total = air.n_cols + air.n_aux_cols
+    K = air.n_constraints
+    f = lambda shape, k: gl.GF(_felts(shape, seed * 100 + k, dev))
+    return (
+        f((len(air.frame_offsets), n_total, rows), 0),
+        GF2(f((K,), 1), f((K,), 2)),
+        f((air.n_public,), 3),
+        tuple(f((rows,), 10 + i) for i in range(len(air.periodic_columns()))),
+        tuple(f((rows,), 1000 + i) for i in range(air.n_public_cols)),
+        tuple(f((rows,), 5000 + i) for i in range(4)),
+        f((2 * air.n_challenges,), 4),
+    )
+
+
+def _gf2_equal(a, b) -> bool:
+    return torch.equal(a.c0.v, b.c0.v) and torch.equal(a.c1.v, b.c1.v)
+
+
+@pytest.mark.parametrize("name", ["poseidon_chain", "evalair", "sha256", "sha512", "ed25519", "wrap", "mix"])
+def test_quotient_kernel_matches_plain(dev, name):
+    """_eval_quotient_core on a CUDA block launches the tape kernel, whose
+    whole output equals the plain DeviceAlgebra evaluation and the tape's
+    plain executor on the same card tensors (1,000 rows: a ragged last
+    thread block)."""
+    from tendermintx_tpu_torch.stark import prover as pr
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+
+    air = _quotient_airs()[name]()
+    args = _quotient_args(air, 1000, len(name), dev)
+    before = qtm.quotient_kernel_launches
+    got = pr._eval_quotient_core(air, *args, 1000)
+    assert qtm.quotient_kernel_launches == before + 1
+    assert _gf2_equal(got, pr._eval_quotient_plain(air, *args, 1000))
+    assert _gf2_equal(got, qtm.execute_plain(qtm.quotient_tape(air), *args))
+
+
+def test_quotient_kernel_splits_rows_by_scratch(dev, monkeypatch):
+    """A scratch bound below the block's slots x rows runs the block in
+    several launches of THREADS-multiple rows, with the same output."""
+    from tendermintx_tpu_torch.stark import prover as pr
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+
+    air = _quotient_airs()["sha256"]()
+    args = _quotient_args(air, 1000, 3, dev)
+    slots = qtm.quotient_tape(air).n_slots
+    monkeypatch.setattr(qtm, "SCRATCH_BYTES", 8 * slots * 300)
+    assert qtm.rows_per_launch(slots, 1000) == 256
+    before = qtm.quotient_kernel_launches
+    got = qtm.quotient_cuda(air, *args)
+    assert qtm.quotient_kernel_launches == before + 4
+    assert _gf2_equal(got, pr._eval_quotient_plain(air, *args, 1000))
+
+
+def test_quotient_on_card_raises_instead_of_falling_back(dev):
+    """_eval_quotient_core on a CUDA block launches the kernel or raises:
+    a non-contiguous frame block, or an operand on another device, is
+    refused and nothing runs the plain version in its place."""
+    from tendermintx_tpu_torch.stark import prover as pr
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+
+    air = _quotient_airs()["poseidon_chain"]()
+    stacked, *rest = _quotient_args(air, 256, 5, dev)
+    before = qtm.quotient_kernel_launches
+    strided = gl.GF(stacked.v.transpose(0, 1).contiguous().transpose(0, 1))
+    assert not strided.v.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        pr._eval_quotient_core(air, strided, *rest, 256)
+    alpha, pub, *tail = rest
+    with pytest.raises(TypeError):
+        pr._eval_quotient_core(air, stacked, alpha, gl.GF(pub.v.cpu()), *tail, 256)
+    assert qtm.quotient_kernel_launches == before
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,13 @@ def test_poseidon_sources_include_the_params_header():
     assert names == ["poseidon.cu", "poseidon_params.cuh"]
 
 
+def test_quotient_sources_include_the_field_header():
+    names = [p.rsplit("/", 1)[-1] for p in cuda_build.source_files("quotient")]
+    assert names == ["quotient.cu", "goldilocks.cuh"]
+    # the Poseidon library's hash does not depend on the new header
+    assert "goldilocks.cuh" not in [p.rsplit("/", 1)[-1] for p in cuda_build.source_files("poseidon")]
+
+
 def test_library_hash_follows_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
     (tmp_path / "k.cu").write_text('#include <cstdint>\n#include "a.cuh"\n')

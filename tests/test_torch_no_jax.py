@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax():
     assert "tendermintx_tpu_torch.circuits.composite" in mods
     assert "tendermintx_tpu_torch.inputs.testchain" in mods
     for m in ("runtime.cli", "runtime.service", "runtime.operator", "circuits.verify", "ops.ed25519",
-              "parallel.sharding", "parallel.prover", "stark.poseidon_air", "graft_entry"):
+              "parallel.sharding", "parallel.prover", "stark.poseidon_air", "stark.quotient_tape",
+              "graft_entry"):
         assert f"tendermintx_tpu_torch.{m}" in mods
     code = BLOCK + (
         "import importlib\n"

@@ -11,7 +11,8 @@ slice phase does. `--modes` replaces the warm runs by one per listed mode:
 `single` proves with device="cuda", `meshK` with mesh= a K-shard lane mesh
 on cuda:0 (K = 1 runs the sharded path with no communication). Prints one
 JSON line: the card's name and power limit, each prove's and verify's
-seconds, its peak allocated bytes and the proof's sha256. Two checkouts
+seconds, its peak allocated bytes, the proof's sha256 and the
+per-statement phase lines that stark/batch.py logs. Two checkouts
 are compared by running this in turns from one call (parent, change,
 change, parent), two modes by alternating them in `--modes`; the script is
 a measuring aid that nothing else uses.
@@ -22,6 +23,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -67,6 +69,12 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     out = {"label": args.label, "root": os.path.abspath(args.root), "card": smi, "runs": []}
+    phases: list[str] = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: phases.append(record.getMessage())
+    batch_log = logging.getLogger("tendermintx_tpu_torch.stark.batch")
+    batch_log.setLevel(logging.INFO)
+    batch_log.addHandler(handler)
     chain = TestChain(n_validators=128, chain_id="warm-skip-chain")
     for _ in range(8):
         chain.extend()
@@ -79,6 +87,7 @@ def main(argv=None) -> int:
             kwargs = prove_kwargs(mode)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+            phases.clear()
             t0 = time.perf_counter()
             proof = prove_skip_composite(
                 trusted_h, trusted, target_h, inputs, DEFAULT_COMPOSITE_CONFIG, **kwargs
@@ -95,7 +104,7 @@ def main(argv=None) -> int:
             out["runs"].append({
                 "skip": [trusted_h, target_h], "mode": mode, "prove_seconds": t1 - t0,
                 "verify_seconds": t3 - t2, "max_memory_allocated": peak,
-                "proof_sha256": hashlib.sha256(blob).hexdigest(),
+                "proof_sha256": hashlib.sha256(blob).hexdigest(), "phases": list(phases),
             })
     print(json.dumps(out), flush=True)
     return 0
