@@ -6,7 +6,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc
-                 (poseidon.cu, quotient.cu); the line gives each kernel
+                 (poseidon.cu, quotient.cu; one nvcc per source, all
+                 started together); the line gives each kernel
                  function's registers and spill bytes from ptxas (-v); a
                  spill fails;
   3. parity    - an N=4 skip composite proven on cuda and on cpu (plain
@@ -30,20 +31,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  card's maximum SM clock, or bytes at 3.35 TB/s; the bound
                  of the kernel's own dense count beside it); then the
                  quotient tape kernel (stark/quotient_tape.py,
-                 csrc/quotient.cu) against the plain DeviceAlgebra
-                 evaluation, exact on the whole output, for each AIR of the
-                 N=128 paths at its block shape (Ed25519, SHA-256, SHA-512,
-                 WrapAir, EvalAir) and PoseidonChainAir, each with its time,
-                 the plain version's, and its bound (frame bytes at 3.35
-                 TB/s, or 4 32-bit multiply-adds per field multiply);
+                 csrc/quotient.cu) for each AIR of the N=128 paths
+                 (Ed25519, SHA-256, SHA-512, WrapAir, EvalAir) and
+                 PoseidonChainAir: one launch over the statement's whole
+                 one-device shard, the frame read from the LDE row blocks,
+                 exact against the plain twin (the same tape as torch ops)
+                 on the whole output, and one over the row block of
+                 stark/prover.py::_quotient_blocks, exact
+                 against the DeviceAlgebra evaluation of the gathered
+                 frame; each with its time, the plain versions', its bound
+                 (each input byte once at 3.35 TB/s, or 4 32-bit
+                 multiply-adds per field multiply; beside it the bound
+                 that counts every frame offset's copy of the columns), the launch shape (rows a block, shared bytes,
+                 blocks per SM), value slots and operand reads by mode;
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
                  skip 1 -> 5 first (``skip_composite_n128_cold_seconds``,
                  host tables cold), then 2 -> 6 (``skip_composite_n128_seconds``,
                  warm); each is prove + verify. Every kernel must have been
-                 launched by each of the two proves, the warm prove's column
-                 sponge once per column-major tree, and the warm proof's
+                 launched by each of the two proves, the quotient once per
+                 statement, the warm prove's column sponge once per
+                 column-major tree, and the warm proof's
                  statements must be the quotient check's. The per-statement
                  phase seconds that ``stark/batch.py`` logs are in the line
                  under ``phases``;
@@ -89,8 +98,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  a one-card host): the N=128 skip 2 -> 6 at
                  DEFAULT_COMPOSITE_CONFIG with mesh= (bytes equal to the
                  slice phase's warm proof, verified; prove and verify
-                 seconds, peak memory; the column sponge launched once per
-                 shard for each column-major tree), sharded_lane_checks over
+                 seconds, peak memory; the quotient once per shard per
+                 statement, the column sponge once per shard for each
+                 column-major tree), sharded_lane_checks over
                  its 128 lanes (equal to single-device verify_bound,
                  hash_validator_leaves and Python-int sums), the card's N=4
                  parity proof wrapped with mesh= (equal to its single-device
@@ -163,16 +173,27 @@ KERNEL_LIBRARIES = ("poseidon", "quotient")
 def phase_build() -> dict:
     """Build every kernel library; the line gives each kernel function's
     registers and spill bytes as ptxas reported them. Spills fail."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tendermintx_tpu_torch.ops import cuda_build
 
-    out = {"phase": "build"}
-    for name in KERNEL_LIBRARIES:
+    def timed_build(name: str) -> tuple[str, float]:
         t0 = time.perf_counter()
         path = cuda_build.build(name)
+        return path, time.perf_counter() - t0
+
+    out = {"phase": "build"}
+    t0 = time.perf_counter()
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(KERNEL_LIBRARIES)) as pool:
+        built = dict(zip(KERNEL_LIBRARIES, pool.map(timed_build, KERNEL_LIBRARIES)))
+    out["seconds"] = time.perf_counter() - t0
+    for name in KERNEL_LIBRARIES:
+        path, seconds = built[name]
         cuda_build.load_library(name)
         report = cuda_build.ptxas_report(name)
         out[name] = {
-            "seconds": time.perf_counter() - t0,
+            "seconds": seconds,
             "library": os.path.relpath(path),
             "ptxas": report,
         }
@@ -435,9 +456,9 @@ N128_SKIP_STATEMENTS = {"sha256": 1024, "ed25519": 128, "sha512": 256}
 POSEIDON_CHAIN_ROWS = 1 << 14
 
 
-def _quotient_airs() -> list[tuple[str, object, int]]:
-    """(name, AIR, LDE rows) of every AIR whose quotient the N=128 paths
-    evaluate: the skip composite's three statements at
+def _quotient_airs() -> list[tuple[str, object, int, int]]:
+    """(name, AIR, LDE rows, rate bits) of every AIR whose quotient the
+    N=128 paths evaluate: the skip composite's three statements at
     DEFAULT_COMPOSITE_CONFIG, the wrap's WrapAir and EvalAir at
     default_wrap_config(), and PoseidonChainAir."""
     from tendermintx_tpu_torch.circuits.composite import DEFAULT_COMPOSITE_CONFIG
@@ -456,43 +477,92 @@ def _quotient_airs() -> list[tuple[str, object, int]]:
     tape = tape_for(composite)
     wrate = default_wrap_config().rate_bits
     return [
-        ("ed25519", composite[1], rows[1] << rate),
-        ("sha256", composite[0], rows[0] << rate),
-        ("sha512", composite[2], rows[2] << rate),
-        ("wrap", WrapAir(shape), wrap_n_rows(shape) << wrate),
-        ("evalair", EvalAir(tape), tape.n_rows << wrate),
-        ("poseidon_chain", PoseidonChainAir(), POSEIDON_CHAIN_ROWS << rate),
+        ("ed25519", composite[1], rows[1] << rate, rate),
+        ("sha256", composite[0], rows[0] << rate, rate),
+        ("sha512", composite[2], rows[2] << rate, rate),
+        ("wrap", WrapAir(shape), wrap_n_rows(shape) << wrate, wrate),
+        ("evalair", EvalAir(tape), tape.n_rows << wrate, wrate),
+        ("poseidon_chain", PoseidonChainAir(), POSEIDON_CHAIN_ROWS << rate, rate),
     ]
 
 
-def _quotient_inputs(air, B: int, gen, dev) -> tuple:
-    """Random canonical inputs of one (n_offsets, n_total, B) frame block,
-    made on the card: the frame, alpha powers, publics, periodic and
-    public columns, zerofier inverses, challenges."""
+def _random_felts(shape, gen, dev) -> torch.Tensor:
+    """Canonical felts over the whole field, made on the card from a
+    seeded generator, the edge values first."""
+    from tendermintx_tpu_torch.ops import goldilocks as gl
+
+    x = torch.randint(0, 2**63 - 1, shape, dtype=torch.int64, device=dev, generator=gen)
+    x.mul_(2).add_(torch.randint(0, 2, shape, dtype=torch.int64, device=dev, generator=gen))
+    x = gl._canon(x)
+    flat = x.view(-1)
+    k = min(len(EDGES), flat.numel())
+    flat[:k] = gl.tensor_from_u64(np.array(EDGES[:k], dtype=np.uint64), dev)
+    return x
+
+
+def _quotient_inputs(air, N: int, gen, dev) -> tuple:
+    """Random inputs of one statement's quotient made on the card: the
+    whole LDE (columns, N), and the row inputs (alpha powers, publics,
+    whole periodic, public and zerofier columns, challenges)."""
     from tendermintx_tpu_torch.ops.ext import GF2
     from tendermintx_tpu_torch.ops.goldilocks import GF
 
-    n_off, n_total = len(air.frame_offsets), air.n_cols + air.n_aux_cols
-    cols = lambda k: _random_cols((max(k, 1), B), gen, dev)[:k]
-    vec = lambda k: GF(_random_cols((1, max(k, 1)), gen, dev)[0, :k].contiguous())
+    vec = lambda k: GF(_random_felts((k,), gen, dev))
     K = air.n_constraints
-    return (
-        GF(cols(n_off * n_total).reshape(n_off, n_total, B)),
+    lde = _random_felts((air.n_cols + air.n_aux_cols, N), gen, dev)
+    return lde, (
         GF2(vec(K), vec(K)),
         vec(air.n_public),
-        tuple(GF(c) for c in cols(len(air.periodic_columns()))),
-        tuple(GF(c) for c in cols(air.n_public_cols)),
-        tuple(GF(c) for c in cols(4)),
+        tuple(vec(N) for _ in air.periodic_columns()),
+        tuple(vec(N) for _ in range(air.n_public_cols)),
+        tuple(vec(N) for _ in range(4)),
         vec(2 * air.n_challenges),
     )
 
 
-def _kernel_quotient(dev, clock_mhz: float) -> dict:
-    """The tape kernel == the plain DeviceAlgebra evaluation on the whole
-    output, for every AIR of _quotient_airs at its main-path block shape
-    (the prover's row blocks: stark/prover.py::_quotient_blocks), each
-    with its time, the plain version's and its bound. The row's own
-    numbers are the Ed25519 block's, the widest."""
+def _quotient_bound(qt, rows: int, lde_rows: int, blowup: int, muls_per_ms: float) -> dict:
+    """The least time for the quotient of `rows` LDE rows under the
+    guide's rule: each input byte read once (the LDE columns over the
+    rows and the halo past them, at most the whole LDE: the frame's
+    offsets re-read the same columns a few rows apart; the row inputs;
+    publics, challenges and alpha powers) and the output written once, at
+    3.35 TB/s; or 4 32-bit multiply-adds per field multiply at the card's
+    integer rate, whichever is longer. Beside it (``per_offset_*``) the
+    bound of the gathered frame, which counts every offset's copy of the
+    columns."""
+    small = qt.n_public + qt.n_chal + 2 * qt.n_roots
+    lde = qt.n_total * min(lde_rows, rows + max(qt.offsets) * blowup)
+    nbytes = 8 * (lde + (qt.n_rowvecs + 2) * rows + small)
+    per_offset = 8 * ((qt.n_offsets * qt.n_total + qt.n_rowvecs + 2) * rows + small)
+    ops_ms = 4 * qt.counts()["muls"] * rows / muls_per_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    per_offset_ms = per_offset / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "operations_bound_ms": ops_ms,
+        "bytes_bound_ms": bytes_ms,
+        "bytes": nbytes,
+        "per_offset_bytes": per_offset,
+        "per_offset_bytes_bound_ms": per_offset_ms,
+        "per_offset_bound_ms": max(ops_ms, per_offset_ms),
+    }
+
+
+def _kernel_quotient(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """The tape kernel, per AIR of the N=128 paths at its main-path
+    launch shape: one launch over the whole one-device shard (the LDE
+    row blocks of the statement, the halo its own leading rows), held
+    exactly against the plain twin (execute_plain, the same instructions
+    as torch ops) on the whole output; and over the CPU path's row block
+    (stark/prover.py::_quotient_blocks), held exactly against the
+    DeviceAlgebra evaluation of the gathered frame. Each with its time,
+    the plain versions', the bound of each shape, the launch shape
+    (rows a block, shared bytes, blocks per SM), slots and operand reads.
+    The row's own numbers are the Ed25519 shard's, the widest."""
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+    from tendermintx_tpu_torch.parallel.prover import lde_shards_fn
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
     from tendermintx_tpu_torch.stark import quotient_tape as qtm
     from tendermintx_tpu_torch.stark.prover import _eval_quotient_plain, _quotient_blocks
 
@@ -501,67 +571,89 @@ def _kernel_quotient(dev, clock_mhz: float) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     airs = {}
-    for name, air, N in _quotient_airs():
+    for name, air, N, rate in _quotient_airs():
         n_off, n_total = len(air.frame_offsets), air.n_cols + air.n_aux_cols
+        log_n = N.bit_length() - 1 - rate
         B = N // _quotient_blocks(n_off, n_total, N)
         t0 = time.perf_counter()
         qt = qtm.quotient_tape(air)
         record_s = time.perf_counter() - t0
-        args = _quotient_inputs(air, B, gen, dev)
-        want, plain_ms = _timed_once(lambda: _eval_quotient_plain(air, *args, B))
-        got, first_ms = _timed_once(lambda: qtm.quotient_cuda(air, *args))
-        torch.cuda.synchronize()
-        err = max(_max_abs_err(got.c0.v, want.c0.v), _max_abs_err(got.c1.v, want.c1.v))
+        shape = qtm.launch_shape(qt.row_words, qt.n_uniform)
+        lde, vecs = _quotient_inputs(air, N, gen, dev)
+        trace = GF(lde[: air.n_cols])
+        aux = GF(lde[air.n_cols :]) if air.n_aux_cols else None
+        (shard,) = lde_shards_fn(LaneMesh([dev]), air, log_n, rate)([trace], None if aux is None else [aux])
+        got, first_ms = _timed_once(lambda: qtm.quotient_cuda(air, shard, *vecs))
+        twin, twin_ms = _timed_once(lambda: qtm.execute_plain(qt, shard, *vecs))
+        err = max(_max_abs_err(got.c0.v, twin.c0.v), _max_abs_err(got.c1.v, twin.c1.v))
         if err:
-            raise AssertionError(f"quotient kernel of {name} at B={B} disagrees with its plain version: "
-                                 f"max_abs_err {err}")
+            raise AssertionError(f"quotient kernel of {name} over its {N}-row shard disagrees with "
+                                 f"its plain twin: max_abs_err {err}")
+        del twin
+        # the CPU path's row block: the kernel over rows [0, B) against DeviceAlgebra
+        stacked = qtm.gather_frame(shard, air.frame_offsets, 0, B)
+        cut = lambda group: tuple(GF(v.v[:B]) for v in group)
+        alpha, pub, periodic, public_cols, zinvs, chal = vecs
+        want, plain_ms = _timed_once(lambda: _eval_quotient_plain(
+            air, stacked, alpha, pub, cut(periodic), cut(public_cols), cut(zinvs), chal, B))
+        del stacked
+        err = max(_max_abs_err(got.c0.v[:B], want.c0.v), _max_abs_err(got.c1.v[:B], want.c1.v))
+        if err:
+            raise AssertionError(f"quotient kernel of {name} over rows [0, {B}) disagrees with the "
+                                 f"DeviceAlgebra evaluation: max_abs_err {err}")
         del want, got
-        counts = qt.counts()
-        n_rowvecs = qt.n_periodic + qt.n_public_cols + 4
-        nbytes = 8 * ((n_off * n_total + n_rowvecs + 2) * B + qt.n_public + qt.n_chal + 2 * qt.n_roots)
-        # 4 32-bit multiply-adds per field product (64 x 64 -> 128 bits)
-        ops_ms = 4 * counts["muls"] * B / muls_per_ms
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         reps = max(2, min(50, int(1000 / max(first_ms, 1e-3))))
-        ms = _time_ms(lambda: qtm.quotient_cuda(air, *args), reps)
+        ms = _time_ms(lambda: qtm.quotient_cuda(air, shard, *vecs), reps)
+        block_ms = _time_ms(lambda: qtm.quotient_cuda(air, shard, *vecs, (0, B)), reps)
+        counts = qt.counts()
         airs[name] = {
-            "shape": [n_off, n_total, B],
-            "lde_rows": N,
-            "launches_per_block": -(-B // qtm.rows_per_launch(qt.n_slots, B)),
-            "scratch_bytes": 8 * qt.n_slots * qtm.rows_per_launch(qt.n_slots, B),
+            "lde": [n_total, N],
+            "frame_offsets": list(air.frame_offsets),
+            "blowup": 1 << rate,
+            "block_rows": B,
             "record_seconds": record_s,
             **counts,
+            "threads": shape["threads"],
+            "shared_bytes": shape["shared_bytes"],
+            "blocks_per_sm": qtm.blocks_per_sm(shape["threads"], shape["shared_bytes"]),
             "max_abs_err": 0.0,
             "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "operations_bound_ms": ops_ms,
-            "bytes_bound_ms": bytes_ms,
-            "bytes": nbytes,
+            "plain_ms": twin_ms,
+            "bound": _quotient_bound(qt, N, N, 1 << rate, muls_per_ms),
+            "block_ms": block_ms,
+            "block_plain_ms": plain_ms,
+            "block_bound": _quotient_bound(qt, B, N, 1 << rate, muls_per_ms),
         }
-        del args
+        for k in ("ms", "block_ms"):
+            b = airs[name]["bound" if k == "ms" else "block_bound"]
+            airs[name][k.replace("ms", "bound_share")] = b["bound_ms"] / airs[name][k]
+        del lde, trace, aux, shard, vecs
     top = airs["ed25519"]
+    regs = ptxas.get("tmx_quotient_kernel", {})
     return {
         "route": "cuda",
         "source": "tendermintx_tpu_torch/csrc/quotient.cu",
         "replaces": "tendermintx_tpu/stark/prover.py:293",
         "replaces_program": "tendermintx_tpu/stark/prover.py:379 (_eval_quotient_core, jax.jit at :363-364)",
-        "shape": top["shape"],
+        "shape": top["lde"],
         "max_abs_err": 0.0,
-        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "operations_bound_ms",
-                               "bytes_bound_ms", "bytes")},
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        **{k: top["bound"][k] for k in ("bound_ms", "bound_by", "operations_bound_ms", "bytes_bound_ms",
+                                        "bytes", "per_offset_bytes_bound_ms")},
         "library_ms": None,
+        "registers": regs.get("registers"),
+        "spill_bytes": (regs.get("spill_stores") or 0) + (regs.get("spill_loads") or 0),
         "airs": airs,
     }
 
 
-def phase_kernels() -> dict:
+def phase_kernels(build: dict) -> dict:
     """Each Poseidon entry against its plain torch version on the same
     CUDA tensors (exact: integer field arithmetic) and the host oracle,
-    and the quotient tape kernel against the plain DeviceAlgebra
-    evaluation for every AIR of the N=128 paths, each with its time, its
-    plain version's, and its bound."""
+    and the quotient tape kernel against its plain twin and the
+    DeviceAlgebra evaluation for every AIR of the N=128 paths, each with
+    its time, its plain version's, and its bound."""
     from tendermintx_tpu_torch.ops import poseidon as ps
 
     dev = torch.device("cuda", 0)
@@ -571,7 +663,7 @@ def phase_kernels() -> dict:
         "poseidon_permute": _kernel_permute(ps, rng, dev, clock_mhz),
         "poseidon_sponge_cols": _kernel_sponge(ps, rng, dev, clock_mhz),
         "poseidon_merkle_layer": _kernel_layer(ps, rng, dev, clock_mhz),
-        "quotient": _kernel_quotient(dev, clock_mhz),
+        "quotient": _kernel_quotient(dev, clock_mhz, build["quotient"]["ptxas"]),
     }
     for row in rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -871,6 +963,13 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
               "sha512": warm_proof.n_sha512_blocks}
     if counts != N128_SKIP_STATEMENTS:
         raise AssertionError(f"the warm skip proves {counts}, the quotient check {N128_SKIP_STATEMENTS}")
+    # one quotient launch per statement (one device: one shard each)
+    n_stmts = len(warm_proof.batch.statements)
+    if warm_launches["quotient"] != n_stmts or cold_launches["quotient"] != n_stmts:
+        raise AssertionError(
+            f"{n_stmts} statements with {cold_launches['quotient']} / {warm_launches['quotient']} "
+            "quotient launches (cold / warm); the card's quotient is one launch per shard"
+        )
     # one sponge launch per column-major tree: trace, quotient and (where
     # the AIR has one) aux commitment of every statement
     trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)
@@ -1460,6 +1559,11 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     t3 = time.perf_counter()
     if result != (2, trusted, 6, target):
         raise AssertionError(f"the N=128 mesh proof failed to verify: {result!r}")
+    if launches["quotient"] != MESH_SHARDS * len(proof.batch.statements):
+        raise AssertionError(
+            f"the mesh prove has {len(proof.batch.statements)} statements over {MESH_SHARDS} shards "
+            f"and {launches['quotient']} quotient launches"
+        )
     trees = sum(2 + (st.aux_cap is not None) for st in proof.batch.statements)
     if sponges != MESH_SHARDS * trees:
         raise AssertionError(
@@ -1675,11 +1779,11 @@ def main(argv: list[str]) -> int:
     for name in PHASE_LOGGERS:
         logging.getLogger(name).setLevel(logging.INFO)
     card = phase_device()["nvidia_smi"]
-    phase_build()
+    build = phase_build()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         parity = parity_start(workdir)
         try:
-            rows = phase_kernels()
+            rows = phase_kernels(build)
             n128 = SkipChain(128, os.path.join(workdir, "n128"))
             _, cold_launches, warm_launches, warm_proof = phase_slice(n128)
             _, step_launches, step_blob = phase_step(n128)
@@ -1705,6 +1809,17 @@ def main(argv: list[str]) -> int:
                               "runtime": runtime_launches[name], "mesh": mesh_launches[name]}}
         for name, row in rows.items()
     ]
+    # the quotient per AIR: times, bounds, launch shape, slots and loads
+    per_air = ("ms", "plain_ms", "block_rows", "block_ms", "block_plain_ms", "slots", "threads", "shared_bytes", "blocks_per_sm", "instructions", "bundles", "chunks", "reads",
+               "distinct_reads", "loads")
+    for entry in kernels:
+        if "airs" in rows[entry["name"]]:
+            entry["airs"] = {
+                air: {**{k: a[k] for k in per_air}, "bound_ms": a["bound"]["bound_ms"],
+                      "block_bound_ms": a["block_bound"]["bound_ms"],
+                      "block_per_offset_bound_ms": a["block_bound"]["per_offset_bound_ms"]}
+                for air, a in rows[entry["name"]]["airs"].items()
+            }
     emit({"kernels": kernels})
     emit({
         "ok": True,

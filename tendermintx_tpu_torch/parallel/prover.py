@@ -101,79 +101,94 @@ def sharded_leaf_hashes(mesh: LaneMesh):
     return fn
 
 
-def _window(block: torch.Tensor, halo: torch.Tensor | None, start: int, length: int) -> torch.Tensor:
-    """Columns [start, start + length) of cat([block, halo], dim=1),
-    without materializing the concatenation."""
-    nb = int(block.shape[1])
-    if start + length <= nb:
-        return block[:, start : start + length]
-    over = start + length - nb
-    return torch.cat([block[:, start:], halo[:, :over]], dim=1)
-
-
-def sharded_quotient_fn(mesh: LaneMesh, air, log_n: int, rate_bits: int):
-    """Row-sharded constraint quotient with a ppermute halo exchange.
-
-    Device d holds LDE columns [d*Nb, (d+1)*Nb); frame offset k reads row
-    x + k*blowup, so each device needs the first max_offset*blowup rows of
-    its right (cyclic) neighbour: one ppermute of that halo slab replaces
-    ``% N`` indexing over the whole domain (on a one-device mesh the halo
-    is the shard's own leading rows). Within a shard, rows go through
-    ``_eval_quotient_core`` in blocks of ``_quotient_blocks`` rows.
-
-    fn(trace blocks, aux blocks | None, alpha_pows, pub, periodic,
-       public_cols, zinvs, chal) -> D x GF2 (Nb,)
-
-    The LDE blocks are the row blocks of ``columns_to_rows``; periodic,
-    public_cols and zinvs are whole (N,) columns, sharded here; the rest
-    is replicated."""
-    from ..stark.prover import _eval_quotient_core, _quotient_blocks
+def lde_shards_fn(mesh: LaneMesh, air, log_n: int, rate_bits: int):
+    """fn(trace blocks, aux blocks | None) -> D x quotient_tape.LdeShard:
+    each device's LDE row blocks with the halo its frame reads past the
+    block's end, the first max_offset * blowup rows of its right (cyclic)
+    neighbour, brought by ONE ppermute (on one device the block's own
+    leading rows, a view)."""
+    from ..stark.quotient_tape import LdeShard
 
     D = mesh.size
     N = 1 << (log_n + rate_bits)
     blowup = 1 << rate_bits
-    offsets = list(air.frame_offsets)
-    halo = max(offsets) * blowup
-    Nb = N // D
-    if halo > Nb:
-        raise ValueError(f"shard block of {Nb} rows is smaller than the frame halo of {halo}")
+    halo = max(air.frame_offsets) * blowup
+    if halo > N // D:
+        raise ValueError(f"shard block of {N // D} rows is smaller than the frame halo of {halo}")
     # send my leading slab to my LEFT neighbour (it is their right halo)
     perm = [(i, (i - 1) % D) for i in range(D)]
-    n_total = air.n_cols + air.n_aux_cols
-    n_sub = _quotient_blocks(len(offsets), n_total, Nb)
-    B = Nb // n_sub
 
     def exchange(blocks):
         if blocks is None or not halo:
             return [None] * D
         return ppermute(mesh, [b.v[:, :halo] for b in blocks], perm)
 
+    def fn(trace_blocks, aux_blocks) -> list:
+        t_halo, a_halo = exchange(trace_blocks), exchange(aux_blocks)
+        return [
+            LdeShard(
+                trace=trace_blocks[d],
+                aux=aux_blocks[d] if aux_blocks is not None else None,
+                trace_halo=GF(t_halo[d]) if t_halo[d] is not None else None,
+                aux_halo=GF(a_halo[d]) if a_halo[d] is not None else None,
+                blowup=blowup,
+            )
+            for d in range(D)
+        ]
+
+    return fn
+
+
+def sharded_quotient_fn(mesh: LaneMesh, air, log_n: int, rate_bits: int):
+    """Row-sharded constraint quotient with a ppermute halo exchange.
+
+    Device d holds LDE rows [d*Nb, (d+1)*Nb); frame offset k reads row
+    x + k*blowup, so each device needs the first max_offset*blowup rows of
+    its right (cyclic) neighbour (``lde_shards_fn``), which replaces
+    ``% N`` indexing over the whole domain. A CUDA shard is one launch of
+    the tape kernel (stark/quotient_tape.py), which reads the frame
+    straight from the row blocks and the halo; a CPU shard gathers the
+    frame in blocks of ``_quotient_blocks`` rows for
+    ``_eval_quotient_core``.
+
+    fn(trace blocks, aux blocks | None, alpha_pows, pub, periodic,
+       public_cols, zinvs, chal) -> D x GF2 (Nb,)
+
+    The LDE blocks are the row blocks of ``columns_to_rows``; periodic,
+    public_cols and zinvs are whole (N,) columns on the mesh's first
+    device; the rest is replicated."""
+    from ..stark.prover import _eval_quotient_core, _quotient_blocks
+    from ..stark.quotient_tape import gather_frame, quotient_cuda
+
+    D = mesh.size
+    N = 1 << (log_n + rate_bits)
+    offsets = list(air.frame_offsets)
+    Nb = N // D
+    shards_of = lde_shards_fn(mesh, air, log_n, rate_bits)
+    n_total = air.n_cols + air.n_aux_cols
+    n_sub = _quotient_blocks(len(offsets), n_total, Nb)
+    B = Nb // n_sub
+
     def fn(trace_blocks, aux_blocks, alpha_pows, pub, periodic, public_cols, zinvs, chal):
-        t_halo = exchange(trace_blocks)
-        a_halo = exchange(aux_blocks)
+        shards = shards_of(trace_blocks, aux_blocks)
+        vecs = (periodic, public_cols, zinvs)
         out = []
-        for d, dev in enumerate(mesh.devices):
-            tb = trace_blocks[d].v
-            ab = aux_blocks[d].v if aux_blocks is not None else None
+        for d, (dev, shard) in enumerate(zip(mesh.devices, shards)):
             alpha_d, pub_d, chal_d = _gf2_to(alpha_pows, dev), _gf_to(pub, dev), _gf_to(chal, dev)
+            g0 = d * Nb
+            if dev.type == "cuda":
+                here = tuple(tuple(_rows(v, g0, g0 + Nb, dev) for v in group) for group in vecs)
+                out.append(quotient_cuda(air, shard, alpha_d, pub_d, *here, chal_d))
+                continue
             parts = []
             for si in range(n_sub):
                 s = si * B
-                frame = []
-                for k in offsets:
-                    f = _window(tb, t_halo[d], s + k * blowup, B)
-                    if ab is not None:
-                        f = torch.cat([f, _window(ab, a_halo[d], s + k * blowup, B)])
-                    frame.append(f)
-                stacked = GF(torch.stack(frame))
-                del frame
-                g0 = d * Nb + s
+                stacked = gather_frame(shard, offsets, s, s + B)
+                g = g0 + s
                 parts.append(
                     _eval_quotient_core(
                         air, stacked, alpha_d, pub_d,
-                        tuple(_rows(p, g0, g0 + B, dev) for p in periodic),
-                        tuple(_rows(p, g0, g0 + B, dev) for p in public_cols),
-                        tuple(_rows(z, g0, g0 + B, dev) for z in zinvs),
+                        *(tuple(_rows(v, g, g + B, dev) for v in group) for group in vecs),
                         chal_d, B,
                     )
                 )

@@ -212,22 +212,18 @@ def coset_intt(evals: GF, shift: int) -> GF:
     return nttmod.intt(evals) * GF(powers)
 
 
-# Quotient row blocks. The reference capped the gathered frame at 2^27
-# elements for a 16 GB chip. On an 80 GB H100 the frame block is 2^29
-# int64 elements (4 GB). The widest AIR, Ed25519 at 128 lanes, has
-# 2 offsets x ~2,930 columns = 5,860 frame values per row, so a block is
-# 2^29 / 5,860 ~ 2^16 rows (4 blocks over its 2^18-row LDE). On a card the
-# tape kernel (stark/quotient_tape.py) evaluates a block in one scratch
-# buffer of the tape's value slots (~6,300 x 8 bytes a row for Ed25519,
-# ~3.3 GB a block). The plain DeviceAlgebra program keeps ~30,000 int64
-# temporaries per row alive at its peak (the 15 mul witnesses' (15, 40)
-# convolutions twice, the LogUp batch products, the (K, rows) constraint
-# stack and its alpha products), about 5x the frame: ~24 GB per block
-# beside ~8 GB of resident LDEs. The N=128 prove peaks at 38.6 GB on an
-# 80 GB H100 with either one (chip_smoke.py; the peak is outside the
-# quotient), so one block size serves the widest AIR with room left.
+# Quotient row blocks of a CPU shard (a CUDA shard is one launch of the
+# tape kernel, stark/quotient_tape.py, which reads the frame straight from
+# the LDE row blocks). The reference capped the gathered frame at 2^27
+# elements for a 16 GB chip; here a block is 2^29 int64 elements (4 GB).
+# The widest AIR, Ed25519 at 128 lanes, has 2 offsets x ~2,930 columns =
+# 5,860 frame values per row, so a block is 2^29 / 5,860 ~ 2^16 rows (4
+# blocks over its 2^18-row LDE). The plain DeviceAlgebra program keeps
+# ~30,000 int64 temporaries per row alive at its peak (the 15 mul
+# witnesses' (15, 40) convolutions twice, the LogUp batch products, the
+# (K, rows) constraint stack and its alpha products), about 5x the frame.
 _QUOTIENT_BLOCK_ELEMS = 1 << 29
-# Blocks never go below this many rows (launch overhead would dominate).
+# Blocks never go below this many rows.
 _MIN_BLOCK_ROWS = 4096
 
 
@@ -243,14 +239,15 @@ def _eval_quotient_core(
     air, stacked: GF, alpha_pows: GF2, pub: GF, periodic, public_cols, zinvs, chal: GF, N: int
 ) -> GF2:
     """Constraint quotient from a gathered (n_offsets, n_cols + n_aux, N)
-    frame block: the tape kernel (stark/quotient_tape.py, csrc/quotient.cu)
-    for a CUDA block, the plain DeviceAlgebra evaluation for a CPU one."""
-    if stacked.device.type == "cuda":
-        from .quotient_tape import quotient_cuda
-
-        return quotient_cuda(air, stacked, alpha_pows, pub, periodic, public_cols, zinvs, chal)
+    CPU frame block: the plain DeviceAlgebra evaluation. On a card the
+    quotient never gathers its frame: parallel/prover.py::sharded_quotient_fn
+    launches the tape kernel on the LDE row blocks
+    (stark/quotient_tape.py::quotient_cuda)."""
     if stacked.device.type != "cpu":
-        raise ValueError(f"no constraint quotient for device {stacked.device}")
+        raise ValueError(
+            f"no gathered-frame quotient for device {stacked.device}: a card's quotient is "
+            "quotient_tape.quotient_cuda over the LDE row blocks"
+        )
     return _eval_quotient_plain(air, stacked, alpha_pows, pub, periodic, public_cols, zinvs, chal, N)
 
 

@@ -165,80 +165,212 @@ def _quotient_airs() -> dict:
     }
 
 
-def _quotient_args(air, rows: int, seed: int, dev) -> tuple:
+def _quotient_case(air, log_n: int, rate_bits: int, seed: int, dev) -> tuple:
+    """A whole random LDE (columns, N) of `air` made on the card, and its
+    row inputs: alpha powers, publics, periodic, public and zerofier
+    columns (whole (N,) columns), challenges. Full-range canonical felts."""
     from tendermintx_tpu_torch.ops.ext import GF2
 
-    n_total = air.n_cols + air.n_aux_cols
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def f(*shape):
+        x = torch.randint(0, 2**63 - 1, shape, dtype=torch.int64, device=dev, generator=gen)
+        x.mul_(2).add_(torch.randint(0, 2, shape, dtype=torch.int64, device=dev, generator=gen))
+        return gl.GF(gl._canon(x))
+
+    N = 1 << (log_n + rate_bits)
     K = air.n_constraints
-    f = lambda shape, k: gl.GF(_felts(shape, seed * 100 + k, dev))
-    return (
-        f((len(air.frame_offsets), n_total, rows), 0),
-        GF2(f((K,), 1), f((K,), 2)),
-        f((air.n_public,), 3),
-        tuple(f((rows,), 10 + i) for i in range(len(air.periodic_columns()))),
-        tuple(f((rows,), 1000 + i) for i in range(air.n_public_cols)),
-        tuple(f((rows,), 5000 + i) for i in range(4)),
-        f((2 * air.n_challenges,), 4),
+    lde = f(air.n_cols + air.n_aux_cols, N)
+    lde.v[0, : len(EDGES)] = gl.tensor_from_u64(np.array(EDGES, dtype=np.uint64), dev)
+    vecs = (
+        GF2(f(K), f(K)), f(air.n_public),
+        tuple(f(N) for _ in air.periodic_columns()), tuple(f(N) for _ in range(air.n_public_cols)),
+        tuple(f(N) for _ in range(4)), f(2 * air.n_challenges),
     )
+    return lde, vecs
+
+
+def _shards_of(air, lde, mesh, log_n: int, rate_bits: int) -> list:
+    from tendermintx_tpu_torch.parallel import prover as shp
+
+    trace = [gl.GF(b.contiguous()) for b in mesh.split(lde.v[: air.n_cols], 1)]
+    aux = [gl.GF(b.contiguous()) for b in mesh.split(lde.v[air.n_cols :], 1)] if air.n_aux_cols else None
+    return shp.lde_shards_fn(mesh, air, log_n, rate_bits)(trace, aux)
+
+
+def _shard_rows(vecs: tuple, r0: int, r1: int) -> tuple:
+    """The row inputs with rows [r0, r1) of each whole column, as
+    parallel/prover.py::sharded_quotient_fn hands them to a shard."""
+    alpha, pub, periodic, public_cols, zinvs, chal = vecs
+    cut = lambda group: tuple(gl.GF(v.v[r0:r1]) for v in group)
+    return alpha, pub, cut(periodic), cut(public_cols), cut(zinvs), chal
 
 
 def _gf2_equal(a, b) -> bool:
     return torch.equal(a.c0.v, b.c0.v) and torch.equal(a.c1.v, b.c1.v)
 
 
+def _gf2_cat(parts):
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    return GF2.concatenate([GF2(gl.GF(p.c0.v.cpu()), gl.GF(p.c1.v.cpu())) for p in parts], axis=0)
+
+
 @pytest.mark.parametrize("name", ["poseidon_chain", "evalair", "sha256", "sha512", "ed25519", "wrap", "mix"])
 def test_quotient_kernel_matches_plain(dev, name):
-    """_eval_quotient_core on a CUDA block launches the tape kernel, whose
-    whole output equals the plain DeviceAlgebra evaluation and the tape's
-    plain executor on the same card tensors (1,000 rows: a ragged last
-    thread block)."""
+    """One launch over a one-device shard of 1,024 LDE rows (its last rows
+    read the halo: the block's own leading rows) equals the tape's plain
+    twin and the DeviceAlgebra evaluation of the gathered frame on the
+    same card tensors; the prover's sharded quotient on four shards of
+    cuda:0 (four launches) equals it and the CPU mesh's plain path."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.parallel import prover as shp
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
     from tendermintx_tpu_torch.stark import prover as pr
     from tendermintx_tpu_torch.stark import quotient_tape as qtm
 
     air = _quotient_airs()[name]()
-    args = _quotient_args(air, 1000, len(name), dev)
+    log_n, rate_bits = 9, 1
+    N = 1 << (log_n + rate_bits)
+    lde, vecs = _quotient_case(air, log_n, rate_bits, len(name), dev)
+    (shard,) = _shards_of(air, lde, LaneMesh([dev]), log_n, rate_bits)
     before = qtm.quotient_kernel_launches
-    got = pr._eval_quotient_core(air, *args, 1000)
+    got = qtm.quotient_cuda(air, shard, *vecs)
     assert qtm.quotient_kernel_launches == before + 1
-    assert _gf2_equal(got, pr._eval_quotient_plain(air, *args, 1000))
-    assert _gf2_equal(got, qtm.execute_plain(qtm.quotient_tape(air), *args))
+    assert _gf2_equal(got, qtm.execute_plain(qtm.quotient_tape(air), shard, *vecs))
+    stacked = qtm.gather_frame(shard, air.frame_offsets, 0, N)
+    assert _gf2_equal(got, pr._eval_quotient_plain(air, stacked, *vecs, N))
+    trace, aux = lde.v[: air.n_cols], lde.v[air.n_cols :] if air.n_aux_cols else None
+    outs = []
+    for mesh in (LaneMesh([dev] * 4), LaneMesh([torch.device("cpu")] * 4)):
+        d0 = mesh.devices[0]
+        blocks = lambda x: [gl.GF(b.contiguous()) for b in mesh.split(x.to(d0), 1)]
+        move = lambda group: tuple(gl.GF(v.v.to(d0)) for v in group)
+        alpha, pub, periodic, public_cols, zinvs, chal = vecs
+        before = qtm.quotient_kernel_launches
+        out = shp.sharded_quotient_fn(mesh, air, log_n, rate_bits)(
+            blocks(trace), None if aux is None else blocks(aux),
+            GF2(gl.GF(alpha.c0.v.to(d0)), gl.GF(alpha.c1.v.to(d0))), gl.GF(pub.v.to(d0)),
+            move(periodic), move(public_cols), move(zinvs), gl.GF(chal.v.to(d0)),
+        )
+        assert qtm.quotient_kernel_launches == before + (4 if d0.type == "cuda" else 0)
+        outs.append(_gf2_cat(out))
+    assert _gf2_equal(outs[0], outs[1])
+    assert _gf2_equal(outs[0], _gf2_cat([got]))
 
 
-def test_quotient_kernel_splits_rows_by_scratch(dev, monkeypatch):
-    """A scratch bound below the block's slots x rows runs the block in
-    several launches of THREADS-multiple rows, with the same output."""
-    from tendermintx_tpu_torch.stark import prover as pr
+@pytest.mark.parametrize("name", ["ed25519", "sha256", "sha512", "wrap", "evalair", "poseidon_chain"])
+def test_quotient_kernel_matches_twin_at_n128_shards(dev, name):
+    """At each AIR's N=128 shape (chip_smoke.py::_quotient_airs): one
+    launch over the whole one-device shard equals the plain twin on the
+    card, exactly; four shards on cuda:0 (four launches, halos from the
+    neighbours, the last one's from shard 0) give the same rows, and the
+    twin over the last shard's final rows (read through its halo) equals
+    them."""
+    import chip_smoke
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+
+    air, N, rate_bits = next((a, n, r) for nm, a, n, r in chip_smoke._quotient_airs() if nm == name)
+    log_n = N.bit_length() - 1 - rate_bits
+    lde, vecs = _quotient_case(air, log_n, rate_bits, 100 + len(name), dev)
+    qt = qtm.quotient_tape(air)
+    assert qt.n_slots <= 256
+    (shard,) = _shards_of(air, lde, LaneMesh([dev]), log_n, rate_bits)
+    before = qtm.quotient_kernel_launches
+    got = qtm.quotient_cuda(air, shard, *vecs)
+    assert qtm.quotient_kernel_launches == before + 1
+    assert _gf2_equal(got, qtm.execute_plain(qt, shard, *vecs))
+    shards = _shards_of(air, lde, LaneMesh([dev] * 4), log_n, rate_bits)
+    nb = N // 4
+    before = qtm.quotient_kernel_launches
+    parts = [qtm.quotient_cuda(air, s, *_shard_rows(vecs, d * nb, (d + 1) * nb)) for d, s in enumerate(shards)]
+    assert qtm.quotient_kernel_launches == before + 4
+    assert _gf2_equal(_gf2_cat(parts), _gf2_cat([got]))
+    tail = qtm.execute_plain(qt, shards[3], *_shard_rows(vecs, 3 * nb, N), (nb - 1024, nb))
+    assert torch.equal(tail.c0.v, parts[3].c0.v[nb - 1024 :])
+    assert torch.equal(tail.c1.v, parts[3].c1.v[nb - 1024 :])
+
+
+def test_quotient_kernel_row_range_is_a_slice_of_the_shard(dev):
+    """A launch over rows [r0, r1) of a shard (chip_smoke.py times the
+    CPU path's row block this way) gives those rows of the whole-shard
+    launch."""
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
     from tendermintx_tpu_torch.stark import quotient_tape as qtm
 
     air = _quotient_airs()["sha256"]()
-    args = _quotient_args(air, 1000, 3, dev)
-    slots = qtm.quotient_tape(air).n_slots
-    monkeypatch.setattr(qtm, "SCRATCH_BYTES", 8 * slots * 300)
-    assert qtm.rows_per_launch(slots, 1000) == 256
+    lde, vecs = _quotient_case(air, 9, 1, 3, dev)
+    (shard,) = _shards_of(air, lde, LaneMesh([dev]), 9, 1)
+    whole = qtm.quotient_cuda(air, shard, *vecs)
+    for r0, r1 in ((0, 1), (5, 300), (1000, 1024), (7, 7)):
+        part = qtm.quotient_cuda(air, shard, *vecs, (r0, r1))
+        assert torch.equal(part.c0.v, whole.c0.v[r0:r1]) and torch.equal(part.c1.v, whole.c1.v[r0:r1])
+
+
+def test_quotient_tape_beyond_shared_memory_raises(dev, monkeypatch):
+    """Every value slot lives in shared memory and there is no spill tier:
+    a tape whose slots do not fit a block raises and launches nothing."""
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+
+    air = _quotient_airs()["sha256"]()
+    lde, vecs = _quotient_case(air, 9, 1, 4, dev)
+    (shard,) = _shards_of(air, lde, LaneMesh([dev]), 9, 1)
+    qt = qtm.quotient_tape(air)
+    monkeypatch.setattr(qtm, "SMEM_PER_BLOCK", qtm.shared_bytes(qt.row_words, qt.n_uniform, 32) - 8)
     before = qtm.quotient_kernel_launches
-    got = qtm.quotient_cuda(air, *args)
-    assert qtm.quotient_kernel_launches == before + 4
-    assert _gf2_equal(got, pr._eval_quotient_plain(air, *args, 1000))
+    with pytest.raises(ValueError, match="shared memory"):
+        qtm.quotient_cuda(air, shard, *vecs)
+    assert qtm.quotient_kernel_launches == before
 
 
 def test_quotient_on_card_raises_instead_of_falling_back(dev):
-    """_eval_quotient_core on a CUDA block launches the kernel or raises:
-    a non-contiguous frame block, or an operand on another device, is
-    refused and nothing runs the plain version in its place."""
+    """The card's quotient launches the kernel or raises: a
+    non-contiguous LDE block, an operand on another device, or a gathered
+    frame handed to _eval_quotient_core is refused, and nothing runs the
+    plain version in its place."""
+    import dataclasses
+
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
     from tendermintx_tpu_torch.stark import prover as pr
     from tendermintx_tpu_torch.stark import quotient_tape as qtm
 
     air = _quotient_airs()["poseidon_chain"]()
-    stacked, *rest = _quotient_args(air, 256, 5, dev)
+    lde, vecs = _quotient_case(air, 7, 1, 5, dev)
+    (shard,) = _shards_of(air, lde, LaneMesh([dev]), 7, 1)
     before = qtm.quotient_kernel_launches
-    strided = gl.GF(stacked.v.transpose(0, 1).contiguous().transpose(0, 1))
+    strided = gl.GF(shard.trace.v.t().contiguous().t())
     assert not strided.v.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
-        pr._eval_quotient_core(air, strided, *rest, 256)
-    alpha, pub, *tail = rest
+        qtm.quotient_cuda(air, dataclasses.replace(shard, trace=strided), *vecs)
+    alpha, pub, *tail = vecs
     with pytest.raises(TypeError):
-        pr._eval_quotient_core(air, stacked, alpha, gl.GF(pub.v.cpu()), *tail, 256)
+        qtm.quotient_cuda(air, shard, alpha, gl.GF(pub.v.cpu()), *tail)
+    N = int(lde.shape[1])
+    with pytest.raises(ValueError, match="quotient_cuda"):
+        pr._eval_quotient_core(air, qtm.gather_frame(shard, air.frame_offsets, 0, N), *vecs, N)
     assert qtm.quotient_kernel_launches == before
+
+
+def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev, tmp_path):
+    """The N=4 skip composite at the parity config proven on the card is
+    the CPU's proof byte for byte; on one device the card's quotient is
+    one launch per statement."""
+    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+    from tendermintx_tpu_torch.stark import quotient_tape as qtm
+    from tendermintx_tpu_torch.stark.prover import StarkConfig
+
+    chain, f = _chain(tmp_path, n_validators=4, heights=5)
+    trusted = chain.headers[1].hash()
+    inputs = f.get_skip_inputs(1, trusted, 5, max_validators=4)
+    cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4)
+    before = qtm.quotient_kernel_launches
+    card = prove_skip_composite(1, trusted, 5, inputs, cfg, device=dev)
+    assert qtm.quotient_kernel_launches == before + 3
+    host = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cpu")
+    assert card.to_bytes() == host.to_bytes()
 
 
 # ---------------------------------------------------------------------------
