@@ -6,8 +6,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc
-                 (poseidon.cu, quotient.cu; one nvcc per source, all
-                 started together); the line gives each kernel
+                 (poseidon.cu, quotient.cu, ntt.cu, deep.cu; one nvcc per
+                 source, all started together); the line gives each kernel
                  function's registers and spill bytes from ptxas (-v); a
                  spill fails;
   3. parity    - an N=4 skip composite proven on cuda and on cpu (plain
@@ -44,13 +44,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  multiply-adds per field multiply; beside it the bound
                  that counts every frame offset's copy of the columns), the launch shape (rows a block, shared bytes,
                  blocks per SM), value slots and operand reads by mode;
+                 then the NTT kernel (ops/ntt.py, csrc/ntt.cu): each entry
+                 (forward, inverse, the coset iNTT's inverse with its
+                 power table, coset LDE) at every transform of the N=128
+                 paths (each AIR's trace, aux, public-column and chunk
+                 LDE and quotient iNTT, on one card and per mesh shard;
+                 the step's and the hash bundles' SHA-256 plans; the
+                 four-step NTT's rows; 1- and 2-point rows), exact against
+                 its plain version on the whole output, timed at the
+                 Ed25519 trace; and the DEEP kernel (csrc/deep.cu) at each
+                 AIR's one-device shard, exact against
+                 deep_composition_plain; each with its time, the plain
+                 version's and its bound (bytes at 3.35 TB/s or 4
+                 multiply-adds a field multiply);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
                  skip 1 -> 5 first (``skip_composite_n128_cold_seconds``,
                  host tables cold), then 2 -> 6 (``skip_composite_n128_seconds``,
                  warm); each is prove + verify. Every kernel must have been
-                 launched by each of the two proves, the quotient once per
+                 launched by each of the two proves (the NTT's forward
+                 entry excepted: only the mesh phase's four-step NTT
+                 runs it), the quotient and the DEEP kernel once per
                  statement, the warm prove's column sponge once per
                  column-major tree, and the warm proof's
                  statements must be the quotient check's. The per-statement
@@ -98,15 +113,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  a one-card host): the N=128 skip 2 -> 6 at
                  DEFAULT_COMPOSITE_CONFIG with mesh= (bytes equal to the
                  slice phase's warm proof, verified; prove and verify
-                 seconds, peak memory; the quotient once per shard per
-                 statement, the column sponge once per shard for each
+                 seconds, peak memory; the quotient and the DEEP kernel
+                 once per shard per statement, the column sponge once per shard for each
                  column-major tree), sharded_lane_checks over
                  its 128 lanes (equal to single-device verify_bound,
                  hash_validator_leaves and Python-int sums), the card's N=4
                  parity proof wrapped with mesh= (equal to its single-device
                  wrap), the sharded Poseidon batch at 2^20 states and the
                  four-step NTT at 2^20 (each equal to its single-device
-                 function, both timed), and dryrun_multichip(4) in each
+                 function, both timed; the four-step also equal to the
+                 plain NTT, and the forward NTT kernel's launches of one
+                 four-step run alone held to its shards' pass plans), and
+                 dryrun_multichip(4) in each
                  of its shapes (default, toy, full), each timed;
  11. profile   - only with --profile: one more warm prove under
                  torch.profiler (device time by kernel, Poseidon's and the
@@ -167,7 +185,7 @@ def phase_device() -> dict:
 
 
 # every csrc/<name>.cu the port launches
-KERNEL_LIBRARIES = ("poseidon", "quotient")
+KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep")
 
 
 def phase_build() -> dict:
@@ -648,12 +666,262 @@ def _kernel_quotient(dev, clock_mhz: float, ptxas: dict) -> dict:
     }
 
 
+def _ntt_shapes() -> list[tuple[str, str, int, int, int]]:
+    """(use, entry, rows, log2 n, rate bits) of every transform of the
+    N=128 paths, each once: per AIR of _quotient_airs() its trace, aux and
+    public-column iNTT and LDE, the quotient's coset iNTT (2 rows of N)
+    and the chunk LDE, and its column blocks on the mesh phase's
+    MESH_SHARDS shards; the SHA-256 plan of the step and of the two hash
+    bundles (DEFAULT_HASH_CONFIG); the mesh phase's four-step NTT at 2^20
+    (rows of 4, one row of 2^18); and 1- and 2-point rows."""
+    from tendermintx_tpu_torch.circuits.hashing import DEFAULT_HASH_CONFIG
+    from tendermintx_tpu_torch.stark import sha256_air
+
+    out = []
+
+    def lde(use, rows, log_n, rate):
+        out.extend([(use, "intt", rows, log_n, 0), (use, "coset_lde", rows, log_n, rate)])
+
+    for name, air, N, rate in _quotient_airs():
+        log_n = N.bit_length() - 1 - rate
+        lde(f"{name} trace", air.n_cols, log_n, rate)
+        lde(f"{name} trace, mesh shard", -(-air.n_cols // MESH_SHARDS), log_n, rate)
+        if air.n_aux_cols:
+            lde(f"{name} aux", air.n_aux_cols, log_n, rate)
+            lde(f"{name} aux, mesh shard", -(-air.n_aux_cols // MESH_SHARDS), log_n, rate)
+        if air.n_public_cols:
+            lde(f"{name} public columns", air.n_public_cols, log_n, rate)
+        out.append((f"{name} quotient", "coset_intt", 2, log_n + rate, 0))
+        out.append((f"{name} chunks", "coset_lde", 2 * (air.constraint_degree - 1), log_n, rate))
+    sha = sha256_air.Sha256Air(N128_SKIP_STATEMENTS["sha256"]).n_cols
+    lde("sha256 step", sha, 15, 3)
+    hrate = DEFAULT_HASH_CONFIG.rate_bits
+    for log_n in (16, 15):
+        lde("sha256 hash bundle", sha, log_n, hrate)
+        out.append(("sha256 hash bundle quotient", "coset_intt", 2, log_n + hrate, 0))
+    out.extend([("four-step columns", "ntt", 1 << 16, 2, 0), ("four-step rows", "ntt", 1, 18, 0),
+                ("ed25519 trace, forward (timed)", "ntt", 2031, 15, 0)])
+    for log_n in (0, 1):
+        for entry in ("ntt", "intt", "coset_intt"):
+            out.append((f"{1 << log_n}-point", entry, 3, log_n, 0))
+        out.append((f"{1 << log_n}-point", "coset_lde", 3, log_n, 3))
+    seen, shapes = set(), []
+    for use, entry, rows, log_n, rate in out:
+        if (entry, rows, log_n, rate) not in seen:
+            seen.add((entry, rows, log_n, rate))
+            shapes.append((use, entry, rows, log_n, rate))
+    return shapes
+
+
+# the timed shape of every NTT entry: the Ed25519 trace (2,031 columns of
+# 2^15 rows; its LDE 2^18), and the quotient's coset iNTT of 2 x 2^18
+NTT_TIMED = {"ntt": (2031, 15, 0), "intt": (2031, 15, 0), "coset_lde": (2031, 15, 3), "coset_intt": (2, 18, 0)}
+NTT_REPLACES = {
+    "ntt": "tendermintx_tpu/ops/ntt.py:86",
+    "intt": "tendermintx_tpu/ops/ntt.py:114",
+    "coset_lde": "tendermintx_tpu/ops/ntt.py:139",
+    "coset_intt": "tendermintx_tpu/stark/prover.py:654",
+}
+NTT_SHIFT = 7  # DEFAULT_COMPOSITE_CONFIG's and default_wrap_config()'s shift
+
+
+def _ntt_bound(entry: str, rows: int, log_n: int, rate: int, muls_per_ms: float) -> dict:
+    """The least time of one call: each input word (the rows and the
+    tables: twiddles, shift powers) read once and each output word written
+    once at 3.35 TB/s; or 4 32-bit multiply-adds per field multiply: an
+    n-point transform (n/2) log2 n butterflies a row, n scalings a row
+    for the inverse, and the coset LDE as 2^rate interleaved n-point
+    transforms with N twists a row."""
+    n, N = 1 << log_n, 1 << (log_n + rate)
+    if entry == "coset_lde":
+        muls = rows * (N + (1 << rate) * (n // 2) * log_n)
+        words = rows * n + n + N // 2 + rows * N
+    else:
+        scaled = entry in ("intt", "coset_intt")
+        muls = rows * ((n // 2) * log_n + n * scaled)
+        words = 2 * rows * n + n // 2 + n * (entry == "coset_intt")
+    ops_ms = 4 * muls / muls_per_ms
+    bytes_ms = 8 * words / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "operations_bound_ms": ops_ms,
+        "bytes_bound_ms": bytes_ms,
+        "field_muls": muls,
+        "bytes": 8 * words,
+    }
+
+
+def _kernel_ntt(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """Each entry of csrc/ntt.cu against its plain version on the same
+    CUDA tensors, exactly on the whole output, at every shape of
+    _ntt_shapes(); each entry timed at NTT_TIMED with its plain version's
+    time (its check there) and its bound. The row's own numbers are the
+    coset LDE's at the Ed25519 trace, the main path's largest call."""
+    from tendermintx_tpu_torch.ops import ntt
+    from tendermintx_tpu_torch.ops.goldilocks import GF, P
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    powers = lambda n: ntt.power_tensor(pow(NTT_SHIFT, P - 2, P), n, dev)
+    kernel = {
+        "ntt": lambda x: ntt.ntt_cuda(x),
+        "intt": lambda x: ntt.intt_cuda(x),
+        "coset_intt": lambda x: ntt.intt_cuda(x, powers(int(x.shape[-1]))),
+    }
+    plain = {
+        "ntt": lambda x: ntt.ntt_plain(GF(x)).v,
+        "intt": lambda x: ntt.intt_plain(GF(x)).v,
+        "coset_intt": lambda x: (ntt.intt_plain(GF(x)) * GF(powers(int(x.shape[-1])))).v,
+    }
+    entries, checked = {}, []
+    for use, entry, rows, log_n, rate in _ntt_shapes():
+        x = _random_felts((rows, 1 << log_n), gen, dev)
+        if entry == "coset_lde":
+            run = lambda: ntt.coset_lde_cuda(x, rate, NTT_SHIFT)
+            run_plain = lambda: ntt.coset_lde_plain(GF(x), rate, NTT_SHIFT).v
+        else:
+            run = lambda: kernel[entry](x)
+            run_plain = lambda: plain[entry](x)
+        want, plain_ms = _timed_once(run_plain)
+        got = run()
+        err = _max_abs_err(got, want)
+        if err:
+            raise AssertionError(f"NTT entry {entry} at {use} ({rows} x 2^{log_n}, rate {rate}) "
+                                 f"disagrees with its plain version: max_abs_err {err}")
+        del want, got
+        checked.append([use, entry, rows, log_n, rate])
+        if NTT_TIMED.get(entry) == (rows, log_n, rate) and entry not in entries:
+            entries[entry] = {
+                "shape": [rows, 1 << log_n, 1 << (log_n + rate)],
+                "ms": _time_ms(run, 20),
+                "plain_ms": plain_ms,
+                **_ntt_bound(entry, rows, log_n, rate, muls_per_ms),
+            }
+            entries[entry]["bound_share"] = entries[entry]["bound_ms"] / entries[entry]["ms"]
+        del x
+    missing = set(NTT_TIMED) - set(entries)
+    if missing:
+        raise AssertionError(f"NTT entries {sorted(missing)} were not timed")
+    top = entries["coset_lde"]
+    return {
+        "route": "cuda",
+        "source": "tendermintx_tpu_torch/csrc/ntt.cu",
+        "replaces": NTT_REPLACES["coset_lde"],
+        "replaces_entries": NTT_REPLACES,
+        "shape": top["shape"],
+        "max_abs_err": 0.0,
+        "ms": top["ms"],
+        "plain_ms": top["plain_ms"],
+        **{k: top[k] for k in ("bound_ms", "bound_by", "operations_bound_ms", "bytes_bound_ms", "bytes")},
+        "library_ms": None,
+        **_registers(ptxas),
+        "entries": entries,
+        "checked": checked,
+    }
+
+
+def _registers(ptxas: dict) -> dict:
+    """The most registers any kernel function of a library uses, and its
+    spill bytes in all (the build phase fails on any spill)."""
+    return {
+        "registers": max((r.get("registers", 0) for r in ptxas.values()), default=None),
+        "spill_bytes": sum((r.get("spill_stores") or 0) + (r.get("spill_loads") or 0) for r in ptxas.values()),
+    }
+
+
+def _deep_bound(n_total: int, n_chunks: int, n_groups: int, rows: int, muls_per_ms: float) -> dict:
+    """The least time of one DEEP launch: each column word (trace, aux,
+    the chunks' two rows each, the inverses' two rows a group) read once,
+    the betas and G0s once, the output's two rows written once, at 3.35
+    TB/s; or 4 32-bit multiply-adds per field multiply: 2 a column a group
+    a row (an extension scalar times a base value), 4 an extension product
+    (a chunk term, each group's inverse)."""
+    words = rows * (n_total + 2 * n_chunks + 2 * n_groups + 2) + 2 * (n_groups * n_total + n_chunks + n_groups)
+    muls = rows * (2 * n_groups * n_total + 4 * n_chunks + 4 * n_groups)
+    ops_ms = 4 * muls / muls_per_ms
+    bytes_ms = 8 * words / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "operations_bound_ms": ops_ms,
+        "bytes_bound_ms": bytes_ms,
+        "field_muls": muls,
+        "bytes": 8 * words,
+    }
+
+
+def _kernel_deep(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """The DEEP kernel, per AIR of the N=128 paths at its one-device
+    shard (one launch over every LDE row: the trace and aux blocks, the
+    quotient row block's even and odd rows as the chunks' c0 and c1, one
+    opening group per frame offset), held exactly against
+    deep_composition_plain on the whole output, each with its time, the
+    plain version's and its bound. The row's own numbers are Ed25519's,
+    the widest."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    airs = {}
+    for name, air, N, _ in _quotient_airs():
+        f = lambda *shape: GF(_random_felts(shape, gen, dev))
+        nc, ng = air.constraint_degree - 1, len(air.frame_offsets)
+        trace = f(air.n_cols, N)
+        aux = f(air.n_aux_cols, N) if air.n_aux_cols else None
+        q = f(2 * nc, N)
+        n_total = air.n_cols + air.n_aux_cols
+        args = (trace, aux, GF2(q[0::2], q[1::2]), GF2(f(ng, n_total), f(ng, n_total)),
+                GF2(f(nc), f(nc)), GF2(f(ng), f(ng)), GF2(f(ng, N), f(ng, N)))
+        got, first_ms = _timed_once(lambda: pr.deep_cuda(*args))
+        want, plain_ms = _timed_once(lambda: pr.deep_composition_plain(*args))
+        err = max(_max_abs_err(got.c0.v, want.c0.v), _max_abs_err(got.c1.v, want.c1.v))
+        if err:
+            raise AssertionError(f"DEEP kernel of {name} over its {N}-row shard disagrees with its "
+                                 f"plain version: max_abs_err {err}")
+        del got, want
+        reps = max(2, min(50, int(1000 / max(first_ms, 1e-3))))
+        airs[name] = {
+            "shape": [air.n_cols, air.n_aux_cols, N],
+            "chunks": nc,
+            "groups": ng,
+            "max_abs_err": 0.0,
+            "ms": _time_ms(lambda: pr.deep_cuda(*args), reps),
+            "plain_ms": plain_ms,
+            **_deep_bound(n_total, nc, ng, N, muls_per_ms),
+        }
+        airs[name]["bound_share"] = airs[name]["bound_ms"] / airs[name]["ms"]
+        del trace, aux, q, args
+    top = airs["ed25519"]
+    return {
+        "route": "cuda",
+        "source": "tendermintx_tpu_torch/csrc/deep.cu",
+        "replaces": "tendermintx_tpu/stark/prover.py:445",
+        "replaces_program": "tendermintx_tpu/stark/prover.py:533 (_deep_core)",
+        "shape": top["shape"],
+        "max_abs_err": 0.0,
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "operations_bound_ms",
+                               "bytes_bound_ms", "bytes")},
+        "library_ms": None,
+        **_registers(ptxas),
+        "airs": airs,
+    }
+
+
 def phase_kernels(build: dict) -> dict:
     """Each Poseidon entry against its plain torch version on the same
     CUDA tensors (exact: integer field arithmetic) and the host oracle,
-    and the quotient tape kernel against its plain twin and the
-    DeviceAlgebra evaluation for every AIR of the N=128 paths, each with
-    its time, its plain version's, and its bound."""
+    the quotient tape kernel against its plain twin and the DeviceAlgebra
+    evaluation for every AIR of the N=128 paths, each NTT entry at every
+    transform of the N=128 paths and the DEEP kernel at each AIR's shard
+    against their plain versions, each with its time, its plain
+    version's, and its bound."""
     from tendermintx_tpu_torch.ops import poseidon as ps
 
     dev = torch.device("cuda", 0)
@@ -664,6 +932,8 @@ def phase_kernels(build: dict) -> dict:
         "poseidon_sponge_cols": _kernel_sponge(ps, rng, dev, clock_mhz),
         "poseidon_merkle_layer": _kernel_layer(ps, rng, dev, clock_mhz),
         "quotient": _kernel_quotient(dev, clock_mhz, build["quotient"]["ptxas"]),
+        "ntt": _kernel_ntt(dev, clock_mhz, build["ntt"]["ptxas"]),
+        "deep": _kernel_deep(dev, clock_mhz, build["deep"]["ptxas"]),
     }
     for row in rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -857,13 +1127,24 @@ def phase_parity(state: dict) -> dict:
     return out
 
 
-# kernel -> (module of its wrapper, launch counter)
+# kernel entry -> (module of its wrapper, launch counter)
 LAUNCH_COUNTERS = {
     "poseidon_permute": ("tendermintx_tpu_torch.ops.poseidon", "permute_kernel_launches"),
     "poseidon_sponge_cols": ("tendermintx_tpu_torch.ops.poseidon", "sponge_kernel_launches"),
     "poseidon_merkle_layer": ("tendermintx_tpu_torch.ops.poseidon", "layer_kernel_launches"),
     "quotient": ("tendermintx_tpu_torch.stark.quotient_tape", "quotient_kernel_launches"),
+    "ntt_forward": ("tendermintx_tpu_torch.ops.ntt", "ntt_kernel_launches"),
+    "ntt_inverse": ("tendermintx_tpu_torch.ops.ntt", "intt_kernel_launches"),
+    "ntt_coset_lde": ("tendermintx_tpu_torch.ops.ntt", "lde_kernel_launches"),
+    "deep": ("tendermintx_tpu_torch.stark.prover", "deep_kernel_launches"),
 }
+# the rows of the kernels line that sum several counted entries of one
+# kernel: csrc/ntt.cu's forward, inverse and coset LDE entries
+KERNEL_ENTRIES = {"ntt": ("ntt_forward", "ntt_inverse", "ntt_coset_lde")}
+# entries no prove runs: the forward NTT is the mesh phase's four-step
+# NTT's (its launches are checked there); a prove's LDEs are the inverse
+# and coset LDE entries
+NOT_PROVED_BY = ("ntt_forward",)
 
 
 def _launch_counts() -> dict:
@@ -944,8 +1225,15 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
 
 def _check_launched(launches: dict, path: str):
     for name, n in launches.items():
-        if n <= 0:
+        if n <= 0 and name not in NOT_PROVED_BY:
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
+
+
+def _check_deep_launches(launches: dict, statements: int, shards: int, path: str):
+    """The card's DEEP composition is one launch a shard a statement."""
+    if launches["deep"] != statements * shards:
+        raise AssertionError(f"the {path} prove has {statements} statements over {shards} shard(s) "
+                             f"and {launches['deep']} DEEP launches")
 
 
 def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
@@ -970,6 +1258,8 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
             f"{n_stmts} statements with {cold_launches['quotient']} / {warm_launches['quotient']} "
             "quotient launches (cold / warm); the card's quotient is one launch per shard"
         )
+    _check_deep_launches(warm_launches, n_stmts, 1, "warm skip")
+    _check_deep_launches(cold_launches, n_stmts, 1, "cold skip")
     # one sponge launch per column-major tree: trace, quotient and (where
     # the AIR has one) aux commitment of every statement
     trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)
@@ -1016,6 +1306,7 @@ def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
         t1 = time.perf_counter()
     launches = _launch_counts()
     _check_launched(launches, "step")
+    _check_deep_launches(launches, len(proof.batch.statements), 1, "step")
     blob = proof.to_bytes()
     t2 = time.perf_counter()
     result = verify_step_composite(CompositeProof.from_bytes(blob), CHAIN_ID)
@@ -1211,6 +1502,7 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         t1 = time.perf_counter()
     launches = _launch_counts()
     _check_launched(launches, "wrap")
+    _check_deep_launches(launches, len(wrapped.batch.wrapper.statements), 1, "wrap")
     peak = torch.cuda.max_memory_allocated()
     # the same wrap again: first-use host tables (FRI inverse tables of
     # the 2^21-point domain, the N=128 eval tape) are built by now
@@ -1564,6 +1856,7 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
             f"the mesh prove has {len(proof.batch.statements)} statements over {MESH_SHARDS} shards "
             f"and {launches['quotient']} quotient launches"
         )
+    _check_deep_launches(launches, len(proof.batch.statements), MESH_SHARDS, "mesh")
     trees = sum(2 + (st.aux_cap is not None) for st in proof.batch.statements)
     if sponges != MESH_SHARDS * trees:
         raise AssertionError(
@@ -1629,9 +1922,26 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     def sharded_ntt():
         return mesh.gather([b.v for b in ntt_fn([GF(b) for b in mesh.split(coeffs)])])
 
+    # the four-step's own launches, read around one run of it alone: per
+    # shard one column DFT over rows of MESH_SHARDS points and one row DFT
+    # over C = 2^log_n / MESH_SHARDS points, each its plan's pass kernels
+    _reset_launch_counts()
+    sharded_ntt()
+    torch.cuda.synchronize()
+    four_step = _launch_counts()
+    log_d = MESH_SHARDS.bit_length() - 1
+    want_forward = MESH_SHARDS * (len(nttmod.ntt_plan(log_d)) + len(nttmod.ntt_plan(log_n - log_d)))
+    if four_step["ntt_forward"] != want_forward:
+        raise AssertionError(
+            f"the four-step NTT launched the forward NTT kernel {four_step['ntt_forward']} times, "
+            f"{want_forward} wanted (one column and one row DFT a shard, by their pass plans)"
+        )
     times, got, want = _timed_pair(sharded_ntt, lambda: nttmod.ntt(GF(coeffs)).v)
     _check_equal(got, want, "four-step NTT")
-    out["ntt"] = {"log_n": log_n, "identical": True, **times}
+    # the kernels' four-step against the plain single-device NTT too
+    _check_equal(got, nttmod.ntt_plain(GF(coeffs)).v, "four-step NTT against the plain NTT")
+    out["ntt"] = {"log_n": log_n, "identical": True, "identical_to_plain": True, **times,
+                  "launches": four_step}
     del states, coeffs, got, want
 
     # 5. the dry run, in each of its shapes
@@ -1646,7 +1956,7 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     out["launches"] = launches
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return out, launches
+    return out, launches, four_step
 
 
 def _time_fri_tables(n: int, config) -> float:
@@ -1791,7 +2101,7 @@ def main(argv: list[str]) -> int:
             profile = "--profile" in argv
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
             _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile)
-            _, mesh_launches = phase_mesh(n128, warm_proof, parity)
+            _, mesh_launches, four_step_launches = phase_mesh(n128, warm_proof, parity)
             phase_parity(parity)  # before the profile, which the CPU jobs would disturb
             if profile:
                 phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
@@ -1800,25 +2110,40 @@ def main(argv: list[str]) -> int:
                 job.stop()
     kept = ("route", "source", "replaces", "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "bound_share", "library_ms")
-    kernels = [
-        {"name": name, **{k: row[k] for k in kept},
-         "launches": cold_launches[name] + warm_launches[name],
-         "launches_by_path": {"skip_cold": cold_launches[name], "skip_warm": warm_launches[name],
-                              "step": step_launches[name], "hashes": hashes_launches[name],
-                              "wrap": wrap_launches[name],
-                              "runtime": runtime_launches[name], "mesh": mesh_launches[name]}}
-        for name, row in rows.items()
-    ]
+    paths = {"skip_cold": cold_launches, "skip_warm": warm_launches, "step": step_launches,
+             "hashes": hashes_launches, "wrap": wrap_launches, "runtime": runtime_launches,
+             "mesh": mesh_launches, "mesh_four_step": four_step_launches}
+    count = lambda launches, name: sum(launches[e] for e in KERNEL_ENTRIES.get(name, (name,)))
+    kernels = []
+    for name, row in rows.items():
+        entry = {"name": name, **{k: row[k] for k in kept},
+                 "launches": count(cold_launches, name) + count(warm_launches, name),
+                 "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
+        if name in KERNEL_ENTRIES:
+            entry["launches_by_entry"] = {
+                e: {path: launches[e] for path, launches in paths.items()} for e in KERNEL_ENTRIES[name]
+            }
+            entry["entries"] = {
+                e: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for e, r in row["entries"].items()
+            }
+        kernels.append(entry)
     # the quotient per AIR: times, bounds, launch shape, slots and loads
     per_air = ("ms", "plain_ms", "block_rows", "block_ms", "block_plain_ms", "slots", "threads", "shared_bytes", "blocks_per_sm", "instructions", "bundles", "chunks", "reads",
                "distinct_reads", "loads")
     for entry in kernels:
-        if "airs" in rows[entry["name"]]:
+        if entry["name"] == "quotient":
             entry["airs"] = {
                 air: {**{k: a[k] for k in per_air}, "bound_ms": a["bound"]["bound_ms"],
                       "block_bound_ms": a["block_bound"]["bound_ms"],
                       "block_per_offset_bound_ms": a["block_bound"]["per_offset_bound_ms"]}
                 for air, a in rows[entry["name"]]["airs"].items()
+            }
+    for entry in kernels:
+        if entry["name"] == "deep":
+            entry["airs"] = {
+                air: {k: a[k] for k in ("shape", "groups", "chunks", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for air, a in rows["deep"]["airs"].items()
             }
     emit({"kernels": kernels})
     emit({

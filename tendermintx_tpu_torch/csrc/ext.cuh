@@ -1,0 +1,31 @@
+// The quadratic extension GF(p^2) = GF(p)[X] / (X^2 - 7) over Goldilocks
+// (ops/ext.py), for the hand kernels that sum in it (csrc/deep.cu). Each
+// function takes and returns canonical (c0, c1) pairs, so a kernel's
+// output equals the plain torch version's GF2 arithmetic bit for bit.
+
+#pragma once
+
+#include <cstdint>
+
+#include "goldilocks.cuh"
+
+namespace tmx_ext {
+
+constexpr uint64_t W = 7;  // ops/ext.py: W
+
+struct E2 {
+    uint64_t c0, c1;
+};
+
+__device__ __forceinline__ E2 add(E2 a, E2 b) { return {tmx_gl::add(a.c0, b.c0), tmx_gl::add(a.c1, b.c1)}; }
+
+__device__ __forceinline__ E2 sub(E2 a, E2 b) { return {tmx_gl::sub(a.c0, b.c0), tmx_gl::sub(a.c1, b.c1)}; }
+
+// (a0 + a1 X)(b0 + b1 X) = a0 b0 + W a1 b1 + (a0 b1 + a1 b0) X
+__device__ __forceinline__ E2 mul(E2 a, E2 b) {
+    const uint64_t a0b0 = tmx_gl::mul(a.c0, b.c0), a1b1 = tmx_gl::mul(a.c1, b.c1);
+    const uint64_t a0b1 = tmx_gl::mul(a.c0, b.c1), a1b0 = tmx_gl::mul(a.c1, b.c0);
+    return {tmx_gl::add(a0b0, tmx_gl::mul(a1b1, W)), tmx_gl::add(a0b1, a1b0)};
+}
+
+}  // namespace tmx_ext

@@ -59,33 +59,35 @@ def sharded_trace_lde(mesh: LaneMesh, rate_bits: int, shift: int):
     """Column-sharded LDE, the sharded analog of stark.prover.trace_lde.
 
     fn(cols GF (C, n)) -> (coeffs GF (C, n) on the first device,
-    lde blocks: D x GF (ceil(C/D), N)); the column count is padded with
-    zero columns to a multiple of the mesh size, so the last blocks may
-    end in padding (``columns_to_rows`` drops it)."""
+    lde blocks: D x GF (Cb_d, N)). Device d takes columns [d*Cb, (d+1)*Cb)
+    with Cb = ceil(C/D), so the last blocks may be shorter or empty; no
+    column is padded or copied on its own device (each block is a row view
+    of the columns, the LDE kernel's input on a card)."""
     D = mesh.size
 
     def fn(cols: GF):
         C = int(cols.shape[0])
-        extra = (-C) % D
-        v = cols.v
-        if extra:
-            v = torch.cat([v, torch.zeros((extra,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)])
+        v = cols.v.contiguous()
+        Cb = -(-C // D)
         coeffs, ldes = [], []
-        for block in mesh.split(v, 0):
-            c = nttmod.intt(GF(block))
+        for d, dev in enumerate(mesh.devices):
+            block = GF(v[min(C, d * Cb) : min(C, (d + 1) * Cb)].to(dev, non_blocking=True))
+            c = nttmod.intt(block)
             ldes.append(nttmod.coset_lde(c, rate_bits, shift))
             coeffs.append(c.v)
-        return GF(mesh.gather(coeffs)[:C]), ldes
+        return GF(mesh.gather(coeffs)), ldes
 
     return fn
 
 
 def columns_to_rows(mesh: LaneMesh, blocks: list[GF], n_cols: int) -> list[GF]:
-    """Column shards (D x (Cb, N)) -> contiguous row blocks (D x (n_cols,
-    N/D)) by one tiled all_to_all; the zero padding columns beyond
-    `n_cols` are dropped."""
+    """Column shards (D x (Cb_d, N)) -> contiguous row blocks (D x (n_cols,
+    N/D)) by one tiled all_to_all (on one device, the block itself: no
+    copy)."""
     rows = all_to_all(mesh, [b.v for b in blocks], split_dim=1, concat_dim=0)
-    return [GF(r[:n_cols]) for r in rows]
+    if any(int(r.shape[0]) != n_cols for r in rows):
+        raise ValueError(f"row blocks of {[int(r.shape[0]) for r in rows]} columns, {n_cols} wanted")
+    return [GF(r) for r in rows]
 
 
 def sharded_leaf_hashes(mesh: LaneMesh):

@@ -22,6 +22,7 @@ bytes do not depend on the mesh.
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import time
 from dataclasses import dataclass
@@ -206,10 +207,11 @@ def trace_lde(cols: GF, rate_bits: int, shift: int) -> tuple[GF, GF]:
 
 
 def coset_intt(evals: GF, shift: int) -> GF:
-    """Coefficients of evaluations on the coset shift * <w_n>."""
+    """Coefficients of evaluations on the coset shift * <w_n>: the inverse
+    NTT with shift^-i folded into coefficient i (on a card, in the
+    kernel's last pass)."""
     n = evals.shape[-1]
-    powers = tensor_from_u64(nttmod.power_table(pow(shift, P - 2, P), n), evals.device)
-    return nttmod.intt(evals) * GF(powers)
+    return nttmod.intt(evals, GF(nttmod.power_tensor(pow(shift, P - 2, P), n, evals.device)))
 
 
 # Quotient row blocks of a CPU shard (a CUDA shard is one launch of the
@@ -292,12 +294,13 @@ def _eval_quotient_plain(
     return GF2((a0 * all_czi).sum(axis=0), (a1 * all_czi).sum(axis=0))
 
 
-# DEEP row blocks. The reference capped the (columns x block) working set at
-# 2^25 elements (16 GB chip). Here a block holds up to 2^28 int64 elements
-# per (columns x rows) tensor (2 GB): the beta-weighted column product, and
-# the pairwise-sum halves it reduces through (another ~1x), so ~3 such
-# tensors (~6 GB) are live at once. For Ed25519 at 128 lanes
-# (~2,930 columns x 2^18 rows) that is 4 blocks of 2^16 rows.
+# DEEP row blocks of the plain version. The reference capped the (columns
+# x block) working set at 2^25 elements (16 GB chip). Here a block holds up
+# to 2^28 int64 elements per (columns x rows) tensor (2 GB): the
+# beta-weighted column product, and the pairwise-sum halves it reduces
+# through (another ~1x), so ~3 such tensors (~6 GB) are live at once. For
+# Ed25519 at 128 lanes (~2,930 columns x 2^18 rows) that is 4 blocks of
+# 2^16 rows. A card's DEEP is one kernel launch a shard, with no blocks.
 _DEEP_BLOCK_ELEMS = 1 << 28
 
 
@@ -306,8 +309,23 @@ def deep_composition(
     g0s: GF2, invs: GF2,
 ) -> GF2:
     """F = sum_g (G_g(x) - G_g(z_g)) * (x - z_g)^-1 with G_g the beta-weighted
-    column combination (plus the quotient chunks in group 0), by row
-    blocks (pointwise in x, so blocking is exact)."""
+    column combination (plus the quotient chunks in group 0), over one
+    shard's rows: the plain version for a CPU shard, one launch of the
+    DEEP kernel (csrc/deep.cu) for a CUDA shard."""
+    t = trace_lde.device.type
+    if t == "cpu":
+        return deep_composition_plain(trace_lde, aux_lde, chunks, betas_t, betas_q, g0s, invs)
+    if t == "cuda":
+        return deep_cuda(trace_lde, aux_lde, chunks, betas_t, betas_q, g0s, invs)
+    raise ValueError(f"no DEEP composition for device {trace_lde.device}")
+
+
+def deep_composition_plain(
+    trace_lde: GF, aux_lde: GF | None, chunks: GF2, betas_t: GF2, betas_q: GF2,
+    g0s: GF2, invs: GF2,
+) -> GF2:
+    """The DEEP composition as int64 torch ops by row blocks (pointwise in
+    x, so blocking is exact), each group's columns read apart (any device)."""
     n_main = int(trace_lde.shape[0])
     n_total = n_main + (int(aux_lde.shape[0]) if aux_lde is not None else 0)
     N = int(trace_lde.shape[1])
@@ -337,6 +355,111 @@ def deep_composition(
             F = term if F is None else F + term
         parts.append(F)
     return GF2.concatenate(parts, axis=0)
+
+
+# incremented exactly where the DEEP kernel is launched
+deep_kernel_launches = 0
+
+# csrc/deep.cu: MAX_GROUPS (opening groups summed in registers)
+DEEP_MAX_GROUPS = 8
+
+
+class _DeepArgs(ctypes.Structure):
+    """csrc/deep.cu's DeepArgs, field for field."""
+
+    _fields_ = [
+        ("trace", ctypes.c_void_p), ("trace_ld", ctypes.c_int64), ("n_main", ctypes.c_int64),
+        ("aux", ctypes.c_void_p), ("aux_ld", ctypes.c_int64), ("n_aux", ctypes.c_int64),
+        ("chunk0", ctypes.c_void_p), ("chunk1", ctypes.c_void_p), ("chunk_ld", ctypes.c_int64),
+        ("n_chunks", ctypes.c_int64),
+        ("beta_t0", ctypes.c_void_p), ("beta_t1", ctypes.c_void_p),
+        ("beta_q0", ctypes.c_void_p), ("beta_q1", ctypes.c_void_p),
+        ("g00", ctypes.c_void_p), ("g01", ctypes.c_void_p),
+        ("inv0", ctypes.c_void_p), ("inv1", ctypes.c_void_p), ("inv_ld", ctypes.c_int64),
+        ("n_groups", ctypes.c_int64), ("rows", ctypes.c_int64),
+        ("out", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _deep_library():
+    from ..ops.cuda_build import load_library
+
+    lib = load_library("deep")
+    lib.tmx_deep.restype = ctypes.c_int
+    lib.tmx_deep.argtypes = [ctypes.POINTER(_DeepArgs), ctypes.c_void_p]
+    return lib
+
+
+def _deep_operand(t: torch.Tensor, what: str, dev, shape: tuple, *, rows_unit_stride: bool = False) -> int:
+    """Checks a DEEP kernel operand; returns its row stride in words."""
+    if t.device != dev or t.dtype != torch.int64:
+        raise TypeError(f"deep_cuda: {what} must be int64 on {dev}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"deep_cuda: {what} has shape {tuple(t.shape)}, {shape} wanted")
+    if rows_unit_stride:
+        if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+            raise ValueError(f"deep_cuda: {what} must have unit stride along its rows")
+        return int(t.stride(0))
+    if not t.is_contiguous():
+        raise ValueError(f"deep_cuda: {what} must be contiguous")
+    return 0
+
+
+def deep_cuda(
+    trace_lde: GF, aux_lde: GF | None, chunks: GF2, betas_t: GF2, betas_q: GF2,
+    g0s: GF2, invs: GF2,
+) -> GF2:
+    """Launch the DEEP kernel once over a CUDA shard's rows. The column
+    operands (trace, aux, the chunks' c0 and c1 rows, the inverses) may
+    be row views of larger buffers (the chunks are the even and odd rows
+    of the quotient's row block) but need unit stride along their rows."""
+    global deep_kernel_launches
+    dev = trace_lde.device
+    if dev.type != "cuda":
+        raise TypeError(f"deep_cuda takes a CUDA shard, got {dev}")
+    n_main, rows = int(trace_lde.shape[0]), int(trace_lde.shape[1])
+    n_aux = int(aux_lde.shape[0]) if aux_lde is not None else 0
+    n_chunks = int(chunks.shape[0])
+    n_groups = int(g0s.shape[0])
+    if not 1 <= n_groups <= DEEP_MAX_GROUPS:
+        raise ValueError(f"deep_cuda sums 1 to {DEEP_MAX_GROUPS} opening groups, got {n_groups}")
+    trace_ld = _deep_operand(trace_lde.v, "the trace block", dev, (n_main, rows), rows_unit_stride=True)
+    aux_ld = 0
+    if aux_lde is not None:
+        aux_ld = _deep_operand(aux_lde.v, "the aux block", dev, (n_aux, rows), rows_unit_stride=True)
+    chunk_ld = _deep_operand(chunks.c0.v, "the chunks' c0", dev, (n_chunks, rows), rows_unit_stride=True)
+    if _deep_operand(chunks.c1.v, "the chunks' c1", dev, (n_chunks, rows), rows_unit_stride=True) != chunk_ld:
+        raise ValueError("deep_cuda: the chunks' c0 and c1 rows must have one row stride")
+    inv_ld = _deep_operand(invs.c0.v, "the inverses' c0", dev, (n_groups, rows), rows_unit_stride=True)
+    if _deep_operand(invs.c1.v, "the inverses' c1", dev, (n_groups, rows), rows_unit_stride=True) != inv_ld:
+        raise ValueError("deep_cuda: the inverses' c0 and c1 rows must have one row stride")
+    for what, t, shape in (
+        ("betas_t c0", betas_t.c0.v, (n_groups, n_main + n_aux)), ("betas_t c1", betas_t.c1.v, (n_groups, n_main + n_aux)),
+        ("betas_q c0", betas_q.c0.v, (n_chunks,)), ("betas_q c1", betas_q.c1.v, (n_chunks,)),
+        ("g0s c0", g0s.c0.v, (n_groups,)), ("g0s c1", g0s.c1.v, (n_groups,)),
+    ):
+        _deep_operand(t, what, dev, shape)
+    out = torch.empty((2, rows), dtype=torch.int64, device=dev)
+    if rows == 0:
+        return GF2(GF(out[0]), GF(out[1]))
+    args = _DeepArgs(
+        trace=trace_lde.v.data_ptr(), trace_ld=trace_ld, n_main=n_main,
+        aux=aux_lde.v.data_ptr() if aux_lde is not None else None, aux_ld=aux_ld, n_aux=n_aux,
+        chunk0=chunks.c0.v.data_ptr(), chunk1=chunks.c1.v.data_ptr(), chunk_ld=chunk_ld, n_chunks=n_chunks,
+        beta_t0=betas_t.c0.v.data_ptr(), beta_t1=betas_t.c1.v.data_ptr(),
+        beta_q0=betas_q.c0.v.data_ptr(), beta_q1=betas_q.c1.v.data_ptr(),
+        g00=g0s.c0.v.data_ptr(), g01=g0s.c1.v.data_ptr(),
+        inv0=invs.c0.v.data_ptr(), inv1=invs.c1.v.data_ptr(), inv_ld=inv_ld,
+        n_groups=n_groups, rows=rows, out=out.data_ptr(),
+    )
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _deep_library().tmx_deep(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"tmx_deep launch failed: CUDA error {err}")
+    deep_kernel_launches += 1
+    return GF2(GF(out[0]), GF(out[1]))
 
 
 def ood_values(coeffs: GF, points: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:

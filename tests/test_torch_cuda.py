@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (the Poseidon permutation, column sponge
-and Merkle tree layer; the constraint quotient's tape kernel) against
+and Merkle tree layer; the constraint quotient's tape kernel; the NTT,
+inverse NTT and coset LDE; the DEEP composition) against
 their plain torch versions on the card, at small shapes and with the edge
 values 0, 1, p-1, 2^32-1, 2^32 and 2^63 mod p. Exact equality: integer
 field arithmetic has no tolerance.
@@ -135,6 +136,121 @@ def test_row_major_tree_on_card_matches_cpu(dev):
     assert len(card.dev_layers) == len(host.dev_layers) == 7
     for a, b in zip(card.dev_layers, host.dev_layers):
         assert torch.equal(a.v.cpu(), b.v)
+
+
+# ---------------------------------------------------------------------------
+# The NTT kernel (csrc/ntt.cu) and the DEEP kernel (csrc/deep.cu)
+# ---------------------------------------------------------------------------
+
+
+def _ntt_counts():
+    from tendermintx_tpu_torch.ops import ntt
+
+    return (ntt.ntt_kernel_launches, ntt.intt_kernel_launches, ntt.lde_kernel_launches)
+
+
+@pytest.mark.parametrize("rows, log_n", [(1, 0), (3, 1), (5, 2), (7, 3), (1, 10), (3, 11), (2, 13), (1, 17)])
+def test_ntt_entries_match_plain(dev, rows, log_n):
+    from tendermintx_tpu_torch.ops import ntt
+
+    x = _felts((rows, 1 << log_n), 40 + log_n, dev)
+    g = gl.GF(x)
+    assert torch.equal(ntt.ntt_cuda(x), ntt.ntt_plain(g).v)
+    assert torch.equal(ntt.intt_cuda(x), ntt.intt_plain(g).v)
+    pw = ntt.power_tensor(pow(11, P - 2, P), 1 << log_n, dev)
+    assert torch.equal(ntt.intt_cuda(x, pw), (ntt.intt_plain(g) * gl.GF(pw)).v)
+    for rate_bits in (1, 3, 4):
+        assert torch.equal(ntt.coset_lde_cuda(x, rate_bits, 11), ntt.coset_lde_plain(g, rate_bits, 11).v)
+
+
+def test_ntt_four_step_row_shapes_match_plain(dev):
+    """The mesh's four-step NTT: many rows of length 4, and one row of C/4."""
+    from tendermintx_tpu_torch.ops import ntt
+
+    x = _felts((1 << 14, 4), 51, dev)
+    assert torch.equal(ntt.ntt_cuda(x), ntt.ntt_plain(gl.GF(x)).v)
+    y = _felts((1, 1 << 16), 52, dev)
+    assert torch.equal(ntt.ntt_cuda(y), ntt.ntt_plain(gl.GF(y)).v)
+
+
+def test_ntt_entries_count_and_refuse(dev):
+    """Each entry counts the pass kernels a call launches (one a pass of
+    its plan); a non-contiguous or CPU-typed operand raises, and nothing
+    falls back to the plain version."""
+    from tendermintx_tpu_torch.ops import ntt
+
+    x = _felts((4, 64), 53, dev)
+    before = _ntt_counts()
+    ntt.ntt(gl.GF(x))
+    ntt.intt(gl.GF(x))
+    ntt.coset_lde(gl.GF(x), 2)
+    assert _ntt_counts() == tuple(b + 1 for b in before)
+    before = _ntt_counts()
+    wide = _felts((2, 1 << 11), 54, dev)
+    ntt.ntt(gl.GF(wide))
+    ntt.intt(gl.GF(wide))
+    ntt.coset_lde(gl.GF(wide), 2)
+    passes = (len(ntt.ntt_plan(11)), len(ntt.ntt_plan(11)), len(ntt.ntt_plan(13)))
+    assert passes == (2, 2, 2)
+    assert _ntt_counts() == tuple(b + k for b, k in zip(before, passes))
+    before = _ntt_counts()
+    strided = x.t().contiguous().t()
+    for fn in (ntt.ntt_cuda, ntt.intt_cuda, lambda t: ntt.coset_lde_cuda(t, 2)):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(strided)
+    with pytest.raises(TypeError):
+        ntt.intt_cuda(x, ntt.power_tensor(3, 64, torch.device("cpu")))
+    with pytest.raises(TypeError):
+        ntt.ntt_cuda(x.cpu())
+    assert _ntt_counts() == before
+
+
+def _deep_case(n_main, n_aux, n_chunks, n_groups, rows, seed, dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    f = lambda *shape: gl.GF(_felts(shape, seed + len(shape) * 1000 + shape[0], dev))
+    q = f(2 * n_chunks, rows)  # the quotient's row block: rows c0_0, c1_0, c0_1, ...
+    invs = f(n_groups, 2 * rows)
+    return (
+        f(n_main, rows), f(n_aux + 1, rows)[1:] if n_aux else None,
+        GF2(q[0::2], q[1::2]), GF2(f(n_groups, n_main + n_aux), f(n_groups + 1, n_main + n_aux)[1:]),
+        GF2(f(n_chunks), gl.GF(_felts((n_chunks,), seed + 7, dev))),
+        GF2(f(n_groups), gl.GF(_felts((n_groups,), seed + 9, dev))),
+        GF2(gl.GF(invs.v[:, :rows]), gl.GF(invs.v[:, rows:])),
+    )
+
+
+@pytest.mark.parametrize(
+    "n_main, n_aux, n_chunks, n_groups, rows",
+    [(1, 0, 1, 1, 1), (5, 0, 2, 2, 129), (7, 3, 2, 2, 1000), (3, 0, 1, 8, 257), (9, 4, 3, 3, 4096)],
+)
+def test_deep_kernel_matches_plain(dev, n_main, n_aux, n_chunks, n_groups, rows):
+    """The kernel over strided row views (the chunks are the quotient row
+    block's even and odd rows; the inverses a slice of wider rows) equals
+    the plain version."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    args = _deep_case(n_main, n_aux, n_chunks, n_groups, rows, 60 + rows, dev)
+    before = pr.deep_kernel_launches
+    got = pr.deep_composition(*args)
+    assert pr.deep_kernel_launches == before + 1
+    assert _gf2_equal(got, pr.deep_composition_plain(*args))
+
+
+def test_deep_kernel_refuses_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    trace, aux, chunks, bt, bq, g0, invs = _deep_case(4, 2, 2, 2, 64, 70, dev)
+    before = pr.deep_kernel_launches
+    with pytest.raises(ValueError, match="unit stride"):
+        pr.deep_cuda(gl.GF(trace.v.t().contiguous().t()), aux, chunks, bt, bq, g0, invs)
+    with pytest.raises(TypeError):
+        pr.deep_cuda(trace, aux, chunks, GF2(gl.GF(bt.c0.v.cpu()), bt.c1), bq, g0, invs)
+    with pytest.raises(ValueError, match="opening groups"):
+        nine = GF2(gl.GF(_felts((9,), 71, dev)), gl.GF(_felts((9,), 72, dev)))
+        pr.deep_cuda(trace, aux, chunks, bt, bq, nine, invs)
+    assert pr.deep_kernel_launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +475,7 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     the CPU's proof byte for byte; on one device the card's quotient is
     one launch per statement."""
     from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+    from tendermintx_tpu_torch.stark import prover as pr
     from tendermintx_tpu_torch.stark import quotient_tape as qtm
     from tendermintx_tpu_torch.stark.prover import StarkConfig
 
@@ -367,8 +484,13 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     inputs = f.get_skip_inputs(1, trusted, 5, max_validators=4)
     cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4)
     before = qtm.quotient_kernel_launches
+    deep_before, ntt_before = pr.deep_kernel_launches, _ntt_counts()
     card = prove_skip_composite(1, trusted, 5, inputs, cfg, device=dev)
     assert qtm.quotient_kernel_launches == before + 3
+    # one DEEP launch a statement; the LDEs and the quotient's iNTT on the card
+    assert pr.deep_kernel_launches == deep_before + 3
+    ntt_after = _ntt_counts()
+    assert ntt_after[1] > ntt_before[1] and ntt_after[2] > ntt_before[2]
     host = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cpu")
     assert card.to_bytes() == host.to_bytes()
 

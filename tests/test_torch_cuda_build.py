@@ -31,6 +31,15 @@ def test_poseidon_sources_include_the_params_header():
     assert names == ["poseidon.cu", "poseidon_params.cuh"]
 
 
+def test_ntt_and_deep_sources_name_their_headers():
+    names = lambda name: [p.rsplit("/", 1)[-1] for p in cuda_build.source_files(name)]
+    assert names("ntt") == ["ntt.cu", "goldilocks.cuh"]
+    assert names("deep") == ["deep.cu", "ext.cuh", "goldilocks.cuh"]
+    # each library's name hashes its own sources: the extension header
+    # rebuilds the DEEP kernel alone
+    assert "ext.cuh" not in names("quotient") + names("ntt") + names("poseidon")
+
+
 def test_quotient_sources_include_the_field_header():
     names = [p.rsplit("/", 1)[-1] for p in cuda_build.source_files("quotient")]
     assert names == ["quotient.cu", "goldilocks.cuh"]

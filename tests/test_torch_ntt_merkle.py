@@ -1,5 +1,7 @@
 """The port's NTT/LDE and Merkle commitments against the JAX package and
-the Python-int oracles. Tolerance: exact equality."""
+the Python-int oracles, and the NTT kernel's schedule (its plain twin)
+against the plain transforms; the card's kernel is tested in
+tests/test_torch_cuda.py. Tolerance: exact equality."""
 
 import jax
 import numpy as np
@@ -11,9 +13,15 @@ torch.set_num_threads(2)
 from tendermintx_tpu.ops import merkle as jmerkle
 from tendermintx_tpu.ops import ntt as jntt
 from tendermintx_tpu.ops.goldilocks import GF as JGF
+from tendermintx_tpu.stark import prover as jprover
 from tendermintx_tpu_torch.ops import merkle, ntt
 from tendermintx_tpu_torch.ops import poseidon as ps
 from tendermintx_tpu_torch.ops.goldilocks import GF, MULTIPLICATIVE_GENERATOR, P
+from tendermintx_tpu_torch.parallel import prover as shp
+from tendermintx_tpu_torch.parallel.sharding import LaneMesh
+from tendermintx_tpu_torch.stark import prover as pr
+
+SHIFT = 11  # a coset shift other than the default generator 7
 
 
 def _rand(shape, seed):
@@ -53,6 +61,92 @@ def test_coset_lde_matches_jax_and_evaluates_on_coset():
     for i in (0, 3, 255):
         pt = MULTIPLICATIVE_GENERATOR * pow(w, i, P) % P
         assert int(got[1][i]) == ntt.eval_poly_ints([int(v) for v in x[1]], pt)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 1 << 10])
+@pytest.mark.parametrize("batch, rate_bits", [(1, 1), (3, 3), (5, 4)])
+def test_entries_and_prover_wrappers_match_jax(n, batch, rate_bits):
+    """ntt / intt / coset_lde and the prover's trace_lde / coset_intt (the
+    CPU path: the plain versions) against the JAX package's transforms and
+    its jitted prover wrappers, at a non-default shift."""
+    x = _rand((batch, n), 1000 * n + batch)
+    gx, jx = GF.from_ints(x), JGF.from_ints(x)
+    assert ntt.ntt(gx).to_ints().tolist() == jax.jit(jntt.ntt)(jx).to_ints().tolist()
+    assert ntt.intt(gx).to_ints().tolist() == jax.jit(jntt.intt)(jx).to_ints().tolist()
+    want = jax.jit(lambda g: jntt.coset_lde(g, rate_bits, SHIFT))(jx).to_ints()
+    assert ntt.coset_lde(gx, rate_bits, SHIFT).to_ints().tolist() == want.tolist()
+    coeffs, lde = pr.trace_lde(gx, rate_bits, SHIFT)
+    jc, jl = jprover._trace_lde_fn(rate_bits, SHIFT)(jx)
+    assert coeffs.to_ints().tolist() == jc.to_ints().tolist()
+    assert lde.to_ints().tolist() == jl.to_ints().tolist()
+    y = _rand((2, n), 7 * n + batch)
+    got = pr.coset_intt(GF.from_ints(y), SHIFT).to_ints()
+    j0, j1 = jprover._coset_intt_fn(SHIFT)(JGF.from_ints(y[:1]), JGF.from_ints(y[1:]))
+    assert got.tolist() == [j0.to_ints()[0].tolist(), j1.to_ints()[0].tolist()]
+
+
+def _felts(shape, seed) -> torch.Tensor:
+    return GF.from_ints(_rand(shape, seed)).v
+
+
+@pytest.mark.parametrize("log_n", [0, 1, 2, 3, 5, 8])
+@pytest.mark.parametrize("max_stages", [1, 2, 3, ntt.MAX_STAGES])
+def test_kernel_schedule_twin_matches_plain(log_n, max_stages):
+    """The kernel's passes (bit-reversed first-pass reads, lines of each
+    pass, twiddle indices, the folded n^-1, power tables and the LDE's
+    zero reads) as torch ops equal the plain versions, cut into passes of
+    at most max_stages stages."""
+    x = _felts((3, 1 << log_n), 31 * log_n + max_stages)
+    g = GF(x)
+    assert torch.equal(ntt.schedule_twin("ntt", x, max_stages=max_stages), ntt.ntt_plain(g).v)
+    assert torch.equal(ntt.schedule_twin("intt", x, max_stages=max_stages), ntt.intt_plain(g).v)
+    pw = ntt.power_tensor(pow(SHIFT, P - 2, P), 1 << log_n, torch.device("cpu"))
+    assert torch.equal(ntt.schedule_twin("intt", x, powers=pw, max_stages=max_stages),
+                       (ntt.intt_plain(g) * GF(pw)).v)
+    for rate_bits in (1, 3, 4):
+        assert torch.equal(ntt.schedule_twin("coset_lde", x, rate_bits, SHIFT, max_stages=max_stages),
+                           ntt.coset_lde_plain(g, rate_bits, SHIFT).v)
+
+
+@pytest.mark.parametrize("log_n, rate_bits", [(12, 3), (13, 4)])
+def test_kernel_schedule_twin_at_the_main_path_plan(log_n, rate_bits):
+    """The twin at the kernel's own two-pass plans (ntt_plan(15) = (8, 7),
+    ntt_plan(17) = (9, 8) at most 10 stages a pass) against the plain LDE
+    and inverse. Three-pass plans are held here at small max_stages
+    (test_kernel_schedule_twin_matches_plain); EvalAir's (7, 7, 7) plan
+    at 2^21 points is held against the plain LDE on the card by
+    chip_smoke.py."""
+    assert ntt.ntt_plan(18) == (9, 9) and ntt.ntt_plan(21) == (7, 7, 7) and ntt.ntt_plan(10) == (10,)
+    x = _felts((2, 1 << log_n), log_n)
+    assert torch.equal(ntt.schedule_twin("coset_lde", x, rate_bits, SHIFT),
+                       ntt.coset_lde_plain(GF(x), rate_bits, SHIFT).v)
+    big = _felts((1, 1 << (log_n + rate_bits)), log_n + 1)
+    assert torch.equal(ntt.schedule_twin("intt", big), ntt.intt_plain(GF(big)).v)
+
+
+def test_twiddle_tables():
+    for log_n in (1, 4, 9):
+        for inverse in (False, True):
+            table = ntt.twiddle_table(log_n, inverse, torch.device("cpu")).numpy().view(np.uint64)
+            assert table.tolist() == ntt.stage_twiddles(log_n, inverse)[-1].tolist()
+
+
+def test_cpu_tensors_take_the_plain_path():
+    """On the CPU each entry is its plain version and launches nothing;
+    the one-device mesh's LDE row blocks are the LDE itself (no copy)."""
+    counts = lambda: (ntt.ntt_kernel_launches, ntt.intt_kernel_launches, ntt.lde_kernel_launches)
+    before = counts()
+    x = GF(_felts((3, 16), 5))
+    assert torch.equal(ntt.ntt(x).v, ntt.ntt_plain(x).v)
+    assert torch.equal(ntt.intt(x).v, ntt.intt_plain(x).v)
+    assert torch.equal(ntt.coset_lde(x, 2, SHIFT).v, ntt.coset_lde_plain(x, 2, SHIFT).v)
+    mesh = LaneMesh([torch.device("cpu")])
+    coeffs, blocks = shp.sharded_trace_lde(mesh, 2, SHIFT)(x)
+    (rows,) = shp.columns_to_rows(mesh, blocks, 3)
+    assert rows.v.data_ptr() == blocks[0].v.data_ptr()
+    assert counts() == before
+    with pytest.raises(ValueError):
+        ntt.ntt(GF(_felts((2, 12), 6)))
 
 
 @pytest.mark.parametrize("width", [2, 7, 16, 21])

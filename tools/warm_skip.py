@@ -11,8 +11,11 @@ slice phase does. `--modes` replaces the warm runs by one per listed mode:
 `single` proves with device="cuda", `meshK` with mesh= a K-shard lane mesh
 on cuda:0 (K = 1 runs the sharded path with no communication). Prints one
 JSON line: the card's name and power limit, each prove's and verify's
-seconds, its peak allocated bytes, the proof's sha256 and the
-per-statement phase lines that stark/batch.py logs. Two checkouts
+seconds, its peak allocated bytes, the proof's sha256, the
+per-statement phase lines that stark/batch.py logs and, per phase, the
+device peak while it ran (`phase_peaks`: the allocator's peak since the
+previous phase mark of stark/prover.py; the last entry is what follows
+the last statement phase: the batch FRI and the openings). Two checkouts
 are compared by running this in turns from one call (parent, change,
 change, parent), two modes by alternating them in `--modes`; the script is
 a measuring aid that nothing else uses.
@@ -75,6 +78,17 @@ def main(argv=None) -> int:
     batch_log = logging.getLogger("tendermintx_tpu_torch.stark.batch")
     batch_log.setLevel(logging.INFO)
     batch_log.addHandler(handler)
+    peaks: list[list] = []
+
+    def on_mark(record):
+        peaks.append([record.getMessage(), torch.cuda.max_memory_allocated()])
+        torch.cuda.reset_peak_memory_stats()
+
+    marks = logging.Handler(logging.DEBUG)
+    marks.emit = on_mark
+    prover_log = logging.getLogger("tendermintx_tpu_torch.stark.prover")
+    prover_log.setLevel(logging.DEBUG)
+    prover_log.addHandler(marks)
     chain = TestChain(n_validators=128, chain_id="warm-skip-chain")
     for _ in range(8):
         chain.extend()
@@ -88,13 +102,15 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             phases.clear()
+            peaks.clear()
             t0 = time.perf_counter()
             proof = prove_skip_composite(
                 trusted_h, trusted, target_h, inputs, DEFAULT_COMPOSITE_CONFIG, **kwargs
             )
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            peak = torch.cuda.max_memory_allocated()
+            peaks.append(["batch FRI and openings", torch.cuda.max_memory_allocated()])
+            peak = max(p for _, p in peaks)
             blob = proof.to_bytes()
             t2 = time.perf_counter()
             ok = verify_skip_composite(CompositeProof.from_bytes(blob), "warm-skip-chain", 100)
@@ -105,6 +121,7 @@ def main(argv=None) -> int:
                 "skip": [trusted_h, target_h], "mode": mode, "prove_seconds": t1 - t0,
                 "verify_seconds": t3 - t2, "max_memory_allocated": peak,
                 "proof_sha256": hashlib.sha256(blob).hexdigest(), "phases": list(phases),
+                "phase_peaks": [list(p) for p in peaks],
             })
     print(json.dumps(out), flush=True)
     return 0
