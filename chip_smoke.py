@@ -51,8 +51,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  LDE and quotient iNTT, on one card and per mesh shard;
                  the step's and the hash bundles' SHA-256 plans; the
                  four-step NTT's rows; 1- and 2-point rows), exact against
-                 its plain version on the whole output, timed at the
-                 Ed25519 trace; and the DEEP kernel (csrc/deep.cu) at each
+                 its plain version on the whole output, the kernel timed
+                 at every one of those shapes with its bound and its
+                 plan's pass kernels (``shapes``), the plain version at
+                 the Ed25519 trace; the kernels line sums the warm skip's
+                 transforms over those times (``warm_skip``: kernel ms,
+                 bound ms, pass kernels); and the DEEP kernel (csrc/deep.cu) at each
                  AIR's one-device shard, exact against
                  deep_composition_plain; each with its time, the plain
                  version's and its bound (bytes at 3.35 TB/s or 4
@@ -65,7 +69,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  warm); each is prove + verify. Every kernel must have been
                  launched by each of the two proves (the NTT's forward
                  entry excepted: only the mesh phase's four-step NTT
-                 runs it), the quotient and the DEEP kernel once per
+                 runs it), each NTT entry exactly the pass kernels
+                 ntt_plan gives the transforms the path asked of it (so on
+                 every path below), the quotient and the DEEP kernel once per
                  statement, the warm prove's column sponge once per
                  column-major tree, and the warm proof's
                  statements must be the quotient check's. The per-statement
@@ -752,12 +758,21 @@ def _ntt_bound(entry: str, rows: int, log_n: int, rate: int, muls_per_ms: float)
     }
 
 
+def _ntt_plan_of(entry: str, log_n: int, rate: int) -> tuple[int, ...]:
+    """The passes csrc/ntt.cu runs for one call of an entry."""
+    from tendermintx_tpu_torch.ops import ntt
+
+    r = rate if entry == "coset_lde" else 0
+    return ntt.ntt_plan(log_n + r, r)
+
+
 def _kernel_ntt(dev, clock_mhz: float, ptxas: dict) -> dict:
     """Each entry of csrc/ntt.cu against its plain version on the same
     CUDA tensors, exactly on the whole output, at every shape of
-    _ntt_shapes(); each entry timed at NTT_TIMED with its plain version's
-    time (its check there) and its bound. The row's own numbers are the
-    coset LDE's at the Ed25519 trace, the main path's largest call."""
+    _ntt_shapes(), each timed (the kernel alone) with its bound and its
+    plan's pass kernels a call (`shapes`); the plain version's time at
+    NTT_TIMED. The row's own numbers are the coset LDE's at the Ed25519
+    trace, the main path's largest call."""
     from tendermintx_tpu_torch.ops import ntt
     from tendermintx_tpu_torch.ops.goldilocks import GF, P
 
@@ -776,7 +791,7 @@ def _kernel_ntt(dev, clock_mhz: float, ptxas: dict) -> dict:
         "intt": lambda x: ntt.intt_plain(GF(x)).v,
         "coset_intt": lambda x: (ntt.intt_plain(GF(x)) * GF(powers(int(x.shape[-1])))).v,
     }
-    entries, checked = {}, []
+    entries, checked, shapes = {}, [], []
     for use, entry, rows, log_n, rate in _ntt_shapes():
         x = _random_felts((rows, 1 << log_n), gen, dev)
         if entry == "coset_lde":
@@ -793,14 +808,19 @@ def _kernel_ntt(dev, clock_mhz: float, ptxas: dict) -> dict:
                                  f"disagrees with its plain version: max_abs_err {err}")
         del want, got
         checked.append([use, entry, rows, log_n, rate])
+        _, first_ms = _timed_once(run)
+        shape = {
+            "use": use, "entry": entry, "rows": rows, "log_n": log_n, "rate": rate,
+            "plan": list(_ntt_plan_of(entry, log_n, rate)),
+            "ms": _time_ms(run, max(3, min(20, int(200 / max(first_ms, 1e-3))))),
+            **_ntt_bound(entry, rows, log_n, rate, muls_per_ms),
+        }
+        shape["bound_share"] = shape["bound_ms"] / shape["ms"]
+        shapes.append(shape)
         if NTT_TIMED.get(entry) == (rows, log_n, rate) and entry not in entries:
-            entries[entry] = {
-                "shape": [rows, 1 << log_n, 1 << (log_n + rate)],
-                "ms": _time_ms(run, 20),
-                "plain_ms": plain_ms,
-                **_ntt_bound(entry, rows, log_n, rate, muls_per_ms),
-            }
-            entries[entry]["bound_share"] = entries[entry]["bound_ms"] / entries[entry]["ms"]
+            entries[entry] = {"shape": [rows, 1 << log_n, 1 << (log_n + rate)], "plain_ms": plain_ms,
+                              **{k: shape[k] for k in ("ms", "bound_ms", "bound_by", "operations_bound_ms",
+                                                        "bytes_bound_ms", "field_muls", "bytes", "bound_share")}}
         del x
     missing = set(NTT_TIMED) - set(entries)
     if missing:
@@ -819,7 +839,29 @@ def _kernel_ntt(dev, clock_mhz: float, ptxas: dict) -> dict:
         "library_ms": None,
         **_registers(ptxas),
         "entries": entries,
+        "shapes": shapes,
         "checked": checked,
+    }
+
+
+def _ntt_path_sums(shapes: list[dict], calls: list[tuple]) -> dict:
+    """One path's NTT time: its transforms (entry, rows, log2 n, rate, as
+    NTT_CALLS recorded them) each at its timed shape's kernel ms and bound
+    ms, and their pass kernels; shapes never timed are listed apart."""
+    timed = {(s["entry"], s["rows"], s["log_n"], s["rate"]): s for s in shapes}
+    by_shape: dict = {}
+    for call in calls:
+        by_shape[call] = by_shape.get(call, 0) + 1
+    untimed = [list(c) for c in by_shape if c not in timed]
+    by_shape = {c: n for c, n in by_shape.items() if c in timed}
+    return {
+        "transforms": len(calls),
+        "untimed": untimed,
+        "launches": sum(len(timed[c]["plan"]) * n for c, n in by_shape.items()),
+        "kernel_ms": sum(timed[c]["ms"] * n for c, n in by_shape.items()),
+        "bound_ms": sum(timed[c]["bound_ms"] * n for c, n in by_shape.items()),
+        "by_shape": [{"entry": c[0], "rows": c[1], "log_n": c[2], "rate": c[3], "calls": n,
+                      "ms": timed[c]["ms"], "bound_ms": timed[c]["bound_ms"]} for c, n in by_shape.items()],
     }
 
 
@@ -1147,11 +1189,46 @@ KERNEL_ENTRIES = {"ntt": ("ntt_forward", "ntt_inverse", "ntt_coset_lde")}
 NOT_PROVED_BY = ("ntt_forward",)
 
 
+class _NttCalls:
+    """Every transform the NTT kernel's wrapper is asked for while
+    installed, as (entry, rows, log2 n, rate) with the coset iNTT apart,
+    and the pass kernels ntt_plan gives each entry for them: each path's
+    expected launches, derived from the plan."""
+
+    ENTRY = {"ntt": "ntt_forward", "intt": "ntt_inverse", "coset_lde": "ntt_coset_lde"}
+
+    def __init__(self):
+        self.calls: list[tuple] = []
+        self.planned = dict.fromkeys(self.ENTRY.values(), 0)
+
+    def install(self):
+        from tendermintx_tpu_torch.ops import ntt
+
+        launch = ntt._launch
+
+        def recorded(entry, x, rate_bits=0, shift=1, powers=None):
+            n = int(x.shape[-1])
+            rows = x.numel() // max(1, n)
+            if rows:
+                log_n, rate = n.bit_length() - 1, rate_bits if entry == "coset_lde" else 0
+                kind = "coset_intt" if entry == "intt" and powers is not None else entry
+                self.calls.append((kind, rows, log_n, rate))
+                self.planned[self.ENTRY[entry]] += len(_ntt_plan_of(entry, log_n, rate))
+            return launch(entry, x, rate_bits, shift, powers)
+
+        ntt._launch = recorded
+
+
+NTT_CALLS = _NttCalls()
+
+
 def _launch_counts() -> dict:
     import importlib
 
-    return {name: getattr(importlib.import_module(mod), counter)
-            for name, (mod, counter) in LAUNCH_COUNTERS.items()}
+    counts = {name: getattr(importlib.import_module(mod), counter)
+              for name, (mod, counter) in LAUNCH_COUNTERS.items()}
+    counts.update({f"{e}_planned": n for e, n in NTT_CALLS.planned.items()})
+    return counts
 
 
 def _reset_launch_counts():
@@ -1159,6 +1236,7 @@ def _reset_launch_counts():
 
     for mod, counter in LAUNCH_COUNTERS.values():
         setattr(importlib.import_module(mod), counter, 0)
+    NTT_CALLS.planned = dict.fromkeys(NTT_CALLS.planned, 0)
 
 
 # the loggers of the per-statement phase lines: the batch prover's, and
@@ -1225,8 +1303,18 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
 
 def _check_launched(launches: dict, path: str):
     for name, n in launches.items():
-        if n <= 0 and name not in NOT_PROVED_BY:
+        if n <= 0 and name not in NOT_PROVED_BY and not name.endswith("_planned"):
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
+    _check_ntt_plan(launches, path)
+
+
+def _check_ntt_plan(launches: dict, path: str):
+    """Each NTT entry launched the pass kernels ntt_plan gives the
+    transforms the path asked of it."""
+    for e in KERNEL_ENTRIES["ntt"]:
+        if launches[e] != launches[f"{e}_planned"]:
+            raise AssertionError(f"the {path} path launched {e} {launches[e]} times; its transforms' plans "
+                                 f"give {launches[f'{e}_planned']}")
 
 
 def _check_deep_launches(launches: dict, statements: int, shards: int, path: str):
@@ -1242,8 +1330,10 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     _reset_launch_counts()
     cold, _ = _prove_and_verify(sc, 1, 5)
     cold_launches = _launch_counts()
+    first_call = len(NTT_CALLS.calls)
     warm, warm_proof = _prove_and_verify(sc, 2, 6)
     launches = _launch_counts()
+    warm_ntt_calls = NTT_CALLS.calls[first_call:]
     warm_launches = {k: launches[k] - cold_launches[k] for k in launches}
     _check_launched(cold_launches, "cold skip")
     _check_launched(warm_launches, "warm skip")
@@ -1282,7 +1372,7 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
         "warm": warm,
     }
     emit(out)
-    return out, cold_launches, warm_launches, warm_proof
+    return out, cold_launches, warm_launches, warm_proof, warm_ntt_calls
 
 
 def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
@@ -2090,12 +2180,13 @@ def main(argv: list[str]) -> int:
         logging.getLogger(name).setLevel(logging.INFO)
     card = phase_device()["nvidia_smi"]
     build = phase_build()
+    NTT_CALLS.install()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         parity = parity_start(workdir)
         try:
             rows = phase_kernels(build)
             n128 = SkipChain(128, os.path.join(workdir, "n128"))
-            _, cold_launches, warm_launches, warm_proof = phase_slice(n128)
+            _, cold_launches, warm_launches, warm_proof, warm_ntt_calls = phase_slice(n128)
             _, step_launches, step_blob = phase_step(n128)
             _, hashes_launches = phase_hashes(n128, parity, card)
             profile = "--profile" in argv
@@ -2127,6 +2218,9 @@ def main(argv: list[str]) -> int:
                 e: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for e, r in row["entries"].items()
             }
+            entry["shapes"] = [{k: r[k] for k in ("use", "entry", "rows", "log_n", "rate", "plan", "ms", "bound_ms",
+                                                  "bound_by")} for r in row["shapes"]]
+            entry["warm_skip"] = _ntt_path_sums(row["shapes"], warm_ntt_calls)
         kernels.append(entry)
     # the quotient per AIR: times, bounds, launch shape, slots and loads
     per_air = ("ms", "plain_ms", "block_rows", "block_ms", "block_plain_ms", "slots", "threads", "shared_bytes", "blocks_per_sm", "instructions", "bundles", "chunks", "reads",

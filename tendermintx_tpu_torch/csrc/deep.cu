@@ -15,13 +15,34 @@
 // Bound: the trace and aux columns are most of the bytes (each read once:
 // Ed25519 at N=128 reads 2,929 columns of 2^18 rows, 6.1 GB); the
 // multiplies are two a column a group a row (an extension scalar times a
-// base value), 4 32-bit multiply-adds each. The design reads each column
-// value once for every opening group (the plain version reads the columns
-// once a group): one thread a row, the groups' sums in registers (up to
-// MAX_GROUPS, a template parameter, so they stay registers), the betas
-// read as broadcasts (every thread of a warp reads the same word), no
-// shared memory and no row blocking: one launch a shard. Every value is
-// canonical at every step, so F equals the plain torch version bit for bit.
+// base value). The design reads each column value once for every opening
+// group (the plain version reads the columns once a group) and spends
+// few integer instructions on each product:
+//
+// - Reduce once a group, not once a term. For each group, component and
+//   row, the products beta * t (canonical 64-bit operands, a 128-bit
+//   product) are summed unreduced in a 160-bit accumulator, five 32-bit
+//   limbs, by one PTX carry chain of multiply-adds (13 instructions, where
+//   a canonical multiply and add take about 30). Each product is below
+//   (p-1)^2 < 2^128, so MAX_COLUMNS = 2^32 - 1 columns sum below 2^160 and
+//   the accumulator never wraps (the port's widest statement, Ed25519 at
+//   N=128, has 2,929); stark/prover.py::deep_cuda refuses more. The sum is
+//   reduced once at the end with 2^64 == 2^32 - 1, 2^96 == -1 and 2^128
+//   == -2^32 (mod p) to a canonical value: the same field element as the
+//   sum of reduced products, so F equals the plain torch version bit for
+//   bit.
+// - Several rows a thread. Each thread sums RPT = 2 consecutive rows,
+//   read as 16-byte loads where the column is aligned, so each beta serves
+//   two rows; U columns' loads are in flight together. At seven and eight
+//   groups (the SHA AIRs) one row: the accumulators are 10 registers a
+//   group a row, and two rows' 160 at eight groups spilled at ptxas's 255
+//   registers a thread.
+// - The betas of CHUNK columns at a time are staged in shared memory by
+//   the block and read as broadcasts.
+//
+// The quotient chunks (extension values, group 0), the opening values
+// and the inverses are canonical extension arithmetic (csrc/ext.cuh),
+// once a row. One launch a shard.
 //
 // Entry, with a plain C interface:
 //   tmx_deep   rows [0, rows) of a shard -> out (2, rows) (c0 row, then c1
@@ -38,8 +59,10 @@
 
 namespace {
 
-constexpr int MAX_GROUPS = 8;  // stark/prover.py: DEEP_MAX_GROUPS
+constexpr int MAX_GROUPS = 8;                      // stark/prover.py: DEEP_MAX_GROUPS
+constexpr int64_t MAX_COLUMNS = (1ll << 32) - 1;   // stark/prover.py: DEEP_MAX_COLUMNS
 constexpr int THREADS = 128;
+constexpr int CHUNK = 32;  // columns whose betas the block stages at a time
 
 }  // namespace
 
@@ -78,58 +101,170 @@ __device__ __forceinline__ uint64_t ld(const uint64_t* p) {
     return __ldg(reinterpret_cast<const unsigned long long*>(p));
 }
 
-template <int NG>
+// rows [0, RPT) of a column from p, `avail` of them in the shard: 16-byte
+// loads where p is aligned and every row is there, else one word a row
+template <int RPT>
+__device__ __forceinline__ void load_rows(const uint64_t* p, int64_t avail, uint64_t (&t)[RPT]) {
+    if constexpr (RPT % 2 == 0) {
+        if (avail >= RPT && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+            for (int r = 0; r < RPT; r += 2) {
+                const ulonglong2 v = __ldg(reinterpret_cast<const ulonglong2*>(p + r));
+                t[r] = v.x;
+                t[r + 1] = v.y;
+            }
+            return;
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) t[r] = r < avail ? ld(p + r) : 0;
+}
+
+// 160-bit unreduced sum, five 32-bit limbs (least significant first)
+struct Acc {
+    uint32_t w[5];
+};
+
+// s += b * t for 64-bit b and t: the four 32 x 32 partial products added
+// into the limbs by one carry chain each (b0 t0 and b1 t1 at limbs 0-3,
+// then b0 t1 and b1 t0 at limbs 1-2), carries rippled to limb 4
+__device__ __forceinline__ void mac(Acc& s, uint64_t b, uint64_t t) {
+    const uint32_t b0 = uint32_t(b), b1 = uint32_t(b >> 32), t0 = uint32_t(t), t1 = uint32_t(t >> 32);
+    asm("mad.lo.cc.u32 %0, %5, %7, %0;\n\t"
+        "madc.hi.cc.u32 %1, %5, %7, %1;\n\t"
+        "madc.lo.cc.u32 %2, %6, %8, %2;\n\t"
+        "madc.hi.cc.u32 %3, %6, %8, %3;\n\t"
+        "addc.u32 %4, %4, 0;\n\t"
+        "mad.lo.cc.u32 %1, %5, %8, %1;\n\t"
+        "madc.hi.cc.u32 %2, %5, %8, %2;\n\t"
+        "addc.cc.u32 %3, %3, 0;\n\t"
+        "addc.u32 %4, %4, 0;\n\t"
+        "mad.lo.cc.u32 %1, %6, %7, %1;\n\t"
+        "madc.hi.cc.u32 %2, %6, %7, %2;\n\t"
+        "addc.cc.u32 %3, %3, 0;\n\t"
+        "addc.u32 %4, %4, 0;"
+        : "+r"(s.w[0]), "+r"(s.w[1]), "+r"(s.w[2]), "+r"(s.w[3]), "+r"(s.w[4])
+        : "r"(b0), "r"(b1), "r"(t0), "r"(t1));
+}
+
+// the canonical value of the sum: a0 + a1 2^32 + a2 2^64 + a3 2^96 +
+// a4 2^128 == (a0 + a1 2^32) + a2 (2^32 - 1) - a3 - a4 2^32 (mod p);
+// a2 (2^32 - 1) <= p - 2^32 and a4 2^32 <= p - 1 are canonical
+__device__ __forceinline__ uint64_t reduce(const Acc& s) {
+    uint64_t x = tmx_gl::canon(uint64_t(s.w[0]) | (uint64_t(s.w[1]) << 32));
+    x = tmx_gl::add(x, uint64_t(s.w[2]) * tmx_gl::EPS);
+    x = tmx_gl::sub(x, s.w[3]);
+    return tmx_gl::sub(x, uint64_t(s.w[4]) << 32);
+}
+
+template <int NG, int RPT, int U>
 __global__ void __launch_bounds__(THREADS) tmx_deep_kernel(DeepArgs a) {
     using tmx_ext::E2;
-    const int64_t x = int64_t(blockIdx.x) * THREADS + threadIdx.x;
-    if (x >= a.rows) return;
+    __shared__ uint64_t sb0[NG * CHUNK], sb1[NG * CHUNK];
+    const int64_t x0 = (int64_t(blockIdx.x) * THREADS + threadIdx.x) * RPT;
+    const int64_t avail = a.rows - x0;  // rows of this thread in the shard (up to RPT)
     const int64_t n_total = a.n_main + a.n_aux;
-    uint64_t s0[NG], s1[NG];
+    Acc acc[NG][2][RPT];
 #pragma unroll
-    for (int g = 0; g < NG; ++g) s0[g] = s1[g] = 0;
+    for (int g = 0; g < NG; ++g)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int r = 0; r < RPT; ++r)
+#pragma unroll
+                for (int w = 0; w < 5; ++w) acc[g][c][r].w[w] = 0;
 
     // sum_i beta_{g,i} T_i(x): each column value read once for all groups
-    for (int part = 0; part < 2; ++part) {
-        const uint64_t* col = part ? a.aux : a.trace;
-        const int64_t stride = part ? a.aux_ld : a.trace_ld;
-        const int64_t count = part ? a.n_aux : a.n_main;
-        const int64_t c0 = part ? a.n_main : 0;
-#pragma unroll 2
-        for (int64_t i = 0; i < count; ++i) {
-            const uint64_t t = ld(col + i * stride + x);
+    for (int64_t c0 = 0; c0 < n_total; c0 += CHUNK) {
+        const int cn = n_total - c0 < CHUNK ? int(n_total - c0) : CHUNK;
+        __syncthreads();  // the previous chunk's betas are read
+        for (int i = threadIdx.x; i < NG * CHUNK; i += THREADS) {
+            const int g = i / CHUNK, j = i % CHUNK;
+            if (j < cn) {
+                sb0[i] = ld(a.beta_t0 + g * n_total + c0 + j);
+                sb1[i] = ld(a.beta_t1 + g * n_total + c0 + j);
+            }
+        }
+        __syncthreads();
+        if (avail <= 0) continue;
+        // U columns at a time: their loads in flight together
+#pragma unroll 1
+        for (int j = 0; j < cn; j += U) {
+            uint64_t t[U][RPT];
 #pragma unroll
-            for (int g = 0; g < NG; ++g) {
-                const int64_t b = g * n_total + c0 + i;
-                s0[g] = tmx_gl::add(s0[g], tmx_gl::mul(ld(a.beta_t0 + b), t));
-                s1[g] = tmx_gl::add(s1[g], tmx_gl::mul(ld(a.beta_t1 + b), t));
+            for (int u = 0; u < U; ++u) {
+                const int64_t c = c0 + j + u;
+                if (j + u < cn) {
+                    const uint64_t* col = c < a.n_main ? a.trace + c * a.trace_ld : a.aux + (c - a.n_main) * a.aux_ld;
+                    load_rows<RPT>(col + x0, avail, t[u]);
+                } else {
+#pragma unroll
+                    for (int r = 0; r < RPT; ++r) t[u][r] = 0;  // adds nothing
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+#pragma unroll
+                for (int g = 0; g < NG; ++g) {
+                    const uint64_t b0 = sb0[g * CHUNK + j + u], b1 = sb1[g * CHUNK + j + u];
+#pragma unroll
+                    for (int r = 0; r < RPT; ++r) {
+                        mac(acc[g][0][r], b0, t[u][r]);
+                        mac(acc[g][1][r], b1, t[u][r]);
+                    }
+                }
             }
         }
     }
+    if (avail <= 0) return;
 
-    // group 0 also takes sum_j beta_{q,j} Q_j(x)
-    E2 q{s0[0], s1[0]};
-    for (int64_t j = 0; j < a.n_chunks; ++j) {
-        const E2 beta{ld(a.beta_q0 + j), ld(a.beta_q1 + j)};
-        const E2 v{ld(a.chunk0 + j * a.chunk_ld + x), ld(a.chunk1 + j * a.chunk_ld + x)};
-        q = tmx_ext::add(q, tmx_ext::mul(beta, v));
-    }
-    s0[0] = q.c0;
-    s1[0] = q.c1;
-
-    E2 f{0, 0};
+    // group 0 also takes sum_j beta_{q,j} Q_j(x), then
+    // F = sum_g (G_g - G0_g) inv_g
+    E2 f[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) f[r] = E2{0, 0};
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-        const E2 G = tmx_ext::sub(E2{s0[g], s1[g]}, E2{ld(a.g00 + g), ld(a.g01 + g)});
-        const E2 inv{ld(a.inv0 + g * a.inv_ld + x), ld(a.inv1 + g * a.inv_ld + x)};
-        f = tmx_ext::add(f, tmx_ext::mul(G, inv));
+        E2 G[RPT];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) G[r] = E2{reduce(acc[g][0][r]), reduce(acc[g][1][r])};
+        if (g == 0) {
+            for (int64_t j = 0; j < a.n_chunks; ++j) {
+                const E2 beta{ld(a.beta_q0 + j), ld(a.beta_q1 + j)};
+                uint64_t q0[RPT], q1[RPT];
+                load_rows<RPT>(a.chunk0 + j * a.chunk_ld + x0, avail, q0);
+                load_rows<RPT>(a.chunk1 + j * a.chunk_ld + x0, avail, q1);
+#pragma unroll
+                for (int r = 0; r < RPT; ++r) G[r] = tmx_ext::add(G[r], tmx_ext::mul(beta, E2{q0[r], q1[r]}));
+            }
+        }
+        const E2 g0{ld(a.g00 + g), ld(a.g01 + g)};
+        uint64_t i0[RPT], i1[RPT];
+        load_rows<RPT>(a.inv0 + g * a.inv_ld + x0, avail, i0);
+        load_rows<RPT>(a.inv1 + g * a.inv_ld + x0, avail, i1);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) f[r] = tmx_ext::add(f[r], tmx_ext::mul(tmx_ext::sub(G[r], g0), E2{i0[r], i1[r]}));
     }
-    a.out[x] = f.c0;
-    a.out[a.rows + x] = f.c1;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+        if (r < avail) {
+            a.out[x0 + r] = f[r].c0;
+            a.out[a.rows + x0 + r] = f[r].c1;
+        }
+    }
 }
 
 template <int NG>
-void launch(const DeepArgs& a, int blocks, cudaStream_t stream) {
-    tmx_deep_kernel<NG><<<blocks, THREADS, 0, stream>>>(a);
+void launch(const DeepArgs& a, cudaStream_t stream) {
+    // rows a thread and columns in flight by group count, as ptxas fits
+    // them without a spill: 2 rows up to six groups (one column at a time
+    // from five), 1 row at seven and eight with 8 columns in flight (the
+    // SHA AIRs: 1.41-1.45 ms against 1.59 with 2 on an H100; 8 at two
+    // groups slowed EvalAir's 18 columns by 13%)
+    constexpr int RPT = NG <= 6 ? 2 : 1;
+    constexpr int U = NG <= 2 ? 4 : NG <= 4 ? 2 : NG <= 6 ? 1 : 8;
+    const int64_t blocks = (a.rows + int64_t(THREADS) * RPT - 1) / (int64_t(THREADS) * RPT);
+    tmx_deep_kernel<NG, RPT, U><<<(int)blocks, THREADS, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -138,20 +273,19 @@ extern "C" int tmx_deep(const DeepArgs* args, void* stream) {
     const DeepArgs& a = *args;
     if (a.rows <= 0) return 0;
     if (a.n_groups < 1 || a.n_groups > MAX_GROUPS || a.n_main < 0 || a.n_aux < 0 || a.n_chunks < 0 ||
-        (a.n_aux > 0 && !a.aux))
+        (a.n_aux > 0 && !a.aux) || a.n_main + a.n_aux > MAX_COLUMNS)
         return (int)cudaErrorInvalidValue;
-    const int64_t blocks = (a.rows + THREADS - 1) / THREADS;
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    if ((a.rows + THREADS - 1) / THREADS > INT_MAX) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (a.n_groups) {
-        case 1: launch<1>(a, (int)blocks, s); break;
-        case 2: launch<2>(a, (int)blocks, s); break;
-        case 3: launch<3>(a, (int)blocks, s); break;
-        case 4: launch<4>(a, (int)blocks, s); break;
-        case 5: launch<5>(a, (int)blocks, s); break;
-        case 6: launch<6>(a, (int)blocks, s); break;
-        case 7: launch<7>(a, (int)blocks, s); break;
-        default: launch<8>(a, (int)blocks, s); break;
+        case 1: launch<1>(a, s); break;
+        case 2: launch<2>(a, s); break;
+        case 3: launch<3>(a, s); break;
+        case 4: launch<4>(a, s); break;
+        case 5: launch<5>(a, s); break;
+        case 6: launch<6>(a, s); break;
+        case 7: launch<7>(a, s); break;
+        default: launch<8>(a, s); break;
     }
     return (int)cudaGetLastError();
 }

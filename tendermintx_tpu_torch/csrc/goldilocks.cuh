@@ -1,5 +1,6 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) on canonical uint64
-// values, for the hand kernels that run field programs (csrc/quotient.cu).
+// values, for the hand kernels that run field programs (csrc/quotient.cu,
+// csrc/ntt.cu, csrc/deep.cu).
 //
 // Every function takes canonical operands (< p) and returns a canonical
 // result, so the kernels' outputs equal the plain torch versions' bit for
@@ -18,17 +19,50 @@ constexpr uint64_t EPS = 0xFFFFFFFFULL;  // 2^64 mod p
 
 __device__ __forceinline__ uint64_t canon(uint64_t x) { return x >= P ? x - P : x; }
 
-// a + b: on a carry the true sum is s + 2^64 == s + EPS, below p.
+// a + b: s = a + b and t = s + EPS (mod 2^64) as PTX carry chains; the
+// sum is t when a + b carried (the true sum s + 2^64 == s + EPS, below p)
+// or when s >= p (then s + EPS carries and t = s - p), else s.
 __device__ __forceinline__ uint64_t add(uint64_t a, uint64_t b) {
-    const uint64_t s = a + b;
-    return s < a ? s + EPS : canon(s);
+    uint64_t r;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, b0, b1, s0, s1, t0, t1, c;\n\t"
+        ".reg .pred q;\n\t"
+        "mov.b64 {a0, a1}, %1;\n\t"
+        "mov.b64 {b0, b1}, %2;\n\t"
+        "add.cc.u32 s0, a0, b0;\n\t"
+        "addc.cc.u32 s1, a1, b1;\n\t"
+        "addc.u32 c, 0, 0;\n\t"
+        "add.cc.u32 t0, s0, 0xFFFFFFFF;\n\t"
+        "addc.cc.u32 t1, s1, 0;\n\t"
+        "addc.u32 c, c, 0;\n\t"
+        "setp.ne.u32 q, c, 0;\n\t"
+        "selp.b32 s0, t0, s0, q;\n\t"
+        "selp.b32 s1, t1, s1, q;\n\t"
+        "mov.b64 %0, {s0, s1};\n\t"
+        "}"
+        : "=l"(r)
+        : "l"(a), "l"(b));
+    return r;
 }
 
 // a - b: on a borrow the wrapped difference is a - b + 2^64; subtracting
-// EPS gives a - b + p.
+// EPS (the borrow's all-ones low word) gives a - b + p.
 __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
-    const uint64_t d = a - b;
-    return a < b ? d - EPS : d;
+    uint64_t r;
+    asm("{\n\t"
+        ".reg .u32 a0, a1, b0, b1, d0, d1, m;\n\t"
+        "mov.b64 {a0, a1}, %1;\n\t"
+        "mov.b64 {b0, b1}, %2;\n\t"
+        "sub.cc.u32 d0, a0, b0;\n\t"
+        "subc.cc.u32 d1, a1, b1;\n\t"
+        "subc.u32 m, 0, 0;\n\t"
+        "sub.cc.u32 d0, d0, m;\n\t"
+        "subc.u32 d1, d1, 0;\n\t"
+        "mov.b64 %0, {d0, d1};\n\t"
+        "}"
+        : "=l"(r)
+        : "l"(a), "l"(b));
+    return r;
 }
 
 // a * b: four 32x32->64 products summed as a PTX carry chain on 32-bit

@@ -5,8 +5,10 @@ axes are batch, e.g. trace columns). ``ntt``, ``intt`` and ``coset_lde``
 dispatch on the tensor's device: a CPU tensor takes the plain version
 (``*_plain``: radix-2 iterative Cooley-Tukey, twiddles precomputed on the
 host, butterflies as field ops on tensors); a CUDA tensor launches the
-hand kernel ``csrc/ntt.cu`` or raises. ``schedule_plain`` is the kernel's
-plain twin: its passes and index arithmetic as torch ops.
+hand kernel ``csrc/ntt.cu`` or raises. ``ntt_plan`` cuts a transform into
+the kernel's passes; ``schedule_plain`` is the kernel's plain twin: its
+passes, coset split, register rounds, twists and index arithmetic as
+torch ops.
 """
 
 from __future__ import annotations
@@ -140,47 +142,100 @@ def coset_lde_plain(coeffs: GF, rate_bits: int, shift: int = MULTIPLICATIVE_GENE
 # The kernel's schedule (csrc/ntt.cu), shared with its plain twin
 # ---------------------------------------------------------------------------
 
-# csrc/ntt.cu: MAX_STAGES (a pass's tile of 2^10 x 8 words, 73,728 B)
-MAX_STAGES = 10
+# csrc/ntt.cu: MAX_K (stages a pass: a block's tile of 2^13 words holds
+# 2^(13-k) lines of a 2^k-point pass, at least 16) and MAX_PASSES
+MAX_K = 9
+MAX_PASSES = 3
 
 
-def ntt_plan(log_N: int, max_stages: int = MAX_STAGES) -> tuple[int, ...]:
-    """Stages per pass of a 2^log_N-point transform: as few passes as
-    max_stages allows, the stages spread evenly (the first passes take
-    the extra ones). A 1-point transform is one pass of no stages."""
-    if log_N == 0:
-        return (0,)
-    passes = -(-log_N // max_stages)
-    return tuple(log_N // passes + (p < log_N % passes) for p in range(passes))
+def ntt_plan(log_N: int, rate_bits: int = 0, max_k: int = MAX_K) -> tuple[int, ...]:
+    """Stages per pass of a 2^log_N-point transform whose first pass also
+    splits 2^rate_bits cosets (the coset LDE; 0 otherwise): as few passes
+    as max_k allows, at most MAX_PASSES, the stages spread evenly (the
+    first passes take the extra ones) and the first pass at least
+    rate_bits. A 1-point transform is one pass of no stages."""
+    if not 0 <= rate_bits <= min(max_k, log_N):
+        raise ValueError(f"no NTT plan splits 2^{rate_bits} cosets of a 2^{log_N}-point transform")
+    passes = max(1, -(-log_N // max_k))
+    if passes > MAX_PASSES:
+        raise ValueError(f"a 2^{log_N}-point transform needs more than {MAX_PASSES} passes of {max_k} stages")
+    ks = [log_N // passes + (p < log_N % passes) for p in range(passes)]
+    if ks[0] < rate_bits:
+        rest = log_N - rate_bits
+        ks = [rate_bits] + [rest // (passes - 1) + (p < rest % (passes - 1)) for p in range(passes - 1)]
+    return tuple(ks)
+
+
+def round_digits(k: int) -> tuple[int, ...]:
+    """csrc/ntt.cu: digit(k, r), the register rounds of a pass's 2^k-point
+    DFT: each thread holds a radix-2^d sub-transform of each round in
+    registers; the tile in shared memory is touched once a round."""
+    return {9: (3, 3, 3), 8: (4, 4), 7: (4, 3), 6: (3, 3), 5: (3, 2)}.get(k, (k,))
+
+
+def _root(log_n: int, inverse: bool) -> int:
+    w = primitive_root_of_unity(log_n)
+    return pow(w, P - 2, P) if inverse else w
 
 
 @cache
 def twiddle_table(log_N: int, inverse: bool, device) -> torch.Tensor:
     """w^u for u in [0, max(1, N/2)), w the 2^log_N-th root of unity (its
-    inverse for the inverse transform): stage s's twiddle for pair offset
-    j is entry j * 2^(log_N-1-s)."""
-    w = primitive_root_of_unity(log_N)
-    if inverse:
-        w = pow(w, P - 2, P)
-    return power_tensor(w, max(1, (1 << log_N) >> 1), device)
+    inverse for the inverse transform); w^(u + N/2) = -w^u."""
+    return power_tensor(_root(log_N, inverse), max(1, (1 << log_N) >> 1), device)
+
+
+@cache
+def root16(inverse: bool) -> tuple[int, ...]:
+    """The 16 powers of the 16th root of unity (its inverse for the inverse
+    transform): every register sub-transform's twiddles (a 2^d-point
+    root is the (16/2^d)-th power); csrc/ntt.cu takes them as arguments."""
+    w = _root(4, inverse)
+    return tuple(pow(w, i, P) for i in range(16))
+
+
+@cache
+def first_pass_tables(log_n: int, rate_bits: int, K: int, shift: int, scale: int, device):
+    """The first pass's small tables, or None where they would be all ones:
+    F[e * C + t] = shift^(e * 2^(log_n - k)) * w_{2^K}^(t * e) for the k =
+    K - rate_bits input digits e and the C = 2^rate_bits cosets t (applied
+    as each input is loaded), and S[l] = scale * shift^l for the first
+    pass's lines l (folded into the twist between passes)."""
+    k, C = K - rate_bits, 1 << rate_bits
+    shift %= P
+    F = None
+    if C > 1 or shift != 1:
+        s_e = pow(shift, 1 << (log_n - k), P)
+        wK = primitive_root_of_unity(K)
+        F = np.empty((1 << k) * C, dtype=np.uint64)
+        for e in range(1 << k):
+            base = pow(s_e, e, P)
+            step = pow(wK, e, P)
+            for t in range(C):
+                F[e * C + t] = base
+                base = base * step % P
+        F = tensor_from_u64(F, device)
+    S = None
+    if scale % P != 1 or shift != 1:
+        S = tensor_from_u64(np.array([v * scale % P for v in power_table(shift, 1 << (log_n - k)).tolist()],
+                                     dtype=np.uint64), device)
+    return F, S
 
 
 def _entry_args(kind: str, x: torch.Tensor, rate_bits: int = 0, shift: int = 1, powers=None) -> dict:
     """The kernel's arguments for one entry over rows x (..., n): the
-    transform's lengths and direction, and its tables."""
+    transform's lengths, direction, coset split, its scale (n^-1 for the
+    inverse) and shift, and its optional output power table."""
     n = int(x.shape[-1])
     log_n = _log2(n)
-    dev = x.device
     if kind == "ntt":
-        return dict(log_n=log_n, log_N=log_n, inverse=False, pre=None, post=None, post_scalar=1)
+        return dict(log_n=log_n, rate=0, inverse=False, shift=1, scale=1, post=None)
     if kind == "intt":
-        return dict(log_n=log_n, log_N=log_n, inverse=True, pre=None, post=powers,
-                    post_scalar=pow(n, P - 2, P))
+        return dict(log_n=log_n, rate=0, inverse=True, shift=1, scale=pow(n, P - 2, P), post=powers)
     if kind == "coset_lde":
         if rate_bits < 0:
             raise ValueError("rate_bits must be >= 0")
-        return dict(log_n=log_n, log_N=log_n + rate_bits, inverse=False,
-                    pre=power_tensor(shift, n, dev), post=None, post_scalar=1)
+        return dict(log_n=log_n, rate=rate_bits, inverse=False, shift=shift % P, scale=1, post=None)
     raise ValueError(f"no NTT entry {kind!r}")
 
 
@@ -191,56 +246,165 @@ def _rev(x: torch.Tensor, bits: int) -> torch.Tensor:
     return out
 
 
-def schedule_plain(
-    x: torch.Tensor, log_n: int, log_N: int, inverse: bool, pre, post, post_scalar: int,
-    ks: tuple[int, ...],
-) -> torch.Tensor:
+def _omega(tw: torch.Tensor, e: torch.Tensor, log_N: int) -> torch.Tensor:
+    """csrc/ntt.cu: omega, w^e for e in [0, N) from the half table."""
+    half = max(1, (1 << log_N) >> 1)
+    hi = e >= half
+    v = tw[torch.where(hi, e - half, e)]
+    return torch.where(hi, GF(v).__neg__().v, v)
+
+
+def _dft_regs(v: torch.Tensor, d: int, r16: torch.Tensor) -> torch.Tensor:
+    """csrc/ntt.cu: dft_regs, the 2^d-point DFT of the last axis as the
+    registers run it: inputs bit-reversed, then radix-2 stages whose
+    twiddles w_{2h}^j are powers of the 16th root (none for j = 0)."""
+    M = 1 << d
+    vals = [v[..., int(_rev(torch.tensor(i), d))] for i in range(M)]
+    for s in range(d):
+        h = 1 << s
+        for blk in range(0, M, 2 * h):
+            for j in range(h):
+                a, b = GF(vals[blk + j]), GF(vals[blk + j + h])
+                if j:
+                    b = b * GF(r16[j * (16 >> (s + 1))])
+                vals[blk + j], vals[blk + j + h] = (a + b).v, (a - b).v
+    return torch.stack(vals, dim=-1)
+
+
+def _pass_dft(X: torch.Tensor, k: int, inverse: bool) -> torch.Tensor:
+    """A pass's 2^k-point DFT of the last axis of X (natural input order)
+    in the kernel's register rounds (decimation in time over the digits
+    of round_digits(k), in place in the tile): round 0 reads input
+    lam + e * 2^(k - d0) of item lam and writes positions v + rev(lam) *
+    2^d0; round r >= 1 reads positions v' + e * 2^S(r-1) + rho * 2^S(r)
+    of item (v', rho), multiplies them by w_{2^S(r)}^(e v') from the
+    pass's root table and writes its outputs v over the e. Returns the
+    last round's outputs (..., 2^(k - d_last) items v', 2^d_last outputs
+    v), output u = v' + v * 2^(k - d_last)."""
+    dev = X.device
+    digits = round_digits(k)
+    m = len(digits)
+    r16 = torch.tensor([v - (1 << 64) if v >= 1 << 63 else v for v in root16(inverse)], dtype=torch.int64, device=dev)
+    W = power_tensor(_root(k, inverse), 1 << k, dev)
+    work = torch.empty_like(X)
+    d0 = digits[0]
+    lam = torch.arange(1 << (k - d0), device=dev)[:, None]
+    e = torch.arange(1 << d0, device=dev)[None, :]
+    y = _dft_regs(X[..., lam + (e << (k - d0))], d0, r16)
+    if m == 1:
+        return y
+    # rev: lam's digits (from low: d_{m-1}, ..., d_1) in reverse order
+    rev = lam if m == 2 else (lam >> digits[2]) | ((lam & ((1 << digits[2]) - 1)) << digits[1])
+    work[..., e + (rev << d0)] = y
+    S = d0
+    for r in range(1, m):
+        d = digits[r]
+        nu = torch.arange(1 << (k - d), device=dev)[:, None]
+        vp, rho = nu & ((1 << S) - 1), nu >> S
+        e = torch.arange(1 << d, device=dev)[None, :]
+        pos = vp + (e << S) + (rho << (S + d))
+        vals = GF(work[..., pos]) * GF(W[(e * vp) << (k - S - d)])
+        y = _dft_regs(vals.v, d, r16)
+        if r == m - 1:
+            return y
+        work[..., pos] = y
+        S += d
+
+
+def _progression(values: torch.Tensor, base: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """csrc/ntt.cu: the twist between passes, values[..., i] * base *
+    step^i, its factors made by one multiply each from the last."""
+    out = torch.empty_like(values)
+    tw = GF(base)
+    for i in range(values.shape[-1]):
+        out[..., i] = (GF(values[..., i]) * tw).v
+        tw = tw * GF(step)
+    return out
+
+
+def schedule_plain(x: torch.Tensor, log_n: int, rate: int, inverse: bool, shift: int, scale: int, post,
+                   ks: tuple[int, ...]) -> torch.Tensor:
     """The kernel's plain twin: the passes `ks` of csrc/ntt.cu over rows x
-    (R, 2^log_n) into (R, 2^log_N), each pass's lines gathered, its
-    stages run and the lines scattered with the kernel's index
-    arithmetic, as int64 torch ops on x's device."""
-    R = int(x.shape[0])
-    N, n_in = 1 << log_N, 1 << log_n
+    (R, 2^log_n) into (R, 2^(log_n + rate)), with the kernel's coset
+    split, lines, register rounds, twists and index arithmetic as int64
+    torch ops on x's device.
+
+    Pass 0 (K0 = ks[0] stages, k = K0 - rate of them on the input): line
+    l < 2^(log_N - K0) of a row and coset t < 2^rate load inputs l + e *
+    2^(log_n - k) times F[e * C + t], run the 2^k-point DFT and twist
+    output u = t + C * u_k by S[l] * w_N^(l u); the line's run of 2^K0
+    outputs is stored at u + rest(l) * 2^K0, rest(l) l's later-pass digits
+    in reverse order. A later pass over stages [s, s + K) runs the
+    2^K-point DFT of each line D + R * 2^s in place over positions D + e *
+    2^s + R * 2^(s + K); a middle pass twists output u by w_N^(R u 2^s),
+    the last multiplies by post. One pass: no twist, scale and post at
+    the end."""
     dev = x.device
+    R = int(x.shape[0])
+    log_N = log_n + rate
+    N, C = 1 << log_N, 1 << rate
+    P_ = len(ks)
     tw = twiddle_table(log_N, inverse, dev)
+    F, Stab = first_pass_tables(log_n, rate, ks[0], shift, scale, dev)
     dst = torch.empty((R, N), dtype=torch.int64, device=dev)
-    s0 = 0
-    for pi, k in enumerate(ks):
-        first, last = pi == 0, pi == len(ks) - 1
-        M, lbits = 1 << k, log_N - k
-        l = torch.arange(1 << lbits, device=dev)[:, None]
-        mid = torch.arange(M, device=dev)[None, :]
-        lo = l & ((1 << s0) - 1)
-        at = ((l >> s0) << (s0 + k)) | (mid << s0) | lo  # (lines, M) positions
-        if first:
-            j = (_rev(mid, k) << lbits) | l
-            ok = j < n_in
-            jc = torch.where(ok, j, 0)
-            v = x[:, jc]
-            if pre is not None:
-                v = (GF(v) * GF(pre[jc])).v
-            v = torch.where(ok, v, 0)
-            at = (_rev(l, lbits) << k) | mid
-        else:
-            v = dst[:, at]
-        for t in range(k):
-            h, s = 1 << t, s0 + t
-            p = torch.arange(M // 2, device=dev)
-            jp = p & (h - 1)
-            m0 = ((p >> t) << (t + 1)) | jp
-            m1 = m0 | h
-            w = GF(tw[((jp[None, :] << s0) | lo) << (log_N - 1 - s)])  # (lines, M/2)
-            x0, x1 = GF(v[..., m0]), GF(v[..., m1]) * w
-            v[..., m0] = (x0 + x1).v
-            v[..., m1] = (x0 - x1).v
-        if last:
-            if post_scalar % P != 1:
-                v = GF(v).cmul(post_scalar).v
-            if post is not None:
-                v = (GF(v) * GF(post[at])).v
-        dst[:, at] = v
-        s0 += k
+    # pass 0
+    K = ks[0]
+    k = K - rate
+    lb = log_N - K
+    l = torch.arange(1 << lb, device=dev)[:, None, None]
+    t = torch.arange(C, device=dev)[None, :, None]
+    e = torch.arange(1 << k, device=dev)[None, None, :]
+    X = x[:, l + (e << (log_n - k))].expand(R, 1 << lb, C, 1 << k)  # (R, lines, C, 2^k)
+    if F is not None:
+        X = (GF(X) * GF(F[e * C + t])).v
+    y = _pass_dft(X.contiguous(), k, inverse)  # (R, lines, C, items v', outputs v)
+    dl = round_digits(k)[-1]
+    vp = torch.arange(1 << (k - dl), device=dev)[None, None, :]
+    v = torch.arange(1 << dl, device=dev)
+    u = (t + C * vp)[..., None] + ((C * v) << (k - dl))  # (1, C, v', v)
+    if P_ == 1:
+        if scale % P != 1:
+            y = GF(y).cmul(scale).v
+        if post is not None:
+            y = (GF(y) * GF(post[u])).v
+        dst[:, u[0]] = y[:, 0]
+        return dst
+    base = _omega(tw, l * (t + C * vp), log_N)  # (lines, C, v')
+    if Stab is not None:
+        base = (GF(base) * GF(Stab[l])).v
+    y = _progression(y, base, _omega(tw, l << (K - dl), log_N))
+    K1, K2 = ks[1], (ks[2] if P_ > 2 else 0)
+    rest = (l >> K2) | ((l & ((1 << K2) - 1)) << K1)
+    dst[:, u + (rest[..., None] << K)] = y
+    s = K
+    for p in range(1, P_):
+        K = ks[p]
+        lines = torch.arange(1 << (log_N - K), device=dev)[:, None]
+        D, Rr = lines & ((1 << s) - 1), lines >> s
+        e = torch.arange(1 << K, device=dev)[None, :]
+        y = _pass_dft(dst[:, D + (e << s) + (Rr << (s + K))], K, inverse)  # (R, lines, v', v)
+        dl = round_digits(K)[-1]
+        vp = torch.arange(1 << (K - dl), device=dev)[None, :]
+        u = vp[..., None] + (torch.arange(1 << dl, device=dev) << (K - dl))  # (1, v', v)
+        if p < P_ - 1:
+            y = _progression(y, _omega(tw, (Rr * vp) << s, log_N), _omega(tw, Rr << (K - dl + s), log_N))
+        elif post is not None:
+            y = (GF(y) * GF(post[D[..., None] + (u << s)])).v
+        dst[:, D[..., None] + (u << s) + (Rr[..., None] << (s + K))] = y
+        s += K
     return dst
+
+
+def schedule_twin(kind: str, x: torch.Tensor, rate_bits: int = 0, shift: int = MULTIPLICATIVE_GENERATOR,
+                  powers=None, max_k: int = MAX_K) -> torch.Tensor:
+    """An entry computed by the kernel's plain twin (schedule_plain) with
+    the arguments the kernel gets, over rows x (..., n), at passes of at
+    most max_k stages."""
+    a = _entry_args(kind, x, rate_bits, shift, powers)
+    rows = x.reshape(-1, int(x.shape[-1]))
+    ks = ntt_plan(a["log_n"] + a["rate"], a["rate"], max_k)
+    out = schedule_plain(rows, a["log_n"], a["rate"], a["inverse"], a["shift"], a["scale"], a["post"], ks)
+    return out.reshape(tuple(x.shape[:-1]) + (1 << (a["log_n"] + a["rate"]),))
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +425,7 @@ def _library():
     lib = load_library("ntt")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tmx_ntt.restype = ctypes.c_int
-    lib.tmx_ntt.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_uint64, i64, i32, i32, ptr, i32, ptr]
+    lib.tmx_ntt.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_uint64, ptr, i64, i32, i32, ptr, i32, ptr]
     return lib
 
 
@@ -272,6 +436,20 @@ def _check_cuda(t: torch.Tensor, entry: str, what: str, dev, numel: int | None =
         raise ValueError(f"{entry} takes a contiguous {what}")
     if numel is not None and t.numel() != numel:
         raise ValueError(f"{entry}: {what} has {t.numel()} entries, {numel} wanted")
+
+
+@cache
+def _plan_args(log_n: int, rate: int, inverse: bool, shift: int, scale: int, device):
+    """The plan of one transform shape and tmx_ntt's arguments for it, made
+    once: (ks, (twiddles, pass root tables, F, S, scale, 16th-root powers,
+    ks) as ctypes values; the tables stay alive in the cache)."""
+    ks = ntt_plan(log_n + rate, rate)
+    tw = twiddle_table(log_n + rate, inverse, device)
+    roots = [power_tensor(_root(k, inverse), 1 << k, device) for k in (ks[0] - rate,) + ks[1:]]
+    F, S = first_pass_tables(log_n, rate, ks[0], shift, scale, device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    return ks, (tw.data_ptr(), (ctypes.c_void_p * len(roots))(*[t.data_ptr() for t in roots]), ptr(F), ptr(S),
+                scale, (ctypes.c_uint64 * 16)(*root16(inverse)), (ctypes.c_int * len(ks))(*ks))
 
 
 def _launch(entry: str, x: torch.Tensor, rate_bits: int = 0, shift: int = 1, powers=None):
@@ -286,17 +464,17 @@ def _launch(entry: str, x: torch.Tensor, rate_bits: int = 0, shift: int = 1, pow
     if a["post"] is not None:
         _check_cuda(a["post"], f"{entry}_cuda", "power table", x.device, int(x.shape[-1]))
     rows = x.numel() // int(x.shape[-1])
-    out = torch.empty(tuple(x.shape[:-1]) + (1 << a["log_N"],), dtype=torch.int64, device=x.device)
+    log_N = a["log_n"] + a["rate"]
+    out = torch.empty(tuple(x.shape[:-1]) + (1 << log_N,), dtype=torch.int64, device=x.device)
     if rows == 0:
         return out, 0
-    ks = ntt_plan(a["log_N"])
-    tw = twiddle_table(a["log_N"], a["inverse"], x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev = x.device
+    ks, c_args = _plan_args(a["log_n"], a["rate"], a["inverse"], a["shift"], a["scale"], dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = _library().tmx_ntt(
-            x.data_ptr(), out.data_ptr(), tw.data_ptr(), ptr(a["pre"]), ptr(a["post"]), a["post_scalar"],
-            rows, a["log_n"], a["log_N"], (ctypes.c_int * len(ks))(*ks), len(ks), stream,
+            x.data_ptr(), out.data_ptr(), *c_args[:4], None if a["post"] is None else a["post"].data_ptr(),
+            *c_args[4:6], rows, a["log_n"], a["rate"], c_args[6], len(ks), stream,
         )
     if err != 0:
         raise RuntimeError(f"tmx_ntt ({entry}) launch failed: CUDA error {err}")
@@ -326,17 +504,6 @@ def coset_lde_cuda(x: torch.Tensor, rate_bits: int, shift: int = MULTIPLICATIVE_
     out, launched = _launch("coset_lde", x, rate_bits, shift)
     lde_kernel_launches += launched
     return out
-
-
-def schedule_twin(kind: str, x: torch.Tensor, rate_bits: int = 0, shift: int = MULTIPLICATIVE_GENERATOR,
-                  powers=None, max_stages: int = MAX_STAGES) -> torch.Tensor:
-    """An entry computed by the kernel's plain twin (schedule_plain) with
-    the arguments the kernel gets, over rows x (..., n)."""
-    a = _entry_args(kind, x, rate_bits, shift, powers)
-    rows = x.reshape(-1, int(x.shape[-1]))
-    out = schedule_plain(rows, a["log_n"], a["log_N"], a["inverse"], a["pre"], a["post"], a["post_scalar"],
-                         ntt_plan(a["log_N"], max_stages))
-    return out.reshape(tuple(x.shape[:-1]) + (1 << a["log_N"],))
 
 
 # ---------------------------------------------------------------------------

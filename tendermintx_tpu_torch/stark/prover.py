@@ -360,8 +360,11 @@ def deep_composition_plain(
 # incremented exactly where the DEEP kernel is launched
 deep_kernel_launches = 0
 
-# csrc/deep.cu: MAX_GROUPS (opening groups summed in registers)
+# csrc/deep.cu: MAX_GROUPS (opening groups summed in registers) and
+# MAX_COLUMNS (trace and aux columns its 160-bit sums take without wrapping:
+# each product of canonical values is below (p-1)^2 < 2^128)
 DEEP_MAX_GROUPS = 8
+DEEP_MAX_COLUMNS = (1 << 32) - 1
 
 
 class _DeepArgs(ctypes.Structure):
@@ -424,6 +427,8 @@ def deep_cuda(
     n_groups = int(g0s.shape[0])
     if not 1 <= n_groups <= DEEP_MAX_GROUPS:
         raise ValueError(f"deep_cuda sums 1 to {DEEP_MAX_GROUPS} opening groups, got {n_groups}")
+    if n_main + n_aux > DEEP_MAX_COLUMNS:
+        raise ValueError(f"deep_cuda sums at most {DEEP_MAX_COLUMNS} trace and aux columns, got {n_main + n_aux}")
     trace_ld = _deep_operand(trace_lde.v, "the trace block", dev, (n_main, rows), rows_unit_stride=True)
     aux_ld = 0
     if aux_lde is not None:

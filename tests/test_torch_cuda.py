@@ -190,7 +190,7 @@ def test_ntt_entries_count_and_refuse(dev):
     ntt.ntt(gl.GF(wide))
     ntt.intt(gl.GF(wide))
     ntt.coset_lde(gl.GF(wide), 2)
-    passes = (len(ntt.ntt_plan(11)), len(ntt.ntt_plan(11)), len(ntt.ntt_plan(13)))
+    passes = (len(ntt.ntt_plan(11)), len(ntt.ntt_plan(11)), len(ntt.ntt_plan(13, 2)))
     assert passes == (2, 2, 2)
     assert _ntt_counts() == tuple(b + k for b, k in zip(before, passes))
     before = _ntt_counts()
@@ -203,6 +203,72 @@ def test_ntt_entries_count_and_refuse(dev):
     with pytest.raises(TypeError):
         ntt.ntt_cuda(x.cpu())
     assert _ntt_counts() == before
+
+
+# every transform shape of the N=128 paths on one card (entry, rows,
+# log2 n, rate bits): each AIR's trace (and aux) iNTT and LDE and its
+# quotient's coset iNTT, a mesh shard's column block, the hash bundles'
+# rate-2 LDEs, the four-step NTT's rows and the single-device 2^20 NTT
+N128_NTT_SHAPES = [
+    ("coset_lde", 2031, 15, 3), ("intt", 2031, 15, 0), ("coset_intt", 2, 18, 0),
+    ("coset_lde", 898, 15, 3), ("coset_lde", 508, 15, 3),
+    ("coset_lde", 170, 16, 3), ("intt", 170, 16, 0), ("coset_intt", 2, 19, 0),
+    ("coset_lde", 340, 15, 3), ("coset_lde", 136, 15, 4),
+    ("coset_lde", 18, 17, 4), ("intt", 18, 17, 0), ("coset_intt", 2, 21, 0),
+    ("coset_lde", 170, 16, 2), ("coset_lde", 170, 15, 2), ("coset_intt", 2, 17, 0),
+    ("ntt", 1 << 16, 2, 0), ("ntt", 1, 18, 0), ("ntt", 1, 20, 0),
+]
+
+
+def _ntt_pair(entry, x, rate):
+    """(kernel, plain) of one entry over x, at shift 7 (the configs')."""
+    from tendermintx_tpu_torch.ops import ntt
+
+    g = gl.GF(x)
+    if entry == "coset_lde":
+        return ntt.coset_lde_cuda(x, rate, 7), ntt.coset_lde_plain(g, rate, 7).v
+    if entry == "coset_intt":
+        pw = ntt.power_tensor(pow(7, P - 2, P), int(x.shape[-1]), x.device)
+        return ntt.intt_cuda(x, pw), (ntt.intt_plain(g) * gl.GF(pw)).v
+    if entry == "intt":
+        return ntt.intt_cuda(x), ntt.intt_plain(g).v
+    return ntt.ntt_cuda(x), ntt.ntt_plain(g).v
+
+
+@pytest.mark.parametrize("entry, rows, log_n, rate", N128_NTT_SHAPES)
+def test_ntt_kernel_matches_plain_at_n128_shapes(dev, entry, rows, log_n, rate):
+    """Every pass plan of the N=128 paths: (9, 9) at 2^18, (7, 6, 6) at
+    2^19, (7, 7, 7) at 2^21, (8, 7) / (8, 8) / (9, 8) inverses, the rate-2
+    and rate-4 first passes, 4-point rows."""
+    x = _felts((rows, 1 << log_n), 80 + log_n + rows, dev)
+    got, want = _ntt_pair(entry, x, rate)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 508, 2031])
+@pytest.mark.parametrize("log_n", [0, 1, 3, 6, 11])
+def test_ntt_kernel_edge_rows_match_plain(dev, rows, log_n):
+    """1- and 2-point rows, row counts that are no multiple of a block's
+    lines, every entry and rate."""
+    x = _felts((rows, 1 << log_n), 90 + 7 * log_n + rows, dev)
+    for entry, rate in (("ntt", 0), ("intt", 0), ("coset_intt", 0), ("coset_lde", 1), ("coset_lde", 3),
+                        ("coset_lde", 4)):
+        got, want = _ntt_pair(entry, x, rate)
+        assert torch.equal(got, want), (entry, rate)
+
+
+def test_ntt_launches_follow_the_plan(dev):
+    """Each call launches one pass kernel a pass of ntt_plan(log N, rate)."""
+    from tendermintx_tpu_torch.ops import ntt
+
+    for entry, rows, log_n, rate in (("coset_lde", 5, 15, 3), ("coset_lde", 3, 16, 3), ("intt", 4, 15, 0),
+                                     ("coset_intt", 2, 21, 0), ("ntt", 8, 2, 0), ("coset_lde", 2, 0, 2)):
+        before = _ntt_counts()
+        _ntt_pair(entry, _felts((rows, 1 << log_n), 3, dev), rate)
+        i = {"ntt": 0, "intt": 1, "coset_intt": 1, "coset_lde": 2}[entry]
+        want = list(before)
+        want[i] += len(ntt.ntt_plan(log_n + rate, rate))
+        assert _ntt_counts() == tuple(want), (entry, log_n, rate)
 
 
 def _deep_case(n_main, n_aux, n_chunks, n_groups, rows, seed, dev):
@@ -235,6 +301,36 @@ def test_deep_kernel_matches_plain(dev, n_main, n_aux, n_chunks, n_groups, rows)
     got = pr.deep_composition(*args)
     assert pr.deep_kernel_launches == before + 1
     assert _gf2_equal(got, pr.deep_composition_plain(*args))
+
+
+@pytest.mark.parametrize(
+    "n_main, n_aux, n_chunks, n_groups, rows",
+    [(2031, 898, 4, 2, 1 << 18), (170, 0, 3, 8, 1 << 19), (340, 0, 3, 8, 1 << 18), (136, 0, 7, 2, 1 << 19),
+     (8, 10, 2, 2, 1 << 21)],
+    ids=["ed25519", "sha256", "sha512", "wrap", "eval"],
+)
+def test_deep_kernel_matches_plain_at_n128_shards(dev, n_main, n_aux, n_chunks, n_groups, rows):
+    """Each AIR's one-device shard of the N=128 paths, one launch."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    args = _deep_case(n_main, n_aux, n_chunks, n_groups, rows, 61, dev)
+    before = pr.deep_kernel_launches
+    got = pr.deep_cuda(*args)
+    assert pr.deep_kernel_launches == before + 1
+    assert _gf2_equal(got, pr.deep_composition_plain(*args))
+
+
+def test_deep_kernel_refuses_columns_beyond_its_accumulator(dev):
+    """More trace and aux columns than the 160-bit sums take raise before
+    anything is launched (the columns are one zero-stride row)."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    trace, aux, chunks, bt, bq, g0, invs = _deep_case(4, 2, 2, 2, 64, 73, dev)
+    wide = gl.GF(torch.zeros((1, 64), dtype=torch.int64, device=dev).expand(pr.DEEP_MAX_COLUMNS, 64))
+    before = pr.deep_kernel_launches
+    with pytest.raises(ValueError, match="columns"):
+        pr.deep_cuda(wide, aux, chunks, bt, bq, g0, invs)
+    assert pr.deep_kernel_launches == before
 
 
 def test_deep_kernel_refuses_instead_of_falling_back(dev):
@@ -470,11 +566,13 @@ def test_quotient_on_card_raises_instead_of_falling_back(dev):
     assert qtm.quotient_kernel_launches == before
 
 
-def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev, tmp_path):
+def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev, tmp_path, monkeypatch):
     """The N=4 skip composite at the parity config proven on the card is
     the CPU's proof byte for byte; on one device the card's quotient is
-    one launch per statement."""
+    one launch per statement, DEEP one, and each NTT entry launches the
+    passes of ntt_plan for every transform the prove asks of it."""
     from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
+    from tendermintx_tpu_torch.ops import ntt
     from tendermintx_tpu_torch.stark import prover as pr
     from tendermintx_tpu_torch.stark import quotient_tape as qtm
     from tendermintx_tpu_torch.stark.prover import StarkConfig
@@ -483,6 +581,17 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     trusted = chain.headers[1].hash()
     inputs = f.get_skip_inputs(1, trusted, 5, max_validators=4)
     cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4)
+    planned = [0, 0, 0]
+    launch = ntt._launch
+
+    def recorded(entry, x, rate_bits=0, *args, **kwargs):
+        log_n = int(x.shape[-1]).bit_length() - 1
+        rate = rate_bits if entry == "coset_lde" else 0
+        if x.numel():
+            planned[("ntt", "intt", "coset_lde").index(entry)] += len(ntt.ntt_plan(log_n + rate, rate))
+        return launch(entry, x, rate_bits, *args, **kwargs)
+
+    monkeypatch.setattr(ntt, "_launch", recorded)
     before = qtm.quotient_kernel_launches
     deep_before, ntt_before = pr.deep_kernel_launches, _ntt_counts()
     card = prove_skip_composite(1, trusted, 5, inputs, cfg, device=dev)
@@ -491,6 +600,7 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     assert pr.deep_kernel_launches == deep_before + 3
     ntt_after = _ntt_counts()
     assert ntt_after[1] > ntt_before[1] and ntt_after[2] > ntt_before[2]
+    assert tuple(a - b for a, b in zip(ntt_after, ntt_before)) == tuple(planned)
     host = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cpu")
     assert card.to_bytes() == host.to_bytes()
 

@@ -108,3 +108,87 @@ def test_cpu_shard_takes_the_plain_path():
     )
     assert (F.c0.v.tolist(), F.c1.v.tolist()) == tuple(t.tolist() for t in _port(x, 3, 2))
     assert pr.deep_kernel_launches == before
+
+
+# ---------------------------------------------------------------------------
+# csrc/deep.cu's wide accumulation, modelled on Python ints
+# ---------------------------------------------------------------------------
+
+M32 = (1 << 32) - 1
+
+
+def _mac(w: list[int], b: int, t: int) -> list[int]:
+    """csrc/deep.cu: mac, s += b * t over five 32-bit limbs: the chains of
+    b0 t0 and b1 t1 (limbs 0-3, carry into limb 4), then of b0 t1 and of
+    b1 t0 (limbs 1-2, carries rippled into limbs 3 and 4); a carry out of
+    limb 4 is lost, as in the kernel."""
+    w = list(w)
+    b0, b1, t0, t1 = b & M32, b >> 32, t & M32, t >> 32
+
+    def chain(start: int, parts: list[int]):
+        carry = 0
+        for i in range(start, 5):
+            v = w[i] + (parts[i - start] if i - start < len(parts) else 0) + carry
+            w[i], carry = v & M32, v >> 32
+
+    chain(0, [(b0 * t0) & M32, (b0 * t0) >> 32, (b1 * t1) & M32, (b1 * t1) >> 32])
+    chain(1, [(b0 * t1) & M32, (b0 * t1) >> 32])
+    chain(1, [(b1 * t0) & M32, (b1 * t0) >> 32])
+    return w
+
+
+def _reduce(w: list[int]) -> int:
+    """csrc/deep.cu: reduce, the canonical value of the five limbs:
+    canon(a0 + a1 2^32) + a2 (2^32 - 1) - a3 - a4 2^32 as canonical field
+    adds and subtracts."""
+    x = w[0] | (w[1] << 32)
+    x = x - P if x >= P else x
+    x = (x + w[2] * M32) % P
+    x = (x - w[3]) % P
+    return (x - (w[4] << 32)) % P
+
+
+def _limbs(v: int) -> list[int]:
+    return [(v >> (32 * i)) & M32 for i in range(5)]
+
+
+def _value(w: list[int]) -> int:
+    return sum(x << (32 * i) for i, x in enumerate(w))
+
+
+def test_deep_wide_sum_model_equals_the_canonical_sum():
+    """Random canonical betas and column values (and the edge values):
+    the limb chains sum exactly, and one reduction gives the field sum."""
+    rng = np.random.default_rng(11)
+    edges = [0, 1, P - 1, P - 2, 2**32 - 1, 2**32, 2**63 % P, P - 2**32]
+    for n in (1, 2, 7, 2929):
+        b = [int(v) for v in _rand((n,), rng)]
+        t = [int(v) for v in _rand((n,), rng)]
+        b[: len(edges)] = edges[:n]
+        t[-len(edges):] = edges[-n:] if n < len(edges) else edges
+        w = [0] * 5
+        for bi, ti in zip(b, t):
+            w = _mac(w, bi, ti)
+        assert _value(w) == sum(bi * ti for bi, ti in zip(b, t))
+        assert _reduce(w) == sum(bi * ti for bi, ti in zip(b, t)) % P
+
+
+def test_deep_wide_sum_model_holds_at_the_column_bound():
+    """Every value p - 1 at the most columns deep_cuda accepts: the sum
+    (DEEP_MAX_COLUMNS (p-1)^2) stays below 2^160, the last product's chains
+    carry nothing out of limb 4, and the reduction is canonical; the bound
+    is within what 160 bits hold. Also 2^16 such columns summed one by
+    one, and every limb at its largest."""
+    cmax = pr.DEEP_MAX_COLUMNS
+    top = P - 1
+    before = _limbs((cmax - 1) * top * top)
+    w = _mac(before, top, top)
+    assert _value(w) == cmax * top * top < 1 << 160
+    assert _reduce(w) == cmax * top * top % P
+    assert ((1 << 160) - 1) // (top * top) >= cmax
+    w = [0] * 5
+    for _ in range(1 << 16):
+        w = _mac(w, top, top)
+    assert _value(w) == (1 << 16) * top * top and _reduce(w) == (1 << 16) * top * top % P
+    full = [M32] * 5
+    assert _reduce(full) == ((1 << 160) - 1) % P

@@ -90,33 +90,37 @@ def _felts(shape, seed) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("log_n", [0, 1, 2, 3, 5, 8])
-@pytest.mark.parametrize("max_stages", [1, 2, 3, ntt.MAX_STAGES])
-def test_kernel_schedule_twin_matches_plain(log_n, max_stages):
-    """The kernel's passes (bit-reversed first-pass reads, lines of each
-    pass, twiddle indices, the folded n^-1, power tables and the LDE's
-    zero reads) as torch ops equal the plain versions, cut into passes of
-    at most max_stages stages."""
-    x = _felts((3, 1 << log_n), 31 * log_n + max_stages)
+@pytest.mark.parametrize("passes", [1, 2, 3, None])
+def test_kernel_schedule_twin_matches_plain(log_n, passes):
+    """The kernel's passes (the coset split of the first pass, its lines
+    and contiguous runs, the register rounds and their twiddles, the twist
+    between passes, the folded n^-1 and power tables) as torch ops equal
+    the plain versions, cut into `passes` passes (None: the kernel's own
+    plan) at every rate."""
+    x = _felts((3, 1 << log_n), 31 * log_n + (passes or 0))
     g = GF(x)
-    assert torch.equal(ntt.schedule_twin("ntt", x, max_stages=max_stages), ntt.ntt_plain(g).v)
-    assert torch.equal(ntt.schedule_twin("intt", x, max_stages=max_stages), ntt.intt_plain(g).v)
+
+    def max_k(rate):
+        log_N = log_n + rate
+        return ntt.MAX_K if passes is None else max(rate, 1, -(-log_N // passes))
+
+    assert torch.equal(ntt.schedule_twin("ntt", x, max_k=max_k(0)), ntt.ntt_plain(g).v)
+    assert torch.equal(ntt.schedule_twin("intt", x, max_k=max_k(0)), ntt.intt_plain(g).v)
     pw = ntt.power_tensor(pow(SHIFT, P - 2, P), 1 << log_n, torch.device("cpu"))
-    assert torch.equal(ntt.schedule_twin("intt", x, powers=pw, max_stages=max_stages),
-                       (ntt.intt_plain(g) * GF(pw)).v)
+    assert torch.equal(ntt.schedule_twin("intt", x, powers=pw, max_k=max_k(0)), (ntt.intt_plain(g) * GF(pw)).v)
     for rate_bits in (1, 3, 4):
-        assert torch.equal(ntt.schedule_twin("coset_lde", x, rate_bits, SHIFT, max_stages=max_stages),
+        assert torch.equal(ntt.schedule_twin("coset_lde", x, rate_bits, SHIFT, max_k=max_k(rate_bits)),
                            ntt.coset_lde_plain(g, rate_bits, SHIFT).v)
 
 
 @pytest.mark.parametrize("log_n, rate_bits", [(12, 3), (13, 4)])
 def test_kernel_schedule_twin_at_the_main_path_plan(log_n, rate_bits):
-    """The twin at the kernel's own two-pass plans (ntt_plan(15) = (8, 7),
-    ntt_plan(17) = (9, 8) at most 10 stages a pass) against the plain LDE
-    and inverse. Three-pass plans are held here at small max_stages
-    (test_kernel_schedule_twin_matches_plain); EvalAir's (7, 7, 7) plan
-    at 2^21 points is held against the plain LDE on the card by
-    chip_smoke.py."""
-    assert ntt.ntt_plan(18) == (9, 9) and ntt.ntt_plan(21) == (7, 7, 7) and ntt.ntt_plan(10) == (10,)
+    """The kernel's own plans at these sizes (ntt_plan(15, 3) = (8, 7) and
+    ntt_plan(17, 4) = (9, 8): a coset split of 2^5 points into 8 and 16
+    cosets) against the plain LDE and inverse. The N=128 paths' plans are
+    held against the JAX package in tests/test_torch_ntt_plans.py."""
+    assert ntt.ntt_plan(18, 3) == (9, 9) and ntt.ntt_plan(21, 4) == (7, 7, 7) and ntt.ntt_plan(19, 3) == (7, 6, 6)
+    assert ntt.ntt_plan(15, 3) == (8, 7) and ntt.ntt_plan(17, 4) == (9, 8) and ntt.ntt_plan(9) == (9,)
     x = _felts((2, 1 << log_n), log_n)
     assert torch.equal(ntt.schedule_twin("coset_lde", x, rate_bits, SHIFT),
                        ntt.coset_lde_plain(GF(x), rate_bits, SHIFT).v)

@@ -1,0 +1,99 @@
+"""Time the NTT and DEEP kernels of one checkout of the port at every
+main-path shape on one card.
+
+    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--only ntt,deep]
+
+Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
+this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
+transform of the N=128 paths (`_ntt_shapes()`) through the checkout's
+`ntt_cuda` / `intt_cuda` / `coset_lde_cuda`, and the DEEP composition at
+each AIR's one-device shard (`_quotient_airs()`) through its
+`deep_cuda`. Each kernel is timed alone with CUDA events after a warm-up
+(no plain version, no check: chip_smoke.py holds the kernels against
+their plain versions). Prints one JSON line: the card's name and power
+limit, the label, and per shape the ms. Two checkouts are compared by
+running this in turns from one call (parent, change, change, parent); a
+measuring aid that nothing else uses.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--label", default="")
+    ap.add_argument("--only", default="ntt,deep")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times: CUDA is not available")
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from tendermintx_tpu_torch.ops import ntt
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.ops.goldilocks import GF, P
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED + 1)
+    out = {
+        "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                               capture_output=True, text=True, check=True).stdout.strip(),
+        "label": args.label,
+        "root": os.path.abspath(args.root),
+    }
+
+    def timed(fn) -> float:
+        _, first = cs._timed_once(fn)
+        return cs._time_ms(fn, max(3, min(20, int(200 / max(first, 1e-3)))))
+
+    only = args.only.split(",")
+    if "ntt" in only:
+        shapes = []
+        for use, entry, rows, log_n, rate in cs._ntt_shapes():
+            x = cs._random_felts((rows, 1 << log_n), gen, dev)
+            if entry == "coset_lde":
+                run = lambda: ntt.coset_lde_cuda(x, rate, cs.NTT_SHIFT)
+            elif entry == "coset_intt":
+                pw = ntt.power_tensor(pow(cs.NTT_SHIFT, P - 2, P), 1 << log_n, dev)
+                run = lambda: ntt.intt_cuda(x, pw)
+            elif entry == "intt":
+                run = lambda: ntt.intt_cuda(x)
+            else:
+                run = lambda: ntt.ntt_cuda(x)
+            shapes.append({"use": use, "entry": entry, "rows": rows, "log_n": log_n, "rate": rate, "ms": timed(run)})
+            del x
+        out["ntt"] = shapes
+    if "deep" in only:
+        airs = {}
+        for name, air, N, _ in cs._quotient_airs():
+            f = lambda *shape: GF(cs._random_felts(shape, gen, dev))
+            nc, ng = air.constraint_degree - 1, len(air.frame_offsets)
+            n_total = air.n_cols + air.n_aux_cols
+            q = f(2 * nc, N)
+            args_ = (f(air.n_cols, N), f(air.n_aux_cols, N) if air.n_aux_cols else None, GF2(q[0::2], q[1::2]),
+                     GF2(f(ng, n_total), f(ng, n_total)), GF2(f(nc), f(nc)), GF2(f(ng), f(ng)), GF2(f(ng, N), f(ng, N)))
+            airs[name] = {"shape": [air.n_cols, air.n_aux_cols, N], "groups": ng, "chunks": nc,
+                          "ms": timed(lambda: pr.deep_cuda(*args_))}
+            del args_, q
+        out["deep"] = airs
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
