@@ -6,8 +6,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc
-                 (poseidon.cu, quotient.cu, ntt.cu, deep.cu; one nvcc per
-                 source, all started together); the line gives each kernel
+                 (poseidon.cu, quotient.cu, ntt.cu, deep.cu, ood.cu,
+                 logup.cu; one nvcc per source, all started together); the
+                 line gives each kernel
                  function's registers and spill bytes from ptxas (-v); a
                  spill fails;
   3. parity    - an N=4 skip composite proven on cuda and on cpu (plain
@@ -60,7 +61,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  AIR's one-device shard, exact against
                  deep_composition_plain; each with its time, the plain
                  version's and its bound (bytes at 3.35 TB/s or 4
-                 multiply-adds a field multiply);
+                 multiply-adds a field multiply); then csrc/ood.cu's three
+                 entries (ext_powers at the opening points and at alpha,
+                 ood_eval over the trace, aux and chunk rows at every
+                 point, deep_inverses over the LDE domain) at every
+                 statement shape of the N=128 paths, and csrc/logup.cu's
+                 two (logup_terms, logup_scan) at the Ed25519 statement and
+                 at synthetic shapes with pad > 0 and several table
+                 columns, each exact against its plain version on the
+                 whole output, with its time, the plain version's and its
+                 bound;
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -72,7 +82,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  runs it), each NTT entry exactly the pass kernels
                  ntt_plan gives the transforms the path asked of it (so on
                  every path below), the quotient and the DEEP kernel once per
-                 statement, the warm prove's column sponge once per
+                 statement, ood_eval and deep_inverses once per statement
+                 and ext_powers twice (on every path below; the LogUp
+                 kernels once per Ed25519 statement, none in the hash
+                 bundles and the wrap), the warm prove's column sponge once per
                  column-major tree, and the warm proof's
                  statements must be the quotient check's. The per-statement
                  phase seconds that ``stark/batch.py`` logs are in the line
@@ -191,7 +204,7 @@ def phase_device() -> dict:
 
 
 # every csrc/<name>.cu the port launches
-KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep")
+KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep", "ood", "logup")
 
 
 def phase_build() -> dict:
@@ -956,6 +969,232 @@ def _kernel_deep(dev, clock_mhz: float, ptxas: dict) -> dict:
     }
 
 
+def _registers_of(ptxas: dict, *parts: str) -> dict:
+    """_registers over the kernel functions of a library whose names hold
+    one of `parts` (kernel names, not the file's, which every mangled name
+    holds)."""
+    return _registers({k: v for k, v in ptxas.items() if any(f"{p}_kernel" in k for p in parts)})
+
+
+def _field_bound(muls: int, nbytes: int, muls_per_ms: float) -> dict:
+    """The larger of the bytes at 3.35 TB/s and 4 32-bit multiply-adds a
+    field multiply at 64 a clock per SM."""
+    ops_ms = 4 * muls / muls_per_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "operations_bound_ms": ops_ms,
+        "bytes_bound_ms": bytes_ms,
+        "field_muls": muls,
+        "bytes": nbytes,
+    }
+
+
+# field multiplies of one extension inversion: the norm (3), the base
+# inverse's addition chain (63 squarings and 10 multiplies,
+# csrc/goldilocks.cuh: inv) and the conjugate's two
+EXT_INV_MULS = 3 + 73 + 2
+
+
+def _ood_shapes() -> list[tuple[str, object, int, int]]:
+    """(name, AIR, log2 n, rate bits) of every statement shape whose OOD
+    and DEEP inverses the N=128 paths run: the skip's three statements,
+    the step's SHA-256 plan (32,768 rows) and the wrap's WrapAir and
+    EvalAir (the hash bundles' plans are the skip's and the step's
+    SHA-256 shapes)."""
+    from tendermintx_tpu_torch.stark import sha256_air
+
+    out = []
+    for name, air, N, rate in _quotient_airs():
+        if name == "poseidon_chain":
+            continue
+        out.append((name, air, N.bit_length() - 1 - rate, rate))
+        if name == "sha256":
+            step = sha256_air.Sha256Air(N128_SKIP_STATEMENTS["sha256"] // 2)
+            out.append(("sha256_step", step, N.bit_length() - 2 - rate, rate))
+    return out
+
+
+def _random_points(k: int, gen, dev) -> list[tuple[int, int]]:
+    """k random ext points (past _random_felts's edge values)."""
+    v = _random_felts((2 * k + 8,), gen, dev)[8:].cpu().numpy().view(np.uint64).tolist()
+    return [(int(v[2 * i]), int(v[2 * i + 1])) for i in range(k)]
+
+
+def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """csrc/ood.cu's three entries at every statement shape of the N=128
+    paths (_ood_shapes), each held exactly against its plain version on
+    the whole output, with its time, the plain version's and its bound:
+    ext_powers at the opening points (n powers each) and at alpha
+    (n_constraints), ood_eval over the trace and aux rows and the quotient
+    chunks' rows at every point, deep_inverses over the LDE domain at
+    every point. Each row's own numbers are Ed25519's."""
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    rows = {k: {} for k in ("ext_powers", "ood_eval", "deep_inverses")}
+
+    def timed(kernel, plain, what: str, equal) -> dict:
+        got, first_ms = _timed_once(kernel)
+        want, plain_ms = _timed_once(plain)
+        if not equal(got, want):
+            raise AssertionError(f"{what} disagrees with its plain version")
+        del got, want
+        reps = max(2, min(50, int(1000 / max(first_ms, 1e-3))))
+        return {"max_abs_err": 0.0, "ms": _time_ms(kernel, reps), "plain_ms": plain_ms}
+
+    gf2_equal = lambda a, b: torch.equal(a.c0.v, b.c0.v) and torch.equal(a.c1.v, b.c1.v)
+    for name, air, log_n, rate in _ood_shapes():
+        n, N, K = 1 << log_n, 1 << (log_n + rate), len(air.frame_offsets)
+        n_total, n_chunks = air.n_cols + air.n_aux_cols, air.constraint_degree - 1
+        pts = _random_points(K, gen, dev)
+        alpha = _random_points(1, gen, dev)
+        n_con = air.n_constraints  # a host evaluation of the AIR: once, outside the timings
+        r = timed(lambda: pr.ext_powers_cuda(pts, n, dev), lambda: pr.ext_powers_plain(pts, n, dev),
+                  f"ext_powers at {name}'s {K} points x {n}", gf2_equal)
+        ra = timed(lambda: pr.ext_powers_cuda(alpha, n_con, dev), lambda: pr.ext_powers_plain(alpha, n_con, dev),
+                   f"ext_powers at {name}'s alpha x {n_con}", gf2_equal)
+        rows["ext_powers"][name] = {
+            "shape": [K, n], **r, **_field_bound(4 * K * n, 16 * K * n, muls_per_ms),
+            "alpha": {"shape": [1, n_con], **ra, **_field_bound(4 * n_con, 16 * n_con, muls_per_ms)},
+        }
+        a = GF(_random_felts((n_total, n), gen, dev))
+        b = GF(_random_felts((2 * n_chunks, n), gen, dev))
+        powers = pr.ext_powers_cuda(pts, n, dev)
+        r = timed(lambda: pr.ood_eval_cuda(a, b, powers), lambda: pr.ood_eval_plain(a, b, powers),
+                  f"ood_eval over {name}'s {n_total} + {2 * n_chunks} rows x {n} at {K} points", torch.equal)
+        n_rows = n_total + 2 * n_chunks
+        rows["ood_eval"][name] = {
+            "shape": [n_total, 2 * n_chunks, n, K], "slices": pr._ood_slices(n_rows, n), **r,
+            **_field_bound(2 * K * n_rows * n, 8 * (n_rows * n + 2 * K * n + 2 * K * n_rows), muls_per_ms),
+        }
+        del a, b, powers
+        r = timed(lambda: pr.deep_inverses_cuda(log_n + rate, NTT_SHIFT, pts, dev),
+                  lambda: pr.deep_inverses_plain(log_n + rate, NTT_SHIFT, pts, dev),
+                  f"deep_inverses over {name}'s {N} points at {K} points", gf2_equal)
+        rows["deep_inverses"][name] = {
+            "shape": [K, N], **r, **_field_bound(K * N * EXT_INV_MULS + N, 16 * K * N, muls_per_ms),
+        }
+    out = {}
+    parts = {"ext_powers": ("tmx_ext_powers",), "ood_eval": ("tmx_ood_slices", "tmx_ood_sum"),
+             "deep_inverses": ("tmx_deep_inverses",)}
+    replaces = {
+        "ext_powers": ("tendermintx_tpu/stark/prover.py:565", "_zpowers_fn (the OOD points at :932, alpha at :852)"),
+        "ood_eval": ("tendermintx_tpu/stark/prover.py:588", "_ood_trace_fn over _gk_table (:617), and _ood_ext_fn (:606)"),
+        "deep_inverses": ("tendermintx_tpu/stark/prover.py:103", "_deep_invs_fn"),
+    }
+    for kname, airs in rows.items():
+        top = airs["ed25519"]
+        out[kname] = {
+            "route": "cuda",
+            "source": "tendermintx_tpu_torch/csrc/ood.cu",
+            "replaces": replaces[kname][0],
+            "replaces_program": replaces[kname][1],
+            "shape": top["shape"],
+            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "operations_bound_ms", "bytes_bound_ms", "bytes")},
+            "library_ms": None,
+            **_registers_of(ptxas, *parts[kname]),
+            "airs": airs,
+        }
+    return out
+
+
+# (checked columns, rows, table bits) of the LogUp kernels' synthetic
+# shapes beside the Ed25519 statement's: pad 2 and 3 with one and four
+# table columns, and 13 columns over 2^12 rows
+LOGUP_SYNTHETIC = ((6, 32, 5), (5, 16, 6), (13, 1 << 12, 13))
+
+
+def _logup_case(lookup_of, n_cols: int, gen, dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+
+    g = _random_felts((10,), gen, dev)[8:]
+    return GF(_random_felts((n_cols, lookup_of.n_rows), gen, dev)), GF2(GF(g[0:1]), GF(g[1:2]))
+
+
+def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """csrc/logup.cu's two entries at the Ed25519 statement of the N=128
+    paths (its RangeLookup over a random trace: 1,788 checked columns of
+    2^15 rows, one table column, pad 0), each held exactly against its
+    plain version (logup_terms_plain: the w and wt rows and the groups'
+    sums; logup_scan_plain: S) and the whole aux output against
+    build_aux_plain, with times and bounds; then the synthetic shapes with
+    pad > 0 and several table columns, checked alone."""
+    from tendermintx_tpu_torch.stark.ed25519_air import Ed25519Air
+    from tendermintx_tpu_torch.stark.lookup import BATCH, RangeLookup
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    air = Ed25519Air(N128_SKIP_STATEMENTS["ed25519"])
+    lk = air.lookup
+    trace, gamma = _logup_case(lk, air.n_cols, gen, dev)
+
+    def check(lk, trace, gamma, what: str):
+        got = lk.build_aux_cuda(trace, gamma)
+        if not torch.equal(got.v, lk.build_aux_plain(trace, gamma).v):
+            raise AssertionError(f"the LogUp aux columns of {what} disagree with build_aux_plain")
+        out = torch.empty_like(got.v)
+        partial = lk.logup_terms_cuda(trace, gamma, out)
+        rows, want_partial = lk.logup_terms_plain(trace, gamma)
+        if not (torch.equal(out[: rows.shape[0]], rows) and torch.equal(partial, want_partial)):
+            raise AssertionError(f"logup_terms over {what} disagrees with logup_terms_plain")
+        lk.logup_scan_cuda(partial, out)
+        if not torch.equal(out[rows.shape[0]:], lk.logup_scan_plain(partial)):
+            raise AssertionError(f"logup_scan over {what} disagrees with logup_scan_plain")
+        return out, partial
+
+    out, partial = check(lk, trace, gamma, "Ed25519 at N=128")
+    n, K, nb, width = lk.n_rows, len(lk.checked_cols), lk.n_batches, lk.width
+    group, n_groups = lk.logup_groups()
+    _, terms_plain_ms = _timed_once(lambda: lk.logup_terms_plain(trace, gamma))
+    _, scan_plain_ms = _timed_once(lambda: lk.logup_scan_plain(partial))
+    _, aux_plain_ms = _timed_once(lambda: lk.build_aux_plain(trace, gamma))
+    terms_ms = _time_ms(lambda: lk.logup_terms_cuda(trace, gamma, out), 20)
+    scan_ms = _time_ms(lambda: lk.logup_scan_cuda(partial, out), 20)
+    aux_ms = _time_ms(lambda: lk.build_aux_cuda(trace, gamma), 20)
+    # multiplies a term a row: a batch's three products of its four
+    # differences, the numerator's two, one inversion and the quotient's
+    # product (ext products at 4); a table term's inversion and two
+    w_muls = 4 * 3 + 4 * 2 + EXT_INV_MULS + 4
+    wt_muls = EXT_INV_MULS + 2
+    terms_bound = _field_bound(n * (nb * w_muls + width * wt_muls),
+                               8 * n * ((K + width) + 2 * (nb + width) + 2 * n_groups) + 8 * K, muls_per_ms)
+    scan_bound = _field_bound(0, 8 * n * (2 * n_groups + 2), muls_per_ms)
+    checked = [{"checked": K, "rows": n, "table_bits": lk.table_bits, "pad": nb * BATCH - K, "width": width,
+                "max_abs_err": 0.0}]
+    for k, rows_n, bits in LOGUP_SYNTHETIC:
+        syn = RangeLookup(list(range(1, 2 * k, 2)), 2 * k, rows_n, bits)
+        t, g = _logup_case(syn, 2 * k + syn.width, gen, dev)
+        check(syn, t, g, f"{k} columns of {rows_n} rows")
+        checked.append({"checked": k, "rows": rows_n, "table_bits": bits, "pad": syn.n_batches * BATCH - k,
+                        "width": syn.width, "max_abs_err": 0.0})
+    common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/logup.cu", "library_ms": None,
+              "max_abs_err": 0.0, "checked": checked}
+    return {
+        "logup_terms": {
+            **common, "replaces": "tendermintx_tpu/stark/lookup.py:400",
+            "replaces_program": "_aux_w_kernel (:400), _aux_wt_kernel (:443), _aux_assemble_kernel (:474)",
+            "shape": [K, n, nb, width], "groups": [group, n_groups], "ms": terms_ms, "plain_ms": terms_plain_ms,
+            **terms_bound, **_registers_of(ptxas, "tmx_logup_terms"),
+            "aux": {"ms": aux_ms, "plain_ms": aux_plain_ms},
+        },
+        "logup_scan": {
+            **common, "replaces": "tendermintx_tpu/stark/lookup.py:450",
+            "replaces_program": "_aux_scan_kernel", "shape": [2, n_groups, n], "ms": scan_ms,
+            "plain_ms": scan_plain_ms, **scan_bound, **_registers_of(ptxas, "tmx_logup_scan"),
+        },
+    }
+
+
 def phase_kernels(build: dict) -> dict:
     """Each Poseidon entry against its plain torch version on the same
     CUDA tensors (exact: integer field arithmetic) and the host oracle,
@@ -976,6 +1215,8 @@ def phase_kernels(build: dict) -> dict:
         "quotient": _kernel_quotient(dev, clock_mhz, build["quotient"]["ptxas"]),
         "ntt": _kernel_ntt(dev, clock_mhz, build["ntt"]["ptxas"]),
         "deep": _kernel_deep(dev, clock_mhz, build["deep"]["ptxas"]),
+        **_kernel_ood(dev, clock_mhz, build["ood"]["ptxas"]),
+        **_kernel_logup(dev, clock_mhz, build["logup"]["ptxas"]),
     }
     for row in rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -1179,6 +1420,11 @@ LAUNCH_COUNTERS = {
     "ntt_inverse": ("tendermintx_tpu_torch.ops.ntt", "intt_kernel_launches"),
     "ntt_coset_lde": ("tendermintx_tpu_torch.ops.ntt", "lde_kernel_launches"),
     "deep": ("tendermintx_tpu_torch.stark.prover", "deep_kernel_launches"),
+    "ext_powers": ("tendermintx_tpu_torch.stark.prover", "ext_powers_kernel_launches"),
+    "ood_eval": ("tendermintx_tpu_torch.stark.prover", "ood_kernel_launches"),
+    "deep_inverses": ("tendermintx_tpu_torch.stark.prover", "deep_inverses_kernel_launches"),
+    "logup_terms": ("tendermintx_tpu_torch.stark.lookup", "logup_terms_kernel_launches"),
+    "logup_scan": ("tendermintx_tpu_torch.stark.lookup", "logup_scan_kernel_launches"),
 }
 # the rows of the kernels line that sum several counted entries of one
 # kernel: csrc/ntt.cu's forward, inverse and coset LDE entries
@@ -1187,6 +1433,9 @@ KERNEL_ENTRIES = {"ntt": ("ntt_forward", "ntt_inverse", "ntt_coset_lde")}
 # NTT's (its launches are checked there); a prove's LDEs are the inverse
 # and coset LDE entries
 NOT_PROVED_BY = ("ntt_forward",)
+# the LogUp kernels run only where an Ed25519 statement is proven: not in
+# the hash bundles or the wrap
+LOGUP_ENTRIES = ("logup_terms", "logup_scan")
 
 
 class _NttCalls:
@@ -1301,9 +1550,14 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
     }, proof
 
 
-def _check_launched(launches: dict, path: str):
+def _check_launched(launches: dict, path: str, absent: tuple = ()):
+    """Every kernel launched by the path, but those of `absent`, which
+    must not be."""
     for name, n in launches.items():
-        if n <= 0 and name not in NOT_PROVED_BY and not name.endswith("_planned"):
+        if name in absent:
+            if n:
+                raise AssertionError(f"kernel {name} was launched {n} times by the {path} path, which runs none")
+        elif n <= 0 and name not in NOT_PROVED_BY and not name.endswith("_planned"):
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
     _check_ntt_plan(launches, path)
 
@@ -1315,6 +1569,19 @@ def _check_ntt_plan(launches: dict, path: str):
         if launches[e] != launches[f"{e}_planned"]:
             raise AssertionError(f"the {path} path launched {e} {launches[e]} times; its transforms' plans "
                                  f"give {launches[f'{e}_planned']}")
+
+
+def _check_ood_launches(launches: dict, statements: int, ed25519: int, path: str):
+    """A statement's OOD is one ood_eval launch and two ext_powers launches
+    (alpha's powers and the opening points'), its DEEP inverses one launch
+    (on the mesh's first device); each Ed25519 statement launches each
+    LogUp kernel once."""
+    want = {"ood_eval": statements, "deep_inverses": statements, "ext_powers": 2 * statements,
+            "logup_terms": ed25519, "logup_scan": ed25519}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"the {path} path has {statements} statements ({ed25519} Ed25519) and "
+                             f"launched {got}; {want} wanted")
 
 
 def _check_deep_launches(launches: dict, statements: int, shards: int, path: str):
@@ -1350,6 +1617,8 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
         )
     _check_deep_launches(warm_launches, n_stmts, 1, "warm skip")
     _check_deep_launches(cold_launches, n_stmts, 1, "cold skip")
+    _check_ood_launches(warm_launches, n_stmts, 1, "warm skip")
+    _check_ood_launches(cold_launches, n_stmts, 1, "cold skip")
     # one sponge launch per column-major tree: trace, quotient and (where
     # the AIR has one) aux commitment of every statement
     trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)
@@ -1397,6 +1666,7 @@ def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
     launches = _launch_counts()
     _check_launched(launches, "step")
     _check_deep_launches(launches, len(proof.batch.statements), 1, "step")
+    _check_ood_launches(launches, len(proof.batch.statements), 1, "step")
     blob = proof.to_bytes()
     t2 = time.perf_counter()
     result = verify_step_composite(CompositeProof.from_bytes(blob), CHAIN_ID)
@@ -1480,7 +1750,9 @@ def phase_hashes(sc: SkipChain, parity: dict, card: str) -> tuple[dict, dict]:
     skip, skip_line = _prove_bundle(prove_skip_hashes, skip_inputs)
     step, step_line = _prove_bundle(prove_step_hashes, step_inputs)
     launches = _launch_counts()
-    _check_launched(launches, "hashes")
+    _check_launched(launches, "hashes", absent=LOGUP_ENTRIES)
+    # two single-statement SHA-256 proves
+    _check_ood_launches(launches, 2, 0, "hashes")
 
     facts, more = _verify_bundle(verify_skip_hashes, skip, (trusted, target), 6)
     skip_line.update(more)
@@ -1591,8 +1863,9 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     launches = _launch_counts()
-    _check_launched(launches, "wrap")
+    _check_launched(launches, "wrap", absent=LOGUP_ENTRIES)
     _check_deep_launches(launches, len(wrapped.batch.wrapper.statements), 1, "wrap")
+    _check_ood_launches(launches, len(wrapped.batch.wrapper.statements), 0, "wrap")
     peak = torch.cuda.max_memory_allocated()
     # the same wrap again: first-use host tables (FRI inverse tables of
     # the 2^21-point domain, the N=128 eval tape) are built by now
@@ -1947,6 +2220,8 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
             f"and {launches['quotient']} quotient launches"
         )
     _check_deep_launches(launches, len(proof.batch.statements), MESH_SHARDS, "mesh")
+    # OOD and the DEEP inverses run once a statement on the mesh's first device
+    _check_ood_launches(launches, len(proof.batch.statements), 1, "mesh")
     trees = sum(2 + (st.aux_cap is not None) for st in proof.batch.statements)
     if sponges != MESH_SHARDS * trees:
         raise AssertionError(
@@ -2239,6 +2514,13 @@ def main(argv: list[str]) -> int:
                 air: {k: a[k] for k in ("shape", "groups", "chunks", "ms", "plain_ms", "bound_ms", "bound_by")}
                 for air, a in rows["deep"]["airs"].items()
             }
+        if entry["name"] in ("ext_powers", "ood_eval", "deep_inverses"):
+            entry["airs"] = {
+                air: {k: a[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                for air, a in rows[entry["name"]]["airs"].items()
+            }
+        if entry["name"] in LOGUP_ENTRIES:
+            entry["checked"] = rows[entry["name"]]["checked"]
     emit({"kernels": kernels})
     emit({
         "ok": True,

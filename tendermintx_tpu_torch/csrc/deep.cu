@@ -21,8 +21,8 @@
 //
 // - Reduce once a group, not once a term. For each group, component and
 //   row, the products beta * t (canonical 64-bit operands, a 128-bit
-//   product) are summed unreduced in a 160-bit accumulator, five 32-bit
-//   limbs, by one PTX carry chain of multiply-adds (13 instructions, where
+//   product) are summed unreduced in a 160-bit accumulator
+//   (goldilocks.cuh: Acc, mac, reduce), five 32-bit limbs, by one PTX carry chain of multiply-adds (13 instructions, where
 //   a canonical multiply and add take about 30). Each product is below
 //   (p-1)^2 < 2^128, so MAX_COLUMNS = 2^32 - 1 columns sum below 2^160 and
 //   the accumulator never wraps (the port's widest statement, Ed25519 at
@@ -120,43 +120,6 @@ __device__ __forceinline__ void load_rows(const uint64_t* p, int64_t avail, uint
     for (int r = 0; r < RPT; ++r) t[r] = r < avail ? ld(p + r) : 0;
 }
 
-// 160-bit unreduced sum, five 32-bit limbs (least significant first)
-struct Acc {
-    uint32_t w[5];
-};
-
-// s += b * t for 64-bit b and t: the four 32 x 32 partial products added
-// into the limbs by one carry chain each (b0 t0 and b1 t1 at limbs 0-3,
-// then b0 t1 and b1 t0 at limbs 1-2), carries rippled to limb 4
-__device__ __forceinline__ void mac(Acc& s, uint64_t b, uint64_t t) {
-    const uint32_t b0 = uint32_t(b), b1 = uint32_t(b >> 32), t0 = uint32_t(t), t1 = uint32_t(t >> 32);
-    asm("mad.lo.cc.u32 %0, %5, %7, %0;\n\t"
-        "madc.hi.cc.u32 %1, %5, %7, %1;\n\t"
-        "madc.lo.cc.u32 %2, %6, %8, %2;\n\t"
-        "madc.hi.cc.u32 %3, %6, %8, %3;\n\t"
-        "addc.u32 %4, %4, 0;\n\t"
-        "mad.lo.cc.u32 %1, %5, %8, %1;\n\t"
-        "madc.hi.cc.u32 %2, %5, %8, %2;\n\t"
-        "addc.cc.u32 %3, %3, 0;\n\t"
-        "addc.u32 %4, %4, 0;\n\t"
-        "mad.lo.cc.u32 %1, %6, %7, %1;\n\t"
-        "madc.hi.cc.u32 %2, %6, %7, %2;\n\t"
-        "addc.cc.u32 %3, %3, 0;\n\t"
-        "addc.u32 %4, %4, 0;"
-        : "+r"(s.w[0]), "+r"(s.w[1]), "+r"(s.w[2]), "+r"(s.w[3]), "+r"(s.w[4])
-        : "r"(b0), "r"(b1), "r"(t0), "r"(t1));
-}
-
-// the canonical value of the sum: a0 + a1 2^32 + a2 2^64 + a3 2^96 +
-// a4 2^128 == (a0 + a1 2^32) + a2 (2^32 - 1) - a3 - a4 2^32 (mod p);
-// a2 (2^32 - 1) <= p - 2^32 and a4 2^32 <= p - 1 are canonical
-__device__ __forceinline__ uint64_t reduce(const Acc& s) {
-    uint64_t x = tmx_gl::canon(uint64_t(s.w[0]) | (uint64_t(s.w[1]) << 32));
-    x = tmx_gl::add(x, uint64_t(s.w[2]) * tmx_gl::EPS);
-    x = tmx_gl::sub(x, s.w[3]);
-    return tmx_gl::sub(x, uint64_t(s.w[4]) << 32);
-}
-
 template <int NG, int RPT, int U>
 __global__ void __launch_bounds__(THREADS) tmx_deep_kernel(DeepArgs a) {
     using tmx_ext::E2;
@@ -164,7 +127,7 @@ __global__ void __launch_bounds__(THREADS) tmx_deep_kernel(DeepArgs a) {
     const int64_t x0 = (int64_t(blockIdx.x) * THREADS + threadIdx.x) * RPT;
     const int64_t avail = a.rows - x0;  // rows of this thread in the shard (up to RPT)
     const int64_t n_total = a.n_main + a.n_aux;
-    Acc acc[NG][2][RPT];
+    tmx_gl::Acc acc[NG][2][RPT];
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -209,8 +172,8 @@ __global__ void __launch_bounds__(THREADS) tmx_deep_kernel(DeepArgs a) {
                     const uint64_t b0 = sb0[g * CHUNK + j + u], b1 = sb1[g * CHUNK + j + u];
 #pragma unroll
                     for (int r = 0; r < RPT; ++r) {
-                        mac(acc[g][0][r], b0, t[u][r]);
-                        mac(acc[g][1][r], b1, t[u][r]);
+                        tmx_gl::mac(acc[g][0][r], b0, t[u][r]);
+                        tmx_gl::mac(acc[g][1][r], b1, t[u][r]);
                     }
                 }
             }
@@ -227,7 +190,7 @@ __global__ void __launch_bounds__(THREADS) tmx_deep_kernel(DeepArgs a) {
     for (int g = 0; g < NG; ++g) {
         E2 G[RPT];
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) G[r] = E2{reduce(acc[g][0][r]), reduce(acc[g][1][r])};
+        for (int r = 0; r < RPT; ++r) G[r] = E2{tmx_gl::reduce(acc[g][0][r]), tmx_gl::reduce(acc[g][1][r])};
         if (g == 0) {
             for (int64_t j = 0; j < a.n_chunks; ++j) {
                 const E2 beta{ld(a.beta_q0 + j), ld(a.beta_q1 + j)};

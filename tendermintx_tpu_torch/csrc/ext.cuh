@@ -1,5 +1,6 @@
 // The quadratic extension GF(p^2) = GF(p)[X] / (X^2 - 7) over Goldilocks
-// (ops/ext.py), for the hand kernels that sum in it (csrc/deep.cu). Each
+// (ops/ext.py), for the hand kernels that compute in it (csrc/deep.cu,
+// csrc/ood.cu, csrc/logup.cu). Each
 // function takes and returns canonical (c0, c1) pairs, so a kernel's
 // output equals the plain torch version's GF2 arithmetic bit for bit.
 
@@ -26,6 +27,28 @@ __device__ __forceinline__ E2 mul(E2 a, E2 b) {
     const uint64_t a0b0 = tmx_gl::mul(a.c0, b.c0), a1b1 = tmx_gl::mul(a.c1, b.c1);
     const uint64_t a0b1 = tmx_gl::mul(a.c0, b.c1), a1b0 = tmx_gl::mul(a.c1, b.c0);
     return {tmx_gl::add(a0b0, tmx_gl::mul(a1b1, W)), tmx_gl::add(a0b1, a1b0)};
+}
+
+// a times a base value
+__device__ __forceinline__ E2 scale(E2 a, uint64_t s) { return {tmx_gl::mul(a.c0, s), tmx_gl::mul(a.c1, s)}; }
+
+// 1/(a0 + a1 X) = (a0 - a1 X) / (a0^2 - W a1^2), and 0 for 0 (ops/ext.py:
+// GF2.inv): the norm is 0 only for 0, W being a non-residue
+__device__ __forceinline__ E2 inv(E2 a) {
+    const uint64_t norm = tmx_gl::sub(tmx_gl::mul(a.c0, a.c0), tmx_gl::mul(tmx_gl::mul(a.c1, a.c1), W));
+    const uint64_t ninv = tmx_gl::inv(norm);
+    return {tmx_gl::mul(a.c0, ninv), tmx_gl::neg(tmx_gl::mul(a.c1, ninv))};
+}
+
+// a^e by square and multiply
+__device__ __forceinline__ E2 pow(E2 a, uint64_t e) {
+    E2 r{1, 0};
+    while (e) {
+        if (e & 1) r = mul(r, a);
+        a = mul(a, a);
+        e >>= 1;
+    }
+    return r;
 }
 
 }  // namespace tmx_ext

@@ -19,15 +19,25 @@ when the trace is shorter than the table.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
+from functools import cache
 
 import numpy as np
 import torch
 
 from ..ops.ext import GF2, W
-from ..ops.goldilocks import GF, P, add
+from ..ops.goldilocks import GF, P, add, field_sum
 
 BATCH = 4  # checked values per aux column -> constraint degree BATCH + 1
+
+# incremented exactly where each csrc/logup.cu entry is launched
+logup_terms_kernel_launches = 0
+logup_scan_kernel_launches = 0
+# csrc/logup.cu's terms grid: rows by groups of terms, the groups cut until
+# about _LOGUP_BLOCKS blocks of _LOGUP_THREADS rows fill the card
+_LOGUP_THREADS = 256
+_LOGUP_BLOCKS = 1024
 
 
 def _epair_add(a, b):
@@ -78,9 +88,14 @@ class RangeLookup:
 
     # -- table ---------------------------------------------------------------
 
+    @property
+    def _span(self) -> int:
+        """Table rows before the values repeat: t_j[r] = j span + r % span."""
+        return min(self.n_rows, self.table_size)
+
     def table_patterns(self) -> list[list[int]]:
         """Periodic table columns (length min(n_rows, table_size))."""
-        span = min(self.n_rows, self.table_size)
+        span = self._span
         out = []
         for j in range(self.width):
             base = j * span
@@ -112,7 +127,7 @@ class RangeLookup:
         out = np.zeros((self.width, self.n_rows), dtype=np.uint32)
         # each value's count goes at its FIRST table occurrence: value v sits
         # at (v // span, v % span) within the first `span` rows
-        span = min(self.n_rows, self.table_size)
+        span = self._span
         out[:, :span] = counts[: self.width * span].reshape(self.width, span)
         return out
 
@@ -120,7 +135,18 @@ class RangeLookup:
 
     def build_aux(self, trace: GF, gamma: GF2) -> GF:
         """trace: (n_cols_main, n) on the device; gamma a (1,) GF2 scalar.
-        Returns the (n_aux_cols, n) aux columns."""
+        Returns the (n_aux_cols, n) aux columns: torch ops for a CPU trace,
+        the csrc/logup.cu kernels (logup_terms, then logup_scan) for a CUDA
+        one."""
+        t = trace.device.type
+        if t == "cpu":
+            return self.build_aux_plain(trace, gamma)
+        if t == "cuda":
+            return self.build_aux_cuda(trace, gamma)
+        raise ValueError(f"no LogUp aux columns for device {trace.device}")
+
+    def build_aux_plain(self, trace: GF, gamma: GF2) -> GF:
+        """The aux columns as int64 torch ops (any device)."""
         n = self.n_rows
         dev = trace.device
         idx = torch.tensor(self.checked_cols, device=dev)
@@ -139,6 +165,113 @@ class RangeLookup:
         wt = _aux_wt(table, m, gamma)
         S = _aux_scan(w, wt)
         return _aux_assemble(w, wt, S)
+
+    # -- prover: aux columns (csrc/logup.cu) -----------------------------------
+
+    def logup_groups(self) -> tuple[int, int]:
+        """(terms a thread sums, groups) of the terms kernel's grid."""
+        terms = self.n_batches + self.width
+        row_blocks = -(-self.n_rows // _LOGUP_THREADS)
+        n_groups = min(terms, max(1, -(-_LOGUP_BLOCKS // row_blocks)))
+        group = -(-terms // n_groups)
+        return group, -(-terms // group)
+
+    def build_aux_cuda(self, trace: GF, gamma: GF2) -> GF:
+        """logup_terms writes every w_b and wt_j into its rows of the aux
+        output and each group's signed sum a row into a scratch;
+        logup_scan adds the groups and scans them into S, the last two rows."""
+        out = torch.empty((self.n_aux_cols, self.n_rows), dtype=torch.int64, device=trace.device)
+        partial = self.logup_terms_cuda(trace, gamma, out)
+        self.logup_scan_cuda(partial, out)
+        return GF(out)
+
+    def _logup_args(self, out: torch.Tensor, partial: torch.Tensor, trace: GF | None = None,
+                    gamma: GF2 | None = None, checked: torch.Tensor | None = None) -> "_LogupArgs":
+        """The kernels' arguments; the scan reads no trace, gamma or column
+        index (None: null pointers)."""
+        group, n_groups = self.logup_groups()
+        ptr = lambda t: t.data_ptr() if t is not None else None
+        return _LogupArgs(
+            trace=ptr(trace.v if trace is not None else None),
+            trace_ld=int(trace.v.stride(0)) if trace is not None else 0,
+            checked=ptr(checked), n_checked=len(self.checked_cols), n_batches=self.n_batches,
+            mult_base=self.mult_base, width=self.width, span=self._span,
+            gamma0=ptr(gamma.c0.v if gamma is not None else None),
+            gamma1=ptr(gamma.c1.v if gamma is not None else None),
+            n=self.n_rows, group=group, n_groups=n_groups, out=out.data_ptr(), partial=partial.data_ptr(),
+        )
+
+    def _check_cuda(self, trace: GF, gamma: GF2, out: torch.Tensor):
+        dev = trace.device
+        if dev.type != "cuda":
+            raise TypeError(f"the LogUp kernels take a CUDA trace, got {dev}")
+        n_cols = max([*self.checked_cols, self.mult_base + self.width - 1]) + 1
+        v = trace.v
+        if v.dtype != torch.int64 or v.dim() != 2 or int(v.shape[1]) != self.n_rows or int(v.shape[0]) < n_cols:
+            raise ValueError(f"logup: the trace is {v.dtype} {tuple(v.shape)}; int64 (>= {n_cols}, "
+                             f"{self.n_rows}) wanted")
+        if self.n_rows > 1 and v.stride(1) != 1:
+            raise ValueError("logup: the trace must have unit stride along its rows")
+        for what, t in (("gamma c0", gamma.c0.v), ("gamma c1", gamma.c1.v)):
+            if t.device != dev or t.dtype != torch.int64 or t.numel() != 1:
+                raise TypeError(f"logup: {what} must be one int64 word on {dev}")
+        if (out.device != dev or out.dtype != torch.int64 or not out.is_contiguous()
+                or tuple(out.shape) != (self.n_aux_cols, self.n_rows)):
+            raise ValueError(f"logup: the output must be a contiguous int64 ({self.n_aux_cols}, {self.n_rows}) "
+                             f"tensor on {dev}")
+
+    def logup_terms_cuda(self, trace: GF, gamma: GF2, out: torch.Tensor) -> torch.Tensor:
+        """One launch: the w and wt rows of `out`; returns the (2, groups, n)
+        signed sums of each group of terms a row (w added, wt taken away)."""
+        global logup_terms_kernel_launches
+        self._check_cuda(trace, gamma, out)
+        dev = trace.device
+        checked = torch.tensor(self.checked_cols, dtype=torch.int64, device=dev)
+        partial = torch.empty((2, self.logup_groups()[1], self.n_rows), dtype=torch.int64, device=dev)
+        _logup_launch("tmx_logup_terms", self._logup_args(out, partial, trace, gamma, checked), dev)
+        logup_terms_kernel_launches += 1
+        return partial
+
+    def logup_scan_cuda(self, partial: torch.Tensor, out: torch.Tensor):
+        """One launch: S into the last two rows of `out` from the groups'
+        sums (one block; the other rows are not read)."""
+        global logup_scan_kernel_launches
+        dev = out.device
+        if dev.type != "cuda":
+            raise TypeError(f"logup_scan_cuda takes CUDA tensors, got {dev}")
+        shape = (2, self.logup_groups()[1], self.n_rows)
+        if (partial.device != dev or partial.dtype != torch.int64 or not partial.is_contiguous()
+                or tuple(partial.shape) != shape):
+            raise ValueError(f"logup_scan_cuda: the group sums must be a contiguous int64 {shape} tensor on {dev}")
+        if (out.dtype != torch.int64 or not out.is_contiguous()
+                or tuple(out.shape) != (self.n_aux_cols, self.n_rows)):
+            raise ValueError(f"logup_scan_cuda: the output must be a contiguous int64 "
+                             f"({self.n_aux_cols}, {self.n_rows}) tensor")
+        _logup_launch("tmx_logup_scan", self._logup_args(out, partial), dev)
+        logup_scan_kernel_launches += 1
+
+    def logup_terms_plain(self, trace: GF, gamma: GF2) -> tuple[torch.Tensor, torch.Tensor]:
+        """logup_terms_cuda's two results as torch ops (any device): the
+        (2 (n_batches + width), n) w and wt rows, and the (2, groups, n)
+        group sums."""
+        aux = self.build_aux_plain(trace, gamma).v
+        terms = self.n_batches + self.width
+        rows = aux[: 2 * terms]
+        group, n_groups = self.logup_groups()
+        sign = [0] * self.n_batches + [1] * self.width
+        parts = []
+        for c in range(2):
+            comp = rows[c::2]  # (terms, n)
+            signed = torch.stack([GF(comp[t]).v if not sign[t] else (-GF(comp[t])).v for t in range(terms)])
+            parts.append(torch.stack([
+                field_sum(signed[g * group : (g + 1) * group], 0) for g in range(n_groups)
+            ]))
+        return rows, torch.stack(parts)
+
+    @staticmethod
+    def logup_scan_plain(partial: torch.Tensor) -> torch.Tensor:
+        """logup_scan's S rows, (2, n), from the group sums (any device)."""
+        return torch.stack([_prefix_sum(field_sum(partial[c], 0)) for c in range(2)])
 
     # -- constraints -----------------------------------------------------------
 
@@ -388,3 +521,38 @@ def _aux_assemble(w: GF2, wt: GF2, S: GF2) -> GF:
     return GF(
         torch.cat([interleave(w), interleave(wt), torch.stack([S.c0.v, S.c1.v])], dim=0)
     )
+
+
+# -- csrc/logup.cu -----------------------------------------------------------
+
+
+class _LogupArgs(ctypes.Structure):
+    """csrc/logup.cu's LogupArgs, field for field."""
+
+    _fields_ = [
+        ("trace", ctypes.c_void_p), ("trace_ld", ctypes.c_int64),
+        ("checked", ctypes.c_void_p), ("n_checked", ctypes.c_int64), ("n_batches", ctypes.c_int64),
+        ("mult_base", ctypes.c_int64), ("width", ctypes.c_int64), ("span", ctypes.c_int64),
+        ("gamma0", ctypes.c_void_p), ("gamma1", ctypes.c_void_p),
+        ("n", ctypes.c_int64), ("group", ctypes.c_int64), ("n_groups", ctypes.c_int64),
+        ("out", ctypes.c_void_p), ("partial", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _logup_library():
+    from ..ops.cuda_build import load_library
+
+    lib = load_library("logup")
+    for fn in ("tmx_logup_terms", "tmx_logup_scan"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(_LogupArgs), ctypes.c_void_p]
+    return lib
+
+
+def _logup_launch(fn: str, args: _LogupArgs, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_logup_library(), fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")

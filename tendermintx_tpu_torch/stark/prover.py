@@ -32,8 +32,8 @@ import numpy as np
 import torch
 
 from ..ops import ntt as nttmod
-from ..ops.ext import GF2, ext_add, ext_mul
-from ..ops.goldilocks import GF, MULTIPLICATIVE_GENERATOR, P, tensor_from_u64, to_int_array
+from ..ops.ext import GF2, W, ext_add, ext_mul
+from ..ops.goldilocks import GF, MULTIPLICATIVE_GENERATOR, P, tensor_from_u64, tensor_to_u64, to_int_array
 from ..ops.merkle import MerkleTree
 from .air import Air, DeviceAlgebra, Frame, public_columns_u64
 from .challenger import Challenger
@@ -467,40 +467,296 @@ def deep_cuda(
     return GF2(GF(out[0]), GF(out[1]))
 
 
-def ood_values(coeffs: GF, points: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:
-    """Evaluate every row polynomial of `coeffs` (C, n) at each ext point:
-    sum_j c_j * pt^j with the powers built on the host."""
-    n = int(coeffs.shape[1])
-    out = []
-    for pt in points:
-        p0, p1 = _ext_powers_u64(pt, n)
-        z0 = GF(tensor_from_u64(p0, coeffs.device)[None, :])
-        z1 = GF(tensor_from_u64(p1, coeffs.device)[None, :])
-        v0 = to_int_array((coeffs * z0).sum(axis=-1).v)
-        v1 = to_int_array((coeffs * z1).sum(axis=-1).v)
-        out.append([(int(a), int(b)) for a, b in zip(v0, v1)])
+# ---------------------------------------------------------------------------
+# OOD evaluation and the DEEP inverse tables: plain torch ops for a CPU
+# tensor, csrc/ood.cu for a CUDA tensor
+# ---------------------------------------------------------------------------
+
+# incremented exactly where each csrc/ood.cu entry is launched
+ext_powers_kernel_launches = 0
+ood_kernel_launches = 0
+deep_inverses_kernel_launches = 0
+
+# csrc/ood.cu: MAX_POINTS (opening points a launch takes; the SHA AIRs
+# open at 8) and MAX_LENGTH (coefficients a row: a slice's 160-bit sums
+# take at most 2^32 - 1 products of canonical values without wrapping)
+OOD_MAX_POINTS = 8
+OOD_MAX_LENGTH = (1 << 32) - 1
+# csrc/ood.cu: ROWS and TJ (rows a block, coefficients of a row a tile);
+# ood_eval cuts the row length into slices until about _OOD_BLOCKS blocks
+# fill the card, each slice at least a tile long
+_OOD_ROWS = 128
+_OOD_TJ = 32
+_OOD_BLOCKS = 1024
+
+
+class _PowersArgs(ctypes.Structure):
+    """csrc/ood.cu's PowersArgs, field for field."""
+
+    _fields_ = [
+        ("pt0", ctypes.c_uint64 * OOD_MAX_POINTS), ("pt1", ctypes.c_uint64 * OOD_MAX_POINTS),
+        ("n_points", ctypes.c_int64), ("n", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+class _OodArgs(ctypes.Structure):
+    """csrc/ood.cu's OodArgs, field for field."""
+
+    _fields_ = [
+        ("a", ctypes.c_void_p), ("a_ld", ctypes.c_int64), ("n_a", ctypes.c_int64),
+        ("b", ctypes.c_void_p), ("b_ld", ctypes.c_int64), ("n_b", ctypes.c_int64),
+        ("powers", ctypes.c_void_p), ("n_points", ctypes.c_int64), ("n", ctypes.c_int64),
+        ("slices", ctypes.c_int64), ("partial", ctypes.c_void_p), ("out", ctypes.c_void_p),
+    ]
+
+
+class _InvArgs(ctypes.Structure):
+    """csrc/ood.cu's InvArgs, field for field."""
+
+    _fields_ = [
+        ("z0", ctypes.c_uint64 * OOD_MAX_POINTS), ("z1", ctypes.c_uint64 * OOD_MAX_POINTS),
+        ("wpow", ctypes.c_uint64 * 32), ("shift", ctypes.c_uint64),
+        ("n_points", ctypes.c_int64), ("N", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _ood_library():
+    from ..ops.cuda_build import load_library
+
+    lib = load_library("ood")
+    for fn, args in (("tmx_ext_powers", _PowersArgs), ("tmx_ood_eval", _OodArgs), ("tmx_deep_inverses", _InvArgs)):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+    return lib
+
+
+def _ood_launch(fn: str, args, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_ood_library(), fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def _points_array(points: list[tuple[int, int]], what: str):
+    """The points' c0 and c1 as csrc/ood.cu's fixed arrays."""
+    if not 1 <= len(points) <= OOD_MAX_POINTS:
+        raise ValueError(f"{what} takes 1 to {OOD_MAX_POINTS} points, got {len(points)}")
+    c0 = (ctypes.c_uint64 * OOD_MAX_POINTS)(*[int(v[0]) % P for v in points])
+    c1 = (ctypes.c_uint64 * OOD_MAX_POINTS)(*[int(v[1]) % P for v in points])
+    return c0, c1
+
+
+def ext_powers(points: list[tuple[int, int]], n: int, device) -> GF2:
+    """[b^0 .. b^(n-1)] for each ext point b, a (len(points), n) GF2 on
+    `device`: host loops for the CPU, one csrc/ood.cu launch on a card."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return ext_powers_plain(points, n, device)
+    if device.type == "cuda":
+        return ext_powers_cuda(points, n, device)
+    raise ValueError(f"no ext powers for device {device}")
+
+
+def ext_powers_plain(points: list[tuple[int, int]], n: int, device) -> GF2:
+    """The powers built by a host loop of ext multiplies a point, uploaded."""
+    rows = [_ext_powers_u64(pt, n) for pt in points]
+    return GF2(
+        GF(tensor_from_u64(np.stack([r[0] for r in rows]).reshape(len(points), n), device)),
+        GF(tensor_from_u64(np.stack([r[1] for r in rows]).reshape(len(points), n), device)),
+    )
+
+
+def ext_powers_cuda(points: list[tuple[int, int]], n: int, device) -> GF2:
+    """One launch into one (2, points, n) buffer whose halves are the c0
+    and c1 rows (ood_eval_cuda reads them so)."""
+    global ext_powers_kernel_launches
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise TypeError(f"ext_powers_cuda builds powers on a card, got {dev}")
+    pt0, pt1 = _points_array(points, "ext_powers_cuda")
+    out = torch.empty((2, len(points), n), dtype=torch.int64, device=dev)
+    if n:
+        args = _PowersArgs(pt0=pt0, pt1=pt1, n_points=len(points), n=n, out=out.data_ptr())
+        _ood_launch("tmx_ext_powers", args, dev)
+        ext_powers_kernel_launches += 1
+    return GF2(GF(out[0]), GF(out[1]))
+
+
+def ood_eval_plain(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
+    """v[c][k][r] = sum_j row_r[j] * powers[k][j] (component c of the
+    powers) over the rows of a and then of b: a (2, points, rows) int64
+    tensor, one product tensor a point and component (any device)."""
+    rows = a if b is None else GF.concatenate([a, b], axis=0)
+    n_points = int(powers.shape[0])
+    out = [
+        (rows * GF(comp.v[k][None, :])).sum(axis=-1).v
+        for comp in (powers.c0, powers.c1) for k in range(n_points)
+    ]
+    return torch.stack(out).reshape(2, n_points, int(rows.shape[0]))
+
+
+def _ood_rows_operand(t: torch.Tensor, what: str, dev, n: int) -> int:
+    """Checks a coefficient operand of ood_eval; returns its row stride."""
+    if t.device != dev or t.dtype != torch.int64:
+        raise TypeError(f"ood_eval_cuda: {what} must be int64 on {dev}, got {t.dtype} on {t.device}")
+    if t.dim() != 2 or int(t.shape[1]) != n:
+        raise ValueError(f"ood_eval_cuda: {what} has shape {tuple(t.shape)}, (rows, {n}) wanted")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"ood_eval_cuda: {what} must have unit stride along its rows")
+    return int(t.stride(0))
+
+
+def _ood_slices(rows: int, n: int) -> int:
+    """Slices of the row length: doubled while the blocks are fewer than
+    _OOD_BLOCKS and a slice stays at least a tile long."""
+    row_blocks = -(-rows // _OOD_ROWS)
+    s = 1
+    while row_blocks * s < _OOD_BLOCKS and n // (2 * s) >= _OOD_TJ:
+        s *= 2
+    return s
+
+
+def ood_eval_cuda(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
+    """ood_eval_plain's values by one csrc/ood.cu launch (its slice and
+    sum kernels). The row operands may be row views with unit stride along
+    their rows; the powers are (points, n) rows of one (2, points, n)
+    buffer, as ext_powers_cuda returns them."""
+    global ood_kernel_launches
+    dev = a.device
+    if dev.type != "cuda":
+        raise TypeError(f"ood_eval_cuda takes CUDA rows, got {dev}")
+    n_points, n = int(powers.shape[0]), int(powers.shape[1])
+    if not 1 <= n_points <= OOD_MAX_POINTS:
+        raise ValueError(f"ood_eval_cuda takes 1 to {OOD_MAX_POINTS} points, got {n_points}")
+    if not 1 <= n <= OOD_MAX_LENGTH:
+        raise ValueError(f"ood_eval_cuda takes rows of 1 to {OOD_MAX_LENGTH} coefficients, got {n}")
+    a_ld = _ood_rows_operand(a.v, "the rows", dev, n)
+    b_ld = _ood_rows_operand(b.v, "the second rows", dev, n) if b is not None else 0
+    pw = powers.c0.v
+    if (pw.device != dev or pw.dtype != torch.int64 or powers.c1.v.device != dev
+            or tuple(powers.c1.v.shape) != (n_points, n) or not pw.is_contiguous()
+            or not powers.c1.v.is_contiguous()
+            or powers.c1.v.data_ptr() != pw.data_ptr() + 8 * n_points * n):
+        raise ValueError("ood_eval_cuda: the powers must be the two halves of one contiguous (2, points, n) "
+                         f"int64 buffer on {dev}")
+    n_a = int(a.shape[0])
+    n_b = int(b.shape[0]) if b is not None else 0
+    rows = n_a + n_b
+    out = torch.empty((2, n_points, rows), dtype=torch.int64, device=dev)
+    if rows == 0:
+        return out
+    slices = _ood_slices(rows, n)
+    partial = torch.empty((slices, 2, n_points, rows), dtype=torch.int64, device=dev)
+    args = _OodArgs(
+        a=a.v.data_ptr(), a_ld=a_ld, n_a=n_a,
+        b=b.v.data_ptr() if b is not None else None, b_ld=b_ld, n_b=n_b,
+        powers=pw.data_ptr(), n_points=n_points, n=n, slices=slices,
+        partial=partial.data_ptr(), out=out.data_ptr(),
+    )
+    _ood_launch("tmx_ood_eval", args, dev)
+    ood_kernel_launches += 1
     return out
 
 
-def ood_ext_values(coeffs: GF2, pt: tuple[int, int]) -> list[tuple[int, int]]:
-    """Evaluate ext-coefficient row polynomials (K, n) at one ext point."""
+def _ood_eval(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
+    t = a.device.type
+    if t == "cpu":
+        return ood_eval_plain(a, b, powers)
+    if t == "cuda":
+        return ood_eval_cuda(a, b, powers)
+    raise ValueError(f"no OOD evaluation for device {a.device}")
+
+
+def _pairs(vals: np.ndarray, k: int, lo: int, hi: int) -> list[tuple[int, int]]:
+    """(c0, c1) of rows [lo, hi) at point k of a (2, points, rows) uint64 array."""
+    return [(int(a), int(b)) for a, b in zip(vals[0, k, lo:hi], vals[1, k, lo:hi])]
+
+
+def _ext_row_at(vals: np.ndarray, r0: int, r1: int) -> tuple[int, int]:
+    """An ext row's value at point 0 from the base evaluations E0 of its c0
+    row (r0) and E1 of its c1 row (r1): E0 + X E1 = (E0.c0 + W E1.c1,
+    E0.c1 + E1.c0)."""
+    e0, e1 = _pairs(vals, 0, r0, r0 + 1)[0], _pairs(vals, 0, r1, r1 + 1)[0]
+    return (e0[0] + W * e1[1]) % P, (e0[1] + e1[0]) % P
+
+
+def ood_values(coeffs: GF, points: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:
+    """Evaluate every row polynomial of `coeffs` (C, n) at each ext point:
+    sum_j c_j * pt^j. Host powers and torch ops for a CPU tensor (the
+    verifier's); ext_powers and ood_eval launches on a card."""
     n = int(coeffs.shape[1])
-    p0, p1 = _ext_powers_u64(pt, n)
-    zp = GF2(
-        GF(tensor_from_u64(p0, coeffs.device)[None, :]),
-        GF(tensor_from_u64(p1, coeffs.device)[None, :]),
-    )
-    c0, c1 = (coeffs * zp).sum(axis=-1).to_ints()
-    return [(int(a), int(b)) for a, b in zip(c0, c1)]
+    vals = tensor_to_u64(_ood_eval(coeffs, None, ext_powers(points, n, coeffs.device)))
+    return [_pairs(vals, k, 0, int(coeffs.shape[0])) for k in range(len(points))]
+
+
+def ood_ext_values(coeffs: GF2, pt: tuple[int, int]) -> list[tuple[int, int]]:
+    """Evaluate ext-coefficient row polynomials (K, n) at one ext point:
+    each row's c0 and c1 rows evaluated as base rows, then combined."""
+    n, K = int(coeffs.shape[1]), int(coeffs.shape[0])
+    vals = tensor_to_u64(_ood_eval(coeffs.c0, coeffs.c1, ext_powers([pt], n, coeffs.device)))
+    return [_ext_row_at(vals, i, K + i) for i in range(K)]
+
+
+def ood_evaluate(
+    coeffs: GF, chunk_rows: GF, points: list[tuple[int, int]]
+) -> tuple[list[list[tuple[int, int]]], list[tuple[int, int]]]:
+    """A statement's OOD values: every row of `coeffs` (trace and aux
+    coefficients, (C, n)) at every opening point, and the quotient chunks
+    (rows [c0_0, c1_0, c0_1, ...] of `chunk_rows`) at points[0] = z: one
+    ext_powers and one ood_eval over both (a launch each on a card)."""
+    n, C = int(coeffs.shape[1]), int(coeffs.shape[0])
+    vals = tensor_to_u64(_ood_eval(coeffs, chunk_rows, ext_powers(points, n, coeffs.device)))
+    trace = [_pairs(vals, k, 0, C) for k in range(len(points))]
+    return trace, [_ext_row_at(vals, C + 2 * j, C + 2 * j + 1) for j in range(int(chunk_rows.shape[0]) // 2)]
 
 
 def deep_inverses(log_N: int, shift: int, zks: list[tuple[int, int]], device) -> GF2:
-    """(x - z_g)^-1 over the whole LDE domain for every opening point."""
+    """(x - z_g)^-1 over the whole LDE domain for every opening point, a
+    (len(zks), N) GF2: torch ops for the CPU, one csrc/ood.cu launch on a
+    card."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return deep_inverses_plain(log_N, shift, zks, device)
+    if device.type == "cuda":
+        return deep_inverses_cuda(log_N, shift, zks, device)
+    raise ValueError(f"no DEEP inverses for device {device}")
+
+
+def deep_inverses_plain(log_N: int, shift: int, zks: list[tuple[int, int]], device) -> GF2:
+    """The inverses as int64 torch ops over the host domain points (any device)."""
     pts = GF(tensor_from_u64(_domain_points(log_N, shift), device))[None, :]
     z = _ext_list_to_gf2(zks, device)
     c0 = pts - GF(z.c0.v[:, None])
     c1 = -GF(z.c1.v[:, None]).broadcast_to(c0.shape)
     return GF2(c0, GF(c1.v.contiguous())).inv()
+
+
+def deep_inverses_cuda(log_N: int, shift: int, zks: list[tuple[int, int]], device) -> GF2:
+    """One launch: x = shift w_N^i from the powers w_N^(2^b), then one
+    extension inversion a (point, x) pair, into one (2, points, N) buffer
+    whose halves are the c0 and c1 rows (unit stride along each row, as
+    parallel/prover.py::sharded_deep_fn cuts them)."""
+    global deep_inverses_kernel_launches
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise TypeError(f"deep_inverses_cuda builds the tables on a card, got {dev}")
+    if not 0 <= log_N <= 32:
+        raise ValueError(f"deep_inverses_cuda takes domains of 2^0 to 2^32 points, got 2^{log_N}")
+    z0, z1 = _points_array(zks, "deep_inverses_cuda")
+    N = 1 << log_N
+    w = nttmod.primitive_root_of_unity(log_N)
+    wpow = []
+    for _ in range(32):
+        wpow.append(w)
+        w = w * w % P
+    out = torch.empty((2, len(zks), N), dtype=torch.int64, device=dev)
+    args = _InvArgs(z0=z0, z1=z1, wpow=(ctypes.c_uint64 * 32)(*wpow), shift=shift % P,
+                    n_points=len(zks), N=N, out=out.data_ptr())
+    _ood_launch("tmx_deep_inverses", args, dev)
+    deep_inverses_kernel_launches += 1
+    return GF2(GF(out[0]), GF(out[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -613,8 +869,8 @@ def _prove_statement(
     offsets = list(air.frame_offsets)
     if offsets[0] != 0:
         raise ValueError("frame_offsets must start with 0")
-    a0, a1 = _ext_powers_u64(alpha, air.n_constraints)
-    alpha_pows = GF2(GF(tensor_from_u64(a0, dev)), GF(tensor_from_u64(a1, dev)))
+    a_pows = ext_powers([alpha], air.n_constraints, dev)
+    alpha_pows = GF2(a_pows.c0[0], a_pows.c1[0])
     pub_gf = GF.from_ints(np.array([v % P for v in public_inputs], dtype=object), dev) \
         if public_inputs else GF.zeros((0,), dev)
     periodic = tuple(
@@ -661,10 +917,8 @@ def _prove_statement(
     # 4. OOD evaluations at z * g^k for every frame offset k
     g_trace = nttmod.primitive_root_of_unity(log_n)
     zk_list = [ext_mul(z, (pow(g_trace, k, P), 0)) for k in offsets]
-    ood_trace = ood_values(all_coeffs, zk_list)
+    ood_trace, ood_quot = ood_evaluate(all_coeffs, chunk_stack, zk_list)
     del all_coeffs
-    chunk_ext = GF2(chunk_stack[0::2], chunk_stack[1::2])
-    ood_quot = ood_ext_values(chunk_ext, z)
     for per_offset in ood_trace:
         for v in per_offset:
             challenger.observe_ext(v)

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the Poseidon permutation, column sponge
 and Merkle tree layer; the constraint quotient's tape kernel; the NTT,
-inverse NTT and coset LDE; the DEEP composition) against
+inverse NTT and coset LDE; the DEEP composition; the OOD powers,
+evaluation and DEEP inverse tables; the LogUp aux columns) against
 their plain torch versions on the card, at small shapes and with the edge
 values 0, 1, p-1, 2^32-1, 2^32 and 2^63 mod p. Exact equality: integer
 field arithmetic has no tolerance.
@@ -350,6 +351,201 @@ def test_deep_kernel_refuses_instead_of_falling_back(dev):
 
 
 # ---------------------------------------------------------------------------
+# The OOD evaluation and DEEP inverse tables (csrc/ood.cu)
+# ---------------------------------------------------------------------------
+
+
+def _ood_counts():
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    return (pr.ext_powers_kernel_launches, pr.ood_kernel_launches, pr.deep_inverses_kernel_launches)
+
+
+def _ext_points(k: int, seed: int) -> list[tuple[int, int]]:
+    vals = gl.tensor_to_u64(_felts((2 * k,), seed, torch.device("cpu"))).tolist()
+    pts = [(int(vals[2 * i]), int(vals[2 * i + 1])) for i in range(k)]
+    return [(P - 1, 0), *pts[1:]] if k > 1 else pts
+
+
+@pytest.mark.parametrize("n_points, n", [(1, 1), (2, 17), (8, 1000), (3, 4096), (8, 1 << 16), (2, 1 << 17)])
+def test_ood_ext_powers_kernel_matches_plain(dev, n_points, n):
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    pts = _ext_points(n_points, n)
+    before = _ood_counts()
+    got = pr.ext_powers(pts, n, dev)
+    assert _ood_counts() == (before[0] + 1, before[1], before[2])
+    assert _gf2_equal(got, pr.ext_powers_plain(pts, n, dev))
+
+
+@pytest.mark.parametrize(
+    "n_a, n_b, n, n_points",
+    [(1, 0, 1, 1), (3, 2, 7, 2), (130, 6, 1000, 8), (300, 0, 4096, 2), (1, 4, 33, 3), (257, 14, 1 << 12, 7)],
+)
+def test_ood_eval_kernel_matches_plain(dev, n_a, n_b, n, n_points):
+    """Rows from a strided view (every other row of a wider block) and a
+    second block, against ood_eval_plain."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    a = gl.GF(_felts((2 * n_a, n), 80 + n, dev)[0::2])
+    b = gl.GF(_felts((n_b, n), 81 + n, dev)) if n_b else None
+    powers = pr.ext_powers(_ext_points(n_points, n_a), n, dev)
+    before = _ood_counts()
+    got = pr.ood_eval_cuda(a, b, powers)
+    assert _ood_counts() == (before[0], before[1] + 1, before[2])
+    assert torch.equal(got, pr.ood_eval_plain(a, b, powers))
+
+
+# each AIR of the N=128 paths: (trace + aux rows, chunk rows, log2 n, points)
+N128_OOD_SHAPES = [(2929, 8, 15, 2), (170, 6, 16, 8), (340, 6, 15, 8), (136, 14, 15, 2), (18, 4, 17, 2)]
+
+
+@pytest.mark.parametrize("rows, chunk_rows, log_n, n_points", N128_OOD_SHAPES,
+                         ids=["ed25519", "sha256", "sha512", "wrap", "eval"])
+def test_ood_kernel_matches_plain_at_n128_shapes(dev, rows, chunk_rows, log_n, n_points):
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    n = 1 << log_n
+    a = gl.GF(_felts((rows, n), 82, dev))
+    b = gl.GF(_felts((chunk_rows, n), 83, dev))
+    powers = pr.ext_powers(_ext_points(n_points, rows), n, dev)
+    assert torch.equal(pr.ood_eval_cuda(a, b, powers), pr.ood_eval_plain(a, b, powers))
+
+
+def test_ood_values_on_card_equal_cpu(dev):
+    """ood_values, ood_ext_values and ood_evaluate on the card give the
+    CPU's values; the prover's ood_evaluate is one powers launch and one
+    evaluation launch."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    coeffs = _felts((11, 512), 84, dev)
+    chunks = _felts((6, 512), 85, dev)
+    pts = _ext_points(8, 86)
+    cpu = (gl.GF(coeffs.cpu()), gl.GF(chunks.cpu()))
+    before = _ood_counts()
+    assert pr.ood_evaluate(gl.GF(coeffs), gl.GF(chunks), pts) == pr.ood_evaluate(*cpu, pts)
+    assert _ood_counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert pr.ood_values(gl.GF(coeffs), pts[:2]) == pr.ood_values(cpu[0], pts[:2])
+    ext = lambda c: GF2(c[0::2], c[1::2])
+    assert pr.ood_ext_values(ext(gl.GF(chunks)), pts[0]) == pr.ood_ext_values(ext(cpu[1]), pts[0])
+    assert _ood_counts() == (before[0] + 3, before[1] + 3, before[2])
+
+
+@pytest.mark.parametrize("n_points, log_N", [(1, 0), (2, 5), (8, 12), (3, 17), (8, 19), (2, 18)])
+def test_ood_deep_inverses_kernel_matches_plain(dev, n_points, log_N):
+    """One point a domain point (its inverse there is 0) and one in the
+    base field."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    zks = _ext_points(n_points, log_N)
+    zks[0] = (int(pr._domain_points(log_N, 7)[(1 << log_N) // 3]), 0)
+    before = _ood_counts()
+    got = pr.deep_inverses(log_N, 7, zks, dev)
+    assert _ood_counts() == (before[0], before[1], before[2] + 1)
+    assert got.c0.v.stride() == (1 << log_N, 1) and got.c1.v.data_ptr() > got.c0.v.data_ptr()
+    assert _gf2_equal(got, pr.deep_inverses_plain(log_N, 7, zks, dev))
+
+
+def test_ood_kernels_refuse_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    a = gl.GF(_felts((4, 64), 87, dev))
+    powers = pr.ext_powers(_ext_points(2, 88), 64, dev)
+    before = _ood_counts()
+    with pytest.raises(ValueError, match="points"):
+        pr.ext_powers_cuda(_ext_points(9, 89), 64, dev)
+    with pytest.raises(ValueError, match="points"):
+        pr.deep_inverses_cuda(6, 7, _ext_points(9, 89), dev)
+    with pytest.raises(ValueError, match="unit stride"):
+        pr.ood_eval_cuda(gl.GF(a.v.t().contiguous().t()), None, powers)
+    with pytest.raises(ValueError, match="one contiguous"):
+        pr.ood_eval_cuda(a, None, GF2(powers.c0, gl.GF(powers.c1.v.clone())))
+    with pytest.raises(TypeError):
+        pr.ood_eval_cuda(a, gl.GF(a.v.cpu()), powers)
+    with pytest.raises(ValueError):
+        pr.ood_eval_cuda(gl.GF(a.v[:, :32]), None, powers)
+    assert _ood_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The LogUp aux columns (csrc/logup.cu)
+# ---------------------------------------------------------------------------
+
+
+def _logup_case(K: int, n: int, bits: int, seed: int, dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.stark.lookup import RangeLookup
+
+    width = RangeLookup(list(range(K)), 0, n, bits).width
+    rng = np.random.default_rng(seed)
+    n_cols = K + width + 3
+    mult_base = int(rng.integers(0, n_cols - width + 1))
+    rest = [c for c in range(n_cols) if not mult_base <= c < mult_base + width]
+    lk = RangeLookup([int(c) for c in rng.permutation(rest)[:K]], mult_base, n, bits)
+    g = _felts((2,), seed + 1, dev)
+    return lk, gl.GF(_felts((n_cols, n), seed, dev)), GF2(gl.GF(g[0:1]), gl.GF(g[1:2]))
+
+
+def _logup_counts():
+    from tendermintx_tpu_torch.stark import lookup
+
+    return (lookup.logup_terms_kernel_launches, lookup.logup_scan_kernel_launches)
+
+
+# (checked columns, rows, table bits): pads 0-3, one or several table
+# columns, odd row counts across the scan's runs; the last is Ed25519's at N=128
+LOGUP_SHAPES = [(8, 64, 5), (6, 32, 5), (5, 16, 6), (7, 32, 6), (1, 4, 2), (13, 1 << 12, 13), (1788, 1 << 15, 13)]
+
+
+@pytest.mark.parametrize("K, n, bits", LOGUP_SHAPES)
+def test_logup_kernels_match_plain(dev, K, n, bits):
+    lk, trace, gamma = _logup_case(K, n, bits, 90 + K, dev)
+    before = _logup_counts()
+    got = lk.build_aux(trace, gamma)
+    assert _logup_counts() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got.v, lk.build_aux_plain(trace, gamma).v)
+    out = torch.empty_like(got.v)
+    partial = lk.logup_terms_cuda(trace, gamma, out)
+    rows, want_partial = lk.logup_terms_plain(trace, gamma)
+    assert torch.equal(out[: rows.shape[0]], rows) and torch.equal(partial, want_partial)
+    lk.logup_scan_cuda(partial, out)
+    assert torch.equal(out[rows.shape[0]:], lk.logup_scan_plain(partial))
+
+
+def test_logup_zero_denominator_on_card(dev):
+    """gamma equal to a checked value: the batch's inverse is 0, as on the CPU."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    lk, trace, _ = _logup_case(6, 32, 5, 95, dev)
+    hit = trace.v[lk.checked_cols[2], 7:8].clone()
+    gamma = GF2(gl.GF(hit), gl.GF(torch.zeros(1, dtype=torch.int64, device=dev)))
+    got = lk.build_aux(trace, gamma)
+    assert torch.equal(got.v, lk.build_aux_plain(trace, gamma).v)
+    assert int(got.v[0, 7]) == 0 and int(got.v[1, 7]) == 0
+
+
+def test_logup_kernels_refuse_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    lk, trace, gamma = _logup_case(6, 32, 5, 96, dev)
+    out = torch.empty((lk.n_aux_cols, lk.n_rows), dtype=torch.int64, device=dev)
+    before = _logup_counts()
+    with pytest.raises(ValueError, match="unit stride"):
+        lk.logup_terms_cuda(gl.GF(trace.v.t().contiguous().t()), gamma, out)
+    with pytest.raises(TypeError):
+        lk.logup_terms_cuda(trace, GF2(gl.GF(gamma.c0.v.cpu()), gamma.c1), out)
+    with pytest.raises(ValueError, match="output"):
+        lk.logup_terms_cuda(trace, gamma, out[1:])
+    with pytest.raises(ValueError):
+        lk.logup_terms_cuda(gl.GF(trace.v[:2]), gamma, out)
+    with pytest.raises(ValueError, match="group sums"):
+        lk.logup_scan_cuda(torch.zeros((2, 1, 31), dtype=torch.int64, device=dev), out)
+    assert _logup_counts() == before
+
+
+# ---------------------------------------------------------------------------
 # The constraint quotient's tape kernel (csrc/quotient.cu)
 # ---------------------------------------------------------------------------
 
@@ -569,8 +765,11 @@ def test_quotient_on_card_raises_instead_of_falling_back(dev):
 def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev, tmp_path, monkeypatch):
     """The N=4 skip composite at the parity config proven on the card is
     the CPU's proof byte for byte; on one device the card's quotient is
-    one launch per statement, DEEP one, and each NTT entry launches the
-    passes of ntt_plan for every transform the prove asks of it."""
+    one launch per statement, DEEP one, OOD and the DEEP inverses one each
+    (and two powers launches: alpha's and the opening points'), the LogUp
+    kernels once for the Ed25519 statement, and each NTT entry launches the
+    passes of ntt_plan for every transform the prove asks of it. The CPU
+    prove launches nothing."""
     from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
     from tendermintx_tpu_torch.ops import ntt
     from tendermintx_tpu_torch.stark import prover as pr
@@ -594,15 +793,22 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     monkeypatch.setattr(ntt, "_launch", recorded)
     before = qtm.quotient_kernel_launches
     deep_before, ntt_before = pr.deep_kernel_launches, _ntt_counts()
+    ood_before, logup_before = _ood_counts(), _logup_counts()
     card = prove_skip_composite(1, trusted, 5, inputs, cfg, device=dev)
     assert qtm.quotient_kernel_launches == before + 3
     # one DEEP launch a statement; the LDEs and the quotient's iNTT on the card
     assert pr.deep_kernel_launches == deep_before + 3
+    assert _ood_counts() == (ood_before[0] + 6, ood_before[1] + 3, ood_before[2] + 3)
+    assert _logup_counts() == (logup_before[0] + 1, logup_before[1] + 1)
     ntt_after = _ntt_counts()
     assert ntt_after[1] > ntt_before[1] and ntt_after[2] > ntt_before[2]
     assert tuple(a - b for a, b in zip(ntt_after, ntt_before)) == tuple(planned)
+    launched = (qtm.quotient_kernel_launches, pr.deep_kernel_launches, _ntt_counts(), _ood_counts(),
+                _logup_counts())
     host = prove_skip_composite(1, trusted, 5, inputs, cfg, device="cpu")
     assert card.to_bytes() == host.to_bytes()
+    assert (qtm.quotient_kernel_launches, pr.deep_kernel_launches, _ntt_counts(), _ood_counts(),
+            _logup_counts()) == launched
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,16 @@ def test_ntt_and_deep_sources_name_their_headers():
     assert "ext.cuh" not in names("quotient") + names("ntt") + names("poseidon")
 
 
+def test_ood_and_logup_sources_name_their_headers():
+    names = lambda name: [p.rsplit("/", 1)[-1] for p in cuda_build.source_files(name)]
+    assert names("ood") == ["ood.cu", "ext.cuh", "goldilocks.cuh"]
+    assert names("logup") == ["logup.cu", "ext.cuh", "goldilocks.cuh"]
+    # each has its own library, named by the hash of its own sources
+    paths = {name: cuda_build.library_path(name) for name in ("ood", "logup", "deep")}
+    assert len(set(paths.values())) == 3
+    assert all(os.path.basename(p).startswith(f"lib{name}_") for name, p in paths.items())
+
+
 def test_quotient_sources_include_the_field_header():
     names = [p.rsplit("/", 1)[-1] for p in cuda_build.source_files("quotient")]
     assert names == ["quotient.cu", "goldilocks.cuh"]
