@@ -69,8 +69,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  two (logup_terms, logup_scan) at the Ed25519 statement and
                  at synthetic shapes with pad > 0 and several table
                  columns, each exact against its plain version on the
-                 whole output, with its time, the plain version's and its
-                 bound;
+                 whole output, with its time (the median of five rounds,
+                 the fastest and slowest beside it), the plain version's
+                 and its bound (the function's least work: the DEEP and
+                 LogUp inverses counted as a batch inversion, the chunk
+                 rows at z alone);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -82,8 +85,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  runs it), each NTT entry exactly the pass kernels
                  ntt_plan gives the transforms the path asked of it (so on
                  every path below), the quotient and the DEEP kernel once per
-                 statement, ood_eval and deep_inverses once per statement
-                 and ext_powers twice (on every path below; the LogUp
+                 statement, ood_eval's two kernels, deep_inverses once
+                 and ext_powers twice per statement (on every path below; the LogUp
                  kernels once per Ed25519 statement, none in the hash
                  bundles and the wrap), the warm prove's column sponge once per
                  column-major tree, and the warm proof's
@@ -253,6 +256,13 @@ def _time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_rounds(fn, reps: int, rounds: int = 5) -> dict:
+    """_time_ms over `rounds` rounds: the median round as ms, the fastest
+    and the slowest beside it."""
+    t = sorted(_time_ms(fn, reps) for _ in range(rounds))
+    return {"ms": t[len(t) // 2], "ms_min": t[0], "ms_max": t[-1]}
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -991,10 +1001,16 @@ def _field_bound(muls: int, nbytes: int, muls_per_ms: float) -> dict:
     }
 
 
-# field multiplies of one extension inversion: the norm (3), the base
-# inverse's addition chain (63 squarings and 10 multiplies,
-# csrc/goldilocks.cuh: inv) and the conjugate's two
-EXT_INV_MULS = 3 + 73 + 2
+# The bounds of the inverse tables count the least work of the function,
+# not the kernels' per-element inversion: 1/d for d = d0 + d1 X with d1
+# fixed (-z1 for a DEEP point, gamma1 for a LogUp term) is conj(d) / N(d),
+# N(d) = d0^2 - W d1^2 one multiply (W d1^2 once), the N(d) inverted
+# together by Montgomery's trick at BATCH_INV_MULS an element (a prefix
+# product and two on the way back) and one base inversion, INV_MULS (the
+# addition chain, csrc/goldilocks.cuh: inv), a batch; a zero N(d) is
+# masked to 1, so inv(0) = 0 costs no multiply
+BATCH_INV_MULS = 3
+INV_MULS = 73
 
 
 def _ood_shapes() -> list[tuple[str, object, int, int]]:
@@ -1046,7 +1062,7 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
             raise AssertionError(f"{what} disagrees with its plain version")
         del got, want
         reps = max(2, min(50, int(1000 / max(first_ms, 1e-3))))
-        return {"max_abs_err": 0.0, "ms": _time_ms(kernel, reps), "plain_ms": plain_ms}
+        return {"max_abs_err": 0.0, **_time_rounds(kernel, reps), "plain_ms": plain_ms}
 
     gf2_equal = lambda a, b: torch.equal(a.c0.v, b.c0.v) and torch.equal(a.c1.v, b.c1.v)
     for name, air, log_n, rate in _ood_shapes():
@@ -1068,17 +1084,23 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
         powers = pr.ext_powers_cuda(pts, n, dev)
         r = timed(lambda: pr.ood_eval_cuda(a, b, powers), lambda: pr.ood_eval_plain(a, b, powers),
                   f"ood_eval over {name}'s {n_total} + {2 * n_chunks} rows x {n} at {K} points", torch.equal)
-        n_rows = n_total + 2 * n_chunks
+        # the function: the trace and aux rows at every point, the chunks'
+        # c0 and c1 rows at z alone (the kernel takes them at every point)
+        n_rows, n_out = n_total + 2 * n_chunks, K * n_total + 2 * n_chunks
         rows["ood_eval"][name] = {
             "shape": [n_total, 2 * n_chunks, n, K], "slices": pr._ood_slices(n_rows, n), **r,
-            **_field_bound(2 * K * n_rows * n, 8 * (n_rows * n + 2 * K * n + 2 * K * n_rows), muls_per_ms),
+            **_field_bound(2 * n_out * n, 8 * (n_rows * n + 2 * K * n + 2 * n_out), muls_per_ms),
         }
         del a, b, powers
         r = timed(lambda: pr.deep_inverses_cuda(log_n + rate, NTT_SHIFT, pts, dev),
                   lambda: pr.deep_inverses_plain(log_n + rate, NTT_SHIFT, pts, dev),
                   f"deep_inverses over {name}'s {N} points at {K} points", gf2_equal)
+        # x = x_prev w (N), then a point's norms, their batch inversion and
+        # the conjugate's two products (K N (1 + BATCH_INV_MULS + 2)), one
+        # inversion a point
         rows["deep_inverses"][name] = {
-            "shape": [K, N], **r, **_field_bound(K * N * EXT_INV_MULS + N, 16 * K * N, muls_per_ms),
+            "shape": [K, N], **r,
+            **_field_bound(N + K * N * (3 + BATCH_INV_MULS) + K * INV_MULS, 16 * K * N, muls_per_ms),
         }
     out = {}
     parts = {"ext_powers": ("tmx_ext_powers",), "ood_eval": ("tmx_ood_slices", "tmx_ood_sum"),
@@ -1096,7 +1118,7 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
             "replaces": replaces[kname][0],
             "replaces_program": replaces[kname][1],
             "shape": top["shape"],
-            **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            **{k: top[k] for k in ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
                                    "operations_bound_ms", "bytes_bound_ms", "bytes")},
             "library_ms": None,
             **_registers_of(ptxas, *parts[kname]),
@@ -1158,15 +1180,17 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
     _, terms_plain_ms = _timed_once(lambda: lk.logup_terms_plain(trace, gamma))
     _, scan_plain_ms = _timed_once(lambda: lk.logup_scan_plain(partial))
     _, aux_plain_ms = _timed_once(lambda: lk.build_aux_plain(trace, gamma))
-    terms_ms = _time_ms(lambda: lk.logup_terms_cuda(trace, gamma, out), 20)
-    scan_ms = _time_ms(lambda: lk.logup_scan_cuda(partial, out), 20)
-    aux_ms = _time_ms(lambda: lk.build_aux_cuda(trace, gamma), 20)
-    # multiplies a term a row: a batch's three products of its four
-    # differences, the numerator's two, one inversion and the quotient's
-    # product (ext products at 4); a table term's inversion and two
-    w_muls = 4 * 3 + 4 * 2 + EXT_INV_MULS + 4
-    wt_muls = EXT_INV_MULS + 2
-    terms_bound = _field_bound(n * (nb * w_muls + width * wt_muls),
+    terms = _time_rounds(lambda: lk.logup_terms_cuda(trace, gamma, out), 20)
+    terms["clocks_sm_mhz"] = float(_nvidia_smi("clocks.sm"))  # read just after the rounds
+    scan = _time_rounds(lambda: lk.logup_scan_cuda(partial, out), 20)
+    aux = _time_rounds(lambda: lk.build_aux_cuda(trace, gamma), 20)
+    # the function's least multiplies a row (see BATCH_INV_MULS): a checked
+    # term's norm, batch inversion and d0 / N(d), with gamma1 times the
+    # batch's sum of 1 / N(d) once a batch; a table term's norm, batch
+    # inversion, m / N(d) and its two products with conj(d); one inversion
+    w_muls = 1 + BATCH_INV_MULS + 1
+    wt_muls = 1 + BATCH_INV_MULS + 3
+    terms_bound = _field_bound(n * (K * w_muls + nb + width * wt_muls) + INV_MULS,
                                8 * n * ((K + width) + 2 * (nb + width) + 2 * n_groups) + 8 * K, muls_per_ms)
     scan_bound = _field_bound(0, 8 * n * (2 * n_groups + 2), muls_per_ms)
     checked = [{"checked": K, "rows": n, "table_bits": lk.table_bits, "pad": nb * BATCH - K, "width": width,
@@ -1183,13 +1207,13 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
         "logup_terms": {
             **common, "replaces": "tendermintx_tpu/stark/lookup.py:400",
             "replaces_program": "_aux_w_kernel (:400), _aux_wt_kernel (:443), _aux_assemble_kernel (:474)",
-            "shape": [K, n, nb, width], "groups": [group, n_groups], "ms": terms_ms, "plain_ms": terms_plain_ms,
+            "shape": [K, n, nb, width], "groups": [group, n_groups], **terms, "plain_ms": terms_plain_ms,
             **terms_bound, **_registers_of(ptxas, "tmx_logup_terms"),
-            "aux": {"ms": aux_ms, "plain_ms": aux_plain_ms},
+            "aux": {**aux, "plain_ms": aux_plain_ms},
         },
         "logup_scan": {
             **common, "replaces": "tendermintx_tpu/stark/lookup.py:450",
-            "replaces_program": "_aux_scan_kernel", "shape": [2, n_groups, n], "ms": scan_ms,
+            "replaces_program": "_aux_scan_kernel", "shape": [2, n_groups, n], **scan,
             "plain_ms": scan_plain_ms, **scan_bound, **_registers_of(ptxas, "tmx_logup_scan"),
         },
     }
@@ -1572,11 +1596,11 @@ def _check_ntt_plan(launches: dict, path: str):
 
 
 def _check_ood_launches(launches: dict, statements: int, ed25519: int, path: str):
-    """A statement's OOD is one ood_eval launch and two ext_powers launches
-    (alpha's powers and the opening points'), its DEEP inverses one launch
-    (on the mesh's first device); each Ed25519 statement launches each
-    LogUp kernel once."""
-    want = {"ood_eval": statements, "deep_inverses": statements, "ext_powers": 2 * statements,
+    """A statement's OOD is one ood_eval call (its slice and sum kernels:
+    two launches) and two ext_powers launches (alpha's powers and the
+    opening points'), its DEEP inverses one launch (on the mesh's first
+    device); each Ed25519 statement launches each LogUp kernel once."""
+    want = {"ood_eval": 2 * statements, "deep_inverses": statements, "ext_powers": 2 * statements,
             "logup_terms": ed25519, "logup_scan": ed25519}
     got = {k: launches[k] for k in want}
     if got != want:
@@ -2485,6 +2509,7 @@ def main(argv: list[str]) -> int:
         entry = {"name": name, **{k: row[k] for k in kept},
                  "launches": count(cold_launches, name) + count(warm_launches, name),
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
+        entry.update({k: row[k] for k in ("ms_min", "ms_max") if k in row})
         if name in KERNEL_ENTRIES:
             entry["launches_by_entry"] = {
                 e: {path: launches[e] for path, launches in paths.items()} for e in KERNEL_ENTRIES[name]
@@ -2516,7 +2541,8 @@ def main(argv: list[str]) -> int:
             }
         if entry["name"] in ("ext_powers", "ood_eval", "deep_inverses"):
             entry["airs"] = {
-                air: {k: a[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                air: {k: a[k] for k in ("shape", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
+                                        "max_abs_err")}
                 for air, a in rows[entry["name"]]["airs"].items()
             }
         if entry["name"] in LOGUP_ENTRIES:

@@ -40,6 +40,13 @@ _LOGUP_THREADS = 256
 _LOGUP_BLOCKS = 1024
 
 
+@cache
+def _checked_index(cols: tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """The checked columns' indices on `device`, uploaded once: a fresh
+    upload a launch is a blocking copy that waits for the stream's work."""
+    return torch.tensor(cols, dtype=torch.int64, device=device)
+
+
 def _epair_add(a, b):
     return (a[0] + b[0], a[1] + b[1])
 
@@ -226,7 +233,7 @@ class RangeLookup:
         global logup_terms_kernel_launches
         self._check_cuda(trace, gamma, out)
         dev = trace.device
-        checked = torch.tensor(self.checked_cols, dtype=torch.int64, device=dev)
+        checked = _checked_index(tuple(self.checked_cols), dev)
         partial = torch.empty((2, self.logup_groups()[1], self.n_rows), dtype=torch.int64, device=dev)
         _logup_launch("tmx_logup_terms", self._logup_args(out, partial, trace, gamma, checked), dev)
         logup_terms_kernel_launches += 1

@@ -472,7 +472,8 @@ def deep_cuda(
 # tensor, csrc/ood.cu for a CUDA tensor
 # ---------------------------------------------------------------------------
 
-# incremented exactly where each csrc/ood.cu entry is launched
+# incremented exactly where each csrc/ood.cu entry is launched, by the
+# CUDA kernels it launches (tmx_ood_eval: its slice and sum kernels, 2)
 ext_powers_kernel_launches = 0
 ood_kernel_launches = 0
 deep_inverses_kernel_launches = 0
@@ -619,10 +620,11 @@ def _ood_slices(rows: int, n: int) -> int:
 
 
 def ood_eval_cuda(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
-    """ood_eval_plain's values by one csrc/ood.cu launch (its slice and
-    sum kernels). The row operands may be row views with unit stride along
-    their rows; the powers are (points, n) rows of one (2, points, n)
-    buffer, as ext_powers_cuda returns them."""
+    """ood_eval_plain's values by one call of csrc/ood.cu's tmx_ood_eval,
+    which launches its slice and sum kernels (two counted launches). The
+    row operands may be row views with unit stride along their rows; the
+    powers are (points, n) rows of one (2, points, n) buffer, as
+    ext_powers_cuda returns them."""
     global ood_kernel_launches
     dev = a.device
     if dev.type != "cuda":
@@ -656,7 +658,7 @@ def ood_eval_cuda(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
         partial=partial.data_ptr(), out=out.data_ptr(),
     )
     _ood_launch("tmx_ood_eval", args, dev)
-    ood_kernel_launches += 1
+    ood_kernel_launches += 2
     return out
 
 
@@ -691,21 +693,16 @@ def ood_values(coeffs: GF, points: list[tuple[int, int]]) -> list[list[tuple[int
     return [_pairs(vals, k, 0, int(coeffs.shape[0])) for k in range(len(points))]
 
 
-def ood_ext_values(coeffs: GF2, pt: tuple[int, int]) -> list[tuple[int, int]]:
-    """Evaluate ext-coefficient row polynomials (K, n) at one ext point:
-    each row's c0 and c1 rows evaluated as base rows, then combined."""
-    n, K = int(coeffs.shape[1]), int(coeffs.shape[0])
-    vals = tensor_to_u64(_ood_eval(coeffs.c0, coeffs.c1, ext_powers([pt], n, coeffs.device)))
-    return [_ext_row_at(vals, i, K + i) for i in range(K)]
-
-
 def ood_evaluate(
     coeffs: GF, chunk_rows: GF, points: list[tuple[int, int]]
 ) -> tuple[list[list[tuple[int, int]]], list[tuple[int, int]]]:
     """A statement's OOD values: every row of `coeffs` (trace and aux
     coefficients, (C, n)) at every opening point, and the quotient chunks
     (rows [c0_0, c1_0, c0_1, ...] of `chunk_rows`) at points[0] = z: one
-    ext_powers and one ood_eval over both (a launch each on a card)."""
+    ext_powers and one ood_eval over both (a launch each on a card). The
+    chunk rows ride in the same launch as the trace rows, so they are
+    evaluated at every point and all but points[0]'s values are dropped
+    (about 3% of ood_eval's products for the SHA AIRs' eight points)."""
     n, C = int(coeffs.shape[1]), int(coeffs.shape[0])
     vals = tensor_to_u64(_ood_eval(coeffs, chunk_rows, ext_powers(points, n, coeffs.device)))
     trace = [_pairs(vals, k, 0, C) for k in range(len(points))]

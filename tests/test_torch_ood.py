@@ -1,6 +1,6 @@
 """The port's OOD evaluation and DEEP inverse tables on the CPU
-(stark/prover.py: ext_powers_plain, ood_values, ood_ext_values,
-ood_evaluate, deep_inverses_plain; the card's are csrc/ood.cu,
+(stark/prover.py: ext_powers_plain, ood_values, ood_evaluate,
+deep_inverses_plain; the card's are csrc/ood.cu,
 tests/test_torch_cuda.py) against the JAX package's ``_zpowers_fn``,
 ``_ood_trace_fn`` over ``_gk_table``, ``_ood_ext_fn`` and
 ``_deep_invs_fn``, at one, two and eight opening points (the SHA AIRs'),
@@ -76,8 +76,8 @@ def test_ext_powers_plain_matches_zpowers(log_n):
 )
 def test_ood_values_match_reference(offsets, n_cols, log_n):
     """Every row at z g^k for each offset k, against _ood_trace_fn at z
-    over _gk_table; the quotient chunks at z against _ood_ext_fn; and
-    ood_evaluate, the prover's one call, giving both."""
+    over _gk_table (ood_values), and ood_evaluate, the prover's one call,
+    giving those rows and the quotient chunks at z against _ood_ext_fn."""
     n = 1 << log_n
     rng = np.random.default_rng(100 + n_cols)
     coeffs = _rand((n_cols, n), rng)
@@ -97,7 +97,6 @@ def test_ood_values_match_reference(offsets, n_cols, log_n):
     port_coeffs = GF.from_ints(coeffs)
     port_chunks = GF.from_ints(chunks)
     assert pr.ood_values(port_coeffs, points) == want_rows
-    assert pr.ood_ext_values(GF2(port_chunks[0::2], port_chunks[1::2]), z) == want_quot
     assert pr.ood_evaluate(port_coeffs, port_chunks, points) == (want_rows, want_quot)
 
 

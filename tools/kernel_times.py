@@ -1,7 +1,7 @@
 """Time the NTT and DEEP kernels of one checkout of the port at every
-main-path shape on one card.
+main-path shape on one card, and the LogUp terms kernel round by round.
 
-    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--only ntt,deep]
+    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--only ntt,deep,logup] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -10,7 +10,10 @@ transform of the N=128 paths (`_ntt_shapes()`) through the checkout's
 each AIR's one-device shard (`_quotient_airs()`) through its
 `deep_cuda`. Each kernel is timed alone with CUDA events after a warm-up
 (no plain version, no check: chip_smoke.py holds the kernels against
-their plain versions). Prints one JSON line: the card's name and power
+their plain versions). `logup` times `logup_terms_cuda` at the Ed25519
+statement of the N=128 paths in R rounds of 20 launches, with the SM
+clock and the power draw that nvidia-smi reads after each round, to show
+how far its time spreads within one process and why. Prints one JSON line: the card's name and power
 limit, the label, and per shape the ms. Two checkouts are compared by
 running this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
@@ -33,6 +36,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--label", default="")
     ap.add_argument("--only", default="ntt,deep")
+    ap.add_argument("--rounds", type=int, default=10)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -91,6 +95,19 @@ def main(argv=None) -> int:
                           "ms": timed(lambda: pr.deep_cuda(*args_))}
             del args_, q
         out["deep"] = airs
+    if "logup" in only:
+        from tendermintx_tpu_torch.stark.ed25519_air import Ed25519Air
+
+        air = Ed25519Air(cs.N128_SKIP_STATEMENTS["ed25519"])
+        lk = air.lookup
+        trace, gamma = cs._logup_case(lk, air.n_cols, gen, dev)
+        aux = torch.empty((lk.n_aux_cols, lk.n_rows), dtype=torch.int64, device=dev)
+        rounds = []
+        for _ in range(args.rounds):
+            ms = cs._time_ms(lambda: lk.logup_terms_cuda(trace, gamma, aux), 20)
+            clock, power = cs._nvidia_smi("clocks.sm,power.draw").split(", ")
+            rounds.append({"ms": ms, "clocks_sm_mhz": float(clock), "power_draw_w": float(power)})
+        out["logup_terms"] = {"shape": [len(lk.checked_cols), lk.n_rows], "rounds": rounds}
     print(json.dumps(out), flush=True)
     return 0
 
