@@ -63,9 +63,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  version's and its bound (bytes at 3.35 TB/s or 4
                  multiply-adds a field multiply); then csrc/ood.cu's three
                  entries (ext_powers at the opening points and at alpha,
-                 ood_eval over the trace, aux and chunk rows at every
-                 point, deep_inverses over the LDE domain) at every
-                 statement shape of the N=128 paths, and csrc/logup.cu's
+                 ood_eval over the trace and aux rows at every point and
+                 the chunk rows at z, deep_inverses over the LDE domain)
+                 at every statement shape of the N=128 paths, and csrc/logup.cu's
                  two (logup_terms, logup_scan) at the Ed25519 statement and
                  at synthetic shapes with pad > 0 and several table
                  columns, each exact against its plain version on the
@@ -1043,9 +1043,9 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
     paths (_ood_shapes), each held exactly against its plain version on
     the whole output, with its time, the plain version's and its bound:
     ext_powers at the opening points (n powers each) and at alpha
-    (n_constraints), ood_eval over the trace and aux rows and the quotient
-    chunks' rows at every point, deep_inverses over the LDE domain at
-    every point. Each row's own numbers are Ed25519's."""
+    (n_constraints), ood_eval over the trace and aux rows at every point
+    and the quotient chunks' rows at z alone, deep_inverses over the LDE
+    domain at every point. Each row's own numbers are Ed25519's."""
     from tendermintx_tpu_torch.ops.goldilocks import GF
     from tendermintx_tpu_torch.stark import prover as pr
 
@@ -1085,10 +1085,14 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
         r = timed(lambda: pr.ood_eval_cuda(a, b, powers), lambda: pr.ood_eval_plain(a, b, powers),
                   f"ood_eval over {name}'s {n_total} + {2 * n_chunks} rows x {n} at {K} points", torch.equal)
         # the function: the trace and aux rows at every point, the chunks'
-        # c0 and c1 rows at z alone (the kernel takes them at every point)
+        # c0 and c1 rows at z alone (as the kernel takes them)
         n_rows, n_out = n_total + 2 * n_chunks, K * n_total + 2 * n_chunks
+        threads = pr._ood_threads(n_rows)
+        sms_, blocks_per_sm = pr._ood_occupancy(dev, K, threads)
+        _, slice_, slices = pr._ood_plan(n_rows, n, K, sms_, blocks_per_sm)
         rows["ood_eval"][name] = {
-            "shape": [n_total, 2 * n_chunks, n, K], "slices": pr._ood_slices(n_rows, n), **r,
+            "shape": [n_total, 2 * n_chunks, n, K], "threads": threads, "blocks_per_sm": blocks_per_sm,
+            "point_groups": pr._ood_groups(K)[0], "slice": slice_, "slices": slices, **r,
             **_field_bound(2 * n_out * n, 8 * (n_rows * n + 2 * K * n + 2 * n_out), muls_per_ms),
         }
         del a, b, powers
@@ -1103,7 +1107,7 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
             **_field_bound(N + K * N * (3 + BATCH_INV_MULS) + K * INV_MULS, 16 * K * N, muls_per_ms),
         }
     out = {}
-    parts = {"ext_powers": ("tmx_ext_powers",), "ood_eval": ("tmx_ood_slices", "tmx_ood_sum"),
+    parts = {"ext_powers": ("tmx_ext_powers",), "ood_eval": ("tmx_ood", "tmx_ood_sum"),
              "deep_inverses": ("tmx_deep_inverses",)}
     replaces = {
         "ext_powers": ("tendermintx_tpu/stark/prover.py:565", "_zpowers_fn (the OOD points at :932, alpha at :852)"),
@@ -1129,8 +1133,9 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
 
 # (checked columns, rows, table bits) of the LogUp kernels' synthetic
 # shapes beside the Ed25519 statement's: pad 2 and 3 with one and four
-# table columns, and 13 columns over 2^12 rows
-LOGUP_SYNTHETIC = ((6, 32, 5), (5, 16, 6), (13, 1 << 12, 13))
+# table columns, 13 columns over 2^12 rows, and pad 1 with 17 terms (two
+# runs of 8 and one left over)
+LOGUP_SYNTHETIC = ((6, 32, 5), (5, 16, 6), (13, 1 << 12, 13), (59, 64, 7))
 
 
 def _logup_case(lookup_of, n_cols: int, gen, dev):

@@ -40,6 +40,35 @@ __device__ __forceinline__ E2 inv(E2 a) {
     return {tmx_gl::mul(a.c0, ninv), tmx_gl::neg(tmx_gl::mul(a.c1, ninv))};
 }
 
+// y[i] <- y[i] / n[i] for B extension values over B canonical base values
+// at once, by Montgomery's trick: on the way up each y[i] is multiplied by
+// the product of the n before it, on the way down by the inverse of the
+// product up to n[i], which one inversion starts and each n[i] steps back
+// (6 multiplies an element and one inv). A zero n[i] is masked to 1 in the
+// products, so the others stay exact, and its y[i] becomes 0 (inv(0) =
+// 0). 1/d for d = d0 + d1 X is batch_div of y = conj(d) over n = N(d) =
+// d0^2 - W d1^2. Three words an element stay in registers (y[i], n[i]),
+// so B is a compile-time constant and the loops unroll.
+template <int B>
+__device__ __forceinline__ void batch_div(uint64_t (&n)[B], E2 (&y)[B]) {
+    uint64_t pre = 1;  // n[0] ... n[i-1], below 2^64
+#pragma unroll
+    for (int i = 0; i < B; ++i) {
+        if (n[i] == 0) {
+            n[i] = 1;
+            y[i] = E2{0, 0};
+        }
+        if (i) y[i] = E2{tmx_gl::mul_nc(y[i].c0, pre), tmx_gl::mul_nc(y[i].c1, pre)};
+        pre = i ? tmx_gl::mul_nc(pre, n[i]) : n[i];
+    }
+    uint64_t acc = tmx_gl::inv(tmx_gl::canon(pre));  // 1 / (n[0] ... n[B-1])
+#pragma unroll
+    for (int i = B - 1; i >= 0; --i) {
+        y[i] = scale(y[i], acc);
+        if (i) acc = tmx_gl::mul_nc(acc, n[i]);  // 1 / (n[0] ... n[i-1])
+    }
+}
+
 // a^e by square and multiply
 __device__ __forceinline__ E2 pow(E2 a, uint64_t e) {
     E2 r{1, 0};

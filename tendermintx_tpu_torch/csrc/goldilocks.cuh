@@ -65,11 +65,13 @@ __device__ __forceinline__ uint64_t sub(uint64_t a, uint64_t b) {
     return r;
 }
 
-// a * b: four 32x32->64 products summed as a PTX carry chain on 32-bit
-// halves (csrc/poseidon.cu's form: about one SASS instruction a line), the
+// a * b below 2^64 but not always canonical, for any 64-bit a and b: four
+// 32x32->64 products summed as a PTX carry chain on 32-bit halves
+// (csrc/poseidon.cu's form: about one SASS instruction a line), the
 // 128-bit product lo + 2^64 (r2 + 2^32 r3) reduced with 2^64 == EPS and
-// 2^96 == -1 to a value below 2^64, then made canonical.
-__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
+// 2^96 == -1. For a value that only feeds further products (mul_nc, mac)
+// or canon; mul makes it canonical.
+__device__ __forceinline__ uint64_t mul_nc(uint64_t a, uint64_t b) {
     uint64_t r;
     asm("{\n\t"
         ".reg .u32 a0, a1, b0, b1, r0, r1, r2, r3, s0, s1, t0, t1, c;\n\t"
@@ -109,8 +111,11 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
         "}"
         : "=l"(r)
         : "l"(a), "l"(b));
-    return canon(r);
+    return r;
 }
+
+// a * b, canonical
+__device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) { return canon(mul_nc(a, b)); }
 
 // -a: p - a, and 0 for 0.
 __device__ __forceinline__ uint64_t neg(uint64_t a) { return a ? P - a : 0; }

@@ -19,20 +19,40 @@
 // `_aux_assemble_kernel` (the interleaving copy is gone: each term is
 // stored in its row).
 //
-// Bound: the terms are operations (Ed25519 at N=128: 447 batches x 2^15
-// rows, each one extension inversion, ~75 multiplies, and ~30 more; its
-// reads, 1,789 columns of 2^15, are ~0.47 GB). The grid is over (rows,
-// groups of terms), so a 2^15-row trace still gives enough blocks; a
-// thread computes its group's terms for one row and sums them, and the
-// pad rule of the last batch is the reference's: its missing cells are
-// d = 1 and their numerator terms (pad denom) are taken out. The scan
-// reads only the groups' sums (groups x 2^15 x 16 bytes) in one block of
-// SCAN_THREADS threads, a chunk of SCAN_THREADS consecutive rows at a
-// time (one a thread, read coalesced): a warp-shuffle scan within the
-// warps, then of the warps' totals, plus the chunks before it. Field
-// addition is exact in any order, so every value equals the plain torch
-// version's bit for bit. One inversion a term, not a Montgomery batch: inv(0) = 0 needs
-// no special case.
+// Bound: the terms are operations (Ed25519 at N=128: 447 batches of 4
+// cells and 1 table column x 2^15 rows; its reads, 1,789 columns of 2^15,
+// are ~0.47 GB). A thread takes TERMS consecutive terms of its group at a
+// time and inverts their denominators together: for each term its
+// denominator D and numerator U (a checked term's prod d_i and sum_i
+// prod_{k != i} d_k, a table term's d and m), then the norm N(D) = D.c0^2
+// - W D.c1^2 and Y = U conj(D); the term is Y / N(D), the TERMS divisions
+// done at once (ext.cuh: batch_div, one addition-chain inversion and 6
+// multiplies a term). A zero norm (D = 0: g1 = 0 and gamma's c0 a cell's
+// or a table value) is masked by batch_div, which makes its term 0, as
+// numer * inv(0) is in the reference. A checked term's cells all have c1 =
+// g1, gamma's c1, so with a_i = gamma.c0 - v_i, s01 = a0 + a1, s23 = a2 +
+// a3, x = a0 a1 + W g1^2, y = a2 a3 + W g1^2 and m = s01 s23:
+//
+//   D = x y + W g1^2 m + g1 (x s23 + y s01) X
+//   U = y s01 + x s23 + 2 W g1^2 (s01 + s23) + 2 g1 (x + y + m) X
+//
+// each sum of products added unreduced in a 160-bit accumulator (mac) and
+// reduced once. The last batch, when it has pad cells, takes the
+// reference's own form (pad_term, out of line): its pad cells are d = 1
+// and (BATCH - real) D is taken out of U. The TERMS values Y and norms
+// stay in registers (6 words a term), so four 128-thread blocks fit an SM.
+// On an H100 the kernel is bound by the integer ALU pipe: of its ~1,090
+// SASS instructions a term, ~680 are IADD3, SEL and ISETP, the carries and
+// canonical selects of the field's adds and reductions (PERF.md, PR 12).
+//
+// The grid is over (rows, groups of terms), a group a multiple of TERMS
+// terms, so a 2^15-row trace still gives enough blocks; each thread sums its
+// group's terms for its row. The scan reads only the groups' sums (groups
+// x 2^15 x 16 bytes) in one block of SCAN_THREADS threads, a chunk of
+// SCAN_THREADS consecutive rows at a time (one a thread, read coalesced): a
+// warp-shuffle scan within the warps, then of the warps' totals, plus the
+// chunks before it. Field arithmetic is exact in any order, so every value
+// equals the plain torch version's bit for bit.
 //
 // Each entry has a plain C interface, launches on the caller's stream and
 // returns cudaGetLastError(); the kernels allocate nothing.
@@ -47,7 +67,8 @@
 namespace {
 
 constexpr int BATCH = 4;  // stark/lookup.py: BATCH
-constexpr int THREADS = 256;
+constexpr int TERMS = 8;  // stark/lookup.py: _LOGUP_TERMS, terms a batch inversion
+constexpr int THREADS = 128;  // stark/lookup.py: _LOGUP_THREADS
 constexpr int SCAN_THREADS = 1024;
 
 }  // namespace
@@ -79,46 +100,117 @@ __device__ __forceinline__ uint64_t ld(const uint64_t* p) {
     return __ldg(reinterpret_cast<const unsigned long long*>(p));
 }
 
+// the value of checked cell c at row r
+__device__ __forceinline__ uint64_t cell(const LogupArgs& a, int64_t c, int64_t r) {
+    return ld(a.trace + __ldg(reinterpret_cast<const long long*>(a.checked + c)) * a.trace_ld + r);
+}
+
+__device__ __forceinline__ uint64_t dot2(uint64_t a, uint64_t b, uint64_t c, uint64_t d) {
+    tmx_gl::Acc s{};
+    tmx_gl::mac(s, a, b);
+    tmx_gl::mac(s, c, d);
+    return tmx_gl::reduce(s);
+}
+
+// gamma's parts the terms use
+struct Gamma {
+    uint64_t g0, g1, wg2;  // wg2 = W g1^2
+};
+
+// a term's numerator and denominator
+struct Frac {
+    E2 U, D;
+};
+
+// the last batch t, with pad cells, at row r: d = 1 there, (BATCH - real)
+// D taken out of U (the reference's form); one term of the statement, so
+// kept out of line (its arguments by value: no stack)
+__device__ __noinline__ Frac pad_term(const uint64_t* trace, int64_t trace_ld, const int64_t* checked,
+                                      int64_t n_checked, uint64_t g0, uint64_t g1, int64_t t, int64_t r) {
+    E2 d[BATCH];
+    int real = 0;
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+        const int64_t c = t * BATCH + i;
+        if (c < n_checked) {
+            const int64_t col = __ldg(reinterpret_cast<const long long*>(checked + c));
+            d[i] = E2{tmx_gl::sub(g0, ld(trace + col * trace_ld + r)), g1};
+            ++real;
+        } else {
+            d[i] = E2{1, 0};
+        }
+    }
+    const E2 p01 = tmx_ext::mul(d[0], d[1]), p23 = tmx_ext::mul(d[2], d[3]);
+    const E2 D = tmx_ext::mul(p01, p23);
+    const E2 U = tmx_ext::add(tmx_ext::mul(p23, tmx_ext::add(d[0], d[1])), tmx_ext::mul(p01, tmx_ext::add(d[2], d[3])));
+    return Frac{tmx_ext::sub(U, tmx_ext::scale(D, uint64_t(BATCH - real))), D};
+}
+
+// batch t's numerator U and denominator D at row r (see the top)
+__device__ __forceinline__ Frac batch_term(const LogupArgs& a, const Gamma& g, int64_t t, int64_t r) {
+    const int64_t c0 = t * BATCH;
+    if (c0 + BATCH > a.n_checked) return pad_term(a.trace, a.trace_ld, a.checked, a.n_checked, g.g0, g.g1, t, r);
+    uint64_t x[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) x[i] = tmx_gl::sub(g.g0, cell(a, c0 + i, r));
+    const uint64_t s01 = tmx_gl::add(x[0], x[1]), s23 = tmx_gl::add(x[2], x[3]);
+    const uint64_t p = tmx_gl::add(tmx_gl::mul(x[0], x[1]), g.wg2);
+    const uint64_t q = tmx_gl::add(tmx_gl::mul(x[2], x[3]), g.wg2);
+    const uint64_t m = tmx_gl::mul(s01, s23);
+    tmx_gl::Acc u{};
+    tmx_gl::mac(u, q, s01);
+    tmx_gl::mac(u, p, s23);
+    tmx_gl::mac(u, tmx_gl::add(g.wg2, g.wg2), tmx_gl::add(s01, s23));
+    return Frac{E2{tmx_gl::reduce(u), tmx_gl::mul(tmx_gl::add(g.g1, g.g1), tmx_gl::add(tmx_gl::add(p, q), m))},
+                E2{dot2(p, q, g.wg2, m), tmx_gl::mul(g.g1, dot2(p, s23, q, s01))}};
+}
+
 __global__ void __launch_bounds__(THREADS) tmx_logup_terms_kernel(LogupArgs a) {
     const int64_t r = int64_t(blockIdx.x) * THREADS + threadIdx.x;
     if (r >= a.n) return;
-    const E2 gamma{ld(a.gamma0), ld(a.gamma1)};
+    Gamma g;
+    g.g0 = ld(a.gamma0);
+    g.g1 = ld(a.gamma1);
+    g.wg2 = tmx_gl::mul(tmx_gl::mul(g.g1, g.g1), tmx_ext::W);
     const int64_t terms = a.n_batches + a.width;
     const int64_t t0 = int64_t(blockIdx.y) * a.group;
     const int64_t t1 = t0 + a.group < terms ? t0 + a.group : terms;
+    const uint64_t tr = uint64_t(r % a.span);  // a table column's value is j span + tr
     E2 sum{0, 0};
-    for (int64_t t = t0; t < t1; ++t) {
-        E2 v;
-        if (t < a.n_batches) {
-            E2 d[BATCH];
-            int real = 0;
+    for (int64_t u0 = t0; u0 < t1; u0 += TERMS) {
+        // each term's Y = U conj(D) and N(D); 1 in a slot past the group
+        E2 y[TERMS];
+        uint64_t nrm[TERMS];
 #pragma unroll
-            for (int i = 0; i < BATCH; ++i) {
-                const int64_t c = t * BATCH + i;
-                if (c < a.n_checked) {
-                    const uint64_t x = ld(a.trace + __ldg(reinterpret_cast<const long long*>(a.checked + c)) * a.trace_ld + r);
-                    d[i] = E2{tmx_gl::sub(gamma.c0, x), gamma.c1};
-                    ++real;
-                } else {
-                    d[i] = E2{1, 0};  // a pad cell of the last batch
-                }
+        for (int q = 0; q < TERMS; ++q) {
+            const int64_t t = u0 + q;
+            if (t >= t1) {
+                y[q] = E2{0, 0};
+                nrm[q] = 1;
+                continue;
             }
-            const E2 p01 = tmx_ext::mul(d[0], d[1]), p23 = tmx_ext::mul(d[2], d[3]);
-            const E2 denom = tmx_ext::mul(p01, p23);
-            E2 numer = tmx_ext::add(tmx_ext::mul(p23, tmx_ext::add(d[0], d[1])), tmx_ext::mul(p01, tmx_ext::add(d[2], d[3])));
-            // each pad cell added prod_{k != i} d_k = denom
-            if (real < BATCH) numer = tmx_ext::sub(numer, tmx_ext::scale(denom, uint64_t(BATCH - real)));
-            v = tmx_ext::mul(numer, tmx_ext::inv(denom));
-            sum = tmx_ext::add(sum, v);
-        } else {
-            const int64_t j = t - a.n_batches;
-            const uint64_t tv = uint64_t(j * a.span + r % a.span);
-            const uint64_t m = ld(a.trace + (a.mult_base + j) * a.trace_ld + r);
-            v = tmx_ext::scale(tmx_ext::inv(E2{tmx_gl::sub(gamma.c0, tv), gamma.c1}), m);
-            sum = tmx_ext::sub(sum, v);
+            Frac f;
+            if (t < a.n_batches) {
+                f = batch_term(a, g, t, r);
+            } else {
+                const int64_t j = t - a.n_batches;
+                f.U = E2{ld(a.trace + (a.mult_base + j) * a.trace_ld + r), 0};
+                f.D = E2{tmx_gl::sub(g.g0, uint64_t(j) * uint64_t(a.span) + tr), g.g1};
+            }
+            const uint64_t nwd1 = tmx_gl::neg(tmx_gl::mul(f.D.c1, tmx_ext::W));  // -W D1
+            nrm[q] = dot2(f.D.c0, f.D.c0, nwd1, f.D.c1);
+            y[q] = E2{dot2(f.U.c0, f.D.c0, f.U.c1, nwd1), dot2(f.U.c1, f.D.c0, f.U.c0, tmx_gl::neg(f.D.c1))};
         }
-        a.out[(2 * t) * a.n + r] = v.c0;
-        a.out[(2 * t + 1) * a.n + r] = v.c1;
+        tmx_ext::batch_div(nrm, y);  // Y / N(D), 0 for D = 0
+#pragma unroll
+        for (int q = 0; q < TERMS; ++q) {
+            const int64_t t = u0 + q;
+            if (t >= t1) break;
+            const E2 v = y[q];
+            sum = t < a.n_batches ? tmx_ext::add(sum, v) : tmx_ext::sub(sum, v);
+            a.out[(2 * t) * a.n + r] = v.c0;
+            a.out[(2 * t + 1) * a.n + r] = v.c1;
+        }
     }
     a.partial[blockIdx.y * a.n + r] = sum.c0;
     a.partial[(a.n_groups + blockIdx.y) * a.n + r] = sum.c1;
@@ -182,8 +274,8 @@ __global__ void __launch_bounds__(SCAN_THREADS) tmx_logup_scan_kernel(LogupArgs 
 
 bool valid(const LogupArgs& a) {
     return a.n >= 1 && a.n_checked >= 0 && a.n_batches == (a.n_checked + BATCH - 1) / BATCH && a.width >= 0 &&
-           a.span >= 1 && a.group >= 1 && a.n_groups == (a.n_batches + a.width + a.group - 1) / a.group &&
-           a.n_groups >= 1 && a.n_groups <= 65535;
+           a.span >= 1 && a.group >= 1 && a.group % TERMS == 0 &&
+           a.n_groups == (a.n_batches + a.width + a.group - 1) / a.group && a.n_groups >= 1 && a.n_groups <= 65535;
 }
 
 }  // namespace

@@ -24,15 +24,36 @@
 //   so every power equals the sequential product's.
 // - ood_eval reads each coefficient once for all points (Ed25519 at N=128:
 //   2,929 rows x 2^15, 768 MB) and does two 64 x 64 products a coefficient
-//   a point. A block takes ROWS rows (one a thread) over one slice of the
-//   row length; each tile of TJ coefficients of its rows is staged in
-//   shared memory by coalesced loads (row stride TJ + 1 words: no bank
-//   conflict when each thread reads its own row), with the points' powers
-//   of the tile beside it, read as broadcasts. The products are summed
-//   unreduced in 160-bit accumulators (goldilocks.cuh: Acc, mac, reduce),
-//   reduced once a slice; a second kernel sums the slices' canonical
-//   partials, a warp an output (field adds, exact in any order). The slice count gives the
-//   few-row statements (SHA-256: 176 rows x 2^16) enough blocks.
+//   a point, each a multiply-add into a 160-bit sum: bytes-bound in the
+//   function, issue- and latency-bound in the kernel, the SHA AIRs' few
+//   rows at 8 points most. So the design buys warps and cuts
+//   instructions. A block takes `threads` rows, one a thread, at 1, 2 or
+//   GROUP_POINTS points (a point group: grid.z), over one slice of the row
+//   length (grid.y), which it walks in tiles of TJ coefficients. Each tile
+//   of its rows and of its points' powers is copied into a ring of STAGES
+//   tiles in shared memory with cp.async (16-byte copies, 8-byte where a
+//   row is not 16-byte aligned, zero-filled past the row's end; each
+//   thread's copies fixed for the block), so the next STAGES - 1 tiles are
+//   in flight while the block multiplies the current one; cp.async rather
+//   than TMA because the operands are row views of any stride, the chunk
+//   rows a strided view of the quotient's block, and the last tile
+//   ragged. A staged row is padded to LD words, so the 16-byte reads of
+//   eight consecutive threads, each of its own row, hit distinct banks;
+//   one 16-byte read gives a row's two coefficients, another two powers of
+//   a point (a broadcast: two consecutive powers of one component rather
+//   than a power's c0 and c1, the same one read for two products, and
+//   copied as ext_powers lays them out). The products are summed
+//   unreduced in Dot accumulators (two carry chains: ~9 SASS
+//   instructions a product, 5 of them IMAD.WIDE), reduced once a slice; a
+//   second kernel adds the slices' canonical partials (field adds, exact
+//   in any order). The rows of a are evaluated at every point, those of b
+//   (the quotient chunks' c0 and c1 rows) at the first point alone, by the
+//   first point group.
+//   stark/prover.py::_ood_plan picks the threads (32, 64 or 128, the
+//   fewest idle) and the slices: about one wave of resident blocks
+//   (tmx_ood_occupancy) over the card. Two rows a thread (one power read
+//   feeding both) measured slower at every N=128 shape: their
+//   accumulators halve the resident warps (PERF.md, PR 12).
 // - deep_inverses writes 16 bytes a (point, x) pair and inverts one
 //   extension value for it: a norm, one base inversion by an addition chain
 //   of 73 multiplies (goldilocks.cuh: inv), and three multiplies; x comes
@@ -46,6 +67,7 @@
 
 #include <cstdint>
 #include <climits>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -54,14 +76,19 @@
 namespace {
 
 constexpr int MAX_POINTS = 8;  // stark/prover.py: OOD_MAX_POINTS
-// stark/prover.py: OOD_MAX_LENGTH, coefficients a row: a slice's 160-bit
-// sums (below 2^32 products under 2^128 each) never wrap
+// stark/prover.py: OOD_MAX_LENGTH and OOD_MAX_SLICE, coefficients a row
+// and a slice: a slice's sums (Dot) never wrap
 constexpr int64_t MAX_LENGTH = (int64_t(1) << 32) - 1;
-constexpr int RUN = 16;        // ext_powers: consecutive powers a thread
+constexpr int64_t MAX_SLICE = int64_t(1) << 30;
+constexpr int RUN = 16;  // ext_powers: consecutive powers a thread
 constexpr int THREADS = 128;
-constexpr int ROWS = THREADS;  // ood_eval: rows a block, one a thread
-constexpr int TJ = 32;         // ood_eval: coefficients of a row a tile
-constexpr int SUM_THREADS = 256;
+// ood_eval: stark/prover.py: OOD_TJ, OOD_GROUP_POINTS, OOD_MAX_THREADS
+constexpr int TJ = 8;              // coefficients of a row a tile
+constexpr int LD = TJ + 2;         // a staged row's stride in words
+constexpr int STAGES = 4;          // the ring of tiles in shared memory
+constexpr int GROUP_POINTS = 4;    // points a block evaluates, at most
+constexpr int MAX_THREADS = 128;   // a block's threads (and rows): 32, 64 or 128
+constexpr int SUM_X = 32, SUM_Y = 16;  // the slice sum: outputs by slice lanes a block
 
 }  // namespace
 
@@ -76,7 +103,9 @@ struct PowersArgs {
 
 // stark/prover.py::_OodArgs, field for field. The rows are those of a,
 // then those of b (a quotient chunk's c0 and c1 rows, say); each is
-// row-major with unit stride along its rows and the given row stride.
+// row-major with unit stride along its rows and the given row stride. The
+// output holds the rows of a at every point, (2, n_points, n_a), then
+// those of b at the first point, (2, n_b): n_out = 2 (n_points n_a + n_b).
 struct OodArgs {
     const uint64_t* a;  // (n_a, n)
     int64_t a_ld;
@@ -87,9 +116,11 @@ struct OodArgs {
     const uint64_t* powers;  // (2, n_points, n), as ext_powers writes them
     int64_t n_points;
     int64_t n;
-    int64_t slices;     // the row length cut into this many slices
-    uint64_t* partial;  // (slices, 2, n_points, n_a + n_b) scratch
-    uint64_t* out;      // (2, n_points, n_a + n_b)
+    int64_t threads;    // a block's threads
+    int64_t slice;      // coefficients a slice, a multiple of TJ
+    int64_t slices;     // ceil(n / slice)
+    uint64_t* partial;  // (slices, n_out) scratch
+    uint64_t* out;      // (n_out)
 };
 
 // stark/prover.py::_InvArgs, field for field
@@ -126,72 +157,240 @@ __global__ void __launch_bounds__(THREADS) tmx_ext_powers_kernel(PowersArgs a) {
     }
 }
 
-template <int NP>
-__global__ void __launch_bounds__(THREADS) tmx_ood_slices_kernel(OodArgs a) {
-    __shared__ uint64_t tile[ROWS][TJ + 1];
-    __shared__ uint64_t sp0[NP][TJ], sp1[NP][TJ];
-    const int64_t rows = a.n_a + a.n_b;
-    const int64_t r0 = int64_t(blockIdx.x) * ROWS;
-    const int64_t row = r0 + threadIdx.x;
-    const int64_t len = (a.n + a.slices - 1) / a.slices;
-    const int64_t js = int64_t(blockIdx.y) * len;
-    const int64_t je = js + len < a.n ? js + len : a.n;
-    tmx_gl::Acc acc[NP][2];
-#pragma unroll
-    for (int k = 0; k < NP; ++k)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-#pragma unroll
-            for (int w = 0; w < 5; ++w) acc[k][c].w[w] = 0;
+// cp.async copies from device to shared memory, bypassing the registers:
+// `bytes` of the 16 (or 8) read, the rest zero-filled
+__device__ __forceinline__ void cp_async16(uint64_t* smem, const uint64_t* gmem, int bytes) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("{\n\t.reg .u64 g;\n\tcvta.to.global.u64 g, %1;\n\tcp.async.cg.shared.global [%0], [g], 16, %2;\n\t}"
+                 :: "r"(dst), "l"(gmem), "r"(bytes) : "memory");
+}
 
-    for (int64_t j0 = js; j0 < je; j0 += TJ) {
-        __syncthreads();  // the previous tile is read
-        // each warp stages TJ = 32 consecutive words of one row at a time
-        for (int i = threadIdx.x; i < ROWS * TJ; i += THREADS) {
-            const int rr = i / TJ, jj = i % TJ;
-            const int64_t r = r0 + rr, j = j0 + jj;
-            uint64_t v = 0;  // rows and columns past the ends add nothing
-            if (r < rows && j < je) v = r < a.n_a ? ld(a.a + r * a.a_ld + j) : ld(a.b + (r - a.n_a) * a.b_ld + j);
-            tile[rr][jj] = v;
-        }
-        for (int i = threadIdx.x; i < NP * TJ; i += THREADS) {
-            const int k = i / TJ, jj = i % TJ;
-            const int64_t j = j0 + jj;
-            sp0[k][jj] = j < je ? ld(a.powers + k * a.n + j) : 0;
-            sp1[k][jj] = j < je ? ld(a.powers + (a.n_points + k) * a.n + j) : 0;
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int jj = 0; jj < TJ; ++jj) {
-            const uint64_t t = tile[threadIdx.x][jj];
+__device__ __forceinline__ void cp_async8(uint64_t* smem, const uint64_t* gmem, int bytes) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+    asm volatile("{\n\t.reg .u64 g;\n\tcvta.to.global.u64 g, %1;\n\tcp.async.ca.shared.global [%0], [g], 8, %2;\n\t}"
+                 :: "r"(dst), "l"(gmem), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory"); }
+
+__device__ __forceinline__ ulonglong2 lds16(const uint64_t* p) { return *reinterpret_cast<const ulonglong2*>(p); }
+
+// words of one stage of the ring: the rows' tile, then the powers' (c0 of
+// each of the block's points, then c1, TJ words each)
+template <int NP>
+__device__ __host__ __forceinline__ int stage_words(int threads) { return threads * LD + 2 * NP * TJ; }
+
+// the points of point group z: NP of them from z NP, fewer in the last
+__device__ __forceinline__ int group_points(const OodArgs& a, int np, int z) {
+    const int left = int(a.n_points) - z * np;
+    return left < np ? left : np;
+}
+
+// A thread's cp.async copies of W words (2: 16 bytes, 1: 8) into each
+// stage, fixed for the block: slot m < PER_ROW copies words w .. w + W - 1
+// of a row of the rows' tile (PER_ROW copies a row, to consecutive
+// threads: a warp reads 32 / PER_ROW rows' TJ words), slots PER_ROW and
+// PER_ROW + 1 those of a power row (component c of the block's point k;
+// 2 NP PER_ROW <= 2 T copies). A tile offsets the sources; copies past the
+// row's end are zero-filled. The powers of a point past the last are not
+// copied: their products are never stored.
+template <int NP, int W>
+struct Copies {
+    static constexpr int PER_ROW = TJ / W, SLOTS = PER_ROW + 2;
+    const uint64_t* from[SLOTS];  // the row's first word
+    // a slot's first word in a stage: to0 + m step for a row's, pto + (m -
+    // PER_ROW) (T / PER_ROW) TJ for a power's
+    int to0, step, pto;
+    int w;           // the first of the thread's words in a tile's row
+    unsigned slots;  // bit m: slot m copies
+
+    __device__ __forceinline__ Copies(const OodArgs& a, int64_t r0, int nr, int k0, int T) {
+        const int t = threadIdx.x;
+        w = (t % PER_ROW) * W;
+        to0 = (t / PER_ROW) * LD + w;
+        step = (T / PER_ROW) * LD;
+        pto = T * LD + (t / PER_ROW) * TJ + w;
+        slots = 0;
 #pragma unroll
-            for (int k = 0; k < NP; ++k) {
-                tmx_gl::mac(acc[k][0], sp0[k][jj], t);
-                tmx_gl::mac(acc[k][1], sp1[k][jj], t);
+        for (int m = 0; m < PER_ROW; ++m) {
+            const int rr = t / PER_ROW + m * (T / PER_ROW);
+            const int64_t g = r0 + rr;
+            from[m] = a.a;
+            if (rr < nr) {
+                from[m] = g < a.n_a ? a.a + g * a.a_ld : a.b + (g - a.n_a) * a.b_ld;
+                slots |= 1u << m;
+            }
+        }
+#pragma unroll
+        for (int m = PER_ROW; m < SLOTS; ++m) {
+            const int ck = (t + (m - PER_ROW) * T) / PER_ROW, c = ck / NP, k = k0 + ck % NP;
+            from[m] = a.powers;
+            if (ck < 2 * NP && k < a.n_points) {
+                from[m] = a.powers + (c * a.n_points + k) * a.n;
+                slots |= 1u << m;
             }
         }
     }
-    if (row >= rows) return;
-    // partial (slices, 2, n_points, rows)
-    uint64_t* p = a.partial + int64_t(blockIdx.y) * 2 * NP * rows + row;
+
+    // every copy of the tile at coefficient j0 into `stage`
+    __device__ __forceinline__ void operator()(const OodArgs& a, uint64_t* stage, int64_t j0, int T) const {
+        const int64_t j = j0 + w, left = a.n - j;
+        const int bytes = left >= W ? 8 * W : left <= 0 ? 0 : 8 * int(left);
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
-#pragma unroll
-        for (int k = 0; k < NP; ++k) p[(c * NP + k) * rows] = tmx_gl::reduce(acc[k][c]);
+        for (int m = 0; m < SLOTS; ++m) {
+            if (!((slots >> m) & 1)) continue;
+            uint64_t* to = stage + (m < PER_ROW ? to0 + m * step : pto + (m - PER_ROW) * (T / PER_ROW) * TJ);
+            if constexpr (W == 2)
+                cp_async16(to, bytes ? from[m] + j : from[m], bytes);
+            else
+                cp_async8(to, bytes ? from[m] + j : from[m], bytes);
+        }
+    }
+};
+
+// A slice's sum of 128-bit products b t in two carry chains: the diagonal
+// halves b0 t0 + 2^64 b1 t1 in five 32-bit limbs (w), the cross halves
+// b0 t1 + b1 t0 in three at 2^32 (x), added together once (reduce_dot):
+// 11 instructions a product and two chains that interleave, where
+// goldilocks.cuh's mac takes 13 in one. x holds 2^31 products (MAX_SLICE).
+struct Dot {
+    uint32_t w[5], x[3];
+};
+
+__device__ __forceinline__ void dot_mac(Dot& s, uint64_t b, uint64_t t) {
+    const uint32_t b0 = uint32_t(b), b1 = uint32_t(b >> 32), t0 = uint32_t(t), t1 = uint32_t(t >> 32);
+    asm("mad.lo.cc.u32 %0, %5, %7, %0;\n\t"
+        "madc.hi.cc.u32 %1, %5, %7, %1;\n\t"
+        "madc.lo.cc.u32 %2, %6, %8, %2;\n\t"
+        "madc.hi.cc.u32 %3, %6, %8, %3;\n\t"
+        "addc.u32 %4, %4, 0;"
+        : "+r"(s.w[0]), "+r"(s.w[1]), "+r"(s.w[2]), "+r"(s.w[3]), "+r"(s.w[4])
+        : "r"(b0), "r"(b1), "r"(t0), "r"(t1));
+    asm("mad.lo.cc.u32 %0, %3, %6, %0;\n\t"
+        "madc.hi.cc.u32 %1, %3, %6, %1;\n\t"
+        "addc.u32 %2, %2, 0;\n\t"
+        "mad.lo.cc.u32 %0, %4, %5, %0;\n\t"
+        "madc.hi.cc.u32 %1, %4, %5, %1;\n\t"
+        "addc.u32 %2, %2, 0;"
+        : "+r"(s.x[0]), "+r"(s.x[1]), "+r"(s.x[2])
+        : "r"(b0), "r"(b1), "r"(t0), "r"(t1));
 }
 
-// out[o] = sum over the slices of partial[s][o], o < 2 n_points rows:
-// one warp an output, each lane every 32nd slice, then a shuffle tree
-__global__ void __launch_bounds__(SUM_THREADS) tmx_ood_sum_kernel(OodArgs a) {
-    const int64_t total = 2 * a.n_points * (a.n_a + a.n_b);
-    const int64_t o = (int64_t(blockIdx.x) * SUM_THREADS + threadIdx.x) / 32;
-    const int lane = threadIdx.x % 32;
-    if (o >= total) return;  // whole warps leave together
-    uint64_t s = 0;
-    for (int64_t i = lane; i < a.slices; i += 32) s = tmx_gl::add(s, ld(a.partial + i * total + o));
+// the canonical value of w + 2^32 x (below 2^160 for up to 2^31 products)
+__device__ __forceinline__ uint64_t reduce_dot(const Dot& s) {
+    tmx_gl::Acc t{{s.w[0], s.w[1], s.w[2], s.w[3], s.w[4]}};
+    asm("add.cc.u32 %0, %0, %4;\n\t"
+        "addc.cc.u32 %1, %1, %5;\n\t"
+        "addc.cc.u32 %2, %2, %6;\n\t"
+        "addc.u32 %3, %3, 0;"
+        : "+r"(t.w[1]), "+r"(t.w[2]), "+r"(t.w[3]), "+r"(t.w[4])
+        : "r"(s.x[0]), "r"(s.x[1]), "r"(s.x[2]));
+    return tmx_gl::reduce(t);
+}
+
+// A tile's products for a thread's row at the first KP of the block's NP
+// points: x is its row's staged words, pw the powers'. No branch among
+// the products, so the compiler interleaves the accumulators' chains.
+template <int NP, int KP>
+__device__ __forceinline__ void tile_macs(const uint64_t* x, const uint64_t* pw, Dot (&acc)[NP][2]) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s = tmx_gl::add(s, __shfl_down_sync(0xFFFFFFFFu, (unsigned long long)s, off));
-    if (lane == 0) a.out[o] = s;
+    for (int jj = 0; jj < TJ; jj += 2) {
+        const ulonglong2 c = lds16(x + jj);
+#pragma unroll
+        for (int k = 0; k < KP; ++k) {
+            const ulonglong2 p0 = lds16(pw + k * TJ + jj), p1 = lds16(pw + (NP + k) * TJ + jj);
+            dot_mac(acc[k][0], p0.x, c.x);
+            dot_mac(acc[k][0], p0.y, c.y);
+            dot_mac(acc[k][1], p1.x, c.x);
+            dot_mac(acc[k][1], p1.y, c.y);
+        }
+    }
+}
+
+template <int NP, int W>
+__device__ __forceinline__ void ood_block(const OodArgs& a, uint64_t* smem) {
+    const int T = blockDim.x, t = threadIdx.x;
+    const int64_t rows = a.n_a + a.n_b;
+    const int64_t row_blocks = (rows + T - 1) / T;
+    const int64_t block_rows = (rows + row_blocks - 1) / row_blocks;
+    const int64_t r0 = int64_t(blockIdx.x) * block_rows;
+    const int nr = int(rows - r0 < block_rows ? rows - r0 : block_rows);
+    const int64_t js = int64_t(blockIdx.y) * a.slice;
+    const int64_t je = js + a.slice < a.n ? js + a.slice : a.n;
+    const int tiles = int((je - js + TJ - 1) / TJ);
+    const int sw = stage_words<NP>(T);
+    const int k0 = int(blockIdx.z) * NP, kn = group_points(a, NP, blockIdx.z);
+    // the thread's row: of a (kind 1), of b in the first group (kind 2), or
+    // none (past the block's rows, or b's in a later group)
+    const int64_t g = r0 + t;
+    const int kind = t >= nr ? 0 : g < a.n_a ? 1 : blockIdx.z == 0 ? 2 : 0;
+    const Copies<NP, W> copy(a, r0, nr, k0, T);
+
+    Dot acc[NP][2];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) acc[k][0] = acc[k][1] = Dot{};
+
+#pragma unroll
+    for (int p = 0; p < STAGES - 1; ++p) {
+        if (p < tiles) copy(a, smem + p * sw, js + int64_t(p) * TJ, T);
+        cp_async_commit();
+    }
+    for (int tile = 0; tile < tiles; ++tile) {
+        cp_async_wait<STAGES - 2>();  // this thread's copies of the tile have landed
+        __syncthreads();              // everyone's, and the slot refilled below is read
+        const int next = tile + STAGES - 1;
+        if (next < tiles) copy(a, smem + (next % STAGES) * sw, js + int64_t(next) * TJ, T);
+        cp_async_commit();
+        const uint64_t* buf = smem + (tile % STAGES) * sw;
+        if (kind == 1)
+            tile_macs<NP, NP>(buf + t * LD, buf + T * LD, acc);
+        else if (kind == 2)
+            tile_macs<NP, 1>(buf + t * LD, buf + T * LD, acc);
+    }
+
+    // partial (slices, n_out): a's rows at (c, k, row), then b's at (c, row)
+    uint64_t* p = a.partial + int64_t(blockIdx.y) * 2 * (a.n_points * a.n_a + a.n_b);
+    if (kind == 1) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int k = 0; k < NP; ++k)
+                if (k < kn) p[(c * a.n_points + k0 + k) * a.n_a + g] = reduce_dot(acc[k][c]);
+    } else if (kind == 2) {
+        const int64_t gb = 2 * a.n_points * a.n_a + (g - a.n_a);
+        p[gb] = reduce_dot(acc[0][0]);
+        p[gb + a.n_b] = reduce_dot(acc[0][1]);
+    }
+}
+
+template <int NP>
+__global__ void __launch_bounds__(MAX_THREADS) tmx_ood_kernel(OodArgs a, bool vec) {
+    extern __shared__ __align__(16) uint64_t smem[];
+    if (vec)
+        ood_block<NP, 2>(a, smem);
+    else
+        ood_block<NP, 1>(a, smem);
+}
+
+// out[o] = sum over the slices of partial[s][o]: SUM_X outputs a block,
+// SUM_Y lanes of slices each (coalesced along o), then the lanes added
+__global__ void __launch_bounds__(SUM_X * SUM_Y) tmx_ood_sum_kernel(OodArgs a) {
+    __shared__ uint64_t lane[SUM_Y][SUM_X];
+    const int64_t n_out = 2 * (a.n_points * a.n_a + a.n_b);
+    const int64_t o = int64_t(blockIdx.x) * SUM_X + threadIdx.x;
+    uint64_t s = 0;
+    if (o < n_out)
+        for (int64_t i = threadIdx.y; i < a.slices; i += SUM_Y) s = tmx_gl::add(s, ld(a.partial + i * n_out + o));
+    lane[threadIdx.y][threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.y == 0 && o < n_out) {
+#pragma unroll
+        for (int y = 1; y < SUM_Y; ++y) s = tmx_gl::add(s, lane[y][threadIdx.x]);
+        a.out[o] = s;
+    }
 }
 
 __global__ void __launch_bounds__(THREADS) tmx_deep_inverses_kernel(InvArgs a) {
@@ -209,9 +408,55 @@ __global__ void __launch_bounds__(THREADS) tmx_deep_inverses_kernel(InvArgs a) {
     }
 }
 
+// the most dynamic shared memory a kernel instance can ask for, set once
+// for each instance on each device
+template <auto kernel>
+cudaError_t allow_smem(size_t bytes) {
+    constexpr int MAX_DEVICES = 64;
+    static bool done[MAX_DEVICES] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev])) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+    return err;
+}
+
 template <int NP>
-void launch_slices(const OodArgs& a, int64_t row_blocks, cudaStream_t s) {
-    tmx_ood_slices_kernel<NP><<<dim3((unsigned)row_blocks, (unsigned)a.slices), THREADS, 0, s>>>(a);
+cudaError_t launch_ood(const OodArgs& a, bool vec, int64_t row_blocks, int groups, cudaStream_t s) {
+    cudaError_t err = allow_smem<tmx_ood_kernel<NP>>(sizeof(uint64_t) * STAGES * stage_words<NP>(MAX_THREADS));
+    if (err != cudaSuccess) return err;
+    const size_t used = sizeof(uint64_t) * STAGES * stage_words<NP>(int(a.threads));
+    const dim3 grid((unsigned)row_blocks, (unsigned)a.slices, (unsigned)groups);
+    tmx_ood_kernel<NP><<<grid, (unsigned)a.threads, used, s>>>(a, vec);
+    return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t occupancy(int threads, int* blocks) {
+    cudaError_t err = allow_smem<tmx_ood_kernel<NP>>(sizeof(uint64_t) * STAGES * stage_words<NP>(MAX_THREADS));
+    if (err != cudaSuccess) return err;
+    const size_t bytes = sizeof(uint64_t) * STAGES * stage_words<NP>(threads);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, tmx_ood_kernel<NP>, threads, bytes);
+}
+
+// f(NP) for the runtime np (1, 2, 4 .. GROUP_POINTS) as a compile-time
+// constant
+template <int NP = 1, class F>
+cudaError_t with_points(int np, F&& f) {
+    if constexpr (NP < GROUP_POINTS)
+        if (np > NP) return with_points<2 * NP>(np, f);
+    return f(std::integral_constant<int, NP>{});
+}
+
+// the point groups of n_points points, and the points a group takes: a
+// power of two, the last group's real points fewer where they do not fill
+// it (stark/prover.py::_ood_groups)
+void point_groups(int64_t n_points, int* groups, int* np) {
+    *groups = int((n_points + GROUP_POINTS - 1) / GROUP_POINTS);
+    const int64_t each = (n_points + *groups - 1) / *groups;
+    for (*np = 1; *np < each; *np *= 2) {
+    }
 }
 
 }  // namespace
@@ -229,28 +474,38 @@ extern "C" int tmx_ext_powers(const PowersArgs* args, void* stream) {
 extern "C" int tmx_ood_eval(const OodArgs* args, void* stream) {
     const OodArgs& a = *args;
     const int64_t rows = a.n_a + a.n_b;
+    const bool threads_ok = a.threads == 32 || a.threads == 64 || a.threads == MAX_THREADS;
     if (a.n_points < 1 || a.n_points > MAX_POINTS || a.n_a < 0 || a.n_b < 0 || (a.n_b > 0 && !a.b) ||
-        a.n < 1 || a.n > MAX_LENGTH || a.slices < 1 || a.slices > 65535 || a.slices > a.n)
+        a.n < 1 || a.n > MAX_LENGTH || !threads_ok || a.slice < TJ || a.slice % TJ != 0 || a.slice > MAX_SLICE ||
+        a.slices != (a.n + a.slice - 1) / a.slice || a.slices > 65535)
         return (int)cudaErrorInvalidValue;
     if (rows == 0) return 0;
-    const int64_t row_blocks = (rows + ROWS - 1) / ROWS;
-    const int64_t sum_blocks = (2 * a.n_points * rows * 32 + SUM_THREADS - 1) / SUM_THREADS;
+    const int64_t row_blocks = (rows + a.threads - 1) / a.threads;
+    const int64_t n_out = 2 * (a.n_points * a.n_a + a.n_b);
+    const int64_t sum_blocks = (n_out + SUM_X - 1) / SUM_X;
     if (row_blocks > INT_MAX || sum_blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    // 16-byte copies when every row and power row starts 16-byte aligned
+    const uintptr_t align = uintptr_t(a.a) | uintptr_t(a.a_ld * 8) | uintptr_t(a.powers) | uintptr_t(a.n * 8) |
+                            (a.n_b > 0 ? uintptr_t(a.b) | uintptr_t(a.b_ld * 8) : 0);
+    const bool vec = (align & 15) == 0;
     const cudaStream_t s = (cudaStream_t)stream;
-    switch (a.n_points) {
-        case 1: launch_slices<1>(a, row_blocks, s); break;
-        case 2: launch_slices<2>(a, row_blocks, s); break;
-        case 3: launch_slices<3>(a, row_blocks, s); break;
-        case 4: launch_slices<4>(a, row_blocks, s); break;
-        case 5: launch_slices<5>(a, row_blocks, s); break;
-        case 6: launch_slices<6>(a, row_blocks, s); break;
-        case 7: launch_slices<7>(a, row_blocks, s); break;
-        default: launch_slices<8>(a, row_blocks, s); break;
-    }
-    const cudaError_t err = cudaGetLastError();
+    int groups, np;
+    point_groups(a.n_points, &groups, &np);
+    const cudaError_t err =
+        with_points(np, [&](auto k) { return launch_ood<decltype(k)::value>(a, vec, row_blocks, groups, s); });
     if (err != cudaSuccess) return (int)err;
-    tmx_ood_sum_kernel<<<(unsigned)sum_blocks, SUM_THREADS, 0, s>>>(a);
+    tmx_ood_sum_kernel<<<(unsigned)sum_blocks, dim3(SUM_X, SUM_Y), 0, s>>>(a);
     return (int)cudaGetLastError();
+}
+
+// the blocks of `threads` threads of the ood_eval kernel for n_points that
+// one SM holds at once (stark/prover.py::_ood_plan sizes the slices by it)
+extern "C" int tmx_ood_occupancy(int64_t n_points, int64_t threads, int* blocks) {
+    if (n_points < 1 || n_points > MAX_POINTS || !(threads == 32 || threads == 64 || threads == MAX_THREADS))
+        return (int)cudaErrorInvalidValue;
+    int groups, np;
+    point_groups(n_points, &groups, &np);
+    return (int)with_points(np, [&](auto k) { return occupancy<decltype(k)::value>(int(threads), blocks); });
 }
 
 extern "C" int tmx_deep_inverses(const InvArgs* args, void* stream) {

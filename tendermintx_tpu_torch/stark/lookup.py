@@ -35,9 +35,12 @@ BATCH = 4  # checked values per aux column -> constraint degree BATCH + 1
 logup_terms_kernel_launches = 0
 logup_scan_kernel_launches = 0
 # csrc/logup.cu's terms grid: rows by groups of terms, the groups cut until
-# about _LOGUP_BLOCKS blocks of _LOGUP_THREADS rows fill the card
-_LOGUP_THREADS = 256
-_LOGUP_BLOCKS = 1024
+# about _LOGUP_BLOCKS blocks of _LOGUP_THREADS rows fill the card; a group
+# is a multiple of _LOGUP_TERMS, the terms a thread divides by their norms
+# together
+_LOGUP_THREADS = 128
+_LOGUP_BLOCKS = 2048
+_LOGUP_TERMS = 8
 
 
 @cache
@@ -176,11 +179,13 @@ class RangeLookup:
     # -- prover: aux columns (csrc/logup.cu) -----------------------------------
 
     def logup_groups(self) -> tuple[int, int]:
-        """(terms a thread sums, groups) of the terms kernel's grid."""
+        """(terms a thread sums, groups) of the terms kernel's grid: groups
+        of a multiple of _LOGUP_TERMS terms, the last one shorter."""
         terms = self.n_batches + self.width
+        runs = -(-terms // _LOGUP_TERMS)
         row_blocks = -(-self.n_rows // _LOGUP_THREADS)
-        n_groups = min(terms, max(1, -(-_LOGUP_BLOCKS // row_blocks)))
-        group = -(-terms // n_groups)
+        n_groups = min(runs, max(1, -(-_LOGUP_BLOCKS // row_blocks)))
+        group = -(-runs // n_groups) * _LOGUP_TERMS
         return group, -(-terms // group)
 
     def build_aux_cuda(self, trace: GF, gamma: GF2) -> GF:

@@ -479,16 +479,18 @@ ood_kernel_launches = 0
 deep_inverses_kernel_launches = 0
 
 # csrc/ood.cu: MAX_POINTS (opening points a launch takes; the SHA AIRs
-# open at 8) and MAX_LENGTH (coefficients a row: a slice's 160-bit sums
-# take at most 2^32 - 1 products of canonical values without wrapping)
+# open at 8), MAX_LENGTH (coefficients a row) and MAX_SLICE (coefficients
+# a slice: its sums, Dot, take 2^31 products of canonical values without
+# wrapping)
 OOD_MAX_POINTS = 8
 OOD_MAX_LENGTH = (1 << 32) - 1
-# csrc/ood.cu: ROWS and TJ (rows a block, coefficients of a row a tile);
-# ood_eval cuts the row length into slices until about _OOD_BLOCKS blocks
-# fill the card, each slice at least a tile long
-_OOD_ROWS = 128
-_OOD_TJ = 32
-_OOD_BLOCKS = 1024
+OOD_MAX_SLICE = 1 << 30
+# csrc/ood.cu: TJ, GROUP_POINTS and MAX_THREADS (coefficients of a row a
+# tile, points a block, a block's most threads and rows); _ood_plan sizes a
+# launch by them
+OOD_TJ = 8
+OOD_GROUP_POINTS = 4
+OOD_MAX_THREADS = 128
 
 
 class _PowersArgs(ctypes.Structure):
@@ -507,7 +509,8 @@ class _OodArgs(ctypes.Structure):
         ("a", ctypes.c_void_p), ("a_ld", ctypes.c_int64), ("n_a", ctypes.c_int64),
         ("b", ctypes.c_void_p), ("b_ld", ctypes.c_int64), ("n_b", ctypes.c_int64),
         ("powers", ctypes.c_void_p), ("n_points", ctypes.c_int64), ("n", ctypes.c_int64),
-        ("slices", ctypes.c_int64), ("partial", ctypes.c_void_p), ("out", ctypes.c_void_p),
+        ("threads", ctypes.c_int64), ("slice", ctypes.c_int64), ("slices", ctypes.c_int64),
+        ("partial", ctypes.c_void_p), ("out", ctypes.c_void_p),
     ]
 
 
@@ -529,6 +532,8 @@ def _ood_library():
     for fn, args in (("tmx_ext_powers", _PowersArgs), ("tmx_ood_eval", _OodArgs), ("tmx_deep_inverses", _InvArgs)):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+    lib.tmx_ood_occupancy.restype = ctypes.c_int
+    lib.tmx_ood_occupancy.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -586,16 +591,16 @@ def ext_powers_cuda(points: list[tuple[int, int]], n: int, device) -> GF2:
 
 
 def ood_eval_plain(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
-    """v[c][k][r] = sum_j row_r[j] * powers[k][j] (component c of the
-    powers) over the rows of a and then of b: a (2, points, rows) int64
-    tensor, one product tensor a point and component (any device)."""
-    rows = a if b is None else GF.concatenate([a, b], axis=0)
+    """The rows of a at every point and those of b at the first: v[c][k][r]
+    = sum_j row_r[j] * powers[k][j] (component c of the powers), the
+    (2, points, n_a) values of a, then the (2, n_b) of b at point 0, flat
+    in one int64 tensor; one product tensor a point and component (any
+    device)."""
     n_points = int(powers.shape[0])
-    out = [
-        (rows * GF(comp.v[k][None, :])).sum(axis=-1).v
-        for comp in (powers.c0, powers.c1) for k in range(n_points)
-    ]
-    return torch.stack(out).reshape(2, n_points, int(rows.shape[0]))
+    parts = [(a * GF(comp.v[k][None, :])).sum(axis=-1).v for comp in (powers.c0, powers.c1) for k in range(n_points)]
+    if b is not None:
+        parts += [(b * GF(comp.v[0][None, :])).sum(axis=-1).v for comp in (powers.c0, powers.c1)]
+    return torch.cat(parts)
 
 
 def _ood_rows_operand(t: torch.Tensor, what: str, dev, n: int) -> int:
@@ -609,22 +614,53 @@ def _ood_rows_operand(t: torch.Tensor, what: str, dev, n: int) -> int:
     return int(t.stride(0))
 
 
-def _ood_slices(rows: int, n: int) -> int:
-    """Slices of the row length: doubled while the blocks are fewer than
-    _OOD_BLOCKS and a slice stays at least a tile long."""
-    row_blocks = -(-rows // _OOD_ROWS)
-    s = 1
-    while row_blocks * s < _OOD_BLOCKS and n // (2 * s) >= _OOD_TJ:
-        s *= 2
-    return s
+def _ood_threads(rows: int) -> int:
+    """An ood_eval block's threads, one a row: of 32, 64 and 128 the one
+    whose row blocks leave the fewest threads idle (the most on a tie)."""
+    return min((128, 64, 32), key=lambda t: -(-rows // t) * t - rows)
+
+
+def _ood_groups(n_points: int) -> tuple[int, int]:
+    """(point groups, points a group) of an ood_eval launch: at most
+    OOD_GROUP_POINTS a block, a power of two (the kernel's instances), the
+    last group's real points fewer where they do not fill it."""
+    groups = -(-n_points // OOD_GROUP_POINTS)
+    each = -(-n_points // groups)
+    return groups, 1 << (each - 1).bit_length()
+
+
+def _ood_plan(rows: int, n: int, n_points: int, sms: int, blocks_per_sm: int) -> tuple[int, int, int]:
+    """(threads a block, slice, slices) of an ood_eval launch: the row
+    length cut into slices of a multiple of OOD_TJ coefficients until the
+    blocks (row blocks x slices x point groups) make about one wave of
+    `blocks_per_sm` resident blocks on each of `sms` SMs (at most 65,535
+    slices: the grid's second dimension; at most OOD_MAX_SLICE
+    coefficients each)."""
+    threads = _ood_threads(rows)
+    blocks = -(-rows // threads) * _ood_groups(n_points)[0]
+    tiles = -(-n // OOD_TJ)
+    want = min(65535, max(-(-tiles // (OOD_MAX_SLICE // OOD_TJ)), -(-sms * blocks_per_sm // blocks)))
+    slice_ = -(-tiles // want) * OOD_TJ
+    return threads, slice_, -(-n // slice_)
+
+
+@cache
+def _ood_occupancy(dev: torch.device, n_points: int, threads: int) -> tuple[int, int]:
+    """(SMs, resident ood_eval blocks an SM) on the card."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _ood_library().tmx_ood_occupancy(n_points, threads, ctypes.byref(blocks))
+    if err != 0 or blocks.value < 1:
+        raise RuntimeError(f"tmx_ood_occupancy failed: CUDA error {err}, {blocks.value} blocks")
+    return torch.cuda.get_device_properties(dev).multi_processor_count, blocks.value
 
 
 def ood_eval_cuda(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
     """ood_eval_plain's values by one call of csrc/ood.cu's tmx_ood_eval,
-    which launches its slice and sum kernels (two counted launches). The
-    row operands may be row views with unit stride along their rows; the
-    powers are (points, n) rows of one (2, points, n) buffer, as
-    ext_powers_cuda returns them."""
+    which launches its evaluation and slice-sum kernels (two counted
+    launches). The row operands may be row views with unit stride along
+    their rows; the powers are (points, n) rows of one (2, points, n)
+    buffer, as ext_powers_cuda returns them."""
     global ood_kernel_launches
     dev = a.device
     if dev.type != "cuda":
@@ -645,16 +681,17 @@ def ood_eval_cuda(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
                          f"int64 buffer on {dev}")
     n_a = int(a.shape[0])
     n_b = int(b.shape[0]) if b is not None else 0
-    rows = n_a + n_b
-    out = torch.empty((2, n_points, rows), dtype=torch.int64, device=dev)
-    if rows == 0:
+    n_out = 2 * (n_points * n_a + n_b)
+    out = torch.empty((n_out,), dtype=torch.int64, device=dev)
+    if n_a + n_b == 0:
         return out
-    slices = _ood_slices(rows, n)
-    partial = torch.empty((slices, 2, n_points, rows), dtype=torch.int64, device=dev)
+    threads, slice_, slices = _ood_plan(n_a + n_b, n, n_points,
+                                        *_ood_occupancy(dev, n_points, _ood_threads(n_a + n_b)))
+    partial = torch.empty((slices, n_out), dtype=torch.int64, device=dev)
     args = _OodArgs(
         a=a.v.data_ptr(), a_ld=a_ld, n_a=n_a,
         b=b.v.data_ptr() if b is not None else None, b_ld=b_ld, n_b=n_b,
-        powers=pw.data_ptr(), n_points=n_points, n=n, slices=slices,
+        powers=pw.data_ptr(), n_points=n_points, n=n, threads=threads, slice=slice_, slices=slices,
         partial=partial.data_ptr(), out=out.data_ptr(),
     )
     _ood_launch("tmx_ood_eval", args, dev)
@@ -671,26 +708,18 @@ def _ood_eval(a: GF, b: GF | None, powers: GF2) -> torch.Tensor:
     raise ValueError(f"no OOD evaluation for device {a.device}")
 
 
-def _pairs(vals: np.ndarray, k: int, lo: int, hi: int) -> list[tuple[int, int]]:
-    """(c0, c1) of rows [lo, hi) at point k of a (2, points, rows) uint64 array."""
-    return [(int(a), int(b)) for a, b in zip(vals[0, k, lo:hi], vals[1, k, lo:hi])]
-
-
-def _ext_row_at(vals: np.ndarray, r0: int, r1: int) -> tuple[int, int]:
-    """An ext row's value at point 0 from the base evaluations E0 of its c0
-    row (r0) and E1 of its c1 row (r1): E0 + X E1 = (E0.c0 + W E1.c1,
-    E0.c1 + E1.c0)."""
-    e0, e1 = _pairs(vals, 0, r0, r0 + 1)[0], _pairs(vals, 0, r1, r1 + 1)[0]
-    return (e0[0] + W * e1[1]) % P, (e0[1] + e1[0]) % P
+def _pairs(vals: np.ndarray) -> list[tuple[int, int]]:
+    """(c0, c1) pairs of a (2, rows) uint64 array."""
+    return [(int(x), int(y)) for x, y in zip(vals[0], vals[1])]
 
 
 def ood_values(coeffs: GF, points: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:
     """Evaluate every row polynomial of `coeffs` (C, n) at each ext point:
     sum_j c_j * pt^j. Host powers and torch ops for a CPU tensor (the
     verifier's); ext_powers and ood_eval launches on a card."""
-    n = int(coeffs.shape[1])
-    vals = tensor_to_u64(_ood_eval(coeffs, None, ext_powers(points, n, coeffs.device)))
-    return [_pairs(vals, k, 0, int(coeffs.shape[0])) for k in range(len(points))]
+    n, C, K = int(coeffs.shape[1]), int(coeffs.shape[0]), len(points)
+    vals = tensor_to_u64(_ood_eval(coeffs, None, ext_powers(points, n, coeffs.device))).reshape(2, K, C)
+    return [_pairs(vals[:, k]) for k in range(K)]
 
 
 def ood_evaluate(
@@ -699,14 +728,16 @@ def ood_evaluate(
     """A statement's OOD values: every row of `coeffs` (trace and aux
     coefficients, (C, n)) at every opening point, and the quotient chunks
     (rows [c0_0, c1_0, c0_1, ...] of `chunk_rows`) at points[0] = z: one
-    ext_powers and one ood_eval over both (a launch each on a card). The
-    chunk rows ride in the same launch as the trace rows, so they are
-    evaluated at every point and all but points[0]'s values are dropped
-    (about 3% of ood_eval's products for the SHA AIRs' eight points)."""
-    n, C = int(coeffs.shape[1]), int(coeffs.shape[0])
+    ext_powers and one ood_eval over both (a launch each on a card), which
+    takes the chunk rows at z alone. A chunk's value E0 + X E1 from the
+    base evaluations of its c0 row (E0) and c1 row (E1) is (E0.c0 + W
+    E1.c1, E0.c1 + E1.c0)."""
+    n, C, K = int(coeffs.shape[1]), int(coeffs.shape[0]), len(points)
     vals = tensor_to_u64(_ood_eval(coeffs, chunk_rows, ext_powers(points, n, coeffs.device)))
-    trace = [_pairs(vals, k, 0, C) for k in range(len(points))]
-    return trace, [_ext_row_at(vals, C + 2 * j, C + 2 * j + 1) for j in range(int(chunk_rows.shape[0]) // 2)]
+    trace = vals[: 2 * K * C].reshape(2, K, C)
+    e = _pairs(vals[2 * K * C :].reshape(2, -1))  # each chunk row at z
+    quot = [((e0[0] + W * e1[1]) % P, (e0[1] + e1[0]) % P) for e0, e1 in zip(e[0::2], e[1::2])]
+    return [_pairs(trace[:, k]) for k in range(K)], quot
 
 
 def deep_inverses(log_N: int, shift: int, zks: list[tuple[int, int]], device) -> GF2:

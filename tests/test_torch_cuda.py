@@ -396,6 +396,25 @@ def test_ood_eval_kernel_matches_plain(dev, n_a, n_b, n, n_points):
     assert torch.equal(got, pr.ood_eval_plain(a, b, powers))
 
 
+@pytest.mark.parametrize("chunk_rows", [0, 6])
+@pytest.mark.parametrize("n_points", [1, 2, 8])
+@pytest.mark.parametrize("rows", [1, 127, 129, 176])
+def test_ood_eval_rows_points_and_chunks_match_plain(dev, rows, n_points, chunk_rows):
+    """Row counts about the block's 2 x 64 and 2 x 128 rows, 1, 2 and 8
+    points, with the chunk rows (taken at the first point alone) and
+    without; an odd row length (8-byte copies, a ragged last tile) beside
+    an even one."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    n = 4095 if rows % 2 else 4096
+    a = gl.GF(_felts((rows, n), 60 + rows, dev))
+    b = gl.GF(_felts((chunk_rows, n), 61 + rows, dev)) if chunk_rows else None
+    powers = pr.ext_powers(_ext_points(n_points, rows + chunk_rows), n, dev)
+    got = pr.ood_eval_cuda(a, b, powers)
+    assert got.shape == (2 * (n_points * rows + chunk_rows),)
+    assert torch.equal(got, pr.ood_eval_plain(a, b, powers))
+
+
 # each AIR of the N=128 paths: (trace + aux rows, chunk rows, log2 n, points)
 N128_OOD_SHAPES = [(2929, 8, 15, 2), (170, 6, 16, 8), (340, 6, 15, 8), (136, 14, 15, 2), (18, 4, 17, 2)]
 
@@ -509,6 +528,36 @@ def test_logup_kernels_match_plain(dev, K, n, bits):
     assert torch.equal(out[: rows.shape[0]], rows) and torch.equal(partial, want_partial)
     lk.logup_scan_cuda(partial, out)
     assert torch.equal(out[rows.shape[0]:], lk.logup_scan_plain(partial))
+
+
+@pytest.mark.parametrize("K", [51, 52, 59, 60])
+def test_logup_terms_about_a_run_match_plain(dev, K):
+    """15 and 17 terms (13 or 15 batches, pad 1 or 0, and two table
+    columns): runs of 8 terms with one left over or one short."""
+    lk, trace, gamma = _logup_case(K, 64, 7, 70 + K, dev)
+    assert lk.n_batches + lk.width in (15, 17)
+    out = torch.empty((lk.n_aux_cols, lk.n_rows), dtype=torch.int64, device=dev)
+    partial = lk.logup_terms_cuda(trace, gamma, out)
+    rows, want_partial = lk.logup_terms_plain(trace, gamma)
+    assert torch.equal(out[: rows.shape[0]], rows) and torch.equal(partial, want_partial)
+
+
+def test_logup_zero_norms_inside_a_run_on_card(dev):
+    """gamma = (v, 0) for a value v in cells of terms 0, 3 and 7 (the
+    first, a middle and the last position of the first run's batch
+    inversion) and 9 (the second run's), at one row: those terms are 0,
+    the rest exact, as in the plain version."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    lk, trace, _ = _logup_case(60, 64, 7, 97, dev)
+    v = trace.v[lk.checked_cols[13], 9].clone()
+    for c in (1, 31, 32 + 5):
+        trace.v[lk.checked_cols[c], 9] = v
+    gamma = GF2(gl.GF(v.reshape(1)), gl.GF(torch.zeros(1, dtype=torch.int64, device=dev)))
+    got = lk.build_aux(trace, gamma)
+    assert torch.equal(got.v, lk.build_aux_plain(trace, gamma).v)
+    for t in (0, 3, 7, 9):
+        assert int(got.v[2 * t, 9]) == 0 and int(got.v[2 * t + 1, 9]) == 0
 
 
 def test_logup_zero_denominator_on_card(dev):

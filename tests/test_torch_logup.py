@@ -8,7 +8,13 @@ programs: no pad, pad 1-3 in the last batch, one table column and several
 p-1, 2^32 and p - 2^32, and a gamma equal to a checked value (a zero
 denominator, inverted to 0 on both sides). Then a Python model of
 csrc/logup.cu's term formula (pad cells d = 1, (BATCH - real) denom taken
-out) and its group and scan partition. Tolerance: exact equality."""
+out) and its group and scan partition. Then a Python model of
+csrc/logup.cu's schedule: each thread's runs of _LOGUP_TERMS terms, each
+term's numerator and denominator (the closed form of a full batch, the
+reference's form with pad cells), the divisions by their norms done
+together by ext.cuh's batch_div (zeros masked, at the first, a middle and
+the last position of a run), groups whose term count is no multiple of
+the run, pad 1-3. Tolerance: exact equality."""
 
 import itertools
 
@@ -21,7 +27,7 @@ torch.set_num_threads(2)
 from tendermintx_tpu.ops.ext import GF2 as JGF2
 from tendermintx_tpu.ops.goldilocks import GF as JGF
 from tendermintx_tpu.stark import lookup as jlookup
-from tendermintx_tpu_torch.ops.ext import GF2, ext_add, ext_inv, ext_mul, ext_sub
+from tendermintx_tpu_torch.ops.ext import GF2, W, ext_add, ext_mul, ext_sub
 from tendermintx_tpu_torch.ops.goldilocks import GF, P
 from tendermintx_tpu_torch.stark import lookup as lk
 
@@ -33,6 +39,7 @@ CASES = {
     "pad2-width1": (6, 32, 5),
     "pad3-width4": (5, 16, 6),
     "pad1-width2": (7, 32, 6),
+    "pad3-runs": (45, 16, 5),  # 12 batches + 2 table columns: runs of 8 and 6 terms
 }
 
 
@@ -124,7 +131,8 @@ def test_kernel_twins_give_the_aux_columns(name, monkeypatch):
     for blocks in (1, 4096):
         monkeypatch.setattr(lk, "_LOGUP_BLOCKS", blocks)
         group, n_groups = port.logup_groups()
-        assert (group - 1) * n_groups < terms <= group * n_groups and (n_groups > 1) == (blocks > 1 and terms > 1)
+        assert group % lk._LOGUP_TERMS == 0 and (n_groups - 1) * group < terms <= group * n_groups
+        assert (n_groups > 1) == (blocks > 1 and terms > lk._LOGUP_TERMS)
         rows, partial = port.logup_terms_plain(GF.from_ints(trace), _gamma(gamma))
         assert _u(rows) == want[: 2 * terms]
         assert tuple(partial.shape) == (2, n_groups, port.n_rows)
@@ -154,39 +162,121 @@ def test_cpu_trace_never_reaches_a_kernel():
 # ---------------------------------------------------------------------------
 
 
-def _term_model(port, trace, gamma, t: int, r: int) -> tuple[int, int]:
-    """csrc/logup.cu: tmx_logup_terms_kernel's value of term t at row r."""
-    if t < port.n_batches:
-        d, real = [], 0
-        for i in range(lk.BATCH):
-            c = t * lk.BATCH + i
-            if c < len(port.checked_cols):
-                d.append(((gamma[0] - int(trace[port.checked_cols[c], r])) % P, gamma[1]))
-                real += 1
-            else:
-                d.append((1, 0))
-        p01, p23 = ext_mul(d[0], d[1]), ext_mul(d[2], d[3])
-        denom = ext_mul(p01, p23)
-        numer = ext_add(ext_mul(p23, ext_add(d[0], d[1])), ext_mul(p01, ext_add(d[2], d[3])))
-        if real < lk.BATCH:
-            numer = ext_sub(numer, ((lk.BATCH - real) * denom[0] % P, (lk.BATCH - real) * denom[1] % P))
-        return ext_mul(numer, ext_inv(denom))
-    j = t - port.n_batches
-    tv = j * port._span + r % port._span
-    inv = ext_inv(((gamma[0] - tv) % P, gamma[1]))
-    m = int(trace[port.mult_base + j, r])
-    return inv[0] * m % P, inv[1] * m % P
+def _batch_div_model(n: list[int], y: list[tuple[int, int]]) -> list[tuple[int, int]]:
+    """ext.cuh: batch_div, y[i] / n[i] by Montgomery's trick: each y[i]
+    times the product of the n before it on the way up, times the inverse
+    of the product up to n[i] on the way down; a zero n[i] masked to 1 in
+    the products and its y[i] made 0."""
+    n, y = list(n), list(y)
+    pre = 1
+    for i in range(len(n)):
+        if n[i] == 0:
+            n[i], y[i] = 1, (0, 0)
+        y[i] = (y[i][0] * pre % P, y[i][1] * pre % P)
+        pre = pre * n[i] % P
+    acc = pow(pre, P - 2, P)
+    for i in range(len(n) - 1, -1, -1):
+        y[i] = (y[i][0] * acc % P, y[i][1] * acc % P)
+        acc = acc * n[i] % P
+    return y
 
 
-@pytest.mark.parametrize("name", ["pad3-width4", "pad1-width2"])
-def test_kernel_term_model_matches_reference(name):
+def _dot2(a: int, b: int, c: int, d: int) -> int:
+    return (a * b + c * d) % P
+
+
+def _batch_term_model(port, gamma, cells: list[int]) -> tuple[tuple, tuple]:
+    """csrc/logup.cu: batch_term, a checked term's numerator U and
+    denominator D from its cells' values: the closed form of a full batch
+    (every c1 is g1), and the reference's form with pad cells d = 1."""
+    g0, g1 = gamma
+    wg2 = g1 * g1 * W % P
+    a = [(g0 - v) % P for v in cells]
+    if len(a) == lk.BATCH:
+        s01, s23 = (a[0] + a[1]) % P, (a[2] + a[3]) % P
+        x, y = (a[0] * a[1] + wg2) % P, (a[2] * a[3] + wg2) % P
+        m = s01 * s23 % P
+        D = (_dot2(x, y, wg2, m), g1 * _dot2(x, s23, y, s01) % P)
+        U = ((y * s01 + x * s23 + 2 * wg2 * (s01 + s23)) % P, 2 * g1 * (x + y + m) % P)
+        return U, D
+    d = [(ai, g1) for ai in a] + [(1, 0)] * (lk.BATCH - len(a))
+    p01, p23 = ext_mul(d[0], d[1]), ext_mul(d[2], d[3])
+    D = ext_mul(p01, p23)
+    U = ext_add(ext_mul(p23, ext_add(d[0], d[1])), ext_mul(p01, ext_add(d[2], d[3])))
+    pad = lk.BATCH - len(a)
+    return ext_sub(U, (pad * D[0] % P, pad * D[1] % P)), D
+
+
+def _kernel_model(port, trace, gamma, r: int) -> tuple[dict, list]:
+    """csrc/logup.cu: tmx_logup_terms_kernel at row r, every group of its
+    grid: each run of _LOGUP_TERMS terms of a group, each term's U and D
+    (a table term's m and gamma - t), N(D) = D0^2 - W D1^2 and Y = U
+    conj(D), the run's divisions Y / N(D) done together (1 and 0 in a slot
+    past the group). Returns {term: (c0, c1)} and the groups' signed
+    sums."""
+    g0, g1 = gamma
+    K, nb, span = len(port.checked_cols), port.n_batches, port._span
+    terms = nb + port.width
+    group, n_groups = port.logup_groups()
+    vals, sums = {}, []
+    for gi in range(n_groups):
+        t0 = gi * group
+        t1 = min(t0 + group, terms)
+        s = (0, 0)
+        for u0 in range(t0, t1, lk._LOGUP_TERMS):
+            ys, norms = [], []
+            for t in range(u0, u0 + lk._LOGUP_TERMS):
+                if t >= t1:
+                    ys.append((0, 0))
+                    norms.append(1)
+                    continue
+                if t < nb:
+                    cols = port.checked_cols[t * lk.BATCH : min(K, (t + 1) * lk.BATCH)]
+                    U, D = _batch_term_model(port, gamma, [int(trace[c, r]) for c in cols])
+                else:
+                    D = ((g0 - ((t - nb) * span + r % span)) % P, g1)
+                    U = (int(trace[port.mult_base + t - nb, r]), 0)
+                nwd1 = -W * D[1] % P
+                norms.append(_dot2(D[0], D[0], nwd1, D[1]))
+                ys.append((_dot2(U[0], D[0], U[1], nwd1), _dot2(U[1], D[0], U[0], -D[1] % P)))
+            div = _batch_div_model(norms, ys)
+            for q, t in enumerate(range(u0, min(u0 + lk._LOGUP_TERMS, t1))):
+                vals[t] = div[q]
+                s = ext_add(s, vals[t]) if t < nb else ext_sub(s, vals[t])
+        sums.append(s)
+    return vals, sums
+
+
+def test_batch_division_model_masks_zeros():
+    """batch_div over a run of 8 norms: y / n exact for the nonzero n, 0
+    for a zero at the first, a middle and the last position."""
+    rng = np.random.default_rng(23)
+    x = [int(a) for a in (rng.integers(1, 2**63, size=24).astype(object) * 2 + 1) % P]
+    n, y = x[:8], list(zip(x[8:16], x[16:]))
+    for zeros in ([], [0], [3], [7], [0, 3, 7], list(range(8))):
+        nz = [0 if i in zeros else a for i, a in enumerate(n)]
+        want = [(0, 0) if not a else (b[0] * pow(a, P - 2, P) % P, b[1] * pow(a, P - 2, P) % P) for a, b in zip(nz, y)]
+        assert _batch_div_model(nz, y) == want
+
+
+@pytest.mark.parametrize("name, blocks", [("pad3-width4", 2048), ("pad1-width2", 2048), ("pad2-width1", 2048),
+                                          ("pad3-runs", 2048), ("pad3-runs", 1)])
+def test_kernel_term_model_matches_reference(name, blocks, monkeypatch):
+    """The model's terms equal the reference's aux rows and its group sums
+    those of the rows' signed terms: pad 1-3, one to four table columns,
+    and 14 terms in one group (runs of 8 and 6) or in two (8 and 6)."""
+    monkeypatch.setattr(lk, "_LOGUP_BLOCKS", blocks)
     port, ref, trace, gamma = _case(name, 17)
     want = _ju(ref.build_aux(JGF.from_ints(trace), gamma))
     terms = port.n_batches + port.width
+    group, n_groups = port.logup_groups()
     for r in (0, 5, port.n_rows - 1):
-        for t in range(terms):
-            v = _term_model(port, trace, gamma, t, r)
-            assert v == (want[2 * t][r], want[2 * t + 1][r])
+        vals, sums = _kernel_model(port, trace, gamma, r)
+        assert [vals[t] for t in range(terms)] == [(want[2 * t][r], want[2 * t + 1][r]) for t in range(terms)]
+        for gi, s in enumerate(sums):
+            sign = lambda t: 1 if t < port.n_batches else -1
+            ts = range(gi * group, min((gi + 1) * group, terms))
+            assert s == tuple(sum(sign(t) * want[2 * t + c][r] for t in ts) % P for c in range(2))
     # the scan's chunks (SCAN_THREADS consecutive rows, one a thread, the
     # rows past n adding nothing): each row once, in order, and each S the
     # chunk's inclusive scan plus the chunks before it
@@ -201,3 +291,26 @@ def test_kernel_term_model_matches_reference(name):
             S += [(carry + v) % P for v in incl[: max(0, min(threads, n - base))]]
             carry = (carry + incl[-1]) % P
         assert S == [v % P for v in itertools.accumulate(diff)]
+
+
+def test_kernel_model_masks_zero_norms():
+    """gamma = (v, 0) for a value v placed in cells of terms 0, 3 and 7 (the
+    first, a middle and the last position of run 0's batch inversion) and
+    9 (run 1), and then a table value as gamma: those terms' norms are 0,
+    their values 0 as the reference's, every other term exact."""
+    port, ref, trace, _ = _case("pad3-runs", 29)
+    r = 3
+    v = int(trace[port.checked_cols[0], r])
+    for c in (13, 31, 9 * lk.BATCH + 1):
+        trace[port.checked_cols[c], r] = v
+    gamma = (v, 0)
+    want = _ju(ref.build_aux(JGF.from_ints(trace), gamma))
+    vals, _ = _kernel_model(port, trace, gamma, r)
+    terms = port.n_batches + port.width
+    assert [vals[t] for t in range(terms)] == [(want[2 * t][r], want[2 * t + 1][r]) for t in range(terms)]
+    assert {t for t in range(terms) if vals[t] == (0, 0)} == {0, 3, 7, 9}
+    gamma = (r % port._span, 0)  # table column 0's value at row r
+    want = _ju(ref.build_aux(JGF.from_ints(trace), gamma))
+    vals, _ = _kernel_model(port, trace, gamma, r)
+    assert [vals[t] for t in range(terms)] == [(want[2 * t][r], want[2 * t + 1][r]) for t in range(terms)]
+    assert vals[port.n_batches] == (0, 0)

@@ -7,9 +7,14 @@ tests/test_torch_cuda.py) against the JAX package's ``_zpowers_fn``,
 n = 2^8-2^10, up to 40 rows and the edge values 0, 1, p-1, 2^32 and
 p - 2^32. Then Python models of what csrc/ood.cu computes that the CPU
 cannot run: the base inversion's addition chain (goldilocks.cuh), the
-powers built by runs (RUN a thread), and ood_eval's slices summed in
-160-bit accumulators, at the longest row it accepts. Tolerance: exact
-equality."""
+powers built by runs (RUN a thread), and ood_eval's launch plan (row
+blocks, the threads' rows, slices cut into tiles: every coefficient once)
+and its arithmetic: each thread's rows summed in 160-bit accumulators a
+slice, the rows of the second operand (the quotient chunks) at the first
+point alone, against ood_eval_plain and _ood_ext_fn, and the accumulators
+at the longest row the kernel accepts. Tolerance: exact equality."""
+
+import itertools
 
 import jax
 import numpy as np
@@ -189,22 +194,30 @@ def test_powers_by_runs_equal_the_sequential_powers():
     assert pr._ext_powers_u64(b, 5)[0].tolist() == [v[0] for v in seq[:5]]
 
 
-def _mac(w: list[int], b: int, t: int) -> list[int]:
-    """goldilocks.cuh: mac, s += b * t over five 32-bit limbs (the carry
-    out of limb 4 is lost, as in the kernel)."""
-    w = list(w)
+def _chain(limbs: list[int], parts: list[int]) -> list[int]:
+    """A PTX carry chain: parts added into the 32-bit limbs from the lowest,
+    the carry rippled to the top and lost past it, as in the kernel."""
+    out, carry = list(limbs), 0
+    for i in range(len(out)):
+        v = out[i] + (parts[i] if i < len(parts) else 0) + carry
+        out[i], carry = v & M32, v >> 32
+    return out
+
+
+def _dot_mac(s: tuple, b: int, t: int) -> tuple:
+    """csrc/ood.cu: dot_mac, the diagonal halves b0 t0 + 2^64 b1 t1 into the
+    five limbs w, the cross halves b0 t1 and b1 t0 into the three x."""
+    w, x = s
     b0, b1, t0, t1 = b & M32, b >> 32, t & M32, t >> 32
+    w = _chain(w, [(b0 * t0) & M32, (b0 * t0) >> 32, (b1 * t1) & M32, (b1 * t1) >> 32])
+    x = _chain(x, [(b0 * t1) & M32, (b0 * t1) >> 32])
+    return w, _chain(x, [(b1 * t0) & M32, (b1 * t0) >> 32])
 
-    def chain(start: int, parts: list[int]):
-        carry = 0
-        for i in range(start, 5):
-            v = w[i] + (parts[i - start] if i - start < len(parts) else 0) + carry
-            w[i], carry = v & M32, v >> 32
 
-    chain(0, [(b0 * t0) & M32, (b0 * t0) >> 32, (b1 * t1) & M32, (b1 * t1) >> 32])
-    chain(1, [(b0 * t1) & M32, (b0 * t1) >> 32])
-    chain(1, [(b1 * t0) & M32, (b1 * t0) >> 32])
-    return w
+def _reduce_dot(s: tuple) -> int:
+    """csrc/ood.cu: reduce_dot, w + 2^32 x in five limbs, then reduce."""
+    w, x = s
+    return _reduce([w[0], *_chain(w[1:], x)])
 
 
 def _reduce(w: list[int]) -> int:
@@ -220,57 +233,114 @@ def _value(w: list[int]) -> int:
     return sum(x << (32 * i) for i, x in enumerate(w))
 
 
-def _limbs(v: int) -> list[int]:
-    return [(v >> (32 * i)) & M32 for i in range(5)]
+def _limbs(v: int, k: int = 5) -> list[int]:
+    return [(v >> (32 * i)) & M32 for i in range(k)]
 
 
-@pytest.mark.parametrize("rows, n", [(3, 256), (40, 1024), (176, 1 << 16), (2933, 1 << 15), (18, 1 << 17)])
-def test_ood_slices_cover_every_coefficient(rows, n):
-    """The slices ood_eval_cuda cuts a row into: a power of two of them,
-    each at least a tile long (or the whole row), together the row, and
-    the blocks near _OOD_BLOCKS for the N=128 statements."""
-    s = pr._ood_slices(rows, n)
-    length = -(-n // s)
-    assert s & (s - 1) == 0 and s * length >= n > (s - 1) * length
-    assert length >= pr._OOD_TJ or s == 1
-    if n >= 1 << 15:
-        assert -(-rows // pr._OOD_ROWS) * s >= pr._OOD_BLOCKS
+def _ood_blocks(n_a: int, n_b: int, n: int, n_points: int, threads: int, slice_: int, slices: int):
+    """csrc/ood.cu: tmx_ood_kernel's grid. Yields each thread's (slice,
+    row, its points, its slice's tiles): row blocks of ceil(rows /
+    row_blocks) rows, one a thread; point group z taking points z np ..
+    (z + 1) np - 1 of the rows of a, the first group also point 0 of the
+    rows of b; the slice [s slice, min((s + 1) slice, n)) in tiles of
+    OOD_TJ."""
+    rows = n_a + n_b
+    row_blocks = -(-rows // threads)
+    block_rows = -(-rows // row_blocks)
+    groups, np_ = pr._ood_groups(n_points)
+    for rb, s, z in itertools.product(range(row_blocks), range(slices), range(groups)):
+        r0 = rb * block_rows
+        js, je = s * slice_, min((s + 1) * slice_, n)
+        tiles = [range(j0, min(j0 + pr.OOD_TJ, je)) for j0 in range(js, je, pr.OOD_TJ)]
+        for g in range(r0, min(r0 + block_rows, rows)):
+            pts = range(z * np_, min((z + 1) * np_, n_points)) if g < n_a else range(1) if z == 0 else range(0)
+            yield s, g, pts, tiles
+
+
+# each N=128 statement (trace + aux rows, chunk rows, n, points), then two
+# small ones, each with a number of resident blocks an SM for the plan
+N128_OOD = [(2929, 8, 1 << 15, 2, 7), (170, 6, 1 << 16, 8, 5), (340, 6, 1 << 15, 8, 20), (136, 14, 1 << 15, 2, 20),
+            (18, 4, 1 << 17, 2, 20), (3, 2, 203, 2, 2), (300, 0, 1000, 5, 1)]
+
+
+@pytest.mark.parametrize("n_a, n_b, n, points, blocks_per_sm", N128_OOD)
+def test_ood_slices_cover_every_coefficient(n_a, n_b, n, points, blocks_per_sm):
+    """The plan ood_eval_cuda launches: each (row, point, coefficient) of
+    the function (the rows of b at point 0 alone) in exactly one thread's
+    tiles, slices of a multiple of OOD_TJ within the accumulators' bound,
+    the threads that leave the fewest idle, and about one wave of resident
+    blocks on 132 SMs (at least 90% of it where a slice is 16 tiles or more)."""
+    rows, sms = n_a + n_b, 132
+    threads, slice_, slices = pr._ood_plan(rows, n, points, sms, blocks_per_sm)
+    assert threads in (32, 64, 128) and all(-(-rows // threads) * threads <= -(-rows // t) * t for t in (32, 64, 128))
+    assert slice_ % pr.OOD_TJ == 0 and (slices - 1) * slice_ < n <= slices * slice_ <= 65535 * slice_
+    assert min(slice_, n) <= pr.OOD_MAX_SLICE
+    blocks = -(-rows // threads) * pr._ood_groups(points)[0]
+    assert blocks * slices <= sms * blocks_per_sm + blocks
+    want = -(-sms * blocks_per_sm // blocks)
+    if n >= 16 * pr.OOD_TJ * want:  # slices of 16 tiles or more: rounding costs under 10%
+        assert blocks * slices >= 0.9 * sms * blocks_per_sm
+    seen = np.zeros((rows, points), dtype=np.int64)
+    slice_tiles = {}
+    for s, g, pts, tiles in _ood_blocks(n_a, n_b, n, points, threads, slice_, slices):
+        seen[g, list(pts)] += 1
+        slice_tiles.setdefault(s, tiles)
+    assert (seen[:n_a] == slices).all() and (seen[n_a:, 0] == slices).all() and not seen[n_a:, 1:].any()
+    assert [j for s in range(slices) for tile in slice_tiles[s] for j in tile] == list(range(n))
 
 
 def test_ood_eval_model_equals_the_plain_values():
-    """ood_eval's arithmetic on Python ints: each slice of each row summed
-    by the limb chains and reduced once, the slices' canonical partials
-    added; at two points over three rows, against ood_eval_plain."""
+    """tmx_ood_kernel's arithmetic on Python ints at a plan of four slices
+    (the last ragged, n odd) and two point groups (5 points: 4 and 1):
+    each thread's row summed by the limb chains over its slice's tiles and
+    reduced once, the rows of b at the first point alone, partials (a's
+    rows at (c, k, row), then b's at (c, row)) added over the slices;
+    against ood_eval_plain, and b's chunk values at z against
+    _ood_ext_fn."""
     rng = np.random.default_rng(9)
-    n, rows, pts = 200, 3, [(3, 4), (P - 1, 2**32)]
-    coeffs = _rand((rows, n), rng)
+    n, n_a, n_b = 203, 3, 2
+    z = (3, 4)
+    pts = [z, (P - 1, 2**32), *[_point(rng) for _ in range(3)]]
+    K = len(pts)
+    coeffs = _rand((n_a + n_b, n), rng)
     powers = pr.ext_powers(pts, n, "cpu")
-    pw = [[int(v) for v in c.v[k].numpy().view(np.uint64)] for c in (powers.c0, powers.c1) for k in range(2)]
-    s = 4
-    length = -(-n // s)
-    model = np.zeros((2, 2, rows), dtype=object)
-    for c in range(2):
-        for k in range(2):
-            for r in range(rows):
-                total = 0
-                for j0 in range(0, n, length):
-                    w = [0] * 5
-                    for j in range(j0, min(j0 + length, n)):
-                        w = _mac(w, pw[2 * c + k][j], int(coeffs[r, j]))
-                    total = (total + _reduce(w)) % P
-                model[c, k, r] = total
-    plain = pr.ood_eval_plain(GF.from_ints(coeffs), None, powers)
-    assert plain.numpy().view(np.uint64).astype(object).tolist() == model.tolist()
+    pw = [[[int(v) for v in c.v[k].numpy().view(np.uint64)] for k in range(K)] for c in (powers.c0, powers.c1)]
+    threads, slice_, slices = pr._ood_plan(n_a + n_b, n, K, 4, 2)
+    assert slices == 4 and n % pr.OOD_TJ and pr._ood_groups(K) == (2, 4)
+    n_out = 2 * (K * n_a + n_b)
+    partial = np.zeros((slices, n_out), dtype=object)
+    for s, g, ks, tiles in _ood_blocks(n_a, n_b, n, K, threads, slice_, slices):
+        for k in ks:
+            for c in range(2):
+                acc = ([0] * 5, [0] * 3)
+                for tile in tiles:
+                    for j in tile:
+                        acc = _dot_mac(acc, pw[c][k][j], int(coeffs[g, j]))
+                o = (c * K + k) * n_a + g if g < n_a else 2 * K * n_a + c * n_b + g - n_a
+                partial[s, o] = _reduce_dot(acc)
+    model = [int(v) % P for v in partial.sum(axis=0)]
+    plain = pr.ood_eval_plain(GF.from_ints(coeffs[:n_a]), GF.from_ints(coeffs[n_a:]), powers)
+    assert plain.numpy().view(np.uint64).astype(object).tolist() == model
+    # b's rows as one chunk's c0 and c1 at z: E0 + X E1
+    b0 = 2 * K * n_a
+    e0, e1 = (model[b0], model[b0 + n_b]), (model[b0 + 1], model[b0 + 1 + n_b])
+    chunk = ((e0[0] + 7 * e1[1]) % P, (e0[1] + e1[0]) % P)
+    jchunk = JGF2(JGF.from_ints(coeffs[n_a : n_a + 1]), JGF.from_ints(coeffs[n_a + 1 :]))
+    assert [chunk] == _jints(jprover._ood_ext_fn(jchunk, jprover._zpowers_fn(_jext(z), n)))
 
 
 def test_ood_accumulator_holds_at_the_longest_row():
-    """A slice's 160-bit sums at OOD_MAX_LENGTH products, every one (p-1)^2
-    (the row ood_eval_cuda accepts at its longest, cut into one slice):
-    no carry leaves limb 4, the reduction is canonical, and the bound is
-    within what 160 bits hold."""
-    cmax = pr.OOD_MAX_LENGTH
-    top = P - 1
-    w = _mac(_limbs((cmax - 1) * top * top), top, top)
-    assert _value(w) == cmax * top * top < 1 << 160
-    assert _reduce(w) == cmax * top * top % P
-    assert ((1 << 160) - 1) // (top * top) >= cmax
+    """A slice's sums at OOD_MAX_SLICE products, every one (p-1)^2: no
+    carry leaves w's limb 4 or x's limb 2, w + 2^32 x stays below 2^160 and
+    reduces canonically; and the longest row ood_eval_cuda accepts is cut
+    into slices no longer than that."""
+    smax, top = pr.OOD_MAX_SLICE, P - 1
+    b0, b1 = top & M32, top >> 32
+    diag, cross = b0 * b0 + (b1 * b1 << 64), 2 * b0 * b1
+    acc = _dot_mac((_limbs((smax - 1) * diag), _limbs((smax - 1) * cross, 3)), top, top)
+    assert (_value(acc[0]), _value(acc[1])) == (smax * diag, smax * cross)
+    assert smax * cross < 1 << 96 and smax * top * top < 1 << 160
+    assert _reduce_dot(acc) == smax * top * top % P
+    for sms, blocks_per_sm in ((1, 1), (132, 16)):
+        threads, slice_, slices = pr._ood_plan(1, pr.OOD_MAX_LENGTH, 1, sms, blocks_per_sm)
+        assert slice_ <= pr.OOD_MAX_SLICE and slices <= 65535

@@ -1,7 +1,8 @@
 """Time the NTT and DEEP kernels of one checkout of the port at every
-main-path shape on one card, and the LogUp terms kernel round by round.
+main-path shape on one card, and the LogUp terms and OOD evaluation
+kernels round by round.
 
-    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--only ntt,deep,logup] [--rounds R]
+    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--only ntt,deep,logup,ood] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -13,8 +14,11 @@ each AIR's one-device shard (`_quotient_airs()`) through its
 their plain versions). `logup` times `logup_terms_cuda` at the Ed25519
 statement of the N=128 paths in R rounds of 20 launches, with the SM
 clock and the power draw that nvidia-smi reads after each round, to show
-how far its time spreads within one process and why. Prints one JSON line: the card's name and power
-limit, the label, and per shape the ms. Two checkouts are compared by
+how far its time spreads within one process and why; `ood` times
+`ood_eval_cuda` the same way at every statement shape of the N=128 paths
+(`_ood_shapes()`: the trace and aux rows and the quotient chunks' rows
+over the opening points' powers). Prints one JSON line: the card's name
+and power limit, the label, and per shape the ms. Two checkouts are compared by
 running this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
 """
@@ -65,6 +69,16 @@ def main(argv=None) -> int:
         _, first = cs._timed_once(fn)
         return cs._time_ms(fn, max(3, min(20, int(200 / max(first, 1e-3)))))
 
+    def timed_rounds(fn, reps: int) -> list[dict]:
+        """args.rounds rounds of `reps` launches, each with the SM clock and
+        power draw nvidia-smi reads just after it."""
+        rounds = []
+        for _ in range(args.rounds):
+            ms = cs._time_ms(fn, reps)
+            clock, power = cs._nvidia_smi("clocks.sm,power.draw").split(", ")
+            rounds.append({"ms": ms, "clocks_sm_mhz": float(clock), "power_draw_w": float(power)})
+        return rounds
+
     only = args.only.split(",")
     if "ntt" in only:
         shapes = []
@@ -102,12 +116,21 @@ def main(argv=None) -> int:
         lk = air.lookup
         trace, gamma = cs._logup_case(lk, air.n_cols, gen, dev)
         aux = torch.empty((lk.n_aux_cols, lk.n_rows), dtype=torch.int64, device=dev)
-        rounds = []
-        for _ in range(args.rounds):
-            ms = cs._time_ms(lambda: lk.logup_terms_cuda(trace, gamma, aux), 20)
-            clock, power = cs._nvidia_smi("clocks.sm,power.draw").split(", ")
-            rounds.append({"ms": ms, "clocks_sm_mhz": float(clock), "power_draw_w": float(power)})
+        rounds = timed_rounds(lambda: lk.logup_terms_cuda(trace, gamma, aux), 20)
         out["logup_terms"] = {"shape": [len(lk.checked_cols), lk.n_rows], "rounds": rounds}
+    if "ood" in only:
+        airs = {}
+        for name, air, log_n, _ in cs._ood_shapes():
+            n, K = 1 << log_n, len(air.frame_offsets)
+            n_total, n_chunks = air.n_cols + air.n_aux_cols, air.constraint_degree - 1
+            a = GF(cs._random_felts((n_total, n), gen, dev))
+            b = GF(cs._random_felts((2 * n_chunks, n), gen, dev))
+            powers = pr.ext_powers_cuda(cs._random_points(K, gen, dev), n, dev)
+            run = lambda: pr.ood_eval_cuda(a, b, powers)
+            reps = max(3, min(50, int(200 / max(cs._timed_once(run)[1], 1e-3))))
+            airs[name] = {"shape": [n_total, 2 * n_chunks, n, K], "rounds": timed_rounds(run, reps)}
+            del a, b, powers
+        out["ood_eval"] = airs
     print(json.dumps(out), flush=True)
     return 0
 
