@@ -73,7 +73,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  the fastest and slowest beside it), the plain version's
                  and its bound (the function's least work: the DEEP and
                  LogUp inverses counted as a batch inversion, the chunk
-                 rows at z alone);
+                 rows at z alone); ext_powers, deep_inverses and
+                 logup_scan also with their time a launch from a burst
+                 of raw launches (``burst_ms``: no Python wrapper between
+                 them), deep_inverses also checked with an
+                 opening point planted on the domain (0 in that column
+                 alone);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -87,8 +92,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  every path below), the quotient and the DEEP kernel once per
                  statement, ood_eval's two kernels, deep_inverses once
                  and ext_powers twice per statement (on every path below; the LogUp
-                 kernels once per Ed25519 statement, none in the hash
-                 bundles and the wrap), the warm prove's column sponge once per
+                 terms kernel once and the scan's two kernels per Ed25519
+                 statement, none in the hash bundles and the wrap), the warm prove's column sponge once per
                  column-major tree, and the warm proof's
                  statements must be the quotient check's. The per-statement
                  phase seconds that ``stark/batch.py`` logs are in the line
@@ -263,6 +268,42 @@ def _time_rounds(fn, reps: int, rounds: int = 5) -> dict:
     and the slowest beside it."""
     t = sorted(_time_ms(fn, reps) for _ in range(rounds))
     return {"ms": t[len(t) // 2], "ms_min": t[0], "ms_max": t[-1]}
+
+
+def _launch_burst_ms(module, launch: str, library: str, call, reps: int = 200) -> float:
+    """ms a launch of the kernel entry that `call` reaches through
+    `module`'s ctypes launcher (`launch`, over the library `library`
+    loads): CUDA events around `reps` back-to-back calls of the C entry
+    with the arguments the wrapper built, inside its call (its scratch
+    alive), with no wrapper in between: the kernels' time a launch, gaps
+    included, or the C entry's host cost where that is longer, for
+    kernels shorter than their Python wrapper."""
+    import ctypes
+
+    original = getattr(module, launch)
+    times = []
+
+    def burst(fn, args, dev):
+        original(fn, args, dev)  # the wrapper's own launch, and a warm-up
+        entry = getattr(getattr(module, library)(), fn)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        errs = [entry(ctypes.byref(args), stream) for _ in range(reps)]
+        end.record()
+        torch.cuda.synchronize()
+        if any(errs):
+            raise RuntimeError(f"{fn} launch failed: CUDA error {max(errs)}")
+        times.append(start.elapsed_time(end) / reps)
+
+    setattr(module, launch, burst)
+    try:
+        call()
+    finally:
+        setattr(module, launch, original)
+    return times[0]
 
 
 def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1073,8 +1114,11 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
         n_con = air.n_constraints  # a host evaluation of the AIR: once, outside the timings
         r = timed(lambda: pr.ext_powers_cuda(pts, n, dev), lambda: pr.ext_powers_plain(pts, n, dev),
                   f"ext_powers at {name}'s {K} points x {n}", gf2_equal)
+        r["burst_ms"] = _launch_burst_ms(pr, "_ood_launch", "_ood_library", lambda: pr.ext_powers_cuda(pts, n, dev))
         ra = timed(lambda: pr.ext_powers_cuda(alpha, n_con, dev), lambda: pr.ext_powers_plain(alpha, n_con, dev),
                    f"ext_powers at {name}'s alpha x {n_con}", gf2_equal)
+        ra["burst_ms"] = _launch_burst_ms(pr, "_ood_launch", "_ood_library",
+                                          lambda: pr.ext_powers_cuda(alpha, n_con, dev))
         rows["ext_powers"][name] = {
             "shape": [K, n], **r, **_field_bound(4 * K * n, 16 * K * n, muls_per_ms),
             "alpha": {"shape": [1, n_con], **ra, **_field_bound(4 * n_con, 16 * n_con, muls_per_ms)},
@@ -1099,6 +1143,18 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
         r = timed(lambda: pr.deep_inverses_cuda(log_n + rate, NTT_SHIFT, pts, dev),
                   lambda: pr.deep_inverses_plain(log_n + rate, NTT_SHIFT, pts, dev),
                   f"deep_inverses over {name}'s {N} points at {K} points", gf2_equal)
+        r["burst_ms"] = _launch_burst_ms(pr, "_ood_launch", "_ood_library",
+                                         lambda: pr.deep_inverses_cuda(log_n + rate, NTT_SHIFT, pts, dev))
+        # the last point planted on the domain (z1 = 0): 0 in its column alone
+        planted = (2 * N) // 3
+        on_domain = [*pts[:-1], (int(pr._domain_points(log_n + rate, NTT_SHIFT)[planted]), 0)]
+        got = pr.deep_inverses_cuda(log_n + rate, NTT_SHIFT, on_domain, dev)
+        zero = ((got.c0.v[-1] == 0) & (got.c1.v[-1] == 0)).nonzero().flatten().tolist()
+        if not gf2_equal(got, pr.deep_inverses_plain(log_n + rate, NTT_SHIFT, on_domain, dev)) or zero != [planted]:
+            raise AssertionError(f"deep_inverses over {name}'s {N} points with a domain point disagrees with its "
+                                 f"plain version (zero columns {zero[:4]}, {planted} wanted)")
+        r["planted_zero"] = planted
+        del got
         # x = x_prev w (N), then a point's norms, their batch inversion and
         # the conjugate's two products (K N (1 + BATCH_INV_MULS + 2)), one
         # inversion a point
@@ -1122,8 +1178,8 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
             "replaces": replaces[kname][0],
             "replaces_program": replaces[kname][1],
             "shape": top["shape"],
-            **{k: top[k] for k in ("max_abs_err", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
-                                   "operations_bound_ms", "bytes_bound_ms", "bytes")},
+            **{k: top[k] for k in ("max_abs_err", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "operations_bound_ms", "bytes_bound_ms", "bytes") if k in top},
             "library_ms": None,
             **_registers_of(ptxas, *parts[kname]),
             "airs": airs,
@@ -1154,6 +1210,7 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
     sums; logup_scan_plain: S) and the whole aux output against
     build_aux_plain, with times and bounds; then the synthetic shapes with
     pad > 0 and several table columns, checked alone."""
+    from tendermintx_tpu_torch.stark import lookup
     from tendermintx_tpu_torch.stark.ed25519_air import Ed25519Air
     from tendermintx_tpu_torch.stark.lookup import BATCH, RangeLookup
 
@@ -1188,6 +1245,8 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
     terms = _time_rounds(lambda: lk.logup_terms_cuda(trace, gamma, out), 20)
     terms["clocks_sm_mhz"] = float(_nvidia_smi("clocks.sm"))  # read just after the rounds
     scan = _time_rounds(lambda: lk.logup_scan_cuda(partial, out), 20)
+    scan["burst_ms"] = _launch_burst_ms(lookup, "_logup_launch", "_logup_library",
+                                        lambda: lk.logup_scan_cuda(partial, out))
     aux = _time_rounds(lambda: lk.build_aux_cuda(trace, gamma), 20)
     # the function's least multiplies a row (see BATCH_INV_MULS): a checked
     # term's norm, batch inversion and d0 / N(d), with gamma1 times the
@@ -1218,8 +1277,9 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
         },
         "logup_scan": {
             **common, "replaces": "tendermintx_tpu/stark/lookup.py:450",
-            "replaces_program": "_aux_scan_kernel", "shape": [2, n_groups, n], **scan,
-            "plain_ms": scan_plain_ms, **scan_bound, **_registers_of(ptxas, "tmx_logup_scan"),
+            "replaces_program": "_aux_scan_kernel", "shape": [2, n_groups, n], "tiles": list(lk.scan_tiles()),
+            **scan, "plain_ms": scan_plain_ms, **scan_bound,
+            **_registers_of(ptxas, "tmx_logup_tile_sums", "tmx_logup_scan"),
         },
     }
 
@@ -1604,9 +1664,10 @@ def _check_ood_launches(launches: dict, statements: int, ed25519: int, path: str
     """A statement's OOD is one ood_eval call (its slice and sum kernels:
     two launches) and two ext_powers launches (alpha's powers and the
     opening points'), its DEEP inverses one launch (on the mesh's first
-    device); each Ed25519 statement launches each LogUp kernel once."""
+    device); each Ed25519 statement launches the LogUp terms kernel once
+    and one logup_scan call (its tile-sum and scan kernels: two)."""
     want = {"ood_eval": 2 * statements, "deep_inverses": statements, "ext_powers": 2 * statements,
-            "logup_terms": ed25519, "logup_scan": ed25519}
+            "logup_terms": ed25519, "logup_scan": 2 * ed25519}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"the {path} path has {statements} statements ({ed25519} Ed25519) and "
@@ -2514,7 +2575,8 @@ def main(argv: list[str]) -> int:
         entry = {"name": name, **{k: row[k] for k in kept},
                  "launches": count(cold_launches, name) + count(warm_launches, name),
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
-        entry.update({k: row[k] for k in ("ms_min", "ms_max") if k in row})
+        entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "tiles", "registers", "spill_bytes")
+                      if k in row})
         if name in KERNEL_ENTRIES:
             entry["launches_by_entry"] = {
                 e: {path: launches[e] for path, launches in paths.items()} for e in KERNEL_ENTRIES[name]
@@ -2546,8 +2608,8 @@ def main(argv: list[str]) -> int:
             }
         if entry["name"] in ("ext_powers", "ood_eval", "deep_inverses"):
             entry["airs"] = {
-                air: {k: a[k] for k in ("shape", "ms", "ms_min", "ms_max", "plain_ms", "bound_ms", "bound_by",
-                                        "max_abs_err")}
+                air: {k: a[k] for k in ("shape", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "max_abs_err", "planted_zero") if k in a}
                 for air, a in rows[entry["name"]]["airs"].items()
             }
         if entry["name"] in LOGUP_ENTRIES:

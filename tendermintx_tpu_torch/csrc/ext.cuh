@@ -32,14 +32,6 @@ __device__ __forceinline__ E2 mul(E2 a, E2 b) {
 // a times a base value
 __device__ __forceinline__ E2 scale(E2 a, uint64_t s) { return {tmx_gl::mul(a.c0, s), tmx_gl::mul(a.c1, s)}; }
 
-// 1/(a0 + a1 X) = (a0 - a1 X) / (a0^2 - W a1^2), and 0 for 0 (ops/ext.py:
-// GF2.inv): the norm is 0 only for 0, W being a non-residue
-__device__ __forceinline__ E2 inv(E2 a) {
-    const uint64_t norm = tmx_gl::sub(tmx_gl::mul(a.c0, a.c0), tmx_gl::mul(tmx_gl::mul(a.c1, a.c1), W));
-    const uint64_t ninv = tmx_gl::inv(norm);
-    return {tmx_gl::mul(a.c0, ninv), tmx_gl::neg(tmx_gl::mul(a.c1, ninv))};
-}
-
 // y[i] <- y[i] / n[i] for B extension values over B canonical base values
 // at once, by Montgomery's trick: on the way up each y[i] is multiplied by
 // the product of the n before it, on the way down by the inverse of the

@@ -12,7 +12,8 @@
 //                    aux output, and each group of terms' signed sum a row
 //                    into a (2, groups, n) scratch;
 //   tmx_logup_scan   the groups' sums added a row and scanned into S, the
-//                    output's last two rows.
+//                    output's last two rows: two kernels, the tiles' sums
+//                    into a (2, n_tiles) scratch, then each tile's scan.
 //
 // Replaces the XLA programs of tendermintx_tpu/stark/lookup.py:400
 // `_aux_w_kernel`, :443 `_aux_wt_kernel`, :450 `_aux_scan_kernel` and :474
@@ -47,12 +48,23 @@
 //
 // The grid is over (rows, groups of terms), a group a multiple of TERMS
 // terms, so a 2^15-row trace still gives enough blocks; each thread sums its
-// group's terms for its row. The scan reads only the groups' sums (groups
-// x 2^15 x 16 bytes) in one block of SCAN_THREADS threads, a chunk of
-// SCAN_THREADS consecutive rows at a time (one a thread, read coalesced): a
-// warp-shuffle scan within the warps, then of the warps' totals, plus the
-// chunks before it. Field arithmetic is exact in any order, so every value
-// equals the plain torch version's bit for bit.
+// group's terms for its row.
+//
+// The scan reads only the groups' sums (groups x 2^15 x 16 bytes at
+// Ed25519, 4 MB) and writes S: bytes- and launch-bound, so it spreads over
+// the card. Reduce-then-scan, in two kernels over tiles of `tile` rows (a
+// multiple of SCAN_THREADS, one wave of about 128 tiles at 2^15 rows):
+// tmx_logup_tile_sums_kernel adds each tile's rows (a row's groups, then
+// the rows) into the scratch; tmx_logup_scan_kernel adds the sums of the
+// tiles before its own (a few hundred words from L2, which also holds the
+// groups' sums for their second read) and scans its tile a chunk of
+// SCAN_THREADS consecutive rows at a time (one a thread, read coalesced):
+// a warp-shuffle scan within the warps, then of the warps' totals, plus
+// the carry. Chosen over a single pass with decoupled look-back: at 2^15
+// rows the second read costs less than a launch, and two plain kernels
+// need no tile counter or status words to reset, and no block waits on
+// another. Field arithmetic is exact in any order, so every value equals
+// the plain torch version's bit for bit.
 //
 // Each entry has a plain C interface, launches on the caller's stream and
 // returns cudaGetLastError(); the kernels allocate nothing.
@@ -69,7 +81,8 @@ namespace {
 constexpr int BATCH = 4;  // stark/lookup.py: BATCH
 constexpr int TERMS = 8;  // stark/lookup.py: _LOGUP_TERMS, terms a batch inversion
 constexpr int THREADS = 128;  // stark/lookup.py: _LOGUP_THREADS
-constexpr int SCAN_THREADS = 1024;
+constexpr int SCAN_THREADS = 256;  // stark/lookup.py: _SCAN_THREADS
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
 
 }  // namespace
 
@@ -90,6 +103,9 @@ struct LogupArgs {
     int64_t n_groups;          // ceil((n_batches + width) / group)
     uint64_t* out;             // (2 (n_batches + width + 1), n)
     uint64_t* partial;         // (2, n_groups, n)
+    int64_t tile;              // the scan's rows a tile, a multiple of SCAN_THREADS
+    int64_t n_tiles;           // ceil(n / tile)
+    uint64_t* tile_sums;       // (2, n_tiles) scratch of the scan
 };
 
 namespace {
@@ -229,16 +245,58 @@ __device__ __forceinline__ E2 shfl_up(E2 v, int off) {
               __shfl_up_sync(0xFFFFFFFFu, (unsigned long long)v.c1, off)};
 }
 
+__device__ __forceinline__ E2 shfl_xor(E2 v, int mask) {
+    return E2{__shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)v.c0, mask),
+              __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)v.c1, mask)};
+}
+
+// the block's sum of every thread's v, in every thread
+__device__ __forceinline__ E2 block_sum(E2 v, uint64_t (&w0)[SCAN_WARPS], uint64_t (&w1)[SCAN_WARPS]) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+#pragma unroll
+    for (int m = 16; m; m >>= 1) v = tmx_ext::add(v, shfl_xor(v, m));
+    if (lane == 0) {
+        w0[warp] = v.c0;
+        w1[warp] = v.c1;
+    }
+    __syncthreads();
+    E2 s{0, 0};
+#pragma unroll
+    for (int i = 0; i < SCAN_WARPS; ++i) s = tmx_ext::add(s, E2{w0[i], w1[i]});
+    return s;
+}
+
+// tile_sums[b] = the sum over tile b's rows of their groups' sums
+__global__ void __launch_bounds__(SCAN_THREADS) tmx_logup_tile_sums_kernel(LogupArgs a) {
+    __shared__ uint64_t w0[SCAN_WARPS], w1[SCAN_WARPS];
+    const int64_t r0 = int64_t(blockIdx.x) * a.tile;
+    const int64_t r1 = r0 + a.tile < a.n ? r0 + a.tile : a.n;
+    E2 v{0, 0};
+    for (int64_t r = r0 + threadIdx.x; r < r1; r += SCAN_THREADS) v = tmx_ext::add(v, row_diff(a, r));
+    const E2 s = block_sum(v, w0, w1);
+    if (threadIdx.x == 0) {
+        a.tile_sums[blockIdx.x] = s.c0;
+        a.tile_sums[a.n_tiles + blockIdx.x] = s.c1;
+    }
+}
+
+// S over tile b's rows: the tiles before it summed, then its chunks scanned
 __global__ void __launch_bounds__(SCAN_THREADS) tmx_logup_scan_kernel(LogupArgs a) {
-    __shared__ uint64_t w0[SCAN_THREADS / 32], w1[SCAN_THREADS / 32];
+    __shared__ uint64_t w0[SCAN_WARPS], w1[SCAN_WARPS];
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int64_t terms = a.n_batches + a.width;
     uint64_t* s0 = a.out + (2 * terms) * a.n;
     uint64_t* s1 = a.out + (2 * terms + 1) * a.n;
-    E2 carry{0, 0};  // the sum of every row before this chunk
-    for (int64_t base = 0; base < a.n; base += SCAN_THREADS) {
+    E2 c{0, 0};
+    for (int64_t t = threadIdx.x; t < blockIdx.x; t += SCAN_THREADS)
+        c = tmx_ext::add(c, E2{ld(a.tile_sums + t), ld(a.tile_sums + a.n_tiles + t)});
+    E2 carry = block_sum(c, w0, w1);  // the sum of every row before this chunk
+    __syncthreads();                  // the warps' sums are read before the chunks write them
+    const int64_t r0 = int64_t(blockIdx.x) * a.tile;
+    const int64_t r1 = r0 + a.tile < a.n ? r0 + a.tile : a.n;
+    for (int64_t base = r0; base < r1; base += SCAN_THREADS) {
         const int64_t r = base + threadIdx.x;
-        E2 x = r < a.n ? row_diff(a, r) : E2{0, 0};
+        E2 x = r < r1 ? row_diff(a, r) : E2{0, 0};
         // inclusive scan within the warp, then of the warps' totals
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
@@ -251,23 +309,25 @@ __global__ void __launch_bounds__(SCAN_THREADS) tmx_logup_scan_kernel(LogupArgs 
         }
         __syncthreads();
         if (warp == 0) {
-            E2 t = E2{w0[lane], w1[lane]};
+            E2 t = lane < SCAN_WARPS ? E2{w0[lane], w1[lane]} : E2{0, 0};
 #pragma unroll
-            for (int off = 1; off < 32; off <<= 1) {
+            for (int off = 1; off < SCAN_WARPS; off <<= 1) {
                 const E2 y = shfl_up(t, off);
                 if (lane >= off) t = tmx_ext::add(t, y);
             }
-            w0[lane] = t.c0;
-            w1[lane] = t.c1;
+            if (lane < SCAN_WARPS) {
+                w0[lane] = t.c0;
+                w1[lane] = t.c1;
+            }
         }
         __syncthreads();
         if (warp > 0) x = tmx_ext::add(x, E2{w0[warp - 1], w1[warp - 1]});
         x = tmx_ext::add(x, carry);
-        if (r < a.n) {
+        if (r < r1) {
             s0[r] = x.c0;
             s1[r] = x.c1;
         }
-        carry = tmx_ext::add(carry, E2{w0[SCAN_THREADS / 32 - 1], w1[SCAN_THREADS / 32 - 1]});
+        carry = tmx_ext::add(carry, E2{w0[SCAN_WARPS - 1], w1[SCAN_WARPS - 1]});
         __syncthreads();  // the warps' totals are read before the next chunk writes them
     }
 }
@@ -291,7 +351,13 @@ extern "C" int tmx_logup_terms(const LogupArgs* args, void* stream) {
 
 extern "C" int tmx_logup_scan(const LogupArgs* args, void* stream) {
     const LogupArgs& a = *args;
-    if (!valid(a)) return (int)cudaErrorInvalidValue;
-    tmx_logup_scan_kernel<<<1, SCAN_THREADS, 0, (cudaStream_t)stream>>>(a);
+    if (!valid(a) || !a.tile_sums || a.tile < SCAN_THREADS || a.tile % SCAN_THREADS != 0 ||
+        a.n_tiles != (a.n + a.tile - 1) / a.tile || a.n_tiles > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    tmx_logup_tile_sums_kernel<<<(unsigned)a.n_tiles, SCAN_THREADS, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    tmx_logup_scan_kernel<<<(unsigned)a.n_tiles, SCAN_THREADS, 0, s>>>(a);
     return (int)cudaGetLastError();
 }

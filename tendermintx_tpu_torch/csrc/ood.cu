@@ -54,11 +54,30 @@
 //   (tmx_ood_occupancy) over the card. Two rows a thread (one power read
 //   feeding both) measured slower at every N=128 shape: their
 //   accumulators halve the resident warps (PERF.md, PR 12).
-// - deep_inverses writes 16 bytes a (point, x) pair and inverts one
-//   extension value for it: a norm, one base inversion by an addition chain
-//   of 73 multiplies (goldilocks.cuh: inv), and three multiplies; x comes
-//   from the powers w_N^(2^b) the caller passes. One inversion an element,
-//   not a Montgomery batch: inv(0) = 0 needs no special case.
+// - deep_inverses writes 16 bytes a (point, x) pair (SHA-256 at N=128: 8
+//   points x 2^19, 67 MB): bytes-bound in the function, whose inverses
+//   are one Montgomery batch, and bound by integer issue in a kernel that
+//   inverts each pair alone (an addition chain of 73 multiplies,
+//   goldilocks.cuh: inv). So a pair costs its norm and its share of a
+//   batch inversion: 1/(x - z) = (x - z0 + z1 X) / n with n = (x - z0)^2
+//   - W z1^2, W z1^2 a point's constant from the host, so a pair's norm
+//   is one multiply and its numerator none. Each thread takes J = 24 / K
+//   domain points at a grid stride (i, i + stride, ..: stores stay
+//   coalesced along each (component, point) row of the output) at all K
+//   points, B = J K = 20-24 pairs, and inverts their norms together by
+//   Montgomery's trick in prefix form: the running products c_p = n_0 ..
+//   n_p on the way up, one inversion of c_(B-1), then on the way down 1 /
+//   n_p = acc c_(p-1) with acc = 1 / c_p stepped back by n_p, and the
+//   pair's two values (x - z0) / n_p and z1 / n_p: 6 multiplies a pair
+//   and 73 a batch. The registers hold c and n (4 words a pair; x - z0 is
+//   recomputed from x, which steps back by w_N^-stride), where ext.cuh's
+//   batch_div holds y and n (6 words) and does 7 multiplies. B = 24 was
+//   the fastest of 16, 24 and 32 at SHA-256's and EvalAir's shapes (32:
+//   ptxas spills and a quarter fewer threads; PERF.md); the small
+//   2-point domains (Ed25519, WrapAir) lose a little to the fewer blocks.
+//   A zero norm (x = z on the domain) is masked to 1 in the products and
+//   its pair stored as 0, as inv(0) is. x starts as shift w_N^i from the
+//   powers w_N^(2^b) and steps by w_N^stride, both from the host.
 //
 // Every result is canonical and equals the plain torch versions bit for
 // bit. Each entry has a plain C interface, launches on the caller's stream
@@ -89,6 +108,13 @@ constexpr int STAGES = 4;          // the ring of tiles in shared memory
 constexpr int GROUP_POINTS = 4;    // points a block evaluates, at most
 constexpr int MAX_THREADS = 128;   // a block's threads (and rows): 32, 64 or 128
 constexpr int SUM_X = 32, SUM_Y = 16;  // the slice sum: outputs by slice lanes a block
+constexpr int INV_THREADS = 128;  // deep_inverses: a block's threads
+
+// deep_inverses: the pairs a batch inversion takes, at most (the zero
+// mask is one word), and the domain points a thread takes at K opening
+// points (stark/prover.py: _deep_inv_points)
+constexpr int INV_BATCH = 24;
+__host__ __device__ constexpr int inv_points(int K) { return INV_BATCH / K; }
 
 }  // namespace
 
@@ -127,11 +153,15 @@ struct OodArgs {
 struct InvArgs {
     uint64_t z0[MAX_POINTS];  // the points' c0 and c1
     uint64_t z1[MAX_POINTS];
-    uint64_t wpow[32];  // w_N^(2^b)
+    uint64_t wz1[MAX_POINTS];  // W z1^2, the points' norm constants
+    uint64_t wpow[32];         // w_N^(2^b)
+    uint64_t wstride;          // w_N^stride
+    uint64_t wistride;         // w_N^-stride
     uint64_t shift;
     int64_t n_points;
     int64_t N;
-    uint64_t* out;  // (2, n_points, N)
+    int64_t stride;  // ceil(N / inv_points(n_points)): a thread's points are i, i + stride, ..
+    uint64_t* out;   // (2, n_points, N)
 };
 
 namespace {
@@ -393,18 +423,51 @@ __global__ void __launch_bounds__(SUM_X * SUM_Y) tmx_ood_sum_kernel(OodArgs a) {
     }
 }
 
-__global__ void __launch_bounds__(THREADS) tmx_deep_inverses_kernel(InvArgs a) {
-    const int64_t i = int64_t(blockIdx.x) * THREADS + threadIdx.x;
-    if (i >= a.N) return;
-    // x = shift w_N^i from the bits of i
+template <int K>
+__global__ void __launch_bounds__(INV_THREADS) tmx_deep_inverses_kernel(InvArgs a) {
+    constexpr int J = inv_points(K), B = J * K;
+    const int64_t i0 = int64_t(blockIdx.x) * INV_THREADS + threadIdx.x;
+    if (i0 >= a.stride) return;
+    // x = shift w_N^i0 from the bits of i0, then times w_N^stride a point
     uint64_t x = a.shift;
 #pragma unroll
     for (int bit = 0; bit < 32; ++bit)
-        if ((uint64_t(i) >> bit) & 1) x = tmx_gl::mul(x, a.wpow[bit]);
-    for (int k = 0; k < a.n_points; ++k) {
-        const E2 v = tmx_ext::inv(E2{tmx_gl::sub(x, a.z0[k]), tmx_gl::neg(a.z1[k])});
-        a.out[k * a.N + i] = v.c0;
-        a.out[(a.n_points + k) * a.N + i] = v.c1;
+        if ((uint64_t(i0) >> bit) & 1) x = tmx_gl::mul(x, a.wpow[bit]);
+    // up: pair p = (j, k)'s norm n_p (1 past the domain; 0 masked to 1 and
+    // flagged) and the products c_p = n_0 .. n_p, below 2^64
+    uint64_t n[B], c[B];
+    uint32_t zero = 0;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+        const bool live = i0 + j * a.stride < a.N;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const int p = j * K + k;
+            const uint64_t d = tmx_gl::sub(x, a.z0[k]);
+            const uint64_t m = live ? tmx_gl::sub(tmx_gl::mul(d, d), a.wz1[k]) : 1;
+            zero |= uint32_t(m == 0) << p;
+            n[p] = m ? m : 1;
+            c[p] = p ? tmx_gl::mul_nc(c[p - 1], n[p]) : n[p];
+        }
+        if (j + 1 < J) x = tmx_gl::mul(x, a.wstride);
+    }
+    // down: acc = 1 / c_p, so 1 / n_p = acc c_(p-1); x steps back
+    uint64_t acc = tmx_gl::inv(tmx_gl::canon(c[B - 1]));
+#pragma unroll
+    for (int j = J - 1; j >= 0; --j) {
+        const int64_t i = i0 + j * a.stride;
+#pragma unroll
+        for (int k = K - 1; k >= 0; --k) {
+            const int p = j * K + k;
+            uint64_t r = p ? tmx_gl::mul(acc, c[p - 1]) : tmx_gl::canon(acc);
+            if (p) acc = tmx_gl::mul_nc(acc, n[p]);
+            r = (zero >> p) & 1 ? 0 : r;
+            if (i < a.N) {
+                a.out[k * a.N + i] = tmx_gl::mul(tmx_gl::sub(x, a.z0[k]), r);
+                a.out[(K + k) * a.N + i] = tmx_gl::mul(a.z1[k], r);
+            }
+        }
+        if (j) x = tmx_gl::mul(x, a.wistride);
     }
 }
 
@@ -512,9 +575,20 @@ extern "C" int tmx_deep_inverses(const InvArgs* args, void* stream) {
     const InvArgs& a = *args;
     if (a.n_points < 1 || a.n_points > MAX_POINTS || a.N < 0 || a.N > (int64_t(1) << 32))
         return (int)cudaErrorInvalidValue;
+    const int J = inv_points(int(a.n_points));
+    if (a.stride != (a.N + J - 1) / J) return (int)cudaErrorInvalidValue;
     if (a.N == 0) return 0;
-    const int64_t blocks = (a.N + THREADS - 1) / THREADS;
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    tmx_deep_inverses_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    const unsigned blocks = unsigned((a.stride + INV_THREADS - 1) / INV_THREADS);
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (a.n_points) {
+        case 1: tmx_deep_inverses_kernel<1><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        case 2: tmx_deep_inverses_kernel<2><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        case 3: tmx_deep_inverses_kernel<3><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        case 4: tmx_deep_inverses_kernel<4><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        case 5: tmx_deep_inverses_kernel<5><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        case 6: tmx_deep_inverses_kernel<6><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        case 7: tmx_deep_inverses_kernel<7><<<blocks, INV_THREADS, 0, s>>>(a); break;
+        default: tmx_deep_inverses_kernel<8><<<blocks, INV_THREADS, 0, s>>>(a); break;
+    }
     return (int)cudaGetLastError();
 }

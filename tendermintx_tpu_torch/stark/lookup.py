@@ -31,7 +31,8 @@ from ..ops.goldilocks import GF, P, add, field_sum
 
 BATCH = 4  # checked values per aux column -> constraint degree BATCH + 1
 
-# incremented exactly where each csrc/logup.cu entry is launched
+# incremented exactly where each csrc/logup.cu entry is launched, by the
+# CUDA kernels it launches (tmx_logup_scan: its tile-sum and scan kernels, 2)
 logup_terms_kernel_launches = 0
 logup_scan_kernel_launches = 0
 # csrc/logup.cu's terms grid: rows by groups of terms, the groups cut until
@@ -41,6 +42,10 @@ logup_scan_kernel_launches = 0
 _LOGUP_THREADS = 128
 _LOGUP_BLOCKS = 2048
 _LOGUP_TERMS = 8
+# csrc/logup.cu's scan: tiles of a multiple of _SCAN_THREADS rows (the
+# rows a chunk, one a thread), about _SCAN_TILES of them (one wave)
+_SCAN_THREADS = 256
+_SCAN_TILES = 128
 
 
 @cache
@@ -188,6 +193,13 @@ class RangeLookup:
         group = -(-runs // n_groups) * _LOGUP_TERMS
         return group, -(-terms // group)
 
+    def scan_tiles(self) -> tuple[int, int]:
+        """(rows a tile, tiles) of the scan: whole chunks of _SCAN_THREADS
+        rows, as few a tile as keep the tiles at most _SCAN_TILES."""
+        chunks = max(1, -(-self.n_rows // (_SCAN_THREADS * _SCAN_TILES)))
+        tile = chunks * _SCAN_THREADS
+        return tile, -(-self.n_rows // tile)
+
     def build_aux_cuda(self, trace: GF, gamma: GF2) -> GF:
         """logup_terms writes every w_b and wt_j into its rows of the aux
         output and each group's signed sum a row into a scratch;
@@ -198,10 +210,12 @@ class RangeLookup:
         return GF(out)
 
     def _logup_args(self, out: torch.Tensor, partial: torch.Tensor, trace: GF | None = None,
-                    gamma: GF2 | None = None, checked: torch.Tensor | None = None) -> "_LogupArgs":
+                    gamma: GF2 | None = None, checked: torch.Tensor | None = None,
+                    tile_sums: torch.Tensor | None = None) -> "_LogupArgs":
         """The kernels' arguments; the scan reads no trace, gamma or column
-        index (None: null pointers)."""
+        index, the terms no tile sums (None: null pointers)."""
         group, n_groups = self.logup_groups()
+        tile, n_tiles = self.scan_tiles()
         ptr = lambda t: t.data_ptr() if t is not None else None
         return _LogupArgs(
             trace=ptr(trace.v if trace is not None else None),
@@ -211,6 +225,7 @@ class RangeLookup:
             gamma0=ptr(gamma.c0.v if gamma is not None else None),
             gamma1=ptr(gamma.c1.v if gamma is not None else None),
             n=self.n_rows, group=group, n_groups=n_groups, out=out.data_ptr(), partial=partial.data_ptr(),
+            tile=tile, n_tiles=n_tiles, tile_sums=ptr(tile_sums),
         )
 
     def _check_cuda(self, trace: GF, gamma: GF2, out: torch.Tensor):
@@ -245,8 +260,10 @@ class RangeLookup:
         return partial
 
     def logup_scan_cuda(self, partial: torch.Tensor, out: torch.Tensor):
-        """One launch: S into the last two rows of `out` from the groups'
-        sums (one block; the other rows are not read)."""
+        """S into the last two rows of `out` from the groups' sums (the
+        other rows are not read): two kernels over the tiles of
+        scan_tiles, their sums into a (2, tiles) scratch, then each tile
+        scanned after the sum of the tiles before it."""
         global logup_scan_kernel_launches
         dev = out.device
         if dev.type != "cuda":
@@ -259,8 +276,9 @@ class RangeLookup:
                 or tuple(out.shape) != (self.n_aux_cols, self.n_rows)):
             raise ValueError(f"logup_scan_cuda: the output must be a contiguous int64 "
                              f"({self.n_aux_cols}, {self.n_rows}) tensor")
-        _logup_launch("tmx_logup_scan", self._logup_args(out, partial), dev)
-        logup_scan_kernel_launches += 1
+        tile_sums = torch.empty((2, self.scan_tiles()[1]), dtype=torch.int64, device=dev)
+        _logup_launch("tmx_logup_scan", self._logup_args(out, partial, tile_sums=tile_sums), dev)
+        logup_scan_kernel_launches += 2
 
     def logup_terms_plain(self, trace: GF, gamma: GF2) -> tuple[torch.Tensor, torch.Tensor]:
         """logup_terms_cuda's two results as torch ops (any device): the
@@ -548,6 +566,7 @@ class _LogupArgs(ctypes.Structure):
         ("gamma0", ctypes.c_void_p), ("gamma1", ctypes.c_void_p),
         ("n", ctypes.c_int64), ("group", ctypes.c_int64), ("n_groups", ctypes.c_int64),
         ("out", ctypes.c_void_p), ("partial", ctypes.c_void_p),
+        ("tile", ctypes.c_int64), ("n_tiles", ctypes.c_int64), ("tile_sums", ctypes.c_void_p),
     ]
 
 

@@ -493,6 +493,17 @@ OOD_GROUP_POINTS = 4
 OOD_MAX_THREADS = 128
 
 
+# csrc/ood.cu: INV_BATCH, the (point, x) pairs of a deep_inverses batch
+# inversion, at most
+DEEP_INV_BATCH = 24
+
+
+def _deep_inv_points(n_points: int) -> int:
+    """csrc/ood.cu: inv_points, the domain points a deep_inverses thread
+    takes at n_points opening points (a batch inversion of 20-24 pairs)."""
+    return DEEP_INV_BATCH // n_points
+
+
 class _PowersArgs(ctypes.Structure):
     """csrc/ood.cu's PowersArgs, field for field."""
 
@@ -519,8 +530,10 @@ class _InvArgs(ctypes.Structure):
 
     _fields_ = [
         ("z0", ctypes.c_uint64 * OOD_MAX_POINTS), ("z1", ctypes.c_uint64 * OOD_MAX_POINTS),
-        ("wpow", ctypes.c_uint64 * 32), ("shift", ctypes.c_uint64),
-        ("n_points", ctypes.c_int64), ("N", ctypes.c_int64), ("out", ctypes.c_void_p),
+        ("wz1", ctypes.c_uint64 * OOD_MAX_POINTS), ("wpow", ctypes.c_uint64 * 32),
+        ("wstride", ctypes.c_uint64), ("wistride", ctypes.c_uint64), ("shift", ctypes.c_uint64),
+        ("n_points", ctypes.c_int64), ("N", ctypes.c_int64), ("stride", ctypes.c_int64),
+        ("out", ctypes.c_void_p),
     ]
 
 
@@ -761,11 +774,31 @@ def deep_inverses_plain(log_N: int, shift: int, zks: list[tuple[int, int]], devi
     return GF2(c0, GF(c1.v.contiguous())).inv()
 
 
+@cache
+def _deep_inv_domain(log_N: int, n_points: int) -> tuple[int, ctypes.Array, int, int]:
+    """(stride, w_N^(2^b) for b < 32 as csrc/ood.cu's array, w_N^stride,
+    w_N^-stride) of deep_inverses_cuda's launch over a domain of 2^log_N
+    points: built once a shape (the host's powers cost more than the
+    Ed25519 kernel)."""
+    N = 1 << log_N
+    stride = -(-N // _deep_inv_points(n_points))
+    w = nttmod.primitive_root_of_unity(log_N)
+    wpow = []
+    for _ in range(32):
+        wpow.append(w)
+        w = w * w % P
+    wstride = pow(wpow[0], stride, P)
+    return stride, (ctypes.c_uint64 * 32)(*wpow), wstride, pow(wstride, P - 2, P)
+
+
 def deep_inverses_cuda(log_N: int, shift: int, zks: list[tuple[int, int]], device) -> GF2:
-    """One launch: x = shift w_N^i from the powers w_N^(2^b), then one
-    extension inversion a (point, x) pair, into one (2, points, N) buffer
-    whose halves are the c0 and c1 rows (unit stride along each row, as
-    parallel/prover.py::sharded_deep_fn cuts them)."""
+    """One launch into one (2, points, N) buffer whose halves are the c0
+    and c1 rows (unit stride along each row, as
+    parallel/prover.py::sharded_deep_fn cuts them): each thread takes the
+    domain points i, i + stride, .. (_deep_inv_points of them; x from the
+    powers w_N^(2^b), then times w_N^stride) at every opening point and
+    divides each pair's conjugate by its norm, (x - z0)^2 - W z1^2 (W z1^2
+    passed a point), in one batch inversion."""
     global deep_inverses_kernel_launches
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -774,14 +807,11 @@ def deep_inverses_cuda(log_N: int, shift: int, zks: list[tuple[int, int]], devic
         raise ValueError(f"deep_inverses_cuda takes domains of 2^0 to 2^32 points, got 2^{log_N}")
     z0, z1 = _points_array(zks, "deep_inverses_cuda")
     N = 1 << log_N
-    w = nttmod.primitive_root_of_unity(log_N)
-    wpow = []
-    for _ in range(32):
-        wpow.append(w)
-        w = w * w % P
+    stride, wpow, wstride, wistride = _deep_inv_domain(log_N, len(zks))
+    wz1 = (ctypes.c_uint64 * OOD_MAX_POINTS)(*[W * v * v % P for v in z1])
     out = torch.empty((2, len(zks), N), dtype=torch.int64, device=dev)
-    args = _InvArgs(z0=z0, z1=z1, wpow=(ctypes.c_uint64 * 32)(*wpow), shift=shift % P,
-                    n_points=len(zks), N=N, out=out.data_ptr())
+    args = _InvArgs(z0=z0, z1=z1, wz1=wz1, wpow=wpow, wstride=wstride, wistride=wistride, shift=shift % P,
+                    n_points=len(zks), N=N, stride=stride, out=out.data_ptr())
     _ood_launch("tmx_deep_inverses", args, dev)
     deep_inverses_kernel_launches += 1
     return GF2(GF(out[0]), GF(out[1]))

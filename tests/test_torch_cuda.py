@@ -463,6 +463,27 @@ def test_ood_deep_inverses_kernel_matches_plain(dev, n_points, log_N):
     assert _gf2_equal(got, pr.deep_inverses_plain(log_N, 7, zks, dev))
 
 
+@pytest.mark.parametrize("log_N", [0, 1, 5, 11])
+@pytest.mark.parametrize("n_points", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_ood_deep_inverses_planted_point_matches_plain(dev, n_points, log_N):
+    """Every instance of the kernel (1-8 points, 32 / K domain points a
+    thread) with the last opening point planted on the domain (z1 = 0): 0
+    in that column alone, exact elsewhere; at N = 1 and 2 (fewer domain
+    points than a thread takes), strides below a block's threads (N =
+    2^5), and domains that are no multiple of the points a thread (3, 5, 6
+    and 7 opening points)."""
+    from tendermintx_tpu_torch.stark import prover as pr
+
+    N = 1 << log_N
+    planted = (2 * N) // 3
+    zks = _ext_points(n_points, 300 + 8 * log_N + n_points)
+    zks[-1] = (int(pr._domain_points(log_N, 7)[planted]), 0)
+    got = pr.deep_inverses(log_N, 7, zks, dev)
+    assert _gf2_equal(got, pr.deep_inverses_plain(log_N, 7, zks, dev))
+    zero = (got.c0.v[-1] == 0) & (got.c1.v[-1] == 0)
+    assert zero.nonzero().flatten().tolist() == [planted]
+
+
 def test_ood_kernels_refuse_instead_of_falling_back(dev):
     from tendermintx_tpu_torch.ops.ext import GF2
     from tendermintx_tpu_torch.stark import prover as pr
@@ -520,7 +541,7 @@ def test_logup_kernels_match_plain(dev, K, n, bits):
     lk, trace, gamma = _logup_case(K, n, bits, 90 + K, dev)
     before = _logup_counts()
     got = lk.build_aux(trace, gamma)
-    assert _logup_counts() == (before[0] + 1, before[1] + 1)
+    assert _logup_counts() == (before[0] + 1, before[1] + 2)  # the scan's tile-sum and scan kernels
     assert torch.equal(got.v, lk.build_aux_plain(trace, gamma).v)
     out = torch.empty_like(got.v)
     partial = lk.logup_terms_cuda(trace, gamma, out)
@@ -528,6 +549,27 @@ def test_logup_kernels_match_plain(dev, K, n, bits):
     assert torch.equal(out[: rows.shape[0]], rows) and torch.equal(partial, want_partial)
     lk.logup_scan_cuda(partial, out)
     assert torch.equal(out[rows.shape[0]:], lk.logup_scan_plain(partial))
+
+
+@pytest.mark.parametrize("n, tiles", [(1, 128), (255, 128), (257, 128), (5000, 3), (33_000, 128), (1 << 15, 128),
+                                      ((1 << 18) + 7, 128)])
+def test_logup_scan_tiles_match_plain(dev, n, tiles, monkeypatch):
+    """The scan alone over random group sums (15 batches and the table
+    columns: 1-1,026 groups): one tile, a ragged second tile, tiles of
+    several chunks with a ragged last one, 2^15 rows in 128 tiles, and
+    2^18 + 7 rows (tiles of 9 chunks); two kernel launches a call."""
+    from tendermintx_tpu_torch.stark import lookup
+    from tendermintx_tpu_torch.stark.lookup import RangeLookup
+
+    monkeypatch.setattr(lookup, "_SCAN_TILES", tiles)
+    lk = RangeLookup(list(range(60)), 60, n, 13)
+    partial = _felts((2, lk.logup_groups()[1], n), 400 + n, dev)
+    out = _felts((lk.n_aux_cols, n), 401 + n, dev)
+    rows = out[:-2].clone()
+    before = _logup_counts()
+    lk.logup_scan_cuda(partial, out)
+    assert _logup_counts() == (before[0], before[1] + 2)
+    assert torch.equal(out[-2:], lk.logup_scan_plain(partial)) and torch.equal(out[:-2], rows)
 
 
 @pytest.mark.parametrize("K", [51, 52, 59, 60])
@@ -813,7 +855,7 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     the CPU's proof byte for byte; on one device the card's quotient is
     one launch per statement, DEEP one, OOD and the DEEP inverses one each
     (and two powers launches: alpha's and the opening points'), the LogUp
-    kernels once for the Ed25519 statement, and each NTT entry launches the
+    terms kernel once and the scan's two kernels for the Ed25519 statement, and each NTT entry launches the
     passes of ntt_plan for every transform the prove asks of it. The CPU
     prove launches nothing."""
     from tendermintx_tpu_torch.circuits.composite import prove_skip_composite
@@ -845,7 +887,7 @@ def test_composite_on_card_equals_cpu_with_one_quotient_launch_per_statement(dev
     # one DEEP launch a statement; the LDEs and the quotient's iNTT on the card
     assert pr.deep_kernel_launches == deep_before + 3
     assert _ood_counts() == (ood_before[0] + 6, ood_before[1] + 6, ood_before[2] + 3)
-    assert _logup_counts() == (logup_before[0] + 1, logup_before[1] + 1)
+    assert _logup_counts() == (logup_before[0] + 1, logup_before[1] + 2)
     ntt_after = _ntt_counts()
     assert ntt_after[1] > ntt_before[1] and ntt_after[2] > ntt_before[2]
     assert tuple(a - b for a, b in zip(ntt_after, ntt_before)) == tuple(planned)

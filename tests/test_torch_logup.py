@@ -14,7 +14,9 @@ term's numerator and denominator (the closed form of a full batch, the
 reference's form with pad cells), the divisions by their norms done
 together by ext.cuh's batch_div (zeros masked, at the first, a middle and
 the last position of a run), groups whose term count is no multiple of
-the run, pad 1-3. Tolerance: exact equality."""
+the run, pad 1-3; and of its scan: tile sums, then each tile's chunks
+scanned after the carry of the tiles before it (one tile, many, a ragged
+last tile). Tolerance: exact equality."""
 
 import itertools
 
@@ -277,20 +279,58 @@ def test_kernel_term_model_matches_reference(name, blocks, monkeypatch):
             sign = lambda t: 1 if t < port.n_batches else -1
             ts = range(gi * group, min((gi + 1) * group, terms))
             assert s == tuple(sum(sign(t) * want[2 * t + c][r] for t in ts) % P for c in range(2))
-    # the scan's chunks (SCAN_THREADS consecutive rows, one a thread, the
-    # rows past n adding nothing): each row once, in order, and each S the
-    # chunk's inclusive scan plus the chunks before it
-    threads = 1024
+    # the scan's tiles (whole chunks of _SCAN_THREADS consecutive rows, one
+    # a thread, the rows past n adding nothing): each row once, in order,
+    # and each S its chunk's inclusive scan plus the carry of the rows before
     rng = np.random.default_rng(19)
     for n in (1, 16, 1000, 1025, 1 << 12):
         diff = [int(v) for v in rng.integers(0, 2**62, size=n)]
-        S, carry = [], 0
-        for base in range(0, n, threads):
-            chunk = [diff[r] if r < n else 0 for r in range(base, base + threads)]
-            incl = [v % P for v in itertools.accumulate(chunk)]
-            S += [(carry + v) % P for v in incl[: max(0, min(threads, n - base))]]
-            carry = (carry + incl[-1]) % P
-        assert S == [v % P for v in itertools.accumulate(diff)]
+        tile, n_tiles = lk.RangeLookup([0], 1, n, 13).scan_tiles()
+        assert _scan_model(diff, tile, n_tiles) == [v % P for v in itertools.accumulate(diff)]
+
+
+def _scan_model(diff: list[int], tile: int, n_tiles: int) -> list[int]:
+    """csrc/logup.cu: tmx_logup_scan's two kernels over one component of
+    the rows' sums: tmx_logup_tile_sums_kernel's sum of each tile of `tile`
+    rows (the last one ragged), then tmx_logup_scan_kernel's tile b: the
+    sums of the tiles before it as the carry, its rows in chunks of
+    _SCAN_THREADS (one a thread, zero past the end), each chunk's
+    inclusive scan by warps of 32 (a shuffle scan, then the warps'
+    totals) plus the carry, which then takes the chunk's total."""
+    n, threads = len(diff), lk._SCAN_THREADS
+    assert tile % threads == 0 and n_tiles == -(-n // tile)
+    sums = [sum(diff[b * tile : (b + 1) * tile]) % P for b in range(n_tiles)]
+    S = []
+    for b in range(n_tiles):
+        carry = sum(sums[:b]) % P
+        r1 = min(n, (b + 1) * tile)
+        for base in range(b * tile, r1, threads):
+            x = [diff[r] if r < r1 else 0 for r in range(base, base + threads)]
+            warps = [list(itertools.accumulate(x[w : w + 32])) for w in range(0, threads, 32)]
+            before = [0, *itertools.accumulate(w[-1] for w in warps)]
+            chunk = [(v + before[i // 32] + carry) % P for i, v in enumerate(v for w in warps for v in w)]
+            S += chunk[: r1 - base]
+            carry = (carry + before[-1]) % P
+    return S
+
+
+@pytest.mark.parametrize("n, tiles", [(16, 128), (256, 128), (1 << 15, 128), (33_000, 128), (1025, 2), (5000, 3)])
+def test_scan_tile_model_equals_the_plain_scan(n, tiles, monkeypatch):
+    """The multi-block scan's schedule gives logup_scan_plain's S from the
+    groups' sums: one tile (16 and 256 rows), Ed25519's 2^15 rows as 128
+    tiles of one chunk, 33,000 rows as tiles of two chunks with a ragged
+    last tile, and tiles of several chunks (fewer tiles a wave) at a
+    ragged row count."""
+    monkeypatch.setattr(lk, "_SCAN_TILES", tiles)
+    port = lk.RangeLookup([0, 1], 2, n, 13)
+    tile, n_tiles = port.scan_tiles()
+    assert tile % lk._SCAN_THREADS == 0 and n_tiles <= tiles and (n_tiles - 1) * tile < n <= n_tiles * tile
+    assert (n_tiles == 1) == (n <= lk._SCAN_THREADS or tiles == 1)
+    rng = np.random.default_rng(n)
+    partial = rng.integers(0, P, size=(2, 3, n), dtype=np.uint64)
+    want = _u(lk.RangeLookup.logup_scan_plain(torch.from_numpy(partial.view(np.int64))))
+    rows = partial.astype(object).sum(axis=1) % P
+    assert [_scan_model([int(v) for v in rows[c]], tile, n_tiles) for c in range(2)] == want
 
 
 def test_kernel_model_masks_zero_norms():

@@ -7,7 +7,9 @@ tests/test_torch_cuda.py) against the JAX package's ``_zpowers_fn``,
 n = 2^8-2^10, up to 40 rows and the edge values 0, 1, p-1, 2^32 and
 p - 2^32. Then Python models of what csrc/ood.cu computes that the CPU
 cannot run: the base inversion's addition chain (goldilocks.cuh), the
-powers built by runs (RUN a thread), and ood_eval's launch plan (row
+DEEP inverse tables' schedule (J domain points at a grid stride by every
+opening point a thread, their norms inverted together by Montgomery's
+trick in prefix form, a planted domain point masked), the powers built by runs (RUN a thread), and ood_eval's launch plan (row
 blocks, the threads' rows, slices cut into tiles: every coefficient once)
 and its arithmetic: each thread's rows summed in 160-bit accumulators a
 slice, the rows of the second operand (the quotient chunks) at the first
@@ -105,14 +107,15 @@ def test_ood_values_match_reference(offsets, n_cols, log_n):
     assert pr.ood_evaluate(port_coeffs, port_chunks, points) == (want_rows, want_quot)
 
 
-@pytest.mark.parametrize("n_points, log_N", [(1, 8), (2, 9), (8, 10)])
-def test_deep_inverses_match_reference(n_points, log_N):
-    """(x - z_k)^-1 over the domain, one point a domain point (its
-    inverse there is 0 on both sides) and one with c1 = 0."""
+@pytest.mark.parametrize("n_points, log_N, planted", [(1, 8, 3), (2, 9, 3), (8, 10, 3), (3, 7, 127), (8, 6, 0)])
+def test_deep_inverses_match_reference(n_points, log_N, planted):
+    """(x - z_k)^-1 over the domain, one point a domain point (z1 = 0, z0 =
+    shift w^j for the planted column j; its inverse there is 0 on both
+    sides, every other column exact) and one with c1 = 0."""
     rng = np.random.default_rng(n_points)
     pts = jprover._domain_points(log_N, SHIFT)
     zks = [_point(rng) for _ in range(n_points)]
-    zks[0] = (pts[3], 0)
+    zks[0] = (pts[planted], 0)
     if n_points > 1:
         zks[1] = (P - 1, 0)
     got = pr.deep_inverses(log_N, SHIFT, zks, "cpu")
@@ -121,7 +124,8 @@ def test_deep_inverses_match_reference(n_points, log_N):
               JGF.from_ints(np.array([z[1] for z in zks], dtype=object)))
     want = jprover._deep_invs_fn(log_N)(JGF(jax.numpy.asarray(lo), jax.numpy.asarray(hi)), zk.c0, zk.c1)
     assert _ints(got) == _jints(want)
-    assert _ints(got)[3] == (0, 0)
+    row = _ints(got)[: 1 << log_N]  # the planted point's row
+    assert [i for i, v in enumerate(row) if v == (0, 0)] == [planted]
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -174,6 +178,77 @@ def test_inverse_chain_is_the_fermat_power():
         assert _inv_chain(a) * a % P == (a != 0)
     # its exponent: 63 squarings and 10 multiplies
     assert ((2**32 - 2) << 32) + 2**32 - 1 == P - 2
+
+
+def _deep_inverses_model(log_N: int, shift: int, zks: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:
+    """csrc/ood.cu: tmx_deep_inverses_kernel<K> on Python ints. Thread i0 <
+    stride = ceil(N / J) builds x = shift w^i0 from the powers w^(2^b) and,
+    for each pair p = (j, k) of its J domain points (x times w^stride a
+    point) and K opening points, the norm n_p = (x_j - z0_k)^2 - W z1_k^2
+    (W z1_k^2 a point's constant; 1 past the domain; a zero masked to 1
+    and flagged) and the products c_p = n_0 .. n_p; then one inversion of
+    c_(B-1) and, from the last pair down, 1 / n_p = acc c_(p-1) with acc
+    stepped back by n_p and x by w^-stride, storing (x_j - z0_k) / n_p and
+    z1_k / n_p (0 for a flagged pair) at (k, i0 + j stride) on the
+    domain."""
+    N, K = 1 << log_N, len(zks)
+    J = pr._deep_inv_points(K)
+    # the launch's constants as deep_inverses_cuda passes them, against
+    # the reference's root of unity
+    stride, wpow, wstride, wistride = pr._deep_inv_domain(log_N, K)
+    w = jntt.primitive_root_of_unity(log_N)
+    assert J * K <= pr.DEEP_INV_BATCH and stride == -(-N // J) and (stride - 1) * J < N
+    assert list(wpow) == [pow(w, 1 << b, P) for b in range(32)]
+    assert wstride == pow(w, stride, P) and wstride * wistride % P == 1
+    wz1 = [7 * z1 * z1 % P for _, z1 in zks]
+    out = [[None] * N for _ in range(K)]
+    for i0 in range(stride):
+        x = shift
+        for b in range(32):
+            if (i0 >> b) & 1:
+                x = x * wpow[b] % P
+        n, c, zero = [], [], set()
+        for j in range(J):
+            for k, (z0, _) in enumerate(zks):
+                d = (x - z0) % P
+                m = (d * d - wz1[k]) % P if i0 + j * stride < N else 1
+                if m == 0:
+                    zero.add(len(n))
+                    m = 1
+                n.append(m)
+                c.append(c[-1] * m % P if c else m)
+            if j + 1 < J:
+                x = x * wstride % P
+        acc = _inv_chain(c[-1])
+        for j in range(J - 1, -1, -1):
+            for k in range(K - 1, -1, -1):
+                p = j * K + k
+                r = acc * c[p - 1] % P if p else acc
+                acc = acc * n[p] % P
+                if i0 + j * stride < N:
+                    d = (x - zks[k][0]) % P
+                    out[k][i0 + j * stride] = (0, 0) if p in zero else (d * r % P, zks[k][1] * r % P)
+            x = x * wistride % P
+    return out
+
+
+@pytest.mark.parametrize("n_points, log_N", [(1, 0), (1, 1), (1, 7), (2, 1), (2, 8), (8, 2), (8, 7), (3, 5)])
+def test_deep_inverse_schedule_equals_the_plain_version(n_points, log_N):
+    """The kernel's schedule (J domain points at a grid stride times K
+    opening points a thread, norms from the points' constants, one
+    prefix-product batch inversion a thread with the zero masked) gives
+    deep_inverses_plain's tables: a planted domain point (z1 = 0) is 0 in
+    its column alone, J past a domain of 1 or 2 points, a stride below J."""
+    N = 1 << log_N
+    rng = np.random.default_rng(40 + 8 * n_points + log_N)
+    zks = [_point(rng) for _ in range(n_points)]
+    planted = (N * 2) // 3
+    zks[-1] = (int(pr._domain_points(log_N, SHIFT)[planted]), 0)
+    model = _deep_inverses_model(log_N, SHIFT, zks)
+    plain = pr.deep_inverses_plain(log_N, SHIFT, zks, "cpu")
+    assert _ints(plain) == [v for row in model for v in row]
+    assert [i for i, v in enumerate(model[-1]) if v == (0, 0)] == [planted]
+    assert all(v != (0, 0) for row in model[:-1] for v in row)
 
 
 def test_powers_by_runs_equal_the_sequential_powers():

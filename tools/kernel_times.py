@@ -1,8 +1,8 @@
 """Time the NTT and DEEP kernels of one checkout of the port at every
-main-path shape on one card, and the LogUp terms and OOD evaluation
-kernels round by round.
+main-path shape on one card, and the LogUp and OOD kernels round by round.
 
-    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--only ntt,deep,logup,ood] [--rounds R]
+    python3 tools/kernel_times.py [--root DIR] [--label NAME]
+        [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -17,9 +17,18 @@ clock and the power draw that nvidia-smi reads after each round, to show
 how far its time spreads within one process and why; `ood` times
 `ood_eval_cuda` the same way at every statement shape of the N=128 paths
 (`_ood_shapes()`: the trace and aux rows and the quotient chunks' rows
-over the opening points' powers). Prints one JSON line: the card's name
-and power limit, the label, and per shape the ms. Two checkouts are compared by
-running this in turns from one call (parent, change, change, parent); a
+over the opening points' powers). `deep_inverses` (every `_ood_shapes`
+statement's LDE domain at its opening points), `logup_scan` (the Ed25519
+statement's group sums) and `ext_powers` (every statement's opening
+points and alpha) are timed in rounds the same way, each round also
+with `burst_ms`: a launch's time from CUDA events around a burst of raw
+ctypes launches with the arguments the wrapper built (chip_smoke.py:
+`_launch_burst_ms`; the kernel or the C entry's host cost, whichever is
+longer), for kernels shorter than their Python wrapper; and each shape
+with `kernel_ms`, torch.profiler's device time of the kernels alone a
+call. Prints one JSON line: the card's name and power limit,
+the label, and per shape the ms. Two checkouts are compared by running
+this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
 """
 
@@ -69,15 +78,37 @@ def main(argv=None) -> int:
         _, first = cs._timed_once(fn)
         return cs._time_ms(fn, max(3, min(20, int(200 / max(first, 1e-3)))))
 
-    def timed_rounds(fn, reps: int) -> list[dict]:
+    def timed_rounds(fn, reps: int, burst=None) -> list[dict]:
         """args.rounds rounds of `reps` launches, each with the SM clock and
-        power draw nvidia-smi reads just after it."""
+        power draw nvidia-smi reads just after it; with `burst`, (module,
+        launcher, library) of the wrapper `fn` calls, each round's burst of
+        raw launches too."""
         rounds = []
         for _ in range(args.rounds):
             ms = cs._time_ms(fn, reps)
+            more = {"burst_ms": cs._launch_burst_ms(*burst, fn)} if burst else {}
             clock, power = cs._nvidia_smi("clocks.sm,power.draw").split(", ")
-            rounds.append({"ms": ms, "clocks_sm_mhz": float(clock), "power_draw_w": float(power)})
+            rounds.append({"ms": ms, **more, "clocks_sm_mhz": float(clock), "power_draw_w": float(power)})
         return rounds
+
+    def reps_for(fn) -> int:
+        return max(3, min(50, int(200 / max(cs._timed_once(fn)[1], 1e-3))))
+
+    def kernel_ms(fn, reps: int = 50) -> float | None:
+        """torch.profiler's device time of the port's kernels (names
+        holding tmx_) over `reps` calls of `fn`, a call: the kernels
+        alone, without the gaps between launches; None where the trace
+        holds no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages() if "tmx_" in e.key)
+        return us / 1e3 / reps if us else None
 
     only = args.only.split(",")
     if "ntt" in only:
@@ -131,6 +162,43 @@ def main(argv=None) -> int:
             airs[name] = {"shape": [n_total, 2 * n_chunks, n, K], "rounds": timed_rounds(run, reps)}
             del a, b, powers
         out["ood_eval"] = airs
+    ood_burst = (pr, "_ood_launch", "_ood_library")
+    if "deep_inverses" in only:
+        airs = {}
+        for name, air, log_n, rate in cs._ood_shapes():
+            K = len(air.frame_offsets)
+            pts = cs._random_points(K, gen, dev)
+            run = lambda: pr.deep_inverses_cuda(log_n + rate, cs.NTT_SHIFT, pts, dev)
+            airs[name] = {"shape": [K, 1 << (log_n + rate)], "rounds": timed_rounds(run, reps_for(run), ood_burst),
+                          "kernel_ms": kernel_ms(run)}
+        out["deep_inverses"] = airs
+    if "ext_powers" in only:
+        airs = {}
+        for name, air, log_n, _ in cs._ood_shapes():
+            n, K, n_con = 1 << log_n, len(air.frame_offsets), air.n_constraints
+            pts, alpha = cs._random_points(K, gen, dev), cs._random_points(1, gen, dev)
+            run = lambda: pr.ext_powers_cuda(pts, n, dev)
+            run_alpha = lambda: pr.ext_powers_cuda(alpha, n_con, dev)
+            airs[name] = {"shape": [K, n], "rounds": timed_rounds(run, reps_for(run), ood_burst),
+                          "kernel_ms": kernel_ms(run),
+                          "alpha": {"shape": [1, n_con], "rounds": timed_rounds(run_alpha, reps_for(run_alpha),
+                                                                                ood_burst),
+                                    "kernel_ms": kernel_ms(run_alpha)}}
+        out["ext_powers"] = airs
+    if "logup_scan" in only:
+        from tendermintx_tpu_torch.stark import lookup
+        from tendermintx_tpu_torch.stark.ed25519_air import Ed25519Air
+
+        air = Ed25519Air(cs.N128_SKIP_STATEMENTS["ed25519"])
+        lk = air.lookup
+        trace, gamma = cs._logup_case(lk, air.n_cols, gen, dev)
+        aux = torch.empty((lk.n_aux_cols, lk.n_rows), dtype=torch.int64, device=dev)
+        partial = lk.logup_terms_cuda(trace, gamma, aux)
+        del trace
+        run = lambda: lk.logup_scan_cuda(partial, aux)
+        out["logup_scan"] = {"shape": list(partial.shape),
+                             "rounds": timed_rounds(run, 20, (lookup, "_logup_launch", "_logup_library")),
+                             "kernel_ms": kernel_ms(run)}
     print(json.dumps(out), flush=True)
     return 0
 
