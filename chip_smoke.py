@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc
                  (poseidon.cu, quotient.cu, ntt.cu, deep.cu, ood.cu,
-                 logup.cu; one nvcc per source, all started together); the
+                 logup.cu, fri.cu; one nvcc per source, all started
+                 together); the
                  line gives each kernel
                  function's registers and spill bytes from ptxas (-v); a
                  spill fails;
@@ -76,9 +77,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  rows at z alone); ext_powers, deep_inverses and
                  logup_scan also with their time a launch from a burst
                  of raw launches (``burst_ms``: no Python wrapper between
-                 them), deep_inverses also checked with an
-                 opening point planted on the domain (0 in that column
-                 alone);
+                 them), deep_inverses also checked with an opening point
+                 planted on the domain (0 in that column alone); then
+                 csrc/fri.cu's two entries: fri_fold
+                 at every layer the N=128 paths fold (the composite's
+                 batch FRI from 2^19 down to 2^10, the wrap's from 2^21
+                 down to 2^11) and fri_inject at the composite's and the
+                 wrap's two injections each, exact against their plain
+                 versions (the fold's over the (2x)^-1 host table), with
+                 ms, burst_ms, plain ms and the bytes bound;
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -93,7 +100,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  statement, ood_eval's two kernels, deep_inverses once
                  and ext_powers twice per statement (on every path below; the LogUp
                  terms kernel once and the scan's two kernels per Ed25519
-                 statement, none in the hash bundles and the wrap), the warm prove's column sponge once per
+                 statement, none in the hash bundles and the wrap), the
+                 FRI fold once a committed FRI layer (on the mesh once a
+                 shard) and the injection once a codeword size of the
+                 batch (so on every path below; none in the hash
+                 bundles' single-statement FRI), the warm prove's column sponge once per
                  column-major tree, and the warm proof's
                  statements must be the quotient check's. The per-statement
                  phase seconds that ``stark/batch.py`` logs are in the line
@@ -159,7 +170,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  and one under cProfile (the host
                  functions with the most cumulative time), the wrapped
                  verify under cProfile, and the cold build of the wrap
-                 FRI's host fold tables alone.
+                 FRI's host fold tables alone (the plain fold's, and the
+                 host constants the card's fold takes instead).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -212,7 +224,7 @@ def phase_device() -> dict:
 
 
 # every csrc/<name>.cu the port launches
-KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep", "ood", "logup")
+KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep", "ood", "logup", "fri")
 
 
 def phase_build() -> dict:
@@ -1115,10 +1127,12 @@ def _kernel_ood(dev, clock_mhz: float, ptxas: dict) -> dict:
         r = timed(lambda: pr.ext_powers_cuda(pts, n, dev), lambda: pr.ext_powers_plain(pts, n, dev),
                   f"ext_powers at {name}'s {K} points x {n}", gf2_equal)
         r["burst_ms"] = _launch_burst_ms(pr, "_ood_launch", "_ood_library", lambda: pr.ext_powers_cuda(pts, n, dev))
+        r["run"] = pr._powers_run(n, K)
         ra = timed(lambda: pr.ext_powers_cuda(alpha, n_con, dev), lambda: pr.ext_powers_plain(alpha, n_con, dev),
                    f"ext_powers at {name}'s alpha x {n_con}", gf2_equal)
         ra["burst_ms"] = _launch_burst_ms(pr, "_ood_launch", "_ood_library",
                                           lambda: pr.ext_powers_cuda(alpha, n_con, dev))
+
         rows["ext_powers"][name] = {
             "shape": [K, n], **r, **_field_bound(4 * K * n, 16 * K * n, muls_per_ms),
             "alpha": {"shape": [1, n_con], **ra, **_field_bound(4 * n_con, 16 * n_con, muls_per_ms)},
@@ -1284,6 +1298,106 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
     }
 
 
+# the FRI layers the N=128 paths fold: (use, log2 of the input layer,
+# rate bits, final_poly_len) of the composite's batch FRI (2^19 down to
+# 2^10) and the wrap's (2^21 down to 2^11); and the injections (use, log2
+# n, codewords, into a folded layer or nothing) of each
+FRI_BATCHES = (("composite", 19, 3, 64), ("wrap", 21, 4, 64))
+FRI_INJECTIONS = (("composite", 19, 1, False), ("composite", 18, 2, True), ("wrap", 21, 1, False),
+                  ("wrap", 19, 1, True))
+# the least multiplies of a fold output: (e - o) times (2x)^-1 (2), beta
+# times that (4), (e + o) / 2 (2) and (2x)^-1 from the previous one (1)
+FOLD_MULS = 9
+
+
+def _fri_layers() -> list[tuple[str, int, int]]:
+    """(use, log2 N, shift) of every fold of the N=128 paths' batch FRIs."""
+    out = []
+    for use, log_n, rate, final in FRI_BATCHES:
+        shift = NTT_SHIFT
+        while (1 << log_n) > final << rate:
+            out.append((use, log_n, shift))
+            shift = shift * shift % GL_P
+            log_n -= 1
+    return out
+
+
+def _kernel_fri(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """csrc/fri.cu's two entries at every fold and injection of the N=128
+    paths' batch FRIs (_fri_layers, FRI_INJECTIONS), each held exactly
+    against its plain version on the whole output, with its time (the
+    median of five rounds; from a burst of raw launches beside it), the
+    plain version's (the fold's over its
+    (2x)^-1 table, built before the timing) and its bound (bytes: each
+    input word read once, each output written once)."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.ops.goldilocks import GF
+    from tendermintx_tpu_torch.stark import fri
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    gf2_equal = lambda a, b: torch.equal(a.c0.v, b.c0.v) and torch.equal(a.c1.v, b.c1.v)
+
+    def ext_rows(n: int) -> GF2:
+        t = _random_felts((2, n), gen, dev)
+        return GF2(GF(t[0]), GF(t[1]))
+
+    def timed(kernel, plain, what: str) -> dict:
+        got = kernel()
+        want, plain_ms = _timed_once(plain)
+        if not gf2_equal(got, want):
+            raise AssertionError(f"{what} disagrees with its plain version")
+        del got, want
+        _, first_ms = _timed_once(kernel)
+        reps = max(3, min(200, int(200 / max(first_ms, 1e-3))))
+        return {"max_abs_err": 0.0, **_time_rounds(kernel, reps), "plain_ms": plain_ms,
+                "burst_ms": _launch_burst_ms(fri, "_fri_launch", "_fri_library", kernel)}
+
+    layers = []
+    for use, log_n, shift in _fri_layers():
+        N, half = 1 << log_n, 1 << (log_n - 1)
+        evals = ext_rows(N)
+        (beta,) = _random_points(1, gen, dev)
+        fri._inv_x_table(log_n, shift)  # the plain version's host table, outside its timing
+        r = timed(lambda: fri.fold(evals, beta, shift),
+                  lambda: fri.fold_plain(evals[:half], evals[half:], beta, shift, 0, log_n),
+                  f"fri_fold of {use}'s 2^{log_n} layer")
+        layers.append({"use": use, "shape": [2, N], "shift": shift, **r,
+                       **_field_bound(FOLD_MULS * half, 8 * 2 * N + 8 * 2 * half, muls_per_ms)})
+        del evals
+    injections = []
+    for use, log_n, k, with_cur in FRI_INJECTIONS:
+        n = 1 << log_n
+        Fs = [ext_rows(n) for _ in range(k)]
+        lams = _random_points(k, gen, dev)
+        cur = ext_rows(n) if with_cur else None
+        r = timed(lambda: fri.inject(cur, lams, Fs), lambda: fri.inject_plain(cur, lams, Fs),
+                  f"fri_inject of {k} codeword(s) at {use}'s 2^{log_n}")
+        injections.append({"use": use, "shape": [k, 2, n], "cur": with_cur, **r,
+                           **_field_bound(4 * k * n, 16 * n * (k + with_cur + 1), muls_per_ms)})
+        del Fs, cur
+    common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/fri.cu", "library_ms": None}
+    keys = ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms", "bound_by",
+            "operations_bound_ms", "bytes_bound_ms", "bytes")
+    top_fold = layers[0]  # the composite's first layer, 2^19
+    top_inject = injections[1]  # the composite's 2^18 injection: two codewords into the folded layer
+    return {
+        "fri_fold": {
+            **common, "replaces": "tendermintx_tpu/stark/fri.py:93",
+            "replaces_program": "_fold_layer (jitted at :117 as _fold_jit)",
+            **{k: top_fold[k] for k in keys}, **_registers_of(ptxas, "tmx_fri_fold"), "layers": layers,
+        },
+        "fri_inject": {
+            **common, "replaces": "tendermintx_tpu/stark/fri.py:330",
+            "replaces_program": "_inject_fn (:330) and _scale_fn (:337)",
+            **{k: top_inject[k] for k in keys}, **_registers_of(ptxas, "tmx_fri_inject"),
+            "injections": injections,
+        },
+    }
+
+
 def phase_kernels(build: dict) -> dict:
     """Each Poseidon entry against its plain torch version on the same
     CUDA tensors (exact: integer field arithmetic) and the host oracle,
@@ -1306,6 +1420,7 @@ def phase_kernels(build: dict) -> dict:
         "deep": _kernel_deep(dev, clock_mhz, build["deep"]["ptxas"]),
         **_kernel_ood(dev, clock_mhz, build["ood"]["ptxas"]),
         **_kernel_logup(dev, clock_mhz, build["logup"]["ptxas"]),
+        **_kernel_fri(dev, clock_mhz, build["fri"]["ptxas"]),
     }
     for row in rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
@@ -1514,6 +1629,8 @@ LAUNCH_COUNTERS = {
     "deep_inverses": ("tendermintx_tpu_torch.stark.prover", "deep_inverses_kernel_launches"),
     "logup_terms": ("tendermintx_tpu_torch.stark.lookup", "logup_terms_kernel_launches"),
     "logup_scan": ("tendermintx_tpu_torch.stark.lookup", "logup_scan_kernel_launches"),
+    "fri_fold": ("tendermintx_tpu_torch.stark.fri", "fri_fold_kernel_launches"),
+    "fri_inject": ("tendermintx_tpu_torch.stark.fri", "fri_inject_kernel_launches"),
 }
 # the rows of the kernels line that sum several counted entries of one
 # kernel: csrc/ntt.cu's forward, inverse and coset LDE entries
@@ -1525,6 +1642,8 @@ NOT_PROVED_BY = ("ntt_forward",)
 # the LogUp kernels run only where an Ed25519 statement is proven: not in
 # the hash bundles or the wrap
 LOGUP_ENTRIES = ("logup_terms", "logup_scan")
+# the hash bundles' single-statement FRI injects nothing
+NOT_INJECTED_BY = ("fri_inject",)
 
 
 class _NttCalls:
@@ -1674,6 +1793,26 @@ def _check_ood_launches(launches: dict, statements: int, ed25519: int, path: str
                              f"launched {got}; {want} wanted")
 
 
+def _check_fri_launches(launches: dict, fris: list, sizes: int, path: str, shards: int = 1):
+    """FRI proofs, (proof, n_max) each over codewords of at most n_max
+    values, fold once a committed layer (once a shard where a mesh of
+    `shards` shards the layer: at least 4 values a shard) and inject once
+    a codeword size of a batch (`sizes` in all; none in a
+    single-statement FRI)."""
+    folds = sum(shards if shards > 1 and (n_max >> l) >= 4 * shards else 1
+                for proof, n_max in fris for l in range(len(proof.layer_caps)))
+    want = {"fri_fold": folds, "fri_inject": sizes}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"the {path} path launched {got}; its FRI layers and codeword sizes give {want}")
+
+
+def _check_batch_fri(launches: dict, batch, rate_bits: int, path: str, shards: int = 1):
+    """_check_fri_launches for one BatchStarkProof."""
+    rows = {st.n_rows for st in batch.statements}
+    _check_fri_launches(launches, [(batch.fri_proof, max(rows) << rate_bits)], len(rows), path, shards)
+
+
 def _check_deep_launches(launches: dict, statements: int, shards: int, path: str):
     """The card's DEEP composition is one launch a shard a statement."""
     if launches["deep"] != statements * shards:
@@ -1682,6 +1821,8 @@ def _check_deep_launches(launches: dict, statements: int, shards: int, path: str
 
 
 def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
+    from tendermintx_tpu_torch.circuits.composite import DEFAULT_COMPOSITE_CONFIG
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
@@ -1709,6 +1850,9 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     _check_deep_launches(cold_launches, n_stmts, 1, "cold skip")
     _check_ood_launches(warm_launches, n_stmts, 1, "warm skip")
     _check_ood_launches(cold_launches, n_stmts, 1, "cold skip")
+    rate = DEFAULT_COMPOSITE_CONFIG.rate_bits
+    _check_batch_fri(warm_launches, warm_proof.batch, rate, "warm skip")
+    _check_batch_fri(cold_launches, warm_proof.batch, rate, "cold skip")
     # one sponge launch per column-major tree: trace, quotient and (where
     # the AIR has one) aux commitment of every statement
     trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)
@@ -1757,6 +1901,7 @@ def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
     _check_launched(launches, "step")
     _check_deep_launches(launches, len(proof.batch.statements), 1, "step")
     _check_ood_launches(launches, len(proof.batch.statements), 1, "step")
+    _check_batch_fri(launches, proof.batch, DEFAULT_COMPOSITE_CONFIG.rate_bits, "step")
     blob = proof.to_bytes()
     t2 = time.perf_counter()
     result = verify_step_composite(CompositeProof.from_bytes(blob), CHAIN_ID)
@@ -1840,9 +1985,11 @@ def phase_hashes(sc: SkipChain, parity: dict, card: str) -> tuple[dict, dict]:
     skip, skip_line = _prove_bundle(prove_skip_hashes, skip_inputs)
     step, step_line = _prove_bundle(prove_step_hashes, step_inputs)
     launches = _launch_counts()
-    _check_launched(launches, "hashes", absent=LOGUP_ENTRIES)
+    _check_launched(launches, "hashes", absent=LOGUP_ENTRIES + NOT_INJECTED_BY)
     # two single-statement SHA-256 proves
     _check_ood_launches(launches, 2, 0, "hashes")
+    rate = DEFAULT_HASH_CONFIG.rate_bits
+    _check_fri_launches(launches, [(b.proof.fri_proof, b.proof.n_rows << rate) for b in (skip, step)], 0, "hashes")
 
     facts, more = _verify_bundle(verify_skip_hashes, skip, (trusted, target), 6)
     skip_line.update(more)
@@ -1943,6 +2090,7 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         verify_skip_composite,
         wrap_composite,
     )
+    from tendermintx_tpu_torch.stark.recursion import default_wrap_config
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1956,6 +2104,7 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
     _check_launched(launches, "wrap", absent=LOGUP_ENTRIES)
     _check_deep_launches(launches, len(wrapped.batch.wrapper.statements), 1, "wrap")
     _check_ood_launches(launches, len(wrapped.batch.wrapper.statements), 0, "wrap")
+    _check_batch_fri(launches, wrapped.batch.wrapper, default_wrap_config().rate_bits, "wrap")
     peak = torch.cuda.max_memory_allocated()
     # the same wrap again: first-use host tables (FRI inverse tables of
     # the 2^21-point domain, the N=128 eval tape) are built by now
@@ -2312,6 +2461,7 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     _check_deep_launches(launches, len(proof.batch.statements), MESH_SHARDS, "mesh")
     # OOD and the DEEP inverses run once a statement on the mesh's first device
     _check_ood_launches(launches, len(proof.batch.statements), 1, "mesh")
+    _check_batch_fri(launches, proof.batch, DEFAULT_COMPOSITE_CONFIG.rate_bits, "mesh", MESH_SHARDS)
     trees = sum(2 + (st.aux_cap is not None) for st in proof.batch.statements)
     if sponges != MESH_SHARDS * trees:
         raise AssertionError(
@@ -2414,17 +2564,24 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     return out, launches, four_step
 
 
-def _time_fri_tables(n: int, config) -> float:
+def _time_fri_tables(n: int, config, card: bool = False) -> float | None:
     """Seconds to build, cache cold, the host FRI fold tables of one batch
-    FRI over an n-point domain (first use of stark/fri.py::_inv_x_table)."""
+    FRI over an n-point domain: the plain fold's (2x)^-1 tables
+    (stark/fri.py::_inv_x_table) or, `card`, what the fold kernel takes
+    from the host instead (_fold_constants: powers of w_N^-1, a layer);
+    None where the imported port has no fold kernel."""
     from tendermintx_tpu_torch.stark import fri
 
-    fri._inv_x_table.cache_clear()
+    build = getattr(fri, "_fold_constants" if card else "_inv_x_table", None)
+    if build is None:
+        return None
+    build.cache_clear()
     stop = config.final_poly_len << config.rate_bits
     cur_n, cur_shift = n, config.shift % GL_P
     t0 = time.perf_counter()
     while cur_n > stop:
-        fri._inv_x_table(cur_n.bit_length() - 1, cur_shift)
+        log_n = cur_n.bit_length() - 1
+        build(log_n, cur_shift, cur_n // 2) if card else build(log_n, cur_shift)
         cur_shift = cur_shift * cur_shift % GL_P
         cur_n //= 2
     return time.perf_counter() - t0
@@ -2445,7 +2602,8 @@ def _top_cumulative(prof, k: int) -> list[dict]:
 def phase_profile(sc: SkipChain, wrapped_blob: bytes, wrap_rows: list[int]) -> dict:
     """A warm prove under torch.profiler, then one under cProfile, then the
     wrapped proof's verify under cProfile, then the cold build of the wrap
-    FRI's host fold tables alone."""
+    FRI's host fold tables alone (the plain fold's, and what the card's
+    fold takes from the host for the same domain)."""
     import cProfile
 
     from torch.autograd import DeviceType
@@ -2526,7 +2684,8 @@ def phase_profile(sc: SkipChain, wrapped_blob: bytes, wrap_rows: list[int]) -> d
             "wall_seconds": verify_wall,
             "top_cumulative": _top_cumulative(host, 25),
         },
-        "wrap_fri_tables": {"domain": wrap_n, "cold_seconds": _time_fri_tables(wrap_n, wrap_cfg)},
+        "wrap_fri_tables": {"domain": wrap_n, "cold_seconds": _time_fri_tables(wrap_n, wrap_cfg),
+                            "card_host_seconds": _time_fri_tables(wrap_n, wrap_cfg, card=True)},
     }
     emit(out)
     return out
@@ -2608,10 +2767,15 @@ def main(argv: list[str]) -> int:
             }
         if entry["name"] in ("ext_powers", "ood_eval", "deep_inverses"):
             entry["airs"] = {
-                air: {k: a[k] for k in ("shape", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms",
-                                        "bound_by", "max_abs_err", "planted_zero") if k in a}
+                air: {k: a[k] for k in ("shape", "run", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "max_abs_err", "planted_zero", "alpha") if k in a}
                 for air, a in rows[entry["name"]]["airs"].items()
             }
+        for part in ("layers", "injections"):
+            if part in rows[entry["name"]]:
+                entry[part] = [{k: r[k] for k in ("use", "shape", "cur", "ms", "burst_ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err") if k in r}
+                               for r in rows[entry["name"]][part]]
         if entry["name"] in LOGUP_ENTRIES:
             entry["checked"] = rows[entry["name"]]["checked"]
     emit({"kernels": kernels})

@@ -1,6 +1,6 @@
 // The quadratic extension GF(p^2) = GF(p)[X] / (X^2 - 7) over Goldilocks
 // (ops/ext.py), for the hand kernels that compute in it (csrc/deep.cu,
-// csrc/ood.cu, csrc/logup.cu). Each
+// csrc/ood.cu, csrc/logup.cu, csrc/fri.cu). Each
 // function takes and returns canonical (c0, c1) pairs, so a kernel's
 // output equals the plain torch version's GF2 arithmetic bit for bit.
 
@@ -61,15 +61,38 @@ __device__ __forceinline__ void batch_div(uint64_t (&n)[B], E2 (&y)[B]) {
     }
 }
 
-// a^e by square and multiply
-__device__ __forceinline__ E2 pow(E2 a, uint64_t e) {
-    E2 r{1, 0};
-    while (e) {
-        if (e & 1) r = mul(r, a);
-        a = mul(a, a);
-        e >>= 1;
-    }
-    return r;
+// A prepared operand: b and W b1, so a product by it is two dots of two
+// products each, summed unreduced in a 160-bit Acc (goldilocks.cuh) and
+// reduced once: a b = (a0 b0 + a1 (W b1), a0 b1 + a1 b0). A chain of such
+// products is about half as deep as mul's (a1 b1, then W times it, then
+// the sum, each reduced).
+struct P2 {
+    uint64_t c0, c1, w1;
+};
+
+__device__ __forceinline__ P2 prepare(E2 b) { return {b.c0, b.c1, tmx_gl::mul(b.c1, W)}; }
+
+// a times a prepared b (a's words any 64-bit values, the result canonical)
+__device__ __forceinline__ E2 mul_pre(E2 a, const P2& b) {
+    tmx_gl::Acc s0{}, s1{};
+    tmx_gl::mac(s0, a.c0, b.c0);
+    tmx_gl::mac(s0, a.c1, b.w1);
+    tmx_gl::mac(s1, a.c0, b.c1);
+    tmx_gl::mac(s1, a.c1, b.c0);
+    return {tmx_gl::reduce(s0), tmx_gl::reduce(s1)};
+}
+
+// x^2, prepared: (x0^2 + x1 (W x1), 2 x0 x1) and W times the latter, 2 x0
+// (W x1): three independent dots
+__device__ __forceinline__ P2 sq_pre(const P2& x) {
+    tmx_gl::Acc s0{}, s1{}, s2{};
+    tmx_gl::mac(s0, x.c0, x.c0);
+    tmx_gl::mac(s0, x.c1, x.w1);
+    tmx_gl::mac(s1, x.c0, x.c1);
+    tmx_gl::mac(s1, x.c0, x.c1);
+    tmx_gl::mac(s2, x.c0, x.w1);
+    tmx_gl::mac(s2, x.c0, x.w1);
+    return {tmx_gl::reduce(s0), tmx_gl::reduce(s1), tmx_gl::reduce(s2)};
 }
 
 }  // namespace tmx_ext

@@ -1,6 +1,6 @@
 // Goldilocks field arithmetic (p = 2^64 - 2^32 + 1) on canonical uint64
 // values, for the hand kernels that run field programs (csrc/quotient.cu,
-// csrc/ntt.cu, csrc/deep.cu, csrc/ood.cu, csrc/logup.cu).
+// csrc/ntt.cu, csrc/deep.cu, csrc/ood.cu, csrc/logup.cu, csrc/fri.cu).
 //
 // Every function takes canonical operands (< p) and returns a canonical
 // result, so the kernels' outputs equal the plain torch versions' bit for

@@ -18,10 +18,25 @@
 // Bounds and design, per entry:
 //
 // - ext_powers writes 16 bytes an element and does one extension multiply
-//   for it: at the statements' sizes (up to 8 x 2^18 elements) a launch's
-//   floor. Each thread builds RUN consecutive powers: the first by square
-//   and multiply, the rest by one multiply each. Field arithmetic is exact,
-//   so every power equals the sequential product's.
+//   for it: at the statements' sizes (up to 8 x 2^17 elements) bound by
+//   the bytes (2.5 us at SHA-256's 8 x 2^16) or, below, by a launch and
+//   the latency of the longest chain of dependent multiplies, which any
+//   schedule has: b^(n-1) takes at least log2 n of them. So the design
+//   keeps that chain short and the stores coalesced. A block of
+//   POW_THREADS threads (one point: grid.y) takes a tile of E =
+//   POW_THREADS run consecutive powers, thread t the powers base + j
+//   POW_THREADS + t (j < run, the host's 1, 2, 4 or 8: about
+//   POW_BLOCKS blocks in all), so each warp stores 32 consecutive words.
+//   Its first warp squares b once a bit of the tile's base (b^(2^q): every
+//   lane the same chain, in prepared form, ext.cuh: sq_pre) and multiplies
+//   as it goes b^base (the set bits of base) and, lane l, b^l (bits q <
+//   5): one chain of ~9-17 squarings with the other products beside it.
+//   It then leaves in shared memory each lane's b^l, each warp's b^(base +
+//   32 w) (from b^32, b^64, b^128) and b^POW_THREADS (q = 8), so a thread's
+//   first power is one product, each of its next ones one more: no host
+//   table (a Python extension squaring costs about a microsecond, a
+//   point's chain 9-17 of them), no square-and-multiply a thread. Field
+//   arithmetic is exact, so every power equals the sequential product's.
 // - ood_eval reads each coefficient once for all points (Ed25519 at N=128:
 //   2,929 rows x 2^15, 768 MB) and does two 64 x 64 products a coefficient
 //   a point, each a multiply-add into a 160-bit sum: bytes-bound in the
@@ -99,8 +114,10 @@ constexpr int MAX_POINTS = 8;  // stark/prover.py: OOD_MAX_POINTS
 // and a slice: a slice's sums (Dot) never wrap
 constexpr int64_t MAX_LENGTH = (int64_t(1) << 32) - 1;
 constexpr int64_t MAX_SLICE = int64_t(1) << 30;
-constexpr int RUN = 16;  // ext_powers: consecutive powers a thread
-constexpr int THREADS = 128;
+// ext_powers: a block's threads (so bit 8 of an index is the step) and
+// the most powers a thread (stark/prover.py: POW_THREADS, POW_MAX_RUN)
+constexpr int POW_THREADS = 256;
+constexpr int POW_MAX_RUN = 8;
 // ood_eval: stark/prover.py: OOD_TJ, OOD_GROUP_POINTS, OOD_MAX_THREADS
 constexpr int TJ = 8;              // coefficients of a row a tile
 constexpr int LD = TJ + 2;         // a staged row's stride in words
@@ -124,6 +141,7 @@ struct PowersArgs {
     uint64_t pt1[MAX_POINTS];
     int64_t n_points;
     int64_t n;
+    int64_t run;    // powers a thread: 1, 2, 4 or 8; a block's tile is POW_THREADS run
     uint64_t* out;  // (2, n_points, n): every c0, then every c1
 };
 
@@ -172,18 +190,57 @@ __device__ __forceinline__ uint64_t ld(const uint64_t* p) {
     return __ldg(reinterpret_cast<const unsigned long long*>(p));
 }
 
-__global__ void __launch_bounds__(THREADS) tmx_ext_powers_kernel(PowersArgs a) {
-    const int k = blockIdx.y;
-    const int64_t i0 = (int64_t(blockIdx.x) * THREADS + threadIdx.x) * RUN;
-    if (i0 >= a.n) return;
-    const E2 b{a.pt0[k], a.pt1[k]};
-    E2 x = tmx_ext::pow(b, uint64_t(i0));
+__global__ void __launch_bounds__(POW_THREADS) tmx_ext_powers_kernel(PowersArgs a) {
+    constexpr int WARPS = POW_THREADS / 32;
+    __shared__ uint64_t lane_pow[3][32];      // b^l, prepared (c0, c1, W c1)
+    __shared__ uint64_t warp_base[2][WARPS];  // b^(base + 32 w)
+    __shared__ uint64_t step[3];              // b^POW_THREADS, prepared
+    const int k = blockIdx.y, t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const uint64_t base = uint64_t(blockIdx.x) * uint64_t(POW_THREADS * a.run);
+    if (w == 0) {
+        // x = b^(2^q) (every lane), lp -> b^lane, bb -> b^base
+        tmx_ext::P2 x = tmx_ext::prepare(E2{a.pt0[k], a.pt1[k]});
+        tmx_ext::P2 b32{}, b64{}, b128{}, st{};
+        E2 lp{1, 0}, bb{1, 0};
+        const int top = base >> 9 ? 64 - __clzll((long long)base) : 9;  // b^(2^8) is the step
+        for (int q = 0; q < top; ++q) {
+            if (q < 5 && ((lane >> q) & 1)) lp = tmx_ext::mul_pre(lp, x);
+            if ((base >> q) & 1) bb = tmx_ext::mul_pre(bb, x);
+            if (q == 5) b32 = x;
+            if (q == 6) b64 = x;
+            if (q == 7) b128 = x;
+            if (q == 8) st = x;
+            if (q + 1 < top) x = tmx_ext::sq_pre(x);
+        }
+        const tmx_ext::P2 l = tmx_ext::prepare(lp);
+        lane_pow[0][lane] = l.c0;
+        lane_pow[1][lane] = l.c1;
+        lane_pow[2][lane] = l.w1;
+        if (lane < WARPS) {
+            if (lane & 1) bb = tmx_ext::mul_pre(bb, b32);
+            if (lane & 2) bb = tmx_ext::mul_pre(bb, b64);
+            if (lane & 4) bb = tmx_ext::mul_pre(bb, b128);
+            warp_base[0][lane] = bb.c0;
+            warp_base[1][lane] = bb.c1;
+        }
+        if (lane == 0) {
+            step[0] = st.c0;
+            step[1] = st.c1;
+            step[2] = st.w1;
+        }
+    }
+    __syncthreads();
+    const tmx_ext::P2 l{lane_pow[0][lane], lane_pow[1][lane], lane_pow[2][lane]};
+    const tmx_ext::P2 st{step[0], step[1], step[2]};
+    E2 x = tmx_ext::mul_pre(E2{warp_base[0][w], warp_base[1][w]}, l);
     uint64_t* o0 = a.out + k * a.n;
     uint64_t* o1 = a.out + (a.n_points + k) * a.n;
-    for (int r = 0; r < RUN && i0 + r < a.n; ++r) {
-        o0[i0 + r] = x.c0;
-        o1[i0 + r] = x.c1;
-        x = tmx_ext::mul(x, b);
+    for (int j = 0; j < a.run; ++j) {
+        const int64_t i = int64_t(base) + int64_t(j) * POW_THREADS + t;
+        if (i >= a.n) break;
+        o0[i] = x.c0;
+        o1[i] = x.c1;
+        if (j + 1 < a.run) x = tmx_ext::mul_pre(x, st);
     }
 }
 
@@ -526,11 +583,14 @@ void point_groups(int64_t n_points, int* groups, int* np) {
 
 extern "C" int tmx_ext_powers(const PowersArgs* args, void* stream) {
     const PowersArgs& a = *args;
-    if (a.n_points < 1 || a.n_points > MAX_POINTS || a.n < 0) return (int)cudaErrorInvalidValue;
+    if (a.n_points < 1 || a.n_points > MAX_POINTS || a.n < 0 || a.n > (int64_t(1) << 32) ||
+        !(a.run == 1 || a.run == 2 || a.run == 4 || a.run == POW_MAX_RUN))
+        return (int)cudaErrorInvalidValue;
     if (a.n == 0) return 0;
-    const int64_t blocks = (a.n + int64_t(THREADS) * RUN - 1) / (int64_t(THREADS) * RUN);
+    const int64_t tile = int64_t(POW_THREADS) * a.run;
+    const int64_t blocks = (a.n + tile - 1) / tile;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    tmx_ext_powers_kernel<<<dim3((unsigned)blocks, (unsigned)a.n_points), THREADS, 0, (cudaStream_t)stream>>>(a);
+    tmx_ext_powers_kernel<<<dim3((unsigned)blocks, (unsigned)a.n_points), POW_THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

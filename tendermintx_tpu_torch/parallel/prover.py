@@ -239,9 +239,13 @@ def sharded_fold_fn(mesh: LaneMesh):
 
         out = (E + O)/2 + beta * (E - O) * (2x)^{-1}
 
-    fn(blocks D x GF2 (N/D,), invx GF (N/2,), beta GF2 (1,)) -> D x GF2
-    (N/2D,), the values of fri._fold_layer. Needs D even and N >= 2D."""
-    from ..stark.fri import _fold_layer
+    with x the domain points of the device's outputs, from index d*N/2D
+    (stark/fri.py::fold_halves' `start`: a card folds with csrc/fri.cu,
+    a CPU shard over its slice of the (2x)^-1 table).
+
+    fn(blocks D x GF2 (N/D,), beta host ext, shift) -> D x GF2 (N/2D,),
+    the values of fri.fold over the whole layer. Needs D even and N >= 2D."""
+    from ..stark.fri import fold_halves
 
     D = mesh.size
     if D % 2:
@@ -256,20 +260,18 @@ def sharded_fold_fn(mesh: LaneMesh):
         c1 = ppermute(mesh, [h.c1.v for h in halves], pairs)
         return [GF2(GF(a), GF(b)) for a, b in zip(c0, c1)]
 
-    def fn(blocks: list[GF2], invx: GF, beta: GF2) -> list[GF2]:
+    def fn(blocks: list[GF2], beta: tuple[int, int], shift: int) -> list[GF2]:
         half = int(blocks[0].shape[0]) // 2
+        log_n = (D * 2 * half).bit_length() - 1
         h0 = [GF2(b.c0[:half], b.c1[:half]) for b in blocks]
         h1 = [GF2(b.c0[half:], b.c1[half:]) for b in blocks]
         e0, e1, o0, o1 = route(h0, pe0), route(h1, pe1), route(h0, po0), route(h1, po1)
         out = []
-        for d, dev in enumerate(mesh.devices):
+        for d in range(D):
             odd = d % 2 == 1
             e = e1[d] if odd else e0[d]
             o = o1[d] if odd else o0[d]
-            # _fold_layer of the (E, O) pair: its first half is E, its
-            # second O, and invx is this device's slice of the table
-            pair = GF2(GF(torch.cat([e.c0.v, o.c0.v])), GF(torch.cat([e.c1.v, o.c1.v])))
-            out.append(_fold_layer(pair, _gf2_to(beta, dev), _rows(invx, d * half, (d + 1) * half, dev)))
+            out.append(fold_halves(e, o, beta, shift, d * half, log_n))
         return out
 
     return fn

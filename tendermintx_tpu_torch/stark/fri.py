@@ -7,7 +7,10 @@ arity 2:
     E'(x^2) = (E(x) + E(-x))/2 + beta * (E(x) - E(-x)) / (2x)
 
 with x_{i + N/2} = -x_i on the coset shift*<w_N>, so a fold pairs positions
-(i, i + N/2). The transcript runs on the host challenger: caps are fetched
+(i, i + N/2). ``fold`` and ``inject`` (the batch FRI's lambda * F) run as
+torch ops on a CPU tensor and as csrc/fri.cu's kernels on a card, which
+make (2x)^-1 from powers of w_N^-1 and read no host table. The
+transcript runs on the host challenger: caps are fetched
 as they are committed (a local card answers in microseconds; the
 device-resident transcript, stark/challenger.DeviceChallenger, measured no
 end-to-end gain in the commit loops). With ``mesh=`` the folds of the large
@@ -19,6 +22,7 @@ batch).
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 from functools import cache
 
@@ -27,7 +31,7 @@ import torch
 
 from ..ops import ntt as nttmod
 from ..ops import poseidon as ps
-from ..ops.ext import GF2, ext_add, ext_mul, ext_sub
+from ..ops.ext import GF2, W, ext_add, ext_mul, ext_sub
 from ..ops.goldilocks import GF, MULTIPLICATIVE_GENERATOR, P, tensor_from_u64, to_int_array
 from ..ops.merkle import MerkleTree, cap_levels, verify_opening
 from .challenger import Challenger
@@ -71,13 +75,24 @@ class FriProof:
 
 
 # ---------------------------------------------------------------------------
-# Device folding
+# Device folding and injection: plain torch ops for a CPU tensor,
+# csrc/fri.cu for a CUDA tensor
 # ---------------------------------------------------------------------------
+
+# incremented exactly where each csrc/fri.cu entry is launched
+fri_fold_kernel_launches = 0
+fri_inject_kernel_launches = 0
+
+# csrc/fri.cu: FOLD_RUN (outputs a fold thread) and MAX_INJECT (codewords
+# an injection launch)
+FOLD_RUN = 4
+INJECT_MAX = 4
 
 
 @cache
 def _inv_x_table(log_n: int, shift: int) -> np.ndarray:
-    """(2x_i)^{-1} for i < N/2 on coset shift*<w_N>, as uint64."""
+    """(2x_i)^{-1} for i < N/2 on coset shift*<w_N>, as uint64 (the plain
+    fold's table: one Python inversion a point)."""
     n = 1 << log_n
     w = nttmod.primitive_root_of_unity(log_n)
     vals = np.empty(n // 2, dtype=np.uint64)
@@ -92,8 +107,12 @@ def _fold_layer(evals: GF2, beta: GF2, invx: GF) -> GF2:
     """One arity-2 fold. evals: (N,), beta: (1,) ext scalar, invx =
     (2x_i)^{-1} for i < N/2. Returns (N/2,) evals on the squared domain."""
     half = evals.shape[0] // 2
-    e = evals[:half]
-    o = evals[half:]
+    return _fold_halves_plain(evals[:half], evals[half:], beta, invx)
+
+
+def _fold_halves_plain(e: GF2, o: GF2, beta: GF2, invx: GF) -> GF2:
+    """(e + o)/2 + beta (e - o) invx, the fold of the even half e and the
+    odd half o, as torch ops."""
     s = e + o
     d = e - o
     inv2 = pow(2, P - 2, P)
@@ -102,8 +121,133 @@ def _fold_layer(evals: GF2, beta: GF2, invx: GF) -> GF2:
     return s_half + beta * d_scaled
 
 
+def fold(evals: GF2, beta: tuple[int, int], shift: int) -> GF2:
+    """One arity-2 fold of the (N,) layer `evals` on the coset shift*<w_N>:
+    (N/2,) values (e_i + o_i)/2 + beta (e_i - o_i) (2 x_i)^-1, x_i = shift
+    w_N^i."""
+    half = int(evals.shape[0]) // 2
+    return fold_halves(evals[:half], evals[half:], beta, shift)
+
+
+def fold_halves(e: GF2, o: GF2, beta: tuple[int, int], shift: int, start: int = 0,
+                log_n: int | None = None) -> GF2:
+    """fold's outputs [start, start + len(e)) of a layer of 2^log_n values
+    (default: the layer e and o make) whose values at i and i + N/2 are
+    e[i - start] and o[i - start]: a row shard of a larger layer folds its
+    own outputs (parallel/prover.py::sharded_fold_fn). Plain torch ops over
+    _inv_x_table for a CPU tensor, one csrc/fri.cu launch on a card."""
+    if log_n is None:
+        log_n = (2 * int(e.shape[0])).bit_length() - 1
+    t = e.device.type
+    if t == "cpu":
+        return fold_plain(e, o, beta, shift, start, log_n)
+    if t == "cuda":
+        return fold_cuda(e, o, beta, shift, start, log_n)
+    raise ValueError(f"no FRI fold for device {e.device}")
+
+
+def fold_plain(e: GF2, o: GF2, beta: tuple[int, int], shift: int, start: int, log_n: int) -> GF2:
+    """The fold as torch ops over the host table of (2 x_i)^-1, sliced at
+    `start` (any device)."""
+    half = int(e.shape[0])
+    invx = GF(tensor_from_u64(_inv_x_table(log_n, shift % P)[start : start + half], e.device))
+    return _fold_halves_plain(e, o, ext_scalar(beta, e.device), invx)
+
+
+class _FoldArgs(ctypes.Structure):
+    """csrc/fri.cu's FoldArgs, field for field."""
+
+    _fields_ = [
+        ("e0", ctypes.c_void_p), ("e1", ctypes.c_void_p), ("o0", ctypes.c_void_p), ("o1", ctypes.c_void_p),
+        ("beta0", ctypes.c_uint64), ("beta1", ctypes.c_uint64), ("wbeta1", ctypes.c_uint64),
+        ("inv2s", ctypes.c_uint64), ("wipow", ctypes.c_uint64 * 32), ("wistride", ctypes.c_uint64),
+        ("start", ctypes.c_int64), ("half", ctypes.c_int64), ("stride", ctypes.c_int64),
+        ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
+    ]
+
+
+class _InjectArgs(ctypes.Structure):
+    """csrc/fri.cu's InjectArgs, field for field."""
+
+    _fields_ = [
+        ("cur0", ctypes.c_void_p), ("cur1", ctypes.c_void_p),
+        ("f0", ctypes.c_void_p * INJECT_MAX), ("f1", ctypes.c_void_p * INJECT_MAX),
+        ("lam0", ctypes.c_uint64 * INJECT_MAX), ("lam1", ctypes.c_uint64 * INJECT_MAX),
+        ("wlam1", ctypes.c_uint64 * INJECT_MAX),
+        ("k", ctypes.c_int64), ("n", ctypes.c_int64), ("out0", ctypes.c_void_p), ("out1", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _fri_library():
+    from ..ops.cuda_build import load_library
+
+    lib = load_library("fri")
+    for fn, args in (("tmx_fri_fold", _FoldArgs), ("tmx_fri_inject", _InjectArgs)):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+    return lib
+
+
+def _fri_launch(fn: str, args, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_fri_library(), fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def _row_ptr(t: torch.Tensor, dev, n: int, what: str) -> int:
+    """A kernel row operand: n int64 words with unit stride on `dev`."""
+    if t.device != dev or t.dtype != torch.int64:
+        raise TypeError(f"{what} must be int64 on {dev}, got {t.dtype} on {t.device}")
+    if t.dim() != 1 or int(t.shape[0]) != n or (n > 1 and t.stride(0) != 1):
+        raise ValueError(f"{what} must be {n} words with unit stride, got shape {tuple(t.shape)}")
+    return t.data_ptr()
+
+
+@cache
+def _fold_constants(log_n: int, shift: int, half: int) -> tuple[int, ctypes.Array, int, int]:
+    """((2 shift)^-1, w_N^-(2^b) for b < 32 as csrc/fri.cu's array,
+    w_N^-stride, stride) of a fold launch with `half` outputs over a
+    domain of 2^log_n points: a few Python powers, not a table."""
+    stride = -(-half // FOLD_RUN)
+    winv = pow(nttmod.primitive_root_of_unity(log_n), P - 2, P)
+    wipow, w = [], winv
+    for _ in range(32):
+        wipow.append(w)
+        w = w * w % P
+    return pow(2 * shift % P, P - 2, P), (ctypes.c_uint64 * 32)(*wipow), pow(winv, stride, P), stride
+
+
+def fold_cuda(e: GF2, o: GF2, beta: tuple[int, int], shift: int, start: int, log_n: int) -> GF2:
+    """fold_plain's values by one csrc/fri.cu launch into one (2, half)
+    buffer: each thread's outputs i, i + stride, .. with their (2 x_i)^-1
+    made on the card from the host's powers of w_N^-1 (_fold_constants),
+    no table."""
+    global fri_fold_kernel_launches
+    dev = e.device
+    if dev.type != "cuda":
+        raise TypeError(f"fold_cuda folds on a card, got {dev}")
+    half = int(e.shape[0])
+    if start < 0 or not 1 <= log_n <= 32 or start + half > 1 << (log_n - 1):
+        raise ValueError(f"fold_cuda: outputs [{start}, {start + half}) outside a domain of 2^{log_n} points")
+    ptrs = [_row_ptr(x, dev, half, f"fold_cuda's {name}")
+            for x, name in ((e.c0.v, "e.c0"), (e.c1.v, "e.c1"), (o.c0.v, "o.c0"), (o.c1.v, "o.c1"))]
+    out = torch.empty((2, half), dtype=torch.int64, device=dev)
+    if half:
+        inv2s, wipow, wistride, stride = _fold_constants(log_n, shift % P, half)
+        b0, b1 = int(beta[0]) % P, int(beta[1]) % P
+        args = _FoldArgs(*ptrs, beta0=b0, beta1=b1, wbeta1=W * b1 % P, inv2s=inv2s, wipow=wipow,
+                         wistride=wistride, start=start, half=half, stride=stride,
+                         out0=out[0].data_ptr(), out1=out[1].data_ptr())
+        _fri_launch("tmx_fri_fold", args, dev)
+        fri_fold_kernel_launches += 1
+    return GF2(GF(out[0]), GF(out[1]))
+
+
 def _sharded_fold(mesh):
-    """fold(cur, beta, invx) over the mesh's row shards, the result back
+    """fold(cur, beta, shift) over the mesh's row shards, the result back
     on the first device, for an even mesh (None otherwise): the
     reference shards only the fold, and only of layers of at least 4D
     values; commitments and small layers stay on one device."""
@@ -111,20 +255,20 @@ def _sharded_fold(mesh):
         return None
     from ..parallel.prover import sharded_fold_fn
 
-    fold = sharded_fold_fn(mesh)
+    fold_sh = sharded_fold_fn(mesh)
 
-    def run(cur: GF2, beta: GF2, invx: GF) -> GF2:
+    def run(cur: GF2, beta: tuple[int, int], shift: int) -> GF2:
         blocks = [GF2(GF(a), GF(b)) for a, b in zip(mesh.split(cur.c0.v), mesh.split(cur.c1.v))]
-        out = fold(blocks, invx, beta)
+        out = fold_sh(blocks, beta, shift)
         return GF2(GF(mesh.gather([o.c0.v for o in out])), GF(mesh.gather([o.c1.v for o in out])))
 
     return run
 
 
-def _fold(cur: GF2, cur_n: int, beta: GF2, invx: GF, fold_sh, mesh) -> GF2:
+def _fold(cur: GF2, cur_n: int, beta: tuple[int, int], shift: int, fold_sh, mesh) -> GF2:
     if fold_sh is not None and cur_n >= 4 * mesh.size:
-        return fold_sh(cur, beta, invx)
-    return _fold_layer(cur, beta, invx)
+        return fold_sh(cur, beta, shift)
+    return fold(cur, beta, shift)
 
 
 def _commit_layer(evals: GF2) -> MerkleTree:
@@ -139,6 +283,60 @@ def ext_scalar(v: tuple[int, int], device) -> GF2:
 
 def _inject(cur: GF2 | None, lam: GF2, F: GF2) -> GF2:
     return lam * F if cur is None else cur + lam * F
+
+
+def inject(cur: GF2 | None, lams: list[tuple[int, int]], Fs: list[GF2]) -> GF2:
+    """cur + sum_k lams[k] Fs[k] (the sum alone when cur is None), the
+    batch FRI's injection of the codewords of one size: torch ops for a
+    CPU tensor, csrc/fri.cu on a card (one launch a group of INJECT_MAX)."""
+    if not Fs or len(lams) != len(Fs):
+        raise ValueError(f"inject takes one lambda a codeword, got {len(lams)} and {len(Fs)}")
+    t = Fs[0].device.type
+    if t == "cpu":
+        return inject_plain(cur, lams, Fs)
+    if t == "cuda":
+        return inject_cuda(cur, lams, Fs)
+    raise ValueError(f"no FRI injection for device {Fs[0].device}")
+
+
+def inject_plain(cur: GF2 | None, lams: list[tuple[int, int]], Fs: list[GF2]) -> GF2:
+    """The injection one codeword at a time as torch ops (any device)."""
+    for lam, F in zip(lams, Fs):
+        cur = _inject(cur, ext_scalar(lam, F.device), F)
+    return cur
+
+
+def inject_cuda(cur: GF2 | None, lams: list[tuple[int, int]], Fs: list[GF2]) -> GF2:
+    """inject_plain's values by csrc/fri.cu's tmx_fri_inject: one launch a
+    group of up to INJECT_MAX codewords into one (2, n) buffer, each
+    output component one dot of the lambdas against the codewords,
+    reduced once, cur added."""
+    global fri_inject_kernel_launches
+    dev = Fs[0].device
+    if dev.type != "cuda":
+        raise TypeError(f"inject_cuda injects on a card, got {dev}")
+    n = int(Fs[0].shape[0])
+    for g in range(0, len(Fs), INJECT_MAX):
+        group, glams = Fs[g : g + INJECT_MAX], lams[g : g + INJECT_MAX]
+        f0 = [_row_ptr(F.c0.v, dev, n, "inject_cuda's codewords") for F in group]
+        f1 = [_row_ptr(F.c1.v, dev, n, "inject_cuda's codewords") for F in group]
+        pad = [0] * (INJECT_MAX - len(group))
+        l0 = [int(v[0]) % P for v in glams]
+        l1 = [int(v[1]) % P for v in glams]
+        out = torch.empty((2, n), dtype=torch.int64, device=dev)
+        args = _InjectArgs(
+            cur0=_row_ptr(cur.c0.v, dev, n, "inject_cuda's cur") if cur is not None else None,
+            cur1=_row_ptr(cur.c1.v, dev, n, "inject_cuda's cur") if cur is not None else None,
+            f0=(ctypes.c_void_p * INJECT_MAX)(*f0, *pad), f1=(ctypes.c_void_p * INJECT_MAX)(*f1, *pad),
+            lam0=(ctypes.c_uint64 * INJECT_MAX)(*l0, *pad), lam1=(ctypes.c_uint64 * INJECT_MAX)(*l1, *pad),
+            wlam1=(ctypes.c_uint64 * INJECT_MAX)(*[W * v % P for v in l1], *pad),
+            k=len(group), n=n, out0=out[0].data_ptr(), out1=out[1].data_ptr(),
+        )
+        if n:
+            _fri_launch("tmx_fri_inject", args, dev)
+            fri_inject_kernel_launches += 1
+        cur = GF2(GF(out[0]), GF(out[1]))
+    return cur
 
 
 # ---------------------------------------------------------------------------
@@ -181,7 +379,6 @@ def fri_prove_batch(
     sizes = [int(F.shape[0]) for F in codewords]
     if any(s & (s - 1) for s in sizes):
         raise ValueError("codeword sizes must be powers of two")
-    device = codewords[0].device
     fold_sh = _sharded_fold(mesh)
     order = batch_entry_order(sizes)
     n = sizes[order[0]]
@@ -195,10 +392,15 @@ def fri_prove_batch(
     cur_shift = shift % P
     oi = 0
     while True:
+        # every codeword of this size at once: their lambdas are sampled
+        # one after another with no observation between
+        entering = []
         while oi < len(order) and sizes[order[oi]] == cur_n:
-            lam = ext_scalar(challenger.sample_ext(), device)
-            cur = _inject(cur, lam, codewords[order[oi]])
+            entering.append(order[oi])
             oi += 1
+        if entering:
+            lams = [challenger.sample_ext() for _ in entering]
+            cur = inject(cur, lams, [codewords[i] for i in entering])
         if cur_n <= stop and oi == len(order):
             break
         if cur_n <= 1:
@@ -209,9 +411,7 @@ def fri_prove_batch(
         cap = tree.cap(config.cap_bits)
         caps.append(cap)
         challenger.observe_cap(cap)
-        beta = ext_scalar(challenger.sample_ext(), device)
-        invx = GF(tensor_from_u64(_inv_x_table(cur_n.bit_length() - 1, cur_shift), device))
-        cur = _fold(cur, cur_n, beta, invx, fold_sh, mesh)
+        cur = _fold(cur, cur_n, challenger.sample_ext(), cur_shift, fold_sh, mesh)
         cur_shift = cur_shift * cur_shift % P
         cur_n //= 2
 
@@ -286,9 +486,7 @@ def fri_prove(
         cap = tree.cap(config.cap_bits)
         caps.append(cap)
         challenger.observe_cap(cap)
-        beta = ext_scalar(challenger.sample_ext(), cur.device)
-        invx = GF(tensor_from_u64(_inv_x_table(cur_n.bit_length() - 1, cur_shift), cur.device))
-        cur = _fold(cur, cur_n, beta, invx, fold_sh, mesh)
+        cur = _fold(cur, cur_n, challenger.sample_ext(), cur_shift, fold_sh, mesh)
         cur_shift = cur_shift * cur_shift % P
         cur_n //= 2
         layers.append(cur)

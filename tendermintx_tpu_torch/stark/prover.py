@@ -497,6 +497,23 @@ OOD_MAX_THREADS = 128
 # inversion, at most
 DEEP_INV_BATCH = 24
 
+# csrc/ood.cu: POW_THREADS and POW_MAX_RUN (an ext_powers block's threads,
+# the most powers a thread); _powers_run aims at about POW_BLOCKS blocks,
+# two an SM of an H100
+POW_THREADS = 256
+POW_MAX_RUN = 8
+POW_BLOCKS = 264
+
+
+def _powers_run(n: int, n_points: int) -> int:
+    """Powers a thread of an ext_powers launch: the least of 1, 2, 4 and 8
+    whose blocks (a tile of POW_THREADS * run powers of one point) number
+    at most POW_BLOCKS, else 8."""
+    run = 1
+    while run < POW_MAX_RUN and -(-n // (POW_THREADS * run)) * n_points > POW_BLOCKS:
+        run *= 2
+    return run
+
 
 def _deep_inv_points(n_points: int) -> int:
     """csrc/ood.cu: inv_points, the domain points a deep_inverses thread
@@ -509,7 +526,8 @@ class _PowersArgs(ctypes.Structure):
 
     _fields_ = [
         ("pt0", ctypes.c_uint64 * OOD_MAX_POINTS), ("pt1", ctypes.c_uint64 * OOD_MAX_POINTS),
-        ("n_points", ctypes.c_int64), ("n", ctypes.c_int64), ("out", ctypes.c_void_p),
+        ("n_points", ctypes.c_int64), ("n", ctypes.c_int64), ("run", ctypes.c_int64),
+        ("out", ctypes.c_void_p),
     ]
 
 
@@ -589,7 +607,10 @@ def ext_powers_plain(points: list[tuple[int, int]], n: int, device) -> GF2:
 
 def ext_powers_cuda(points: list[tuple[int, int]], n: int, device) -> GF2:
     """One launch into one (2, points, n) buffer whose halves are the c0
-    and c1 rows (ood_eval_cuda reads them so)."""
+    and c1 rows (ood_eval_cuda reads them so): a block a tile of
+    POW_THREADS * run consecutive powers of one point, its first warp
+    squaring the point up to the tile's base (csrc/ood.cu), run from
+    _powers_run. No host powers: the kernel takes the points alone."""
     global ext_powers_kernel_launches
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -597,7 +618,10 @@ def ext_powers_cuda(points: list[tuple[int, int]], n: int, device) -> GF2:
     pt0, pt1 = _points_array(points, "ext_powers_cuda")
     out = torch.empty((2, len(points), n), dtype=torch.int64, device=dev)
     if n:
-        args = _PowersArgs(pt0=pt0, pt1=pt1, n_points=len(points), n=n, out=out.data_ptr())
+        if n > 1 << 32:
+            raise ValueError(f"ext_powers_cuda takes at most 2^32 powers, got {n}")
+        args = _PowersArgs(pt0=pt0, pt1=pt1, n_points=len(points), n=n, run=_powers_run(n, len(points)),
+                           out=out.data_ptr())
         _ood_launch("tmx_ext_powers", args, dev)
         ext_powers_kernel_launches += 1
     return GF2(GF(out[0]), GF(out[1]))

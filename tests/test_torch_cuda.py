@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the Poseidon permutation, column sponge
 and Merkle tree layer; the constraint quotient's tape kernel; the NTT,
 inverse NTT and coset LDE; the DEEP composition; the OOD powers,
-evaluation and DEEP inverse tables; the LogUp aux columns) against
+evaluation and DEEP inverse tables; the LogUp aux columns; the FRI fold
+and injection) against
 their plain torch versions on the card, at small shapes and with the edge
 values 0, 1, p-1, 2^32-1, 2^32 and 2^63 mod p. Exact equality: integer
 field arithmetic has no tolerance.
@@ -367,7 +368,8 @@ def _ext_points(k: int, seed: int) -> list[tuple[int, int]]:
     return [(P - 1, 0), *pts[1:]] if k > 1 else pts
 
 
-@pytest.mark.parametrize("n_points, n", [(1, 1), (2, 17), (8, 1000), (3, 4096), (8, 1 << 16), (2, 1 << 17)])
+@pytest.mark.parametrize("n_points, n", [(1, 1), (2, 17), (8, 1000), (3, 4096), (8, 1 << 16), (2, 1 << 17),
+                                         (2, 1 << 15), (8, 1 << 15), (1, 2407), (1, 18), (5, 257), (4, 513)])
 def test_ood_ext_powers_kernel_matches_plain(dev, n_points, n):
     from tendermintx_tpu_torch.stark import prover as pr
 
@@ -504,6 +506,104 @@ def test_ood_kernels_refuse_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         pr.ood_eval_cuda(gl.GF(a.v[:, :32]), None, powers)
     assert _ood_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The FRI fold and injection (csrc/fri.cu)
+# ---------------------------------------------------------------------------
+
+
+def _fri_counts():
+    return (fri.fri_fold_kernel_launches, fri.fri_inject_kernel_launches)
+
+
+def _ext_rows(n: int, seed: int, dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    t = _felts((2, n), seed, dev)
+    return GF2(gl.GF(t[0]), gl.GF(t[1]))
+
+
+@pytest.mark.parametrize("log_n", range(1, 22))
+def test_fri_fold_kernel_matches_plain(dev, log_n):
+    """Every layer size of the composite's batch FRI (2^19 down) and the
+    wrap's (2^21 down), at the first layer's shift and a squared one."""
+    N, half = 1 << log_n, 1 << (log_n - 1)
+    evals = _ext_rows(N, 300 + log_n, dev)
+    (beta,) = _ext_points(1, 400 + log_n)
+    for shift in (7, pow(7, 1 << 9, P)):
+        before = _fri_counts()
+        got = fri.fold(evals, beta, shift)
+        assert _fri_counts() == (before[0] + 1, before[1])
+        assert _gf2_equal(got, fri.fold_plain(evals[:half], evals[half:], beta, shift, 0, log_n))
+
+
+@pytest.mark.parametrize("log_n, start, half", [(2, 1, 1), (10, 3, 61), (12, 1000, 1047), (19, 5, (1 << 18) - 5),
+                                                (21, (1 << 19) + 7, 99_999)])
+def test_fri_fold_kernel_at_an_offset_matches_plain(dev, log_n, start, half):
+    e, o = _ext_rows(half, 500 + half, dev), _ext_rows(half, 600 + half, dev)
+    (beta,) = _ext_points(1, 700 + half)
+    got = fri.fold_halves(e, o, beta, 7, start, log_n)
+    assert _gf2_equal(got, fri.fold_plain(e, o, beta, 7, start, log_n))
+
+
+@pytest.mark.parametrize("n, k, with_cur", [(1 << 19, 1, False), (1 << 18, 2, True), (1, 1, True), (1000, 3, False),
+                                            (4097, 4, True), (333, 5, True), (77, 9, False)])
+def test_fri_inject_kernel_matches_plain(dev, n, k, with_cur):
+    """The composite's two injections (2^19 into nothing, two codewords
+    at 2^18 into the folded layer), ragged lengths and more than
+    INJECT_MAX codewords (one launch a group)."""
+    Fs = [_ext_rows(n, 800 + 17 * i + n % 97, dev) for i in range(k)]
+    lams = _ext_points(k, 900 + n % 89)
+    cur = _ext_rows(n, 950, dev) if with_cur else None
+    before = _fri_counts()
+    got = fri.inject(cur, lams, Fs)
+    assert _fri_counts() == (before[0], before[1] + -(-k // fri.INJECT_MAX))
+    assert _gf2_equal(got, fri.inject_plain(cur, lams, Fs))
+
+
+def test_fri_kernels_refuse_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    evals = _ext_rows(64, 61, dev)
+    strided = GF2(gl.GF(evals.c0.v[::2]), gl.GF(evals.c1.v[::2]))
+    before = _fri_counts()
+    with pytest.raises(ValueError, match="unit stride"):
+        fri.fold_cuda(strided, evals[32:], (1, 2), 7, 0, 6)
+    with pytest.raises(ValueError, match="outside"):
+        fri.fold_cuda(evals[:32], evals[32:], (1, 2), 7, 1, 6)
+    with pytest.raises(TypeError):
+        fri.inject_cuda(GF2(gl.GF(evals.c0.v.cpu()), gl.GF(evals.c1.v.cpu())), [(1, 2)], [evals])
+    with pytest.raises(ValueError, match="unit stride"):
+        fri.inject_cuda(None, [(1, 2)], [strided])
+    assert _fri_counts() == before
+
+
+def test_fri_prove_on_card_equals_cpu(dev):
+    """fri_prove_batch over three codewords of two sizes and fri_prove over
+    one, on the card (folds and injections through csrc/fri.cu) and on
+    the CPU: the same proofs."""
+    import dataclasses
+
+    from tendermintx_tpu_torch.ops import ntt as nttmod
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.stark.challenger import Challenger
+
+    cfg = fri.FriConfig(rate_bits=2, n_queries=6, final_poly_len=8, proof_of_work_bits=3, cap_bits=2)
+    coeffs = [_felts((2, n // 4), 970 + n, torch.device("cpu")) for n in (1024, 512, 1024)]
+    words = []
+    for c, shift in zip(coeffs, (7, 49, 7)):
+        lde = nttmod.coset_lde(gl.GF(c), 2, shift)
+        words.append(GF2(gl.GF(lde.v[0].contiguous()), gl.GF(lde.v[1].contiguous())))
+    to = lambda w, d: GF2(gl.GF(w.c0.v.to(d)), gl.GF(w.c1.v.to(d)))
+    before = _fri_counts()
+    card = fri.fri_prove_batch([to(w, dev) for w in words], Challenger(), cfg, 7)
+    folds = fri.fri_fold_kernel_launches - before[0]
+    assert (folds, fri.fri_inject_kernel_launches - before[1]) == (fri._batch_layer_count([1024, 512, 1024], cfg), 2)
+    host = fri.fri_prove_batch(words, Challenger(), cfg, 7)
+    assert dataclasses.asdict(card) == dataclasses.asdict(host)
+    single = fri.fri_prove(to(words[0], dev), Challenger(), cfg, 7)
+    assert dataclasses.asdict(single) == dataclasses.asdict(fri.fri_prove(words[0], Challenger(), cfg, 7))
 
 
 # ---------------------------------------------------------------------------
@@ -1030,12 +1130,14 @@ def test_sharded_lde_leaves_fold_and_ntt_on_card_match_cpu(dev):
         outs.append([coeffs.v, mesh.gather([r.v for r in rows], dim=1), leaves.v])
     for a, b in zip(*outs):
         assert torch.equal(a.cpu(), b)
-    e0, e1, beta = _felts((1024,), 23, dev), _felts((1024,), 24, dev), _felts((2,), 25, dev)
-    invx = gl.tensor_from_u64(fri._inv_x_table(10, 7), dev)
+    e0, e1 = _felts((1024,), 23, dev), _felts((1024,), 24, dev)
+    (beta,) = _ext_points(1, 25)
     folded = []
     for mesh, d in ((card, dev), (host, torch.device("cpu"))):
         blocks = [GF2(gl.GF(a), gl.GF(b)) for a, b in zip(mesh.split(e0.to(d)), mesh.split(e1.to(d)))]
-        out = shp.sharded_fold_fn(mesh)(blocks, gl.GF(invx.to(d)), GF2(gl.GF(beta[:1].to(d)), gl.GF(beta[1:].to(d))))
+        before = fri.fri_fold_kernel_launches
+        out = shp.sharded_fold_fn(mesh)(blocks, beta, 7)
+        assert fri.fri_fold_kernel_launches == before + (4 if mesh is card else 0)
         folded.append(torch.cat([mesh.gather([o.c0.v for o in out]), mesh.gather([o.c1.v for o in out])]))
         x = e0.to(d)
         ntt = shp.sharded_ntt_fn(mesh, 10)([gl.GF(b) for b in mesh.split(x)])

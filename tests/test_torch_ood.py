@@ -9,7 +9,7 @@ p - 2^32. Then Python models of what csrc/ood.cu computes that the CPU
 cannot run: the base inversion's addition chain (goldilocks.cuh), the
 DEEP inverse tables' schedule (J domain points at a grid stride by every
 opening point a thread, their norms inverted together by Montgomery's
-trick in prefix form, a planted domain point masked), the powers built by runs (RUN a thread), and ood_eval's launch plan (row
+trick in prefix form, a planted domain point masked), the powers built by runs (a tile of POW_THREADS * run a block), and ood_eval's launch plan (row
 blocks, the threads' rows, slices cut into tiles: every coefficient once)
 and its arithmetic: each thread's rows summed in 160-bit accumulators a
 slice, the rows of the second operand (the quotient chunks) at the first
@@ -252,20 +252,26 @@ def test_deep_inverse_schedule_equals_the_plain_version(n_points, log_N):
 
 
 def test_powers_by_runs_equal_the_sequential_powers():
-    """csrc/ood.cu: ext_powers, each run of RUN powers from its first by
-    square and multiply, a length that is no multiple of RUN."""
-    run, n = 16, 1000
+    """csrc/ood.cu: ext_powers, a block's tile of POW_THREADS * run powers
+    from base, thread t's run the powers base + j POW_THREADS + t from
+    b^base b^t stepped by b^POW_THREADS, at every run and a length that is
+    no multiple of a tile (tests/test_torch_fri_fold.py models the
+    squaring chain that makes b^base and b^t)."""
+    T, n = pr.POW_THREADS, 1000
     b = (123456789, P - 5)
     seq = [(1, 0)]
     for _ in range(n - 1):
         seq.append(ext_mul(seq[-1], b))
-    runs = []
-    for i0 in range(0, n, run):
-        x = ext_pow(b, i0)
-        for _ in range(min(run, n - i0)):
-            runs.append(x)
-            x = ext_mul(x, b)
-    assert runs == seq
+    for run in (1, 2, 4, pr.POW_MAX_RUN):
+        runs = [None] * n
+        for base in range(0, n, T * run):
+            for t in range(T):
+                x = ext_mul(ext_pow(b, base), ext_pow(b, t))
+                for j in range(run):
+                    if base + j * T + t < n:
+                        runs[base + j * T + t] = x
+                    x = ext_mul(x, ext_pow(b, T))
+        assert runs == seq
     assert pr._ext_powers_u64(b, 5)[0].tolist() == [v[0] for v in seq[:5]]
 
 

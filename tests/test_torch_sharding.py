@@ -323,11 +323,13 @@ def test_sharded_fold_matches_single(log_n):
     evals, beta = _gf2(rng, (N,)), _gf2(rng, (1,))
     invx = GF.from_u64(fri._inv_x_table(log_n, 7))
     want = fri._fold_layer(evals, beta, invx)
+    beta_host = (int(beta.c0.to_ints()[0]), int(beta.c1.to_ints()[0]))
+    _eq2(fri.fold(evals, beta_host, 7), want)
     for mesh in (MESH8, MESH2):
         if N < 4 * mesh.size:
             continue
         blocks = [GF2(GF(a), GF(b)) for a, b in zip(mesh.split(evals.c0.v), mesh.split(evals.c1.v))]
-        _eq2(_gather2(mesh, shp.sharded_fold_fn(mesh)(blocks, invx, beta)), want)
+        _eq2(_gather2(mesh, shp.sharded_fold_fn(mesh)(blocks, beta_host, 7)), want)
 
 
 @pytest.mark.parametrize("log_n", [6, 9, 12])

@@ -1,7 +1,7 @@
 """Time the N=128 skip composite on one card for a given checkout of the port.
 
     python3 tools/warm_skip.py [--root DIR] [--warm 1] [--label NAME]
-                               [--modes single,mesh1,...]
+                               [--modes single,mesh1,...] [--wrap]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout), writes a
 128-validator synthetic chain as fixtures in a temporary directory, then
@@ -18,7 +18,12 @@ previous phase mark of stark/prover.py; the last entry is what follows
 the last statement phase: the batch FRI and the openings). Two checkouts
 are compared by running this in turns from one call (parent, change,
 change, parent), two modes by alternating them in `--modes`; the script is
-a measuring aid that nothing else uses.
+a measuring aid that nothing else uses. `--wrap` then wraps the last
+proof at default_wrap_config() on the card, the process's first wrap
+(`n128_wrap_seconds`, as chip_smoke.py's wrap phase times it), and times
+the wrap FRI's host fold tables cold (`wrap_fri_tables`, chip_smoke.py's
+`_time_fri_tables`: the plain fold's (2x)^-1 tables and, where the
+checkout has csrc/fri.cu, the host constants its fold takes instead).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", type=int, default=1)
     ap.add_argument("--label", default="")
     ap.add_argument("--modes", default="")
+    ap.add_argument("--wrap", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -123,8 +129,39 @@ def main(argv=None) -> int:
                 "proof_sha256": hashlib.sha256(blob).hexdigest(), "phases": list(phases),
                 "phase_peaks": [list(p) for p in peaks],
             })
+        if args.wrap:
+            out["wrap"] = _first_wrap(proof)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _first_wrap(proof) -> dict:
+    """The process's first wrap of `proof` on the card, timed, and the wrap
+    FRI's host fold tables built cold."""
+    import importlib.util
+
+    import torch
+
+    from tendermintx_tpu_torch.circuits.composite import wrap_composite
+    from tendermintx_tpu_torch.stark.recursion import default_wrap_config
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrapped = wrap_composite(proof, device="cuda")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke_tables", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = default_wrap_config()
+    n = max(st.n_rows for st in wrapped.batch.wrapper.statements) << cfg.rate_bits
+    return {
+        "n128_wrap_seconds": seconds,
+        "wrapped_sha256": hashlib.sha256(wrapped.to_bytes()).hexdigest(),
+        "wrap_fri_tables": {"domain": n, "cold_seconds": cs._time_fri_tables(n, cfg),
+                            "card_host_seconds": cs._time_fri_tables(n, cfg, card=True)},
+    }
 
 
 if __name__ == "__main__":
