@@ -79,13 +79,16 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  of raw launches (``burst_ms``: no Python wrapper between
                  them), deep_inverses also checked with an opening point
                  planted on the domain (0 in that column alone); then
-                 csrc/fri.cu's two entries: fri_fold
-                 at every layer the N=128 paths fold (the composite's
-                 batch FRI from 2^19 down to 2^10, the wrap's from 2^21
-                 down to 2^11) and fri_inject at the composite's and the
-                 wrap's two injections each, exact against their plain
-                 versions (the fold's over the (2x)^-1 host table), with
-                 ms, burst_ms, plain ms and the bytes bound;
+                 csrc/fri.cu's two entries at every fold and injection
+                 call the N=128 paths make, derived from their configs
+                 and statement shapes (_fri_paths, _fri_plan: the skip,
+                 step and mesh composites, the two hash bundles, the
+                 wrap, the operator's leaf bundle; fri_inject with 1, 2
+                 and 3 codewords), exact against their plain versions
+                 (the fold's over the (2x)^-1 host table); each fold
+                 launch shape and each injection with ms over input sets
+                 that exceed twice the L2 together (``l2_cold``),
+                 burst_ms, plain ms and the bytes bound;
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -145,7 +148,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  accepted by ``cli verify`` (a tampered abi_output exits
                  1); an operator with prove_stark on a MockContract for
                  one tick (the head moves, the leaf STARK verifies); peak
-                 memory and Poseidon launches;
+                 memory and Poseidon launches; the FRI's launches exactly
+                 the prewarm's (counted around it), the warm skip, wrap
+                 and step paths' and one fold a layer of the leaf bundle;
  10. mesh      - multi-device proving on a 4-shard lane mesh
                  ([cuda:i % cards for i in range(4)]: all four on cuda:0 on
                  a one-card host): the N=128 skip 2 -> 6 at
@@ -164,7 +169,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  four-step run alone held to its shards' pass plans), and
                  dryrun_multichip(4) in each
                  of its shapes (default, toy, full), each timed;
- 11. profile   - only with --profile: one more warm prove under
+ 11. fri_shapes - every fold and injection shape the run called
+                 csrc/fri.cu's wrappers with (_FriCalls) that the kernels
+                 phase did not check (the N=4 proofs': the parity prove,
+                 the service's prewarm, the mesh's N=4 wrap), held
+                 exactly against its plain version, so that every shape
+                 a path launched was checked;
+ 12. profile   - only with --profile: one more warm prove under
                  torch.profiler (device time by kernel, Poseidon's and the
                  copies' totals, the card's busy share of the wall time)
                  and one under cProfile (the host
@@ -179,6 +190,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -1298,91 +1310,200 @@ def _kernel_logup(dev, clock_mhz: float, ptxas: dict) -> dict:
     }
 
 
-# the FRI layers the N=128 paths fold: (use, log2 of the input layer,
-# rate bits, final_poly_len) of the composite's batch FRI (2^19 down to
-# 2^10) and the wrap's (2^21 down to 2^11); and the injections (use, log2
-# n, codewords, into a folded layer or nothing) of each
-FRI_BATCHES = (("composite", 19, 3, 64), ("wrap", 21, 4, 64))
-FRI_INJECTIONS = (("composite", 19, 1, False), ("composite", 18, 2, True), ("wrap", 21, 1, False),
-                  ("wrap", 19, 1, True))
 # the least multiplies of a fold output: (e - o) times (2x)^-1 (2), beta
 # times that (4), (e + o) / 2 (2) and (2x)^-1 from the previous one (1)
 FOLD_MULS = 9
+# at most this many input sets rotate under a timed FRI launch
+FRI_MAX_SETS = 1024
 
 
-def _fri_layers() -> list[tuple[str, int, int]]:
-    """(use, log2 N, shift) of every fold of the N=128 paths' batch FRIs."""
-    out = []
-    for use, log_n, rate, final in FRI_BATCHES:
-        shift = NTT_SHIFT
-        while (1 << log_n) > final << rate:
-            out.append((use, log_n, shift))
-            shift = shift * shift % GL_P
-            log_n -= 1
-    return out
+def _fri_plan(sizes: list[int], config, shards: int = 1) -> tuple[list, list]:
+    """The fold and injection calls of one FRI proof over codewords of
+    `sizes` values at `config` (a StarkConfig), as stark/fri.py makes them:
+    fri_prove for one codeword, fri_prove_batch for more. A fold is (log2
+    N, shift, start, outputs): one a committed layer, one a row shard
+    where a mesh of `shards` shards the layer (at least 4 values a shard);
+    an injection is (log2 n, codewords, into a folded layer): one a
+    codeword size of a batch."""
+    folds, injections = [], []
+    stop = config.final_poly_len << config.rate_bits
+    n, shift = max(sizes), config.shift % GL_P
+    while True:
+        k = sizes.count(n)
+        if k and len(sizes) > 1:
+            injections.append((n.bit_length() - 1, k, n < max(sizes)))
+        if n <= stop and n <= min(sizes):
+            return folds, injections
+        log_n = n.bit_length() - 1
+        if shards > 1 and n >= 4 * shards:
+            h = n // (2 * shards)
+            folds += [(log_n, shift, d * h, h) for d in range(shards)]
+        else:
+            folds.append((log_n, shift, 0, n // 2))
+        shift = shift * shift % GL_P
+        n //= 2
 
 
-def _kernel_fri(dev, clock_mhz: float, ptxas: dict) -> dict:
-    """csrc/fri.cu's two entries at every fold and injection of the N=128
-    paths' batch FRIs (_fri_layers, FRI_INJECTIONS), each held exactly
-    against its plain version on the whole output, with its time (the
-    median of five rounds; from a burst of raw launches beside it), the
-    plain version's (the fold's over its
-    (2x)^-1 table, built before the timing) and its bound (bytes: each
-    input word read once, each output written once)."""
+def _fri_paths() -> dict:
+    """{path: [(codeword sizes, StarkConfig, shards) of each FRI proof]}
+    of the N=128 paths, from their configs and the statement shapes of
+    _ood_shapes: the skip composite (SHA-256 plan, Ed25519, SHA-512), the
+    step composite (SHA-256 step plan, Ed25519, SHA-512), the two hash
+    bundles (the skip's and the step's SHA-256 plans, one FRI each), the
+    wrap (WrapAir and EvalAir), the runtime operator's validator-leaf
+    bundle (one SHA-256 block a lane) and the skip on the MESH_SHARDS-shard
+    mesh."""
+    from tendermintx_tpu_torch.circuits.composite import DEFAULT_COMPOSITE_CONFIG as composite
+    from tendermintx_tpu_torch.circuits.hashing import DEFAULT_HASH_CONFIG as hashes
+    from tendermintx_tpu_torch.circuits.proving import _default_config
+    from tendermintx_tpu_torch.stark import sha256_air
+    from tendermintx_tpu_torch.stark.recursion import default_wrap_config
+
+    rows = {name: 1 << log_n for name, _, log_n, _ in _ood_shapes()}
+    rows["leaf"] = sha256_air.SEGMENT * N128_SKIP_STATEMENTS["ed25519"]
+    fri = lambda cfg, *names, shards=1: ([rows[k] << cfg.rate_bits for k in names], cfg, shards)
+    wrap, leaf = default_wrap_config(), _default_config()
+    return {
+        "skip": [fri(composite, "sha256", "ed25519", "sha512")],
+        "step": [fri(composite, "sha256_step", "ed25519", "sha512")],
+        "hashes": [fri(hashes, "sha256"), fri(hashes, "sha256_step")],
+        "wrap": [fri(wrap, "wrap", "evalair")],
+        "leaf": [fri(leaf, "leaf")],
+        "mesh": [fri(composite, "sha256", "ed25519", "sha512", shards=MESH_SHARDS)],
+    }
+
+
+def _fri_shapes() -> tuple[dict, dict]:
+    """({fold: [paths]}, {injection: [paths]}): every distinct fold and
+    injection call of the N=128 paths (_fri_paths through _fri_plan), in
+    the order the paths make them."""
+    folds, injections = {}, {}
+    for path, fris in _fri_paths().items():
+        for sizes, config, shards in fris:
+            f, i = _fri_plan(sizes, config, shards)
+            for table, keys in ((folds, f), (injections, i)):
+                for key in keys:
+                    if path not in table.setdefault(key, []):
+                        table[key].append(path)
+    return folds, injections
+
+
+class _FriCalls:
+    """The shape of every call of csrc/fri.cu's wrappers (fold_cuda,
+    inject_cuda) while installed, keyed as _fri_plan keys them, so that
+    the run holds every shape it launched against its plain version
+    (phase_fri_shapes)."""
+
+    def __init__(self):
+        self.folds: set = set()
+        self.injections: set = set()
+
+    def install(self):
+        from tendermintx_tpu_torch.stark import fri
+
+        fold_cuda, inject_cuda = fri.fold_cuda, fri.inject_cuda
+
+        def fold(e, o, beta, shift, start, log_n):
+            self.folds.add((log_n, shift % GL_P, start, int(e.shape[0])))
+            return fold_cuda(e, o, beta, shift, start, log_n)
+
+        def inject(cur, lams, Fs):
+            self.injections.add((int(Fs[0].shape[0]).bit_length() - 1, len(Fs), cur is not None))
+            return inject_cuda(cur, lams, Fs)
+
+        fri.fold_cuda, fri.inject_cuda = fold, inject
+
+
+FRI_CALLS = _FriCalls()
+
+
+def _fri_inputs(kind: str, key: tuple, gen, dev, cold: bool) -> tuple:
+    """(wrapper, plain version, input sets, bytes a set reads, outputs,
+    field multiplies, what the shape is) of one fold or injection shape (a
+    _fri_plan key) on random inputs (stark/fri.py: fold_halves and
+    fold_plain with the plain version's (2x)^-1 host table built here, or
+    inject and inject_plain): one input set or, `cold`, as many as
+    together exceed twice the card's L2 where FRI_MAX_SETS allow, so that
+    a launch that rotates through them reads its inputs from HBM."""
     from tendermintx_tpu_torch.ops.ext import GF2
     from tendermintx_tpu_torch.ops.goldilocks import GF
     from tendermintx_tpu_torch.stark import fri
 
+    if kind == "fold":
+        log_n, shift, start, n = key
+        rows_in, muls, kernel, plain = 4, FOLD_MULS * n, fri.fold_halves, fri.fold_plain
+        what = {"log_n": log_n, "shift": shift, "start": start, "shape": [2, 2 * n]}
+        fri._inv_x_table(log_n, shift)
+        (beta,) = _random_points(1, gen, dev)
+        args = lambda ext: (ext(0), ext(2), beta, shift, start, log_n)
+    else:
+        log_n, k, with_cur = key
+        n = 1 << log_n
+        rows_in, muls, kernel, plain = 2 * (k + with_cur), 4 * k * n, fri.inject, fri.inject_plain
+        what = {"log_n": log_n, "codewords": k, "cur": with_cur, "shape": [k, 2, n]}
+        lams = _random_points(k, gen, dev)
+        args = lambda ext: (ext(2 * k) if with_cur else None, lams, [ext(2 * j) for j in range(k)])
+    in_bytes = 8 * rows_in * n
+    sets = min(FRI_MAX_SETS, -(-2 * torch.cuda.get_device_properties(0).L2_cache_size // in_bytes)) if cold else 1
+    pool = _random_felts((rows_in, sets, n), gen, dev)
+    inputs = [args(lambda r: GF2(GF(pool[r, s]), GF(pool[r + 1, s]))) for s in range(sets)]
+    return kernel, plain, inputs, in_bytes, n, muls, what
+
+
+def _fri_case(kind: str, key: tuple, gen, dev, muls_per_ms: float, timed: bool) -> dict:
+    """One fold or injection shape on random inputs (_fri_inputs): the
+    wrapper held exactly against its plain version on the whole output,
+    the plain version's ms and the bytes bound; `timed`, the wrapper's
+    time too (the median of five rounds, the fastest and slowest beside
+    it) rotating through input sets that exceed twice the L2 (`l2_cold`
+    where FRI_MAX_SETS allowed that), and `burst_ms`, raw launches on one
+    input set (L2-warm where it fits the L2)."""
+    from tendermintx_tpu_torch.stark import fri
+
+    kernel, plain, inputs, in_bytes, n, muls, out = _fri_inputs(kind, key, gen, dev, timed)
+    got = kernel(*inputs[0])
+    want, plain_ms = _timed_once(lambda: plain(*inputs[0]))
+    if not (torch.equal(got.c0.v, want.c0.v) and torch.equal(got.c1.v, want.c1.v)):
+        raise AssertionError(f"fri {kind} {key} disagrees with its plain version")
+    del got, want
+    out.update({"max_abs_err": 0.0, "plain_ms": plain_ms, **_field_bound(muls, in_bytes + 16 * n, muls_per_ms)})
+    if timed:
+        turns = itertools.cycle(inputs)
+        run = lambda: kernel(*next(turns))
+        _, first_ms = _timed_once(run)
+        reps = max(3, min(200, int(200 / max(first_ms, 1e-3))))
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        out.update({**_time_rounds(run, reps), "l2_sets": len(inputs), "l2_cold": len(inputs) * in_bytes >= 2 * l2,
+                    "burst_ms": _launch_burst_ms(fri, "_fri_launch", "_fri_library", lambda: kernel(*inputs[0]))})
+    return out
+
+
+def _kernel_fri(dev, clock_mhz: float, ptxas: dict) -> dict:
+    """csrc/fri.cu's two entries at every fold and injection shape of the
+    N=128 paths (_fri_shapes), each held exactly against its plain version
+    (_fri_case); each fold launch shape (outputs of a whole layer) and
+    each injection timed once."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 5)
-    gf2_equal = lambda a, b: torch.equal(a.c0.v, b.c0.v) and torch.equal(a.c1.v, b.c1.v)
-
-    def ext_rows(n: int) -> GF2:
-        t = _random_felts((2, n), gen, dev)
-        return GF2(GF(t[0]), GF(t[1]))
-
-    def timed(kernel, plain, what: str) -> dict:
-        got = kernel()
-        want, plain_ms = _timed_once(plain)
-        if not gf2_equal(got, want):
-            raise AssertionError(f"{what} disagrees with its plain version")
-        del got, want
-        _, first_ms = _timed_once(kernel)
-        reps = max(3, min(200, int(200 / max(first_ms, 1e-3))))
-        return {"max_abs_err": 0.0, **_time_rounds(kernel, reps), "plain_ms": plain_ms,
-                "burst_ms": _launch_burst_ms(fri, "_fri_launch", "_fri_library", kernel)}
-
+    folds, injections = _fri_shapes()
+    timed_halves = set()
     layers = []
-    for use, log_n, shift in _fri_layers():
-        N, half = 1 << log_n, 1 << (log_n - 1)
-        evals = ext_rows(N)
-        (beta,) = _random_points(1, gen, dev)
-        fri._inv_x_table(log_n, shift)  # the plain version's host table, outside its timing
-        r = timed(lambda: fri.fold(evals, beta, shift),
-                  lambda: fri.fold_plain(evals[:half], evals[half:], beta, shift, 0, log_n),
-                  f"fri_fold of {use}'s 2^{log_n} layer")
-        layers.append({"use": use, "shape": [2, N], "shift": shift, **r,
-                       **_field_bound(FOLD_MULS * half, 8 * 2 * N + 8 * 2 * half, muls_per_ms)})
-        del evals
-    injections = []
-    for use, log_n, k, with_cur in FRI_INJECTIONS:
-        n = 1 << log_n
-        Fs = [ext_rows(n) for _ in range(k)]
-        lams = _random_points(k, gen, dev)
-        cur = ext_rows(n) if with_cur else None
-        r = timed(lambda: fri.inject(cur, lams, Fs), lambda: fri.inject_plain(cur, lams, Fs),
-                  f"fri_inject of {k} codeword(s) at {use}'s 2^{log_n}")
-        injections.append({"use": use, "shape": [k, 2, n], "cur": with_cur, **r,
-                           **_field_bound(4 * k * n, 16 * n * (k + with_cur + 1), muls_per_ms)})
-        del Fs, cur
+    for key, paths in folds.items():
+        _, _, start, half = key
+        timed = start == 0 and half not in timed_halves
+        timed_halves.add(half)
+        layers.append({"paths": paths, **_fri_case("fold", key, gen, dev, muls_per_ms, timed)})
+    injected = [{"paths": paths, **_fri_case("inject", key, gen, dev, muls_per_ms, True)}
+                for key, paths in injections.items()]
     common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/fri.cu", "library_ms": None}
     keys = ("shape", "max_abs_err", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms", "bound_by",
-            "operations_bound_ms", "bytes_bound_ms", "bytes")
-    top_fold = layers[0]  # the composite's first layer, 2^19
-    top_inject = injections[1]  # the composite's 2^18 injection: two codewords into the folded layer
+            "operations_bound_ms", "bytes_bound_ms", "bytes", "l2_cold")
+    # the skip composite's first layer (2^19) and its 2^18 injection (two
+    # codewords into the folded layer)
+    top_fold = next(r for r in layers if r["log_n"] == 19 and "ms" in r)
+    top_inject = next(r for r in injected if r["shape"] == [2, 2, 1 << 18] and r["cur"])
     return {
         "fri_fold": {
             **common, "replaces": "tendermintx_tpu/stark/fri.py:93",
@@ -1393,9 +1514,36 @@ def _kernel_fri(dev, clock_mhz: float, ptxas: dict) -> dict:
             **common, "replaces": "tendermintx_tpu/stark/fri.py:330",
             "replaces_program": "_inject_fn (:330) and _scale_fn (:337)",
             **{k: top_inject[k] for k in keys}, **_registers_of(ptxas, "tmx_fri_inject"),
-            "injections": injections,
+            "injections": injected,
         },
     }
+
+
+def phase_fri_shapes(rows: dict) -> dict:
+    """Every fold and injection shape that csrc/fri.cu's wrappers were
+    called with on the card in this run (FRI_CALLS) and the kernels phase
+    did not check, held exactly against its plain version now (_fri_case,
+    untimed): the N=4 proofs' (the parity prove, the runtime service's
+    prewarm, the mesh's N=4 wrap), so that every shape a path launched
+    was checked. Adds them to the rows' `checked_after_paths`."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 6)
+    out = {"phase": "fri_shapes"}
+    for name, kind, part, called in (("fri_fold", "fold", "layers", FRI_CALLS.folds),
+                                     ("fri_inject", "inject", "injections", FRI_CALLS.injections)):
+        row = rows[name]
+        checked = {(r["log_n"], r["shift"], r["start"], r["shape"][1] // 2) if kind == "fold"
+                   else (r["log_n"], r["codewords"], r["cur"]) for r in row[part]}
+        row["checked_after_paths"] = [
+            {k: v for k, v in _fri_case(kind, key, gen, dev, 1.0, False).items()
+             if k in ("log_n", "shift", "start", "codewords", "cur", "shape", "max_abs_err")}
+            for key in sorted(called - checked)
+        ]
+        out[name] = {"called": len(called), "checked_in_kernels_phase": len(called & checked),
+                     "checked_now": row["checked_after_paths"]}
+    emit(out)
+    return out
 
 
 def phase_kernels(build: dict) -> dict:
@@ -2266,10 +2414,13 @@ def _cli_verify_file(path: str, proof_file: dict) -> tuple[int, str]:
 
 
 def phase_runtime(
-    sc: SkipChain, workdir: str, wrapped_blob: bytes, step_blob: bytes, profile: bool
+    sc: SkipChain, workdir: str, wrapped_blob: bytes, step_blob: bytes, profile: bool, proved: tuple
 ) -> tuple[dict, dict]:
     """The port's entry points on the card: CLI, prover service, operator;
-    with `profile`, the witness programs' torch op counts too."""
+    with `profile`, the witness programs' torch op counts too. `proved`:
+    the launch counts of the warm skip, wrap and step paths, whose proofs
+    the service makes again (its FRI launches are checked exactly against
+    them, the prewarm's and the operator's leaf bundle's)."""
     from tendermintx_tpu_torch.circuits.composite import CompositeProof
     from tendermintx_tpu_torch.circuits.proving import verify_leaf_bundle
     from tendermintx_tpu_torch.circuits.skip import encode_skip_input
@@ -2310,7 +2461,9 @@ def phase_runtime(
 
     # 2. the prover service: prewarm, a wrapped skip and a step request
     svc = ProverService(allowed_fixture_roots=[workdir], device=RUNTIME_DEVICE)
+    before = _launch_counts()
     prewarm_seconds = svc.prewarm()
+    prewarm = {k: n - before[k] for k, n in _launch_counts().items()}
     svc.start()
     try:
         client = ProverClient(svc.url)
@@ -2372,6 +2525,15 @@ def phase_runtime(
 
     launches = _launch_counts()
     _check_launched(launches, "runtime")
+    # the FRI: the prewarm's N=4 proof (its launches as counted around it),
+    # the service's wrapped skip and step (their paths' launches) and the
+    # leaf bundle's single FRI (one fold a committed layer)
+    want = {k: prewarm[k] + sum(p[k] for p in proved) for k in ("fri_fold", "fri_inject")}
+    want["fri_fold"] += len(op.last_bundle.proof.fri_proof.layer_caps)
+    got = {k: launches[k] for k in want}
+    if got != want or not prewarm["fri_fold"]:
+        raise AssertionError(f"the runtime path launched {got}; the prewarm ({prewarm['fri_fold']} folds), "
+                             f"the service's proofs and the leaf bundle give {want}")
     out["launches"] = launches
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
@@ -2564,17 +2726,14 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     return out, launches, four_step
 
 
-def _time_fri_tables(n: int, config, card: bool = False) -> float | None:
+def _time_fri_tables(n: int, config, card: bool = False) -> float:
     """Seconds to build, cache cold, the host FRI fold tables of one batch
     FRI over an n-point domain: the plain fold's (2x)^-1 tables
     (stark/fri.py::_inv_x_table) or, `card`, what the fold kernel takes
-    from the host instead (_fold_constants: powers of w_N^-1, a layer);
-    None where the imported port has no fold kernel."""
+    from the host instead (_fold_constants: powers of w_N^-1, a layer)."""
     from tendermintx_tpu_torch.stark import fri
 
-    build = getattr(fri, "_fold_constants" if card else "_inv_x_table", None)
-    if build is None:
-        return None
+    build = fri._fold_constants if card else fri._inv_x_table
     build.cache_clear()
     stop = config.final_poly_len << config.rate_bits
     cur_n, cur_shift = n, config.shift % GL_P
@@ -2705,6 +2864,7 @@ def main(argv: list[str]) -> int:
     card = phase_device()["nvidia_smi"]
     build = phase_build()
     NTT_CALLS.install()
+    FRI_CALLS.install()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         parity = parity_start(workdir)
         try:
@@ -2715,8 +2875,10 @@ def main(argv: list[str]) -> int:
             _, hashes_launches = phase_hashes(n128, parity, card)
             profile = "--profile" in argv
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
-            _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile)
+            _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile,
+                                                (warm_launches, wrap_launches, step_launches))
             _, mesh_launches, four_step_launches = phase_mesh(n128, warm_proof, parity)
+            phase_fri_shapes(rows)
             phase_parity(parity)  # before the profile, which the CPU jobs would disturb
             if profile:
                 phase_profile(n128, wrapped_blob, wrap["wrap_rows"])
@@ -2771,10 +2933,13 @@ def main(argv: list[str]) -> int:
                                         "bound_by", "max_abs_err", "planted_zero", "alpha") if k in a}
                 for air, a in rows[entry["name"]]["airs"].items()
             }
+        if "checked_after_paths" in rows[entry["name"]]:  # listed in the fri_shapes line
+            entry["checked_after_paths"] = len(rows[entry["name"]]["checked_after_paths"])
         for part in ("layers", "injections"):
             if part in rows[entry["name"]]:
-                entry[part] = [{k: r[k] for k in ("use", "shape", "cur", "ms", "burst_ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "max_abs_err") if k in r}
+                entry[part] = [{k: r[k] for k in ("paths", "log_n", "shift", "start", "codewords", "cur", "shape",
+                                                  "ms", "burst_ms", "l2_cold", "plain_ms", "bound_ms", "bound_by",
+                                                  "max_abs_err") if k in r}
                                for r in rows[entry["name"]][part]]
         if entry["name"] in LOGUP_ENTRIES:
             entry["checked"] = rows[entry["name"]]["checked"]

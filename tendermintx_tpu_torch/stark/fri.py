@@ -103,13 +103,6 @@ def _inv_x_table(log_n: int, shift: int) -> np.ndarray:
     return vals
 
 
-def _fold_layer(evals: GF2, beta: GF2, invx: GF) -> GF2:
-    """One arity-2 fold. evals: (N,), beta: (1,) ext scalar, invx =
-    (2x_i)^{-1} for i < N/2. Returns (N/2,) evals on the squared domain."""
-    half = evals.shape[0] // 2
-    return _fold_halves_plain(evals[:half], evals[half:], beta, invx)
-
-
 def _fold_halves_plain(e: GF2, o: GF2, beta: GF2, invx: GF) -> GF2:
     """(e + o)/2 + beta (e - o) invx, the fold of the even half e and the
     odd half o, as torch ops."""

@@ -547,12 +547,13 @@ def test_fri_fold_kernel_at_an_offset_matches_plain(dev, log_n, start, half):
     assert _gf2_equal(got, fri.fold_plain(e, o, beta, 7, start, log_n))
 
 
-@pytest.mark.parametrize("n, k, with_cur", [(1 << 19, 1, False), (1 << 18, 2, True), (1, 1, True), (1000, 3, False),
-                                            (4097, 4, True), (333, 5, True), (77, 9, False)])
+@pytest.mark.parametrize("n, k, with_cur", [(1 << 19, 1, False), (1 << 18, 2, True), (1 << 18, 3, False), (1, 1, True),
+                                            (1000, 3, False), (4097, 4, True), (333, 5, True), (77, 9, False)])
 def test_fri_inject_kernel_matches_plain(dev, n, k, with_cur):
-    """The composite's two injections (2^19 into nothing, two codewords
-    at 2^18 into the folded layer), ragged lengths and more than
-    INJECT_MAX codewords (one launch a group)."""
+    """The skip composite's two injections (2^19 into nothing, two
+    codewords at 2^18 into the folded layer), the step composite's three
+    codewords at 2^18, ragged lengths and more than INJECT_MAX codewords
+    (one launch a group)."""
     Fs = [_ext_rows(n, 800 + 17 * i + n % 97, dev) for i in range(k)]
     lams = _ext_points(k, 900 + n % 89)
     cur = _ext_rows(n, 950, dev) if with_cur else None

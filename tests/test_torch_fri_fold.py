@@ -9,7 +9,9 @@ and ext_powers' schedule (csrc/ood.cu: a block's first warp squaring the
 point up to its tile's base, each thread's first power one product, its
 next ones at a stride of POW_THREADS); then whole proofs: fri_prove_batch
 over three codewords of two sizes and fri_prove over one, against the
-JAX package's, field for field. Tolerance: exact equality."""
+JAX package's, field for field; and chip_smoke.py's model of the calls
+the FRI provers make (_fri_plan, whence the card check's shapes) against
+their calls. Tolerance: exact equality."""
 
 import dataclasses
 
@@ -319,3 +321,53 @@ def test_single_fri_proof_equals_jax():
     want = jfri.fri_prove(_jgf2(word), JChallenger(), jfri.FriConfig(**CFG), 7)
     assert _norm(dataclasses.asdict(got)) == _norm(dataclasses.asdict(want))
     assert fri.fri_verify(got, 64, 256, Challenger(), fri.FriConfig(**CFG), 7)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's model of the FRI's kernel calls
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("sizes, rate, final, shards", [
+    ([1 << 10, 1 << 9, 1 << 9], 3, 8, 1),  # the skip composite's shape
+    ([1 << 10, 1 << 9, 1 << 9], 3, 8, 4),  # the same on a 4-shard mesh
+    ([1 << 9] * 3, 3, 8, 1),  # the step composite's: three codewords of one size
+    ([1 << 9, 1 << 11], 4, 4, 1),  # the wrap's: the larger codeword second
+    ([1 << 10], 2, 8, 1),  # a single-statement FRI (hash and leaf bundles)
+    ([1 << 10], 2, 8, 4),
+    ([1 << 8, 1 << 12, 1 << 8, 1 << 10], 2, 2, 2),
+])
+def test_chip_smoke_fri_plan_is_the_provers_calls(monkeypatch, sizes, rate, final, shards):
+    """chip_smoke.py::_fri_plan, from which the card check derives the
+    fold and injection shapes it holds against their plain versions, gives
+    exactly the calls fri_prove / fri_prove_batch make, in order, with and
+    without a mesh."""
+    import chip_smoke
+
+    from tendermintx_tpu_torch.parallel.sharding import LaneMesh
+
+    calls = []
+    fold_plain, inject_plain = fri.fold_plain, fri.inject_plain
+
+    def fold(e, o, beta, shift, start, log_n):
+        calls.append((log_n, shift % P, start, int(e.shape[0])))
+        return fold_plain(e, o, beta, shift, start, log_n)
+
+    def inject(cur, lams, Fs):
+        calls.append((int(Fs[0].shape[0]).bit_length() - 1, len(Fs), cur is not None))
+        return inject_plain(cur, lams, Fs)
+
+    monkeypatch.setattr(fri, "fold_plain", fold)
+    monkeypatch.setattr(fri, "inject_plain", inject)
+    cfg = pr.StarkConfig(rate_bits=rate, n_queries=2, final_poly_len=final)
+    rng = np.random.default_rng(sum(sizes) + shards)
+    words = [_tgf2(_ext(n, rng)) for n in sizes]
+    mesh = LaneMesh([torch.device("cpu")] * shards) if shards > 1 else None
+    with pytest.raises(RuntimeError, match="final poly"):  # random words: the commit phase runs, the degree fails
+        if len(sizes) > 1:
+            fri.fri_prove_batch(words, Challenger(), cfg.fri, cfg.shift, mesh=mesh)
+        else:
+            fri.fri_prove(words[0], Challenger(), cfg.fri, cfg.shift, mesh=mesh)
+    folds, injections = chip_smoke._fri_plan(sizes, cfg, shards)
+    assert [c for c in calls if len(c) == 4] == folds
+    assert [c for c in calls if len(c) == 3] == injections

@@ -16,8 +16,10 @@ from tendermintx_tpu.circuits.variables import pack_validator_lanes as j_pack_la
 from tendermintx_tpu.inputs.conversion import get_validator_data_from_block as j_lane_data
 from tendermintx_tpu.inputs.testchain import TestChain as JTestChain
 from tendermintx_tpu.ops import ntt as jntt
+from tendermintx_tpu.ops.ext import GF2 as JGF2
 from tendermintx_tpu.ops.goldilocks import GF as JGF
 from tendermintx_tpu.parallel import sharding as jsh
+from tendermintx_tpu.stark import fri as jfri
 from tendermintx_tpu_torch.circuits import gadgets as g
 from tendermintx_tpu_torch.circuits.variables import pack_validator_lanes
 from tendermintx_tpu_torch.inputs.conversion import get_validator_data_from_block
@@ -321,8 +323,10 @@ def test_sharded_fold_matches_single(log_n):
     rng = np.random.default_rng(log_n)
     N = 1 << log_n
     evals, beta = _gf2(rng, (N,)), _gf2(rng, (1,))
-    invx = GF.from_u64(fri._inv_x_table(log_n, 7))
-    want = fri._fold_layer(evals, beta, invx)
+    jgf2 = lambda x: JGF2(JGF.from_ints(x.c0.to_ints()), JGF.from_ints(x.c1.to_ints()))
+    tab = jfri._inv_x_table(log_n, 7)
+    w0, w1 = jfri._fold_jit(jgf2(evals), jgf2(beta), JGF(jax.numpy.asarray(tab[0]), jax.numpy.asarray(tab[1]))).to_ints()
+    want = GF2.from_ints(np.asarray(w0, dtype=object), np.asarray(w1, dtype=object))
     beta_host = (int(beta.c0.to_ints()[0]), int(beta.c1.to_ints()[0]))
     _eq2(fri.fold(evals, beta_host, 7), want)
     for mesh in (MESH8, MESH2):

@@ -26,13 +26,14 @@ ctypes launches with the arguments the wrapper built (chip_smoke.py:
 `_launch_burst_ms`; the kernel or the C entry's host cost, whichever is
 longer), for kernels shorter than their Python wrapper; and each shape
 with `kernel_ms`, torch.profiler's device time of the kernels alone a
-call. `fri_fold` (every layer the N=128 paths' batch FRIs fold,
-`_fri_layers()`) and `fri_inject` (their injections, `FRI_INJECTIONS`)
-are timed in rounds the same way; in a checkout without csrc/fri.cu they
-time what its card path runs instead, the (2x)^-1 table's upload and the
-fold as torch ops, and the injection as torch ops (`kernel` false, no
-`burst_ms` or `kernel_ms`). Prints one JSON line: the card's name and power limit,
-the label, and per shape the ms. Two checkouts are compared by running
+call. `fri_fold` (each fold launch shape of the N=128 paths: a whole
+layer's outputs, `_fri_shapes()`) and `fri_inject` (each injection shape)
+are timed in rounds the same way, each launch rotating through input
+sets that together exceed twice the card's L2 (`_fri_inputs`; `l2_cold`
+false where `FRI_MAX_SETS` sets stay under that), so that `ms` and
+`kernel_ms` read the inputs from HBM as the bytes bound counts them;
+`burst_ms` launches on one input set. Prints one JSON line: the card's
+name and power limit, the label, and per shape the ms. Two checkouts are compared by running
 this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
 """
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import itertools
 import json
 import os
 import subprocess
@@ -64,7 +66,6 @@ def main(argv=None) -> int:
     spec = importlib.util.spec_from_file_location("chip_smoke_shapes", os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from tendermintx_tpu_torch.ops import goldilocks as gl
     from tendermintx_tpu_torch.ops import ntt
     from tendermintx_tpu_torch.ops.ext import GF2
     from tendermintx_tpu_torch.ops.goldilocks import GF, P
@@ -208,44 +209,25 @@ def main(argv=None) -> int:
     if "fri_fold" in only or "fri_inject" in only:
         from tendermintx_tpu_torch.stark import fri
 
-        kernel = hasattr(fri, "fold_cuda")  # else a checkout whose card path folds in torch ops
-        ext = lambda n: GF2(GF(cs._random_felts((n,), gen, dev)), GF(cs._random_felts((n,), gen, dev)))
-        scalar = lambda v: GF2(GF.full((1,), v[0], dev), GF.full((1,), v[1], dev))
-        fri_burst = (fri, "_fri_launch", "_fri_library") if kernel else None
-    if "fri_fold" in only:
-        layers = []
-        for use, log_n, shift in cs._fri_layers():
-            evals = ext(1 << log_n)
-            (beta,) = cs._random_points(1, gen, dev)
-            if kernel:
-                run = lambda: fri.fold(evals, beta, shift)
-            else:  # the table's upload and the torch fold, as that card path runs them
-                fri._inv_x_table(log_n, shift)
-                run = lambda: fri._fold_layer(
-                    evals, scalar(beta), GF(gl.tensor_from_u64(fri._inv_x_table(log_n, shift), dev)))
-            layers.append({"use": use, "log_n": log_n, "rounds": timed_rounds(run, reps_for(run), fri_burst),
-                           "kernel_ms": kernel_ms(run) if kernel else None})
-            del evals
-        out["fri_fold"] = {"kernel": kernel, "layers": layers}
-    if "fri_inject" in only:
-        injections = []
-        for use, log_n, k, with_cur in cs.FRI_INJECTIONS:
-            Fs = [ext(1 << log_n) for _ in range(k)]
-            lams = cs._random_points(k, gen, dev)
-            cur = ext(1 << log_n) if with_cur else None
-            if kernel:
-                run = lambda: fri.inject(cur, lams, Fs)
-            else:
-                def run():
-                    c = cur
-                    for lam, F in zip(lams, Fs):
-                        c = fri._inject(c, scalar(lam), F)
-                    return c
-            injections.append({"use": use, "log_n": log_n, "codewords": k, "cur": with_cur,
-                               "rounds": timed_rounds(run, reps_for(run), fri_burst),
-                               "kernel_ms": kernel_ms(run) if kernel else None})
-            del Fs, cur
-        out["fri_inject"] = {"kernel": kernel, "injections": injections}
+        l2 = torch.cuda.get_device_properties(0).L2_cache_size
+        for name, kind, shapes in zip(("fri_fold", "fri_inject"), ("fold", "inject"), cs._fri_shapes()):
+            if name not in only:
+                continue
+            rows, halves = [], set()
+            for key, paths in shapes.items():
+                if kind == "fold":
+                    if key[2] or key[3] in halves:
+                        continue  # one timing a launch shape: a whole layer's
+                    halves.add(key[3])
+                kernel, _, inputs, in_bytes, _, _, what = cs._fri_inputs(kind, key, gen, dev, cold=True)
+                turns = itertools.cycle(inputs)
+                run = lambda: kernel(*next(turns))
+                rows.append({"paths": paths, **what, "l2_sets": len(inputs),
+                             "l2_cold": len(inputs) * in_bytes >= 2 * l2,
+                             "rounds": timed_rounds(run, reps_for(run), (fri, "_fri_launch", "_fri_library")),
+                             "kernel_ms": kernel_ms(run)})
+                del inputs
+            out[name] = rows
     print(json.dumps(out), flush=True)
     return 0
 

@@ -22,8 +22,8 @@ a measuring aid that nothing else uses. `--wrap` then wraps the last
 proof at default_wrap_config() on the card, the process's first wrap
 (`n128_wrap_seconds`, as chip_smoke.py's wrap phase times it), and times
 the wrap FRI's host fold tables cold (`wrap_fri_tables`, chip_smoke.py's
-`_time_fri_tables`: the plain fold's (2x)^-1 tables and, where the
-checkout has csrc/fri.cu, the host constants its fold takes instead).
+`_time_fri_tables`: the plain fold's (2x)^-1 tables and the host
+constants that csrc/fri.cu's fold takes instead).
 """
 
 from __future__ import annotations
