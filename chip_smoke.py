@@ -7,8 +7,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   1. device    - requires CUDA; prints the card's name and power limit;
   2. build     - compiles every hand-written kernel from csrc/ with nvcc
                  (poseidon.cu, quotient.cu, ntt.cu, deep.cu, ood.cu,
-                 logup.cu, fri.cu; one nvcc per source, all started
-                 together); the
+                 logup.cu, fri.cu, sha.cu, ed25519.cu; one nvcc per
+                 source, all started together); the
                  line gives each kernel
                  function's registers and spill bytes from ptxas (-v); a
                  spill fails;
@@ -89,6 +89,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  launch shape and each injection with ms over input sets
                  that exceed twice the L2 together (``l2_cold``),
                  burst_ms, plain ms and the bytes bound;
+  4b. witness - the witness programs' kernels (csrc/sha.cu's SHA-256 and
+                 SHA-512, csrc/ed25519.cu's Straus ladder and witness
+                 binding): skip_verify (2 -> 6) and step_verify (4 -> 5) at
+                 N=128 with every call of the four wrappers held exactly
+                 against its plain twin on its own data (every shape these
+                 paths give them; the calls and SHA-256 shapes those of
+                 circuits/verify.py's structure), the SHA entries on random
+                 words at 1, 7 and 129 lanes of 1 and 2 blocks with n_active
+                 -1, 0, 1, n_blocks and above, the ladder and the binding on
+                 lanes with both outcomes (tampered bytes, witness-only
+                 tampering, a non-canonical witness, selectors outside 0..3,
+                 and for the binding limbs of 8192 and -1); each timed at its
+                 N=128 shapes (median of five rounds) beside its plain twin
+                 and its bound (32-bit operations at 64 a clock per SM or
+                 bytes at 3.35 TB/s), the ladder's dependent-chain floor
+                 beside (253 steps of a step's critical path); no prove runs
+                 these kernels (every path below but runtime checks none
+                 launched);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
                  proven on the card and verified by the port's verifier,
                  twice in one process as bench.py times the JAX package:
@@ -137,8 +155,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  (expand_perm_states and the EvalAir aux pieces);
   9. runtime   - the port's entry points on the card at N=128, in this
                  process: ``cli build`` and a witness-only ``cli prove`` of
-                 skip 2 -> 6 (valid, header 6); skip_verify timed on the
-                 card (with --profile also sha256_blocks, sha512_blocks,
+                 skip 2 -> 6 (valid, header 6), its witness kernels'
+                 launches exactly those of skip_verify's structure (21
+                 SHA-256, one SHA-512, binding and ladder at N=128: the
+                 kernels line's ``launches`` of these four); skip_verify
+                 timed on the card, its launches held the same way (with
+                 --profile also sha256_blocks, sha512_blocks,
                  straus_verify, verify_bound and step_verify, and each
                  one's torch op count: the launches of eager torch); a
                  ProverService on
@@ -148,7 +170,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  accepted by ``cli verify`` (a tampered abi_output exits
                  1); an operator with prove_stark on a MockContract for
                  one tick (the head moves, the leaf STARK verifies); peak
-                 memory and Poseidon launches; the FRI's launches exactly
+                 memory and Poseidon launches; the tick's witness kernels
+                 exactly a step_verify's; the FRI's launches exactly
                  the prewarm's (counted around it), the warm skip, wrap
                  and step paths' and one fold a layer of the leaf bundle;
  10. mesh      - multi-device proving on a 4-shard lane mesh
@@ -159,7 +182,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  seconds, peak memory; the quotient and the DEEP kernel
                  once per shard per statement, the column sponge once per shard for each
                  column-major tree), sharded_lane_checks over
-                 its 128 lanes (equal to single-device verify_bound,
+                 its 128 lanes (each witness kernel once a shard; equal
+                 to single-device verify_bound,
                  hash_validator_leaves and Python-int sums), the card's N=4
                  parity proof wrapped with mesh= (equal to its single-device
                  wrap), the sharded Poseidon batch at 2^20 states and the
@@ -206,8 +230,8 @@ CHAIN_ID = "smoke-chain"
 SKIP_MAX = 100
 SEED = 20261016
 GL_P = 0xFFFFFFFF00000001
-# the device of the runtime phase's entry points (the card; a CPU rehearsal
-# of the phase's control flow may set "cpu")
+# the device of the witness and runtime phases' entry points (the card; a
+# CPU rehearsal of the phases' control flow may set "cpu")
 RUNTIME_DEVICE = "cuda"
 EDGES = [0, 1, GL_P - 1, 2**32 - 1, 2**32, 2**63 % GL_P, GL_P - 2**32]
 
@@ -236,7 +260,7 @@ def phase_device() -> dict:
 
 
 # every csrc/<name>.cu the port launches
-KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep", "ood", "logup", "fri")
+KERNEL_LIBRARIES = ("poseidon", "quotient", "ntt", "deep", "ood", "logup", "fri", "sha", "ed25519")
 
 
 def phase_build() -> dict:
@@ -1546,6 +1570,377 @@ def phase_fri_shapes(rows: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The witness programs' kernels (ROADMAP queue 2 item L): csrc/sha.cu and
+# csrc/ed25519.cu
+# ---------------------------------------------------------------------------
+
+WITNESS_ENTRIES = ("sha256_blocks", "sha512_blocks", "straus_verify", "bind_witness")
+# circuits/gadgets.py::header_proof_root: a header Merkle proof's depth
+HEADER_PROOF_DEPTH = 4
+# Hopper instructions of one compression, at 64 a clock per SM (the
+# integer pipe's rate): a rotation or shift is one SHF, a 3-input xor, Ch
+# or Maj one LOP3, a 3-input add one IADD3. A schedule word: two sigmas of
+# 3 SHF and a LOP3, and 2 IADD3 for its 4 terms (10); a round: two Sigmas
+# (8), Ch and Maj (2), T1's 5 terms in 2 IADD3, e = d + T1 and a = T1 +
+# Sigma0 + Maj (14); 8 feed-forward adds. A 64-bit word operation of
+# SHA-512 is two 32-bit ones (a 3-input 64-bit add is IADD3 and IADD3.X).
+SHA256_OPS_PER_BLOCK = 48 * 10 + 64 * 14 + 8  # 1,384
+SHA512_OPS_PER_BLOCK = 2 * (64 * 10 + 80 * 14 + 8)  # 3,536
+# 32-bit multiply-adds of a field product in radix 2^25.5 (10 x 10 limbs)
+# and of a squaring (the 10 squares and the 45 cross products, doubled
+# through a premultiplied operand)
+FE_MACS = 100
+FE_SQ_MACS = 55
+# field products and squarings of a ladder step (the doubling's 4
+# squarings and 4 products, the mixed addition's 3 + 4 products), and the
+# products of a lane outside the steps (the table's 2d t, 4; the final rx
+# Z and ry Z, 2)
+LADDER_STEP_PRODUCTS = 11
+LADDER_STEP_SQUARINGS = 4
+LADDER_LANE_PRODUCTS = 4 + 2
+# the binding's field products (two curve checks of 2 products and 2
+# squarings, t = x y in 4 slots, the slot-3 addition's 8 with its 2d t,
+# its 2-product check) and squarings, and the 20 x 20 13-bit multiply-adds
+# of k_q L
+BIND_PRODUCTS = 2 * 2 + 4 + 8 + 2
+BIND_SQUARINGS = 2 * 2
+BIND_MOD_L_MACS = 20 * 20
+# A ladder step's dependent chain, in dependent 32-bit instructions: 4
+# field products and 4 sums or differences in sequence (the doubling's
+# x + y, its square, E = (x + y)^2 - A - B, E F; the addition's Y - X, its
+# product, E = B - A, E F). A product's own chain: the 19 g premultiply,
+# one output limb's 10 multiply-adds in sequence, and the 12-step carry
+# chain at 3 a step (shift, add, add with carry); a sum's: the add and a
+# carry pass's shift and add. Each dependent instruction waits at least 4
+# clocks (Hopper's integer and IMAD dependent-issue latency).
+PRODUCT_CHAIN = 1 + 10 + 12 * 3
+SUM_CHAIN = 3
+LADDER_STEP_CHAIN = 4 * PRODUCT_CHAIN + 4 * SUM_CHAIN
+DEPENDENT_ISSUE_CLOCKS = 4
+
+
+def _witness_launches(n_validators: int, kind: str) -> dict:
+    """Each witness kernel's launches in one skip_verify or step_verify of
+    n_validators lanes, from circuits/verify.py's structure: SHA-256 once
+    for a lane set's leaves and once a level of its Merkle tree (the
+    target's, and for a skip the trusted set's), once for the header
+    proofs' leaves and once a proof level; SHA-512, the binding and the
+    ladder once (verify_bound)."""
+    levels = max(n_validators - 1, 0).bit_length()
+    trees = 2 if kind == "skip" else 1
+    return {"sha256_blocks": trees * (1 + levels) + 1 + HEADER_PROOF_DEPTH,
+            "sha512_blocks": 1, "straus_verify": 1, "bind_witness": 1}
+
+
+def _witness_sha256_shapes(n_validators: int, kind: str) -> set:
+    """(lanes, blocks) of every SHA-256 call of one skip_verify or
+    step_verify: the leaves (one block), each Merkle level's pairs and the
+    header proofs (two blocks: 4 proofs in a skip, 5 in a step)."""
+    width = 1 << max(n_validators - 1, 0).bit_length()
+    levels = {(width >> (l + 1), 2) for l in range(width.bit_length() - 1)}
+    return {(n_validators, 1), (4 if kind == "skip" else 5, 2)} | levels
+
+
+def _flip(b: bytes, i: int) -> bytes:
+    return b[:i] + bytes([b[i] ^ 1]) + b[i + 1:]
+
+
+def _decodable(pt: bytes) -> bytes:
+    """A valid point encoding near pt (low y bits flipped until it decodes)."""
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    for i in range(1, 64):
+        pt = _flip(pt, i % 31)
+        if ed.decompress(pt) is not None:
+            return pt
+    raise AssertionError("no decodable point found")
+
+
+def _witness_cases(dev) -> tuple[tuple, tuple]:
+    """(ladder inputs, binding inputs) of lanes on `dev` where both
+    outcomes occur. A small chain's 8 signature lanes: 4 honest, then a
+    tampered R, S, message and public key, each with the witness its bytes
+    derive (bound; the ladder rejects them). Then copies of honest lanes
+    with witness-only tampering: a scalar bit, a k_q limb, a table limb,
+    R's parity (the binding rejects them); one in a non-canonical form (rx
+    and two table values plus p, limbs still below 2^13: both accept it);
+    and one with selectors 7 and -3 (the all-zero operand zeroes the point,
+    which the ladder's projective check accepts; the binding rejects it).
+    The binding's inputs add two lanes outside the ladder's limb domain, a
+    table limb of 8192 and a k_q limb of -1. Ladder inputs are the six
+    int64 arrays; binding inputs those and sig_r, sig_s, sig_pk, the
+    SHA-512 digests (uint8) and k_q."""
+    import hashlib
+
+    from tendermintx_tpu_torch.inputs.conversion import get_validator_data_from_block, signature_lanes
+    from tendermintx_tpu_torch.inputs.testchain import TestChain
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    chain = TestChain(n_validators=6, chain_id=CHAIN_ID)
+    h = chain.extend()
+    pks, msgs, sigs = (list(x) for x in signature_lanes(
+        get_validator_data_from_block(chain.val_set, chain.commits[h], chain.chain_id, 8)))
+    sigs[4] = _decodable(sigs[4][:32]) + sigs[4][32:]
+    sigs[5] = sigs[5][:32] + _flip(sigs[5], 40)[32:]
+    msgs[6] = _flip(msgs[6], 30)
+    pks[7] = _decodable(pks[7])
+    ladder = [t.numpy() for t in ed.prepare_batch(pks, msgs, sigs)]
+    sig_r, sig_s, sig_pk, k_q = (t.numpy() for t in ed.prepare_binding(pks, msgs, sigs))
+    digest = np.stack([np.frombuffer(hashlib.sha512(s[:32] + pk + m).digest(), dtype=np.uint8)
+                       for pk, m, s in zip(pks, msgs, sigs)])
+    bind = [sig_r, sig_s, sig_pk, digest, k_q]
+    take = [0, 1, 2, 3, 0, 1]  # lanes 8-13 copy these
+    ladder = [np.concatenate([a, a[take]]) for a in ladder]
+    bind = [np.concatenate([b, b[take]]) for b in bind]
+    table_x, table_y, table_t, bits2, rx, _ = ladder
+    bits2[8, 100] ^= 1
+    bind[4][9, 0] ^= 1
+    table_x[10, 3, 5] ^= 1
+    rx[11] = ed.int_to_limbs((ed.P25519 - ed.limbs_to_int(rx[11])) % ed.P25519)
+    rx[12] = ed.int_to_limbs(ed.limbs_to_int(rx[12]) + ed.P25519)
+    table_y[12, 1] = ed.int_to_limbs(ed.limbs_to_int(table_y[12, 1]) + ed.P25519)
+    table_t[12, 3] = ed.int_to_limbs(ed.limbs_to_int(table_t[12, 3]) + ed.P25519)
+    bits2[13, 50], bits2[13, 51] = 7, -3
+    wide = [np.concatenate([a, a[:2]]) for a in ladder]
+    wide_bind = [np.concatenate([b, b[:2]]) for b in bind]
+    wide[2][14, 1, 7] = 8192
+    wide_bind[4][15, 19] = -1
+    on = lambda arrays: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+    return on(ladder), on(wide + wide_bind)
+
+
+def _ops_bound(ops: int, nbytes: int, ops_per_ms: float) -> dict:
+    """The larger of the bytes at 3.35 TB/s and 32-bit operations at 64 a
+    clock per SM."""
+    ops_ms = ops / ops_per_ms
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "operations_bound_ms": ops_ms,
+        "bytes_bound_ms": bytes_ms,
+        "operations": ops,
+        "bytes": nbytes,
+    }
+
+
+def _sha_bound(kind: str, blocks: torch.Tensor, n_active: torch.Tensor, ops_per_ms: float) -> dict:
+    """A SHA call's bound over the blocks this call's lanes compress (each
+    such block's words read once, n_active read, the digests written)."""
+    compressed = int(torch.clamp(n_active, min=0, max=int(blocks.shape[1])).sum())
+    ops = compressed * (SHA256_OPS_PER_BLOCK if kind == "sha256" else SHA512_OPS_PER_BLOCK)
+    return _ops_bound(ops, compressed * 16 * 8 + 8 * int(blocks.shape[0]) * (1 + 8), ops_per_ms)
+
+
+def _ladder_bound(lanes: int, steps: int, ops_per_ms: float, clock_mhz: float) -> dict:
+    """The ladder's throughput bound (field products' multiply-adds, or
+    the inputs' bytes) and, beside it, its dependent-chain floor: one
+    lane's `steps` sequential steps at LADDER_STEP_CHAIN dependent
+    instructions of DEPENDENT_ISSUE_CLOCKS clocks, at the maximum SM clock."""
+    from tendermintx_tpu_torch.ops.ed25519 import N_LIMBS
+
+    products = lanes * (steps * LADDER_STEP_PRODUCTS + LADDER_LANE_PRODUCTS)
+    squarings = lanes * steps * LADDER_STEP_SQUARINGS
+    nbytes = lanes * (8 * (3 * 4 * N_LIMBS + steps + 2 * N_LIMBS) + 1)
+    chain_ms = steps * LADDER_STEP_CHAIN * DEPENDENT_ISSUE_CLOCKS / (clock_mhz * 1e3)
+    return {**_ops_bound(products * FE_MACS + squarings * FE_SQ_MACS, nbytes, ops_per_ms),
+            "field_products": products, "field_squarings": squarings,
+            "chain_floor_ms": chain_ms, "step_chain_instructions": LADDER_STEP_CHAIN}
+
+
+
+def _bind_bound(lanes: int, ops_per_ms: float) -> dict:
+    """Every input read once (the ladder's, the signature bytes, the
+    digest, k_q), one flag written; or the field products' and k_q L's
+    multiply-adds."""
+    from tendermintx_tpu_torch.ops.ed25519 import N_BITS, N_LIMBS
+
+    nbytes = lanes * (8 * (3 * 4 * N_LIMBS + N_BITS + 3 * N_LIMBS) + 3 * 32 + 64 + 1)
+    macs = BIND_PRODUCTS * FE_MACS + BIND_SQUARINGS * FE_SQ_MACS + BIND_MOD_L_MACS
+    return _ops_bound(lanes * macs, nbytes, ops_per_ms)
+
+
+class _WitnessCheck:
+    """While installed, holds every call of the four witness wrappers
+    (ops/sha256.py, ops/sha512.py, ops/ed25519.py: *_cuda) exactly against
+    its plain twin on the same CUDA tensors, and keeps the first inputs of
+    each shape (name -> {shape: args}). The twins' launches are not
+    counted."""
+
+    def __init__(self):
+        self.calls: dict = {name: {} for name in WITNESS_ENTRIES}
+        self.checked = dict.fromkeys(WITNESS_ENTRIES, 0)
+
+    def __enter__(self):
+        from tendermintx_tpu_torch.ops import ed25519 as ed
+        from tendermintx_tpu_torch.ops import sha256, sha512
+
+        self.saved = []
+        for name, mod, cuda, plain, key in (
+            ("sha256_blocks", sha256, "sha256_blocks_cuda", sha256.sha256_blocks_plain, lambda a: tuple(a[0].shape[:2])),
+            ("sha512_blocks", sha512, "sha512_blocks_cuda", sha512.sha512_blocks_plain, lambda a: tuple(a[0].shape[:2])),
+            ("straus_verify", ed, "straus_verify_cuda", ed.straus_verify_plain, lambda a: tuple(a[3].shape)),
+            ("bind_witness", ed, "bind_witness_cuda", ed.bind_witness_plain, lambda a: tuple(a[3].shape)),
+        ):
+            kernel = getattr(mod, cuda)
+            self.saved.append((mod, cuda, kernel))
+
+            def checked(*args, name=name, kernel=kernel, plain=plain, key=key):
+                got = kernel(*args)
+                want = plain(*args)
+                _check_equal(got.to(torch.int64), want.to(torch.int64), f"{name} at {key(args)}")
+                self.calls[name].setdefault(key(args), args)
+                self.checked[name] += 1
+                return got
+
+            setattr(mod, cuda, checked)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, cuda, kernel in self.saved:
+            setattr(mod, cuda, kernel)
+
+
+def _sha_edge_cases(kind: str, gen, dev) -> list[dict]:
+    """Random words (SHA-256: below 2^32; SHA-512: any int64) at B = 1, 7
+    and 129 lanes of 1 and 2 blocks, n_active cycling through -1, 0, 1,
+    n_blocks and n_blocks + 3, each held exactly against the plain twin."""
+    from tendermintx_tpu_torch.ops import sha256, sha512
+
+    kernel, plain = ((sha256.sha256_blocks_cuda, sha256.sha256_blocks_plain) if kind == "sha256"
+                     else (sha512.sha512_blocks_cuda, sha512.sha512_blocks_plain))
+    cases = []
+    for lanes in (1, 7, 129):
+        for n_blocks in (1, 2):
+            half = lambda: torch.randint(0, 1 << 32, (lanes, n_blocks, 16), generator=gen, device=dev)
+            words = half() if kind == "sha256" else (half() << 32) | half()
+            cycle = torch.tensor([-1, 0, 1, n_blocks, n_blocks + 3], device=dev)
+            n_active = cycle[(torch.arange(lanes, device=dev) + lanes) % 5].contiguous()
+            _check_equal(kernel(words, n_active), plain(words, n_active), f"{kind} edge case {lanes} x {n_blocks}")
+            cases.append({"lanes": lanes, "n_blocks": n_blocks, "n_active": sorted(set(n_active.tolist())),
+                          "max_abs_err": 0.0})
+    return cases
+
+
+def phase_witness(sc: SkipChain, build: dict) -> dict:
+    """The witness programs' four kernels on the card (part of the kernels
+    line). skip_verify (skip 2 -> 6) and step_verify (4 -> 5) at N=128 run
+    with every call of the four wrappers held exactly against its plain
+    twin (_WitnessCheck): every shape these paths give them, on their own
+    data, and the SHA-256 shapes must be the ones circuits/verify.py's
+    structure gives (_witness_sha256_shapes). Then the SHA entries on
+    random words at ragged lane counts with n_active 0, below and above
+    the block count (_sha_edge_cases), and the ladder and the binding on
+    lanes with both outcomes (_witness_cases). Each entry is timed at its
+    N=128 shapes (the median of five rounds) beside its plain twin and its
+    bound; the ladder's dependent-chain floor beside its bound."""
+    from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
+    from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+    from tendermintx_tpu_torch.ops import sha256, sha512
+
+    dev = torch.device(RUNTIME_DEVICE)
+    clock_mhz = float(_nvidia_smi("clocks.max.sm"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
+    cl, cn = chain_id_leaf_const(CHAIN_ID)
+    trusted, _, skip_inputs = sc.skip(2, 6)
+    prev, step_inputs = sc.step(4)
+    runs = {
+        "skip": lambda: skip_verify(pack_skip_witness(skip_inputs).to(dev),
+                                    torch.frombuffer(bytearray(trusted), dtype=torch.uint8), 2, 0, 6, 0, cl, cn,
+                                    SKIP_MAX)[0],
+        "step": lambda: step_verify(pack_step_witness(step_inputs).to(dev),
+                                    torch.frombuffer(bytearray(prev), dtype=torch.uint8), 4, 0, cl, cn)[0],
+    }
+    out = {"phase": "witness"}
+    with _WitnessCheck() as check:
+        for kind, run in runs.items():
+            before = dict(check.checked)
+            if not bool(run()):
+                raise AssertionError(f"the N={sc.n} {kind}_verify rejected a valid witness")
+            n_calls = {k: check.checked[k] - before[k] for k in WITNESS_ENTRIES}
+            if n_calls != _witness_launches(sc.n, kind):
+                raise AssertionError(f"the N={sc.n} {kind}_verify called the witness kernels {n_calls} times; "
+                                     f"its structure gives {_witness_launches(sc.n, kind)}")
+            out[f"{kind}_calls"] = n_calls
+        sha256_shapes = set(check.calls["sha256_blocks"])
+        want_shapes = _witness_sha256_shapes(sc.n, "skip") | _witness_sha256_shapes(sc.n, "step")
+        if sha256_shapes != want_shapes:
+            raise AssertionError(f"the N={sc.n} witness programs hash SHA-256 at {sorted(sha256_shapes)}; "
+                                 f"their structure gives {sorted(want_shapes)}")
+        calls = check.calls
+    out["checked_calls"] = check.checked
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    edges = {kind: _sha_edge_cases(kind, gen, dev) for kind in ("sha256", "sha512")}
+    ladder, bind = _witness_cases(dev)
+    outcomes = {}
+    for name, kernel, plain, args in (("straus_verify", ed.straus_verify_cuda, ed.straus_verify_plain, ladder),
+                                      ("bind_witness", ed.bind_witness_cuda, ed.bind_witness_plain, bind)):
+        got, want = kernel(*args), plain(*args)
+        _check_equal(got.to(torch.int64), want.to(torch.int64), f"{name} on the tampered lanes")
+        outcomes[name] = got.tolist()
+        if all(outcomes[name]) or not any(outcomes[name]):
+            raise AssertionError(f"{name}'s check lanes all have one outcome: {outcomes[name]}")
+
+    def timed(kernel, plain, args, burst) -> dict:
+        rounds = _time_rounds(lambda: kernel(*args), 20)
+        _, plain_ms = _timed_once(lambda: plain(*args))
+        return {**rounds, "burst_ms": _launch_burst_ms(*burst, lambda: kernel(*args)), "plain_ms": plain_ms}
+
+    sha_burst, ed_burst = (sha256, "_sha_launch", "_sha_library"), (ed, "_ed_launch", "_ed_library")
+
+    sha_rows = {}
+    for name, kind, mod, kernel, plain in (
+        ("sha256_blocks", "sha256", sha256, sha256.sha256_blocks_cuda, sha256.sha256_blocks_plain),
+        ("sha512_blocks", "sha512", sha512, sha512.sha512_blocks_cuda, sha512.sha512_blocks_plain),
+    ):
+        shapes = []
+        for shape, args in sorted(calls[name].items(), key=lambda kv: (-kv[0][0], -kv[0][1])):
+            shapes.append({"shape": [*shape, 16], **timed(kernel, plain, args, sha_burst),
+                           **_sha_bound(kind, *args, ops_per_ms), "max_abs_err": 0.0})
+        top = shapes[0]  # the most lanes: SHA-256's leaves, SHA-512's challenge
+        sha_rows[name] = {
+            "route": "cuda", "source": "tendermintx_tpu_torch/csrc/sha.cu",
+            "replaces": f"tendermintx_tpu/ops/{kind}.py:{82 if kind == 'sha256' else 143}",
+            "replaces_program": f"{kind}_blocks (jitted as {kind}_blocks_jit)",
+            **{k: top[k] for k in ("shape", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "operations_bound_ms", "bytes_bound_ms", "max_abs_err")},
+            "library_ms": None, **_registers_of(build["sha"]["ptxas"], f"tmx_{kind}"),
+            "shapes": shapes, "edge_cases": edges[kind],
+        }
+    (lshape, ladder_args), = calls["straus_verify"].items()
+    (_, bind_args), = calls["bind_witness"].items()
+    lanes, steps = lshape
+    ed_common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/ed25519.cu", "library_ms": None,
+                 "max_abs_err": 0.0}
+    rows = {
+        **sha_rows,
+        "straus_verify": {
+            **ed_common, "replaces": "tendermintx_tpu/ops/ed25519.py:312",
+            "replaces_program": "straus_verify (jitted as straus_verify_jit)", "shape": [lanes, steps],
+            **timed(ed.straus_verify_cuda, ed.straus_verify_plain, ladder_args, ed_burst),
+            **_ladder_bound(lanes, steps, ops_per_ms, clock_mhz),
+            **_registers_of(build["ed25519"]["ptxas"], "tmx_straus"), "check_lanes": outcomes["straus_verify"],
+        },
+        "bind_witness": {
+            **ed_common, "replaces": "tendermintx_tpu/ops/ed25519.py:448",
+            "replaces_program": "bind_witness (in verify_bound, :524, jitted whole)", "shape": [lanes],
+            **timed(ed.bind_witness_cuda, ed.bind_witness_plain, bind_args, ed_burst),
+            **_bind_bound(lanes, ops_per_ms),
+            **_registers_of(build["ed25519"]["ptxas"], "tmx_bind"), "check_lanes": outcomes["bind_witness"],
+        },
+    }
+    rows["straus_verify"]["chain_floor_share"] = rows["straus_verify"]["chain_floor_ms"] / rows["straus_verify"]["ms"]
+    for row in rows.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    out.update(rows)
+    emit(out)
+    return rows
+
+
 def phase_kernels(build: dict) -> dict:
     """Each Poseidon entry against its plain torch version on the same
     CUDA tensors (exact: integer field arithmetic) and the host oracle,
@@ -1779,6 +2174,10 @@ LAUNCH_COUNTERS = {
     "logup_scan": ("tendermintx_tpu_torch.stark.lookup", "logup_scan_kernel_launches"),
     "fri_fold": ("tendermintx_tpu_torch.stark.fri", "fri_fold_kernel_launches"),
     "fri_inject": ("tendermintx_tpu_torch.stark.fri", "fri_inject_kernel_launches"),
+    "sha256_blocks": ("tendermintx_tpu_torch.ops.sha256", "sha256_kernel_launches"),
+    "sha512_blocks": ("tendermintx_tpu_torch.ops.sha512", "sha512_kernel_launches"),
+    "straus_verify": ("tendermintx_tpu_torch.ops.ed25519", "straus_kernel_launches"),
+    "bind_witness": ("tendermintx_tpu_torch.ops.ed25519", "bind_kernel_launches"),
 }
 # the rows of the kernels line that sum several counted entries of one
 # kernel: csrc/ntt.cu's forward, inverse and coset LDE entries
@@ -1906,9 +2305,11 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
     }, proof
 
 
-def _check_launched(launches: dict, path: str, absent: tuple = ()):
+def _check_launched(launches: dict, path: str, absent: tuple = (), witness: bool = False):
     """Every kernel launched by the path, but those of `absent`, which
-    must not be."""
+    must not be; the witness programs' kernels only on a `witness` path
+    (no prove runs them)."""
+    absent = absent if witness else absent + WITNESS_ENTRIES
     for name, n in launches.items():
         if name in absent:
             if n:
@@ -1916,6 +2317,15 @@ def _check_launched(launches: dict, path: str, absent: tuple = ()):
         elif n <= 0 and name not in NOT_PROVED_BY and not name.endswith("_planned"):
             raise AssertionError(f"kernel {name} was not launched by the {path} path")
     _check_ntt_plan(launches, path)
+
+
+def _check_witness_launches(launches: dict, n_validators: int, kind: str, what: str):
+    """A skip_verify or step_verify of n_validators lanes launched each
+    witness kernel exactly as its structure gives (_witness_launches)."""
+    got = {k: launches[k] for k in WITNESS_ENTRIES}
+    if got != _witness_launches(n_validators, kind):
+        raise AssertionError(f"the {what} launched the witness kernels {got}; "
+                             f"{kind}_verify at N={n_validators} gives {_witness_launches(n_validators, kind)}")
 
 
 def _check_ntt_plan(launches: dict, path: str):
@@ -2339,12 +2749,16 @@ def _card_seconds(fn):
     return out, start.elapsed_time(end) / 1e3
 
 
-def _witness_programs(sc: SkipChain, profile: bool) -> dict:
+def _witness_programs(sc: SkipChain, profile: bool, count_launches: bool = True) -> dict:
     """The witness programs at N=128 on the card: seconds of one call
     (CUDA events; the CLI's witness prove ran the same programs at the
     same shapes before) of skip_verify on the skip 2 -> 6 witness and,
     with `profile`, of each program below (step_verify on the step 4 -> 5
-    witness) and the torch ops one call dispatches."""
+    witness) and the torch ops one call dispatches. With
+    `count_launches`, each program's witness kernel launches, held
+    exactly for skip_verify and step_verify; without, for a checkout
+    whose witness programs have no kernels (tools/kernel_times.py's
+    `--root`)."""
     from tendermintx_tpu_torch.circuits import gadgets
     from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
     from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
@@ -2383,8 +2797,14 @@ def _witness_programs(sc: SkipChain, profile: bool) -> dict:
         programs = {"skip_verify": programs["skip_verify"]}
     out, valid = {}, {}
     for name, (fn, shape) in programs.items():
+        before = _launch_counts() if count_launches else None
         valid[name], seconds = _card_seconds(fn)
         out[name] = {"shape": shape, "card_seconds": seconds}
+        if count_launches:
+            after = _launch_counts()
+            out[name]["launches"] = {k: after[k] - before[k] for k in WITNESS_ENTRIES}
+            if name in ("skip_verify", "step_verify"):
+                _check_witness_launches(out[name]["launches"], sc.n, name[:4], name)
         if profile:
             with _OpCount() as count:
                 fn()
@@ -2447,16 +2867,20 @@ def phase_runtime(
     t1 = time.perf_counter()
     with open(os.path.join(rt, "input.json"), "w") as f:
         json.dump({"input": skip_hex}, f)
+    before = _launch_counts()
     rc_prove, _ = _cli_quiet(["prove", "--artifact", build, "--input", os.path.join(rt, "input.json"),
                               "--out", os.path.join(rt, "witness.json"),
                               "--fixture-path", sc.fixture_path, "--device", RUNTIME_DEVICE])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    witness_prove = {k: n - before[k] for k, n in _launch_counts().items()}
+    _check_witness_launches(witness_prove, sc.n, "skip", "witness-only cli prove")
     with open(os.path.join(rt, "witness.json")) as f:
         witness = json.load(f)
     if rc or rc_prove or witness["valid"] is not True or witness["output"] != "0x" + headers[6].hash().hex():
         raise AssertionError(f"cli build/prove: rc {rc}/{rc_prove}, {witness}")
-    out["cli"] = {"build_seconds": t1 - t0, "witness_prove_seconds": t2 - t1, "valid": True, "output_is_header_6": True}
+    out["cli"] = {"build_seconds": t1 - t0, "witness_prove_seconds": t2 - t1, "valid": True, "output_is_header_6": True,
+                  "launches": {k: witness_prove[k] for k in WITNESS_ENTRIES}}
     out["witness_programs"] = _witness_programs(sc, profile)
 
     # 2. the prover service: prewarm, a wrapped skip and a step request
@@ -2509,10 +2933,13 @@ def phase_runtime(
                        prove_stark=True, device=RUNTIME_DEVICE),
         contract=contract, fetcher=sc.fetcher,
     )
+    before = _launch_counts()
     t0 = time.perf_counter()
     moved = op.tick(chain_tip=7)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    tick = {k: n - before[k] for k, n in _launch_counts().items()}
+    _check_witness_launches(tick, sc.n, "step", "operator tick")
     _, step_inputs = sc.step(6)
     bundle_ok = verify_leaf_bundle(op.last_bundle, step_inputs.next_block_validators)
     t2 = time.perf_counter()
@@ -2521,10 +2948,11 @@ def phase_runtime(
     if not bundle_ok:
         raise AssertionError("the operator's leaf STARK bundle failed to verify")
     out["operator"] = {"tick": list(moved), "tick_seconds": t1 - t0, "bundle_verify_seconds": t2 - t1,
-                       "head": contract.latest_block(), "leaf_bundle_ok": True}
+                       "head": contract.latest_block(), "leaf_bundle_ok": True,
+                       "witness_launches": {k: tick[k] for k in WITNESS_ENTRIES}}
 
     launches = _launch_counts()
-    _check_launched(launches, "runtime")
+    _check_launched(launches, "runtime", witness=True)
     # the FRI: the prewarm's N=4 proof (its launches as counted around it),
     # the service's wrapped skip and step (their paths' launches) and the
     # leaf bundle's single FRI (one fold a committed layer)
@@ -2537,7 +2965,7 @@ def phase_runtime(
     out["launches"] = launches
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return out, launches
+    return out, launches, witness_prove
 
 
 # shards of the mesh phase: on a one-card host all four live on cuda:0
@@ -2645,10 +3073,17 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
             lv.sig_pubkeys, lv.messages, lv.msg_len, lv.k_q, lv.leaf_bytes, lv.leaf_len,
             lv.vp_lo, lv.vp_hi, lv.signed, lv.enabled)
     torch.cuda.synchronize()
+    before = _launch_counts()
     t0 = time.perf_counter()
     sig_ok, digests, signed, total = sharded_lane_checks(mesh)(*args)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
+    after = _launch_counts()
+    lane_launches = {k: after[k] - before[k] for k in WITNESS_ENTRIES}
+    # per shard: verify_bound (SHA-512, binding, ladder) and the leaf hashes
+    if lane_launches != dict.fromkeys(WITNESS_ENTRIES, MESH_SHARDS):
+        raise AssertionError(f"the sharded lane checks launched {lane_launches}; one of each a shard "
+                             f"({MESH_SHARDS}) wanted")
     flags = ed25519.verify_bound(*args[:12])
     power = lambda pair: int(pair[0]) | (int(pair[1]) << 32)
     want_total = sum(l.voting_power for l in lanes if l.enabled)
@@ -2660,7 +3095,7 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     if (power(total), power(signed)) != (want_total, want_signed):
         raise AssertionError(f"sharded voting sums {power(total)}, {power(signed)} != {want_total}, {want_signed}")
     out["lane_checks"] = {"lanes": len(lanes), "seconds": t1 - t0, "identical": True,
-                          "total_power": want_total, "signed_power": want_signed}
+                          "total_power": want_total, "signed_power": want_signed, "launches": lane_launches}
 
     # 3. the card's N=4 parity proof wrapped with mesh= at the parity's wrap config
     cfg, wrap_cfg = _parity_configs()
@@ -2870,12 +3305,13 @@ def main(argv: list[str]) -> int:
         try:
             rows = phase_kernels(build)
             n128 = SkipChain(128, os.path.join(workdir, "n128"))
+            rows.update(phase_witness(n128, build))
             _, cold_launches, warm_launches, warm_proof, warm_ntt_calls = phase_slice(n128)
             _, step_launches, step_blob = phase_step(n128)
             _, hashes_launches = phase_hashes(n128, parity, card)
             profile = "--profile" in argv
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
-            _, runtime_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile,
+            _, runtime_launches, witness_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile,
                                                 (warm_launches, wrap_launches, step_launches))
             _, mesh_launches, four_step_launches = phase_mesh(n128, warm_proof, parity)
             phase_fri_shapes(rows)
@@ -2889,15 +3325,22 @@ def main(argv: list[str]) -> int:
             "bound_by", "bound_share", "library_ms")
     paths = {"skip_cold": cold_launches, "skip_warm": warm_launches, "step": step_launches,
              "hashes": hashes_launches, "wrap": wrap_launches, "runtime": runtime_launches,
+             "witness_prove": witness_launches,
              "mesh": mesh_launches, "mesh_four_step": four_step_launches}
     count = lambda launches, name: sum(launches[e] for e in KERNEL_ENTRIES.get(name, (name,)))
     kernels = []
     for name, row in rows.items():
-        entry = {"name": name, **{k: row[k] for k in kept},
-                 "launches": count(cold_launches, name) + count(warm_launches, name),
+        # the witness kernels' main path is the witness-only cli prove;
+        # every other kernel's the two N=128 skip proves
+        main_launches = (count(witness_launches, name) if name in WITNESS_ENTRIES
+                         else count(cold_launches, name) + count(warm_launches, name))
+        entry = {"name": name, **{k: row[k] for k in kept}, "launches": main_launches,
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
-        entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "tiles", "registers", "spill_bytes")
-                      if k in row})
+        entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "tiles", "registers", "spill_bytes",
+                                          "check_lanes") if k in row})
+        if name in WITNESS_ENTRIES and "shapes" in row:
+            entry["shapes"] = [{k: r[k] for k in ("shape", "ms", "burst_ms", "plain_ms", "bound_ms", "bound_by")}
+                               for r in row["shapes"]]
         if name in KERNEL_ENTRIES:
             entry["launches_by_entry"] = {
                 e: {path: launches[e] for path, launches in paths.items()} for e in KERNEL_ENTRIES[name]

@@ -1,0 +1,192 @@
+// Batched SHA-256 and SHA-512 compressions of the witness programs on Hopper
+// (ops/sha256.py and ops/sha512.py bind them with ctypes):
+//
+//   tmx_sha256_blocks  lanes of (n_blocks, 16) 32-bit words (the low 32
+//                      bits of int64 inputs) -> (lanes, 8) digest words;
+//   tmx_sha512_blocks  the same over 64-bit words (int64 bit patterns),
+//                      80 rounds.
+//
+// Replace the XLA programs of tendermintx_tpu/ops/sha256.py:82
+// `sha256_blocks` (jitted as `sha256_blocks_jit`) and
+// tendermintx_tpu/ops/sha512.py:143 `sha512_blocks` (`sha512_blocks_jit`).
+//
+// A lane compresses its blocks 0 .. min(n_active, n_blocks) - 1: none when
+// n_active <= 0, all of them when n_active > n_blocks. That is what the
+// plain versions' `keep = i < n_active` loop gives. Digest words are
+// written as int64 (SHA-256's below 2^32).
+//
+// Bounds and design: the witness programs hash 1-129 lanes of one or two
+// blocks a call (N = 128: 21 calls a skip, 13 a step, one SHA-512 call of
+// 128 lanes x 2 blocks), a few kilobytes. The work is ~2,200 32-bit
+// operations a SHA-256 block and ~5,500 a SHA-512 block, nanoseconds over
+// the card; what a call costs is its launch and one lane's dependent chain
+// of rounds. So one thread takes one lane: its message schedule is a ring
+// of 16 words in registers, K and the initial state sit in __constant__
+// (every round reads one word at a compile-time index), and the rounds
+// unroll. Each entry has a plain C interface, launches on the caller's
+// stream and returns cudaGetLastError(); the kernels allocate nothing.
+
+#include <cstdint>
+#include <climits>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 128;
+
+__constant__ uint32_t K256[64] = {
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5, 0x3956C25B, 0x59F111F1, 0x923F82A4, 0xAB1C5ED5,
+    0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3, 0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174,
+    0xE49B69C1, 0xEFBE4786, 0x0FC19DC6, 0x240CA1CC, 0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7, 0xC6E00BF3, 0xD5A79147, 0x06CA6351, 0x14292967,
+    0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13, 0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85,
+    0xA2BFE8A1, 0xA81A664B, 0xC24B8B70, 0xC76C51A3, 0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5, 0x391C0CB3, 0x4ED8AA4A, 0x5B9CCA4F, 0x682E6FF3,
+    0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208, 0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+};
+
+__constant__ uint32_t H256[8] = {
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A, 0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+};
+
+__constant__ uint64_t K512[80] = {
+    0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F, 0xE9B5DBA58189DBBC,
+    0x3956C25BF348B538, 0x59F111F1B605D019, 0x923F82A4AF194F9B, 0xAB1C5ED5DA6D8118,
+    0xD807AA98A3030242, 0x12835B0145706FBE, 0x243185BE4EE4B28C, 0x550C7DC3D5FFB4E2,
+    0x72BE5D74F27B896F, 0x80DEB1FE3B1696B1, 0x9BDC06A725C71235, 0xC19BF174CF692694,
+    0xE49B69C19EF14AD2, 0xEFBE4786384F25E3, 0x0FC19DC68B8CD5B5, 0x240CA1CC77AC9C65,
+    0x2DE92C6F592B0275, 0x4A7484AA6EA6E483, 0x5CB0A9DCBD41FBD4, 0x76F988DA831153B5,
+    0x983E5152EE66DFAB, 0xA831C66D2DB43210, 0xB00327C898FB213F, 0xBF597FC7BEEF0EE4,
+    0xC6E00BF33DA88FC2, 0xD5A79147930AA725, 0x06CA6351E003826F, 0x142929670A0E6E70,
+    0x27B70A8546D22FFC, 0x2E1B21385C26C926, 0x4D2C6DFC5AC42AED, 0x53380D139D95B3DF,
+    0x650A73548BAF63DE, 0x766A0ABB3C77B2A8, 0x81C2C92E47EDAEE6, 0x92722C851482353B,
+    0xA2BFE8A14CF10364, 0xA81A664BBC423001, 0xC24B8B70D0F89791, 0xC76C51A30654BE30,
+    0xD192E819D6EF5218, 0xD69906245565A910, 0xF40E35855771202A, 0x106AA07032BBD1B8,
+    0x19A4C116B8D2D0C8, 0x1E376C085141AB53, 0x2748774CDF8EEB99, 0x34B0BCB5E19B48A8,
+    0x391C0CB3C5C95A63, 0x4ED8AA4AE3418ACB, 0x5B9CCA4F7763E373, 0x682E6FF3D6B2B8A3,
+    0x748F82EE5DEFB2FC, 0x78A5636F43172F60, 0x84C87814A1F0AB72, 0x8CC702081A6439EC,
+    0x90BEFFFA23631E28, 0xA4506CEBDE82BDE9, 0xBEF9A3F7B2C67915, 0xC67178F2E372532B,
+    0xCA273ECEEA26619C, 0xD186B8C721C0C207, 0xEADA7DD6CDE0EB1E, 0xF57D4F7FEE6ED178,
+    0x06F067AA72176FBA, 0x0A637DC5A2C898A6, 0x113F9804BEF90DAE, 0x1B710B35131C471B,
+    0x28DB77F523047D84, 0x32CAAB7B40C72493, 0x3C9EBE0A15C9BEBC, 0x431D67C49C100D4C,
+    0x4CC5D4BECB3E42B6, 0x597F299CFC657E2A, 0x5FCB6FAB3AD6FAEC, 0x6C44198C4A475817,
+};
+
+__constant__ uint64_t H512[8] = {
+    0x6A09E667F3BCC908, 0xBB67AE8584CAA73B, 0x3C6EF372FE94F82B, 0xA54FF53A5F1D36F1,
+    0x510E527FADE682D1, 0x9B05688C2B3E6C1F, 0x1F83D9ABFB41BD6B, 0x5BE0CD19137E2179,
+};
+
+}  // namespace
+
+// ops/sha256.py::_ShaArgs, field for field: blocks (lanes, n_blocks, 16)
+// and n_active (lanes,) int64, contiguous; out (lanes, 8) int64
+struct ShaArgs {
+    const int64_t* blocks;
+    const int64_t* n_active;
+    int64_t lanes;
+    int64_t n_blocks;
+    int64_t* out;
+};
+
+namespace {
+
+__device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
+__device__ __forceinline__ uint64_t rotr(uint64_t x, int n) { return (x >> n) | (x << (64 - n)); }
+
+// FIPS 180-4's round functions over 32-bit (SHA-256) or 64-bit (SHA-512)
+// words: the rotations of Sigma0, Sigma1 (rounds) and sigma0, sigma1
+// (schedule), and the right shifts of the sigmas
+template <typename Word>
+struct Spec;
+
+template <>
+struct Spec<uint32_t> {
+    static constexpr int ROUNDS = 64;
+    static __device__ __forceinline__ uint32_t k(int t) { return K256[t]; }
+    static __device__ __forceinline__ uint32_t h0(int i) { return H256[i]; }
+    static __device__ __forceinline__ uint32_t S0(uint32_t a) { return rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22); }
+    static __device__ __forceinline__ uint32_t S1(uint32_t e) { return rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25); }
+    static __device__ __forceinline__ uint32_t s0(uint32_t w) { return rotr(w, 7) ^ rotr(w, 18) ^ (w >> 3); }
+    static __device__ __forceinline__ uint32_t s1(uint32_t w) { return rotr(w, 17) ^ rotr(w, 19) ^ (w >> 10); }
+};
+
+template <>
+struct Spec<uint64_t> {
+    static constexpr int ROUNDS = 80;
+    static __device__ __forceinline__ uint64_t k(int t) { return K512[t]; }
+    static __device__ __forceinline__ uint64_t h0(int i) { return H512[i]; }
+    static __device__ __forceinline__ uint64_t S0(uint64_t a) { return rotr(a, 28) ^ rotr(a, 34) ^ rotr(a, 39); }
+    static __device__ __forceinline__ uint64_t S1(uint64_t e) { return rotr(e, 14) ^ rotr(e, 18) ^ rotr(e, 41); }
+    static __device__ __forceinline__ uint64_t s0(uint64_t w) { return rotr(w, 1) ^ rotr(w, 8) ^ (w >> 7); }
+    static __device__ __forceinline__ uint64_t s1(uint64_t w) { return rotr(w, 19) ^ rotr(w, 61) ^ (w >> 6); }
+};
+
+// One lane a thread: its active blocks compressed in order, the digest
+// words written as int64.
+template <typename Word>
+__device__ __forceinline__ void sha_lane(const ShaArgs& a) {
+    using S = Spec<Word>;
+    const int64_t lane = int64_t(blockIdx.x) * THREADS + threadIdx.x;
+    if (lane >= a.lanes) return;
+    Word h[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = S::h0(i);
+    const int64_t active = a.n_active[lane];
+    const int64_t n = active < a.n_blocks ? active : a.n_blocks;
+    const int64_t* block = a.blocks + lane * a.n_blocks * 16;
+    for (int64_t b = 0; b < n; ++b, block += 16) {
+        Word w[16];
+#pragma unroll
+        for (int t = 0; t < 16; ++t) w[t] = Word(uint64_t(block[t]));
+        Word v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] = h[i];
+#pragma unroll
+        for (int t = 0; t < S::ROUNDS; ++t) {
+            if (t >= 16)
+                w[t & 15] += S::s0(w[(t - 15) & 15]) + w[(t - 7) & 15] + S::s1(w[(t - 2) & 15]);
+            // v = (a, b, c, d, e, f, g, h) rotated by t: v[(8 - t) & 7] is a
+            Word& A = v[(8 - t) & 7];
+            Word& B = v[(9 - t) & 7];
+            Word& C = v[(10 - t) & 7];
+            Word& D = v[(11 - t) & 7];
+            Word& E = v[(12 - t) & 7];
+            Word& F = v[(13 - t) & 7];
+            Word& G = v[(14 - t) & 7];
+            Word& H = v[(15 - t) & 7];
+            const Word t1 = H + S::S1(E) + ((E & F) ^ (~E & G)) + S::k(t) + w[t & 15];
+            const Word t2 = S::S0(A) + ((A & B) ^ (A & C) ^ (B & C));
+            D += t1;        // the new e
+            H = t1 + t2;    // the new a: h's slot is a's next round
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) h[i] += v[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a.out[lane * 8 + i] = int64_t(uint64_t(h[i]));
+}
+
+__global__ void __launch_bounds__(THREADS) tmx_sha256_kernel(ShaArgs a) { sha_lane<uint32_t>(a); }
+
+__global__ void __launch_bounds__(THREADS) tmx_sha512_kernel(ShaArgs a) { sha_lane<uint64_t>(a); }
+
+int launch(void (*kernel)(ShaArgs), const ShaArgs& a, void* stream) {
+    if (a.lanes < 0 || a.n_blocks < 0) return (int)cudaErrorInvalidValue;
+    if (a.lanes == 0) return 0;
+    const int64_t blocks = (a.lanes + THREADS - 1) / THREADS;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tmx_sha256_blocks(const ShaArgs* args, void* stream) {
+    return launch(tmx_sha256_kernel, *args, stream);
+}
+
+extern "C" int tmx_sha512_blocks(const ShaArgs* args, void* stream) {
+    return launch(tmx_sha512_kernel, *args, stream);
+}

@@ -7,7 +7,10 @@ the witness preparation. The device part verifies one signature per lane,
 the cofactorless equation [s]B == R + [k]A as Q = [s]B + [k](-A), Q == R
 projectively: a 253-step double-and-add Straus ladder over a 4-entry
 table, plus ``bind_witness``, which re-derives every ladder input from the
-raw (pubkey, message, signature) bytes.
+raw (pubkey, message, signature) bytes. ``straus_verify`` and
+``bind_witness`` run the plain torch versions below for a CPU tensor and
+csrc/ed25519.cu's kernels (radix 2^25.5, csrc/ed25519.cuh) for a CUDA
+tensor.
 
 Field elements mod p = 2^255 - 19 are 20 limbs of 13 bits in int64
 tensors. The reference normalises limbs after every operation with a
@@ -26,6 +29,7 @@ values, as in the reference.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 from functools import cache
 
@@ -324,13 +328,29 @@ def _select_steps(table: torch.Tensor, bits2: torch.Tensor) -> torch.Tensor:
     return torch.where(valid[:, :, None], sel, 0)
 
 
+# incremented exactly where each csrc/ed25519.cu entry is launched
+straus_kernel_launches = 0
+bind_kernel_launches = 0
+
+
 def straus_verify(table_x, table_y, table_t, bits2, rx, ry):
     """Batched double-scalar ladder + projective comparison.
 
     table_*: (B, 4, 20) affine Straus table [identity, B, -A, B-A]
     bits2:   (B, N_BITS) in {0,1,2,3}: 2*bit_k + bit_s (MSB first)
     rx, ry:  (B, 20) affine R
-    Returns: (B,) bool, [s]B + [k](-A) == R."""
+    Returns: (B,) bool, [s]B + [k](-A) == R: the plain ladder for a CPU
+    tensor, one csrc/ed25519.cu launch for a CUDA tensor."""
+    t = table_x.device.type
+    if t == "cpu":
+        return straus_verify_plain(table_x, table_y, table_t, bits2, rx, ry)
+    if t == "cuda":
+        return straus_verify_cuda(table_x, table_y, table_t, bits2, rx, ry)
+    raise ValueError(f"no Straus ladder for device {table_x.device}")
+
+
+def straus_verify_plain(table_x, table_y, table_t, bits2, rx, ry):
+    """straus_verify as torch ops (any device)."""
     ymx_t, ypx_t, t2d2_t = _madd_operands(table_x, table_y, table_t)
     ymx_s, ypx_s, t2d2_s = (_select_steps(t, bits2) for t in (ymx_t, ypx_t, t2d2_t))
     X, Y, Z, T = table_x[:, 0], table_y[:, 0], table_y[:, 0], table_t[:, 0]
@@ -425,7 +445,22 @@ def bind_witness(
     sig_r/sig_s: (B, 32) uint8 signature halves; sig_pk: (B, 32) uint8
     compressed public key; digest_bytes: (B, 64) uint8 SHA-512(R‖A‖M);
     k_q: (B, 20) quotient limbs of the challenge's mod-L reduction.
-    Returns (B,) bool."""
+    Returns (B,) bool: the plain checks for a CPU tensor, one
+    csrc/ed25519.cu launch for a CUDA tensor."""
+    args = (table_x, table_y, table_t, bits2, rx, ry, sig_r, sig_s, sig_pk, digest_bytes, k_q)
+    t = rx.device.type
+    if t == "cpu":
+        return bind_witness_plain(*args)
+    if t == "cuda":
+        return bind_witness_cuda(*args)
+    raise ValueError(f"no witness binding for device {rx.device}")
+
+
+def bind_witness_plain(
+    table_x, table_y, table_t, bits2, rx, ry,
+    sig_r, sig_s, sig_pk, digest_bytes, k_q,
+):
+    """bind_witness as torch ops (any device)."""
     dev = rx.device
     # 0. limb/bit ranges on every witness array
     ok = _in_range(table_x, LIMB_MASK, (1, 2))
@@ -480,6 +515,114 @@ def bind_witness(
     ok &= _lt_const(k_rec, _L_LIMBS)
     ok &= (_mul_add_int(k_q, _L_LIMBS, k_rec) == h_limbs).all(1)
     return ok
+
+
+# ---------------------------------------------------------------------------
+# csrc/ed25519.cu: the ladder and the binding on a card
+# ---------------------------------------------------------------------------
+
+
+class _StrausArgs(ctypes.Structure):
+    """csrc/ed25519.cu's StrausArgs, field for field."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("table_x", "table_y", "table_t", "bits2", "rx", "ry")),
+        ("lanes", ctypes.c_int64), ("steps", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+class _BindArgs(ctypes.Structure):
+    """csrc/ed25519.cu's BindArgs, field for field."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("table_x", "table_y", "table_t", "bits2", "rx", "ry",
+                                                "sig_r", "sig_s", "sig_pk", "digest", "k_q")),
+        ("lanes", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _ed_library():
+    from .cuda_build import load_library
+
+    lib = load_library("ed25519")
+    for fn, args in (("tmx_straus_verify", _StrausArgs), ("tmx_bind_witness", _BindArgs)):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+    return lib
+
+
+def _ed_launch(fn: str, args, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_ed_library(), fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def _operand(t: torch.Tensor, dev, dtype, shape: tuple, what: str) -> int:
+    """The pointer of a kernel operand: a contiguous `dtype` tensor of
+    `shape` on `dev`, else raise."""
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} {shape} tensor on {dev}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                         f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    return t.data_ptr()
+
+
+def _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=None) -> tuple[list[int], int, int]:
+    """(pointers, lanes, steps) of the ladder's inputs on one card."""
+    dev = table_x.device
+    if dev.type != "cuda":
+        raise TypeError(f"{fn} runs on a card, got {dev}")
+    B = int(table_x.shape[0])
+    if steps is None:  # the ladder takes any number of steps, the binding N_BITS
+        steps = int(bits2.shape[-1]) if bits2.dim() == 2 else -1
+    shapes = ((B, 4, N_LIMBS),) * 3 + ((B, steps), (B, N_LIMBS), (B, N_LIMBS))
+    names = ("table_x", "table_y", "table_t", "bits2", "rx", "ry")
+    ptrs = [_operand(t, dev, torch.int64, shape, f"{fn}'s {name}")
+            for t, shape, name in zip((table_x, table_y, table_t, bits2, rx, ry), shapes, names)]
+    return ptrs, B, steps
+
+
+def straus_verify_cuda(table_x, table_y, table_t, bits2, rx, ry):
+    """straus_verify_plain's (B,) bool by one csrc/ed25519.cu launch, on
+    every input whose limbs lie in [0, 2^13) and for any int64 selector
+    (one outside 0..3 selects the all-zero operand): a thread a lane in
+    blocks of 32, the lane's table operands in shared memory. Contiguous
+    int64 operands on one card, else raise."""
+    global straus_kernel_launches
+    ptrs, B, steps = _ladder_operands("straus_verify_cuda", table_x, table_y, table_t, bits2, rx, ry)
+    out = torch.empty((B,), dtype=torch.bool, device=table_x.device)
+    if B:
+        _ed_launch("tmx_straus_verify", _StrausArgs(*ptrs, lanes=B, steps=steps, out=out.data_ptr()),
+                   table_x.device)
+        straus_kernel_launches += 1
+    return out
+
+
+def bind_witness_cuda(
+    table_x, table_y, table_t, bits2, rx, ry,
+    sig_r, sig_s, sig_pk, digest_bytes, k_q,
+):
+    """bind_witness_plain's (B,) bool by one csrc/ed25519.cu launch, on
+    every int64 input (the range checks first). Contiguous operands on one
+    card: the ladder's int64 inputs with N_BITS steps, uint8 (B, 32)
+    signature halves and key, uint8 (B, 64) digest and int64 (B, 20) k_q;
+    else raise."""
+    global bind_kernel_launches
+    fn = "bind_witness_cuda"
+    ptrs, B, _ = _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=N_BITS)
+    dev = table_x.device
+    ptrs += [_operand(t, dev, torch.uint8, (B, n), f"{fn}'s {name}")
+             for t, n, name in ((sig_r, 32, "sig_r"), (sig_s, 32, "sig_s"), (sig_pk, 32, "sig_pk"),
+                                (digest_bytes, 64, "digest_bytes"))]
+    ptrs.append(_operand(k_q, dev, torch.int64, (B, N_LIMBS), f"{fn}'s k_q"))
+    out = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B:
+        _ed_launch("tmx_bind_witness", _BindArgs(*ptrs, lanes=B, out=out.data_ptr()), dev)
+        bind_kernel_launches += 1
+    return out
 
 
 def verify_bound(

@@ -3,12 +3,16 @@
 Counterpart of ``tendermintx_tpu/ops/sha256.py``. One lane is one message;
 messages are padded to a fixed number of 64-byte blocks, and a per-lane
 active-block count gives the variable-length semantics inside one
-fixed-shape program. Words are uint32 values held in int64 tensors and
-masked after every add (CPU torch has no unsigned 32-bit arithmetic); the
-rounds are plain torch ops on the words' device.
+fixed-shape program. Words are uint32 values held in int64 tensors.
+``sha256_blocks`` runs the plain torch rounds (masked after every add: CPU
+torch has no unsigned 32-bit arithmetic) for a CPU tensor and
+csrc/sha.cu's kernel, one launch a call, for a CUDA tensor.
 """
 
 from __future__ import annotations
+
+import ctypes
+from functools import cache
 
 import numpy as np
 import torch
@@ -68,10 +72,26 @@ def _compress_block(state: list[torch.Tensor], block: torch.Tensor) -> list[torc
     return [(s + v) & MASK32 for s, v in zip(state, (a, b, c, d, e, f, g, h))]
 
 
+# incremented exactly where csrc/sha.cu's SHA-256 entry is launched
+sha256_kernel_launches = 0
+
+
 def sha256_blocks(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
     """blocks: (B, n_blocks, 16) big-endian words (int64, values < 2^32);
     n_active: (B,) number of blocks that are part of each lane's padded
-    message. Returns digests (B, 8) int64 words."""
+    message. Returns digests (B, 8) int64 words: the plain rounds for a
+    CPU tensor, one csrc/sha.cu launch for a CUDA tensor."""
+    t = blocks.device.type
+    if t == "cpu":
+        return sha256_blocks_plain(blocks, n_active)
+    if t == "cuda":
+        return sha256_blocks_cuda(blocks, n_active)
+    raise ValueError(f"no SHA-256 for device {blocks.device}")
+
+
+def sha256_blocks_plain(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
+    """sha256_blocks as torch ops (any device): every block compressed, the
+    state kept where the block is active."""
     B, n_blocks, _ = blocks.shape
     dev = blocks.device
     blocks = blocks.to(torch.int64)
@@ -82,6 +102,66 @@ def sha256_blocks(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
         keep = i < n_active
         state = [torch.where(keep, n, s) for n, s in zip(new, state)]
     return torch.stack(state, dim=-1)
+
+
+class _ShaArgs(ctypes.Structure):
+    """csrc/sha.cu's ShaArgs, field for field."""
+
+    _fields_ = [
+        ("blocks", ctypes.c_void_p), ("n_active", ctypes.c_void_p),
+        ("lanes", ctypes.c_int64), ("n_blocks", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _sha_library():
+    from .cuda_build import load_library
+
+    lib = load_library("sha")
+    for fn in ("tmx_sha256_blocks", "tmx_sha512_blocks"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(_ShaArgs), ctypes.c_void_p]
+    return lib
+
+
+def _sha_launch(fn: str, args: _ShaArgs, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_sha_library(), fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def sha_blocks_cuda(fn: str, blocks: torch.Tensor, n_active: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """(digests (B, 8) int64, launched) of csrc/sha.cu's entry `fn` over
+    contiguous int64 blocks (B, n_blocks, 16) and n_active (B,) on one
+    card; B = 0 launches nothing. Refuses any other operand."""
+    dev = blocks.device
+    if dev.type != "cuda":
+        raise TypeError(f"{fn} hashes on a card, got {dev}")
+    if blocks.dtype != torch.int64 or blocks.dim() != 3 or blocks.shape[2] != 16 or not blocks.is_contiguous():
+        raise ValueError(f"{fn}: blocks must be a contiguous int64 (B, n_blocks, 16) tensor, "
+                         f"got {blocks.dtype} {tuple(blocks.shape)}")
+    B, n_blocks = int(blocks.shape[0]), int(blocks.shape[1])
+    if (n_active.device != dev or n_active.dtype != torch.int64 or tuple(n_active.shape) != (B,)
+            or not n_active.is_contiguous()):
+        raise ValueError(f"{fn}: n_active must be a contiguous int64 ({B},) tensor on {dev}, "
+                         f"got {n_active.dtype} {tuple(n_active.shape)} on {n_active.device}")
+    out = torch.empty((B, 8), dtype=torch.int64, device=dev)
+    if B:
+        args = _ShaArgs(blocks=blocks.data_ptr(), n_active=n_active.data_ptr(), lanes=B, n_blocks=n_blocks,
+                        out=out.data_ptr())
+        _sha_launch(fn, args, dev)
+    return out, B > 0
+
+
+def sha256_blocks_cuda(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
+    """sha256_blocks_plain's digests by one csrc/sha.cu launch, for words in
+    [0, 2^32) (the kernel reads each word's low 32 bits): a thread a lane."""
+    global sha256_kernel_launches
+    out, launched = sha_blocks_cuda("tmx_sha256_blocks", blocks, n_active)
+    sha256_kernel_launches += launched
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -5,12 +5,16 @@ Counterpart of ``tendermintx_tpu/ops/sha512.py``. The JAX package holds a
 bit pattern of one int64 (two's-complement adds wrap exactly as uint64
 adds do), with logical right shifts emulated by a mask. Interfaces that
 expose words take and return one (..., 8) or (..., 16) int64 tensor.
+``sha512_blocks`` runs the plain torch rounds for a CPU tensor and
+csrc/sha.cu's kernel, one launch a call, for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .sha256 import sha_blocks_cuda
 
 _K = [
     0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F, 0xE9B5DBA58189DBBC,
@@ -79,8 +83,24 @@ def _compress_block(state: list[torch.Tensor], block: torch.Tensor) -> list[torc
     return [s + v for s, v in zip(state, (a, b, c, d, e, f, g, h))]
 
 
+# incremented exactly where csrc/sha.cu's SHA-512 entry is launched
+sha512_kernel_launches = 0
+
+
 def sha512_blocks(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
-    """blocks: (B, n_blocks, 16) int64 words; n_active: (B,). -> (B, 8)."""
+    """blocks: (B, n_blocks, 16) int64 words; n_active: (B,). -> (B, 8):
+    the plain rounds for a CPU tensor, one csrc/sha.cu launch for a CUDA
+    tensor."""
+    t = blocks.device.type
+    if t == "cpu":
+        return sha512_blocks_plain(blocks, n_active)
+    if t == "cuda":
+        return sha512_blocks_cuda(blocks, n_active)
+    raise ValueError(f"no SHA-512 for device {blocks.device}")
+
+
+def sha512_blocks_plain(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
+    """sha512_blocks as torch ops (any device)."""
     B, n_blocks, _ = blocks.shape
     dev = blocks.device
     n_active = n_active.to(device=dev, dtype=torch.int64)
@@ -90,6 +110,15 @@ def sha512_blocks(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
         keep = i < n_active
         state = [torch.where(keep, n, s) for n, s in zip(new, state)]
     return torch.stack(state, dim=-1)
+
+
+def sha512_blocks_cuda(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Tensor:
+    """sha512_blocks_plain's digests by one csrc/sha.cu launch (exact on
+    every int64 word): a thread a lane."""
+    global sha512_kernel_launches
+    out, launched = sha_blocks_cuda("tmx_sha512_blocks", blocks, n_active)
+    sha512_kernel_launches += launched
+    return out
 
 
 def _bytes_to_words(b: torch.Tensor) -> torch.Tensor:

@@ -1219,3 +1219,146 @@ def test_toy_dryrun_on_card(dev):
     from tendermintx_tpu_torch.graft_entry import dryrun_multichip
 
     dryrun_multichip(4, [dev] * 4, shape="toy")
+
+
+# ---------------------------------------------------------------------------
+# The witness programs' kernels: csrc/sha.cu, csrc/ed25519.cu
+# ---------------------------------------------------------------------------
+
+
+def _witness_counts():
+    from tendermintx_tpu_torch.ops import ed25519, sha256, sha512
+
+    return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches,
+            ed25519.straus_kernel_launches, ed25519.bind_kernel_launches)
+
+
+def _sha_words(kind: str, lanes: int, n_blocks: int, seed: int, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 2**32 if kind == "sha256" else 2**64, size=(lanes, n_blocks, 16), dtype=np.uint64)
+    return torch.from_numpy(u.view(np.int64)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["sha256", "sha512"])
+@pytest.mark.parametrize("lanes", [1, 7, 64, 128, 129])
+@pytest.mark.parametrize("n_blocks", [0, 1, 2, 3])
+def test_sha_kernels_match_plain(dev, kind, lanes, n_blocks):
+    """Ragged lane counts, n_active -1, 0, 1, n_blocks and above."""
+    from tendermintx_tpu_torch.ops import sha256, sha512
+
+    mod = sha256 if kind == "sha256" else sha512
+    words = _sha_words(kind, lanes, n_blocks, 100 * lanes + n_blocks, dev)
+    cycle = torch.tensor([-1, 0, 1, n_blocks, n_blocks + 3], device=dev)
+    n_active = cycle[torch.arange(lanes, device=dev) % 5].contiguous()
+    before = _witness_counts()
+    got = getattr(mod, f"{kind}_blocks")(words, n_active)
+    assert torch.equal(got, getattr(mod, f"{kind}_blocks_plain")(words, n_active))
+    launched = [a - b for a, b in zip(_witness_counts(), before)]
+    assert launched == ([1, 0, 0, 0] if kind == "sha256" else [0, 1, 0, 0])
+
+
+def test_sha_kernels_match_hashlib(dev):
+    import hashlib
+
+    from tendermintx_tpu_torch.ops import sha256, sha512
+
+    msgs = [bytes(range(n % 256)) * (1 + n // 256) for n in (0, 1, 55, 56, 64, 111, 112, 200, 250)]
+    assert sha256.sha256_many(msgs, device=dev) == [hashlib.sha256(m).digest() for m in msgs]
+    assert sha512.sha512_many(msgs, device=dev) == [hashlib.sha512(m).digest() for m in msgs]
+
+
+@pytest.fixture(scope="module")
+def witness_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    import chip_smoke
+
+    return chip_smoke._witness_cases(torch.device("cuda", 0))
+
+
+def test_straus_kernel_matches_plain_on_both_outcomes(dev, witness_cases):
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    ladder, _ = witness_cases
+    before = _witness_counts()
+    got = ed.straus_verify(*ladder)
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 1, 0]
+    want = ed.straus_verify_plain(*ladder)
+    assert torch.equal(got, want)
+    assert got.any() and not got.all()
+
+
+def test_bind_kernel_matches_plain_on_both_outcomes(dev, witness_cases):
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    _, bind = witness_cases
+    before = _witness_counts()
+    got = ed.bind_witness(*bind)
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 0, 1]
+    want = ed.bind_witness_plain(*bind)
+    assert torch.equal(got, want)
+    assert got.any() and not got.all()
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 128])
+def test_ed25519_kernels_match_plain_at_ragged_lanes(dev, witness_cases, lanes):
+    """The check lanes repeated to 1-128 lanes: blocks of 32 lanes, the
+    last one partial."""
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    ladder, bind = witness_cases
+    pick = lambda args: tuple(a[torch.arange(lanes, device=dev) % a.shape[0]].contiguous() for a in args)
+    lad, bnd = pick(ladder), pick(bind)
+    assert torch.equal(ed.straus_verify_cuda(*lad), ed.straus_verify_plain(*lad))
+    assert torch.equal(ed.bind_witness_cuda(*bnd), ed.bind_witness_plain(*bnd))
+
+
+def test_verify_bound_on_card_equals_cpu(dev):
+    """verify_bound (SHA-512, binding and ladder kernels) and the batch
+    entry points on the card against the CPU's plain programs."""
+    import chip_smoke
+    from tendermintx_tpu_torch.inputs.conversion import get_validator_data_from_block, signature_lanes
+    from tendermintx_tpu_torch.inputs.testchain import TestChain
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+
+    chain = TestChain(n_validators=5, chain_id="witness-chain")
+    h = chain.extend()
+    pks, msgs, sigs = (list(x) for x in signature_lanes(
+        get_validator_data_from_block(chain.val_set, chain.commits[h], chain.chain_id, 8)))
+    msgs[2] = chip_smoke._flip(msgs[2], 10)
+    before = _witness_counts()
+    card = ed.verify_batch_bound(pks, msgs, sigs, device=dev)
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 1, 1, 1]
+    assert card.tolist() == ed.verify_batch_bound(pks, msgs, sigs, device="cpu").tolist()
+    assert card.tolist() == [ed.verify_ints(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    assert ed.verify_batch(pks, msgs, sigs, device=dev).tolist() == card.tolist()
+
+
+def test_witness_kernels_refuse_instead_of_falling_back(dev, witness_cases):
+    from tendermintx_tpu_torch.ops import ed25519 as ed
+    from tendermintx_tpu_torch.ops import sha256, sha512
+
+    words = _sha_words("sha256", 4, 2, 1, dev)
+    n_active = torch.full((4,), 2, dtype=torch.int64, device=dev)
+    ladder, bind = witness_cases
+    before = _witness_counts()
+    for mod, kind in ((sha256, "sha256"), (sha512, "sha512")):
+        fn = getattr(mod, f"{kind}_blocks_cuda")
+        with pytest.raises(ValueError):
+            fn(words.transpose(0, 1).contiguous().transpose(0, 1), n_active)  # not contiguous
+        with pytest.raises(ValueError):
+            fn(words.to(torch.int32), n_active)
+        with pytest.raises(ValueError):
+            fn(words, n_active.to(torch.int32))
+        with pytest.raises(TypeError):
+            fn(words.cpu(), n_active.cpu())
+    strided = (ladder[0].transpose(1, 2).contiguous().transpose(1, 2), *ladder[1:])
+    with pytest.raises(ValueError):
+        ed.straus_verify_cuda(*strided)
+    with pytest.raises(ValueError):
+        ed.straus_verify_cuda(*ladder[:3], ladder[3].to(torch.int32), *ladder[4:])
+    with pytest.raises(ValueError):
+        ed.bind_witness_cuda(*bind[:6], bind[6].to(torch.int64), *bind[7:])
+    with pytest.raises(ValueError):
+        ed.bind_witness_cuda(*bind[:3], bind[3][:, :200].contiguous(), *bind[4:])
+    assert _witness_counts() == before

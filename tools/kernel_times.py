@@ -2,7 +2,8 @@
 main-path shape on one card, and the LogUp and OOD kernels round by round.
 
     python3 tools/kernel_times.py [--root DIR] [--label NAME]
-        [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers,fri_fold,fri_inject] [--rounds R]
+        [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers,fri_fold,fri_inject,
+                sha256_blocks,sha512_blocks,straus_verify,bind_witness,witness_programs] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -32,7 +33,20 @@ are timed in rounds the same way, each launch rotating through input
 sets that together exceed twice the card's L2 (`_fri_inputs`; `l2_cold`
 false where `FRI_MAX_SETS` sets stay under that), so that `ms` and
 `kernel_ms` read the inputs from HBM as the bytes bound counts them;
-`burst_ms` launches on one input set. Prints one JSON line: the card's
+`burst_ms` launches on one input set. The witness programs' kernels
+(csrc/sha.cu, csrc/ed25519.cu) are timed in rounds the same way at their
+N=128 shapes: `sha256_blocks` at every shape skip_verify and step_verify
+give it (`_witness_sha256_shapes`) on random words, every lane's blocks
+active; `sha512_blocks` at 128 lanes x 2 blocks; `straus_verify` and
+`bind_witness` at 128 lanes repeated from `_witness_cases`' 8 chain
+lanes (in every range, so that no binding lane stops early).
+`burst_ms` launches on one input set. `witness_programs` runs
+chip_smoke.py's `_witness_programs` with its profile (skip_verify on skip
+2 -> 6, step_verify on step 4 -> 5 and the programs inside them: card
+seconds of one call and its torch ops) R times after a first call, on
+`SkipChain(128)`, then times the witness-only `cli prove` of skip 2 -> 6
+(`--device cuda`, host clock) R times after a warm-up; in a checkout
+whose ops have no witness kernels it counts no launches. Prints one JSON line: the card's
 name and power limit, the label, and per shape the ms. Two checkouts are compared by running
 this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
@@ -47,6 +61,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -228,6 +243,67 @@ def main(argv=None) -> int:
                              "kernel_ms": kernel_ms(run)})
                 del inputs
             out[name] = rows
+    witness = [name for name in cs.WITNESS_ENTRIES if name in only]
+    if witness:
+        from tendermintx_tpu_torch.ops import ed25519, sha256, sha512
+
+        sha_burst, ed_burst = (sha256, "_sha_launch", "_sha_library"), (ed25519, "_ed_launch", "_ed_library")
+        ladder, bind = cs._witness_cases(dev)
+        # the chain's 8 signature lanes (in every range: each binding check
+        # runs to its end), repeated
+        lanes = lambda args, n: tuple(a[torch.arange(n, device=dev) % 8].contiguous() for a in args)
+        runs = {}
+        if "sha256_blocks" in only:
+            shapes = sorted(cs._witness_sha256_shapes(128, "skip") | cs._witness_sha256_shapes(128, "step"),
+                            reverse=True)
+            runs["sha256_blocks"] = [(shape, sha256.sha256_blocks_cuda, sha_burst, (
+                torch.randint(0, 1 << 32, (*shape, 16), generator=gen, device=dev),
+                torch.full((shape[0],), shape[1], dtype=torch.int64, device=dev))) for shape in shapes]
+        if "sha512_blocks" in only:
+            words = (torch.randint(0, 1 << 32, (128, 2, 16), generator=gen, device=dev) << 32) | torch.randint(
+                0, 1 << 32, (128, 2, 16), generator=gen, device=dev)
+            runs["sha512_blocks"] = [((128, 2), sha512.sha512_blocks_cuda, sha_burst,
+                                      (words, torch.full((128,), 2, dtype=torch.int64, device=dev)))]
+        if "straus_verify" in only:
+            runs["straus_verify"] = [((128, 253), ed25519.straus_verify_cuda, ed_burst, lanes(ladder, 128))]
+        if "bind_witness" in only:
+            runs["bind_witness"] = [((128,), ed25519.bind_witness_cuda, ed_burst, lanes(bind, 128))]
+        for name, cases in runs.items():
+            rows = []
+            for shape, kernel, burst, kargs in cases:
+                run = lambda: kernel(*kargs)
+                rows.append({"shape": list(shape), "rounds": timed_rounds(run, reps_for(run), burst),
+                             "kernel_ms": kernel_ms(run)})
+            out[name] = rows
+    if "witness_programs" in only:
+        import tempfile
+
+        from tendermintx_tpu_torch.circuits.skip import encode_skip_input
+
+        # a checkout whose witness programs run as torch ops has no
+        # launches to count
+        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.ops.sha256"), "sha256_kernel_launches")
+        with tempfile.TemporaryDirectory(prefix="kernel_times_") as workdir:
+            sc = cs.SkipChain(128, os.path.join(workdir, "n128"))
+            first, *rounds = [cs._witness_programs(sc, True, kernels) for _ in range(args.rounds + 1)]
+            out["witness_programs"] = {"first": first, "rounds": rounds}
+            trusted, _, _ = sc.skip(2, 6)
+            build, inp, res = (os.path.join(workdir, f) for f in ("build", "input.json", "witness.json"))
+            rc, _ = cs._cli_quiet(["build", "--circuit", "skip", "--chain", cs.CHAIN_ID, "--max-validators", "128",
+                                   "--out", build])
+            with open(inp, "w") as f:
+                json.dump({"input": "0x" + encode_skip_input(2, trusted, 6).hex()}, f)
+            seconds = []
+            for _ in range(args.rounds + 1):  # the first is the warm-up
+                t0 = time.perf_counter()
+                rc_prove, _ = cs._cli_quiet(["prove", "--artifact", build, "--input", inp, "--out", res,
+                                             "--fixture-path", sc.fixture_path, "--device", "cuda"])
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                with open(res) as f:
+                    if rc or rc_prove or json.load(f)["valid"] is not True:
+                        raise AssertionError(f"the witness-only cli prove failed: rc {rc} / {rc_prove}")
+            out["witness_cli_prove"] = {"first_seconds": seconds[0], "seconds": seconds[1:]}
     print(json.dumps(out), flush=True)
     return 0
 
