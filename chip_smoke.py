@@ -89,22 +89,27 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  launch shape and each injection with ms over input sets
                  that exceed twice the L2 together (``l2_cold``),
                  burst_ms, plain ms and the bytes bound;
-  4b. witness - the witness programs' kernels (csrc/sha.cu's SHA-256 and
-                 SHA-512, csrc/ed25519.cu's Straus ladder and witness
-                 binding): skip_verify (2 -> 6) and step_verify (4 -> 5) at
-                 N=128 with every call of the four wrappers held exactly
-                 against its plain twin on its own data (every shape these
-                 paths give them; the calls and SHA-256 shapes those of
-                 circuits/verify.py's structure), the SHA entries on random
-                 words at 1, 7 and 129 lanes of 1 and 2 blocks with n_active
-                 -1, 0, 1, n_blocks and above, the ladder and the binding on
+  4b. witness - the witness programs' kernels (csrc/sha.cu's SHA-256,
+                 validator tree, header proofs and SHA-512, csrc/ed25519.cu's
+                 Straus ladder and witness binding): skip_verify (2 -> 6) and
+                 step_verify (4 -> 5) at N=128 with every call of the
+                 wrappers held exactly against its plain twin on its own data
+                 (every shape these paths give them; the calls and the tree
+                 and proof shapes those of circuits/verify.py's structure:
+                 no sha256_blocks, which is checked and timed at a mesh
+                 lane-check shard), the SHA entries on random words at 1, 7
+                 and 129 lanes of 1 and 2 blocks with n_active -1, 0, 1,
+                 n_blocks and above, validator trees of 1, 5, 100 and 128
+                 lanes at n_enabled 0, 1, odd, even and B, header proofs of
+                 1, 5 and 33 with both path bits, the ladder and the binding on
                  lanes with both outcomes (tampered bytes, witness-only
                  tampering, a non-canonical witness, selectors outside 0..3,
                  and for the binding limbs of 8192 and -1); each timed at its
                  N=128 shapes (median of five rounds) beside its plain twin
                  and its bound (32-bit operations at 64 a clock per SM or
                  bytes at 3.35 TB/s), the ladder's dependent-chain floor
-                 beside (253 steps of a step's critical path); no prove runs
+                 beside (253 steps of a step's critical path), and the tree's
+                 and the proofs' (their dependent compressions); no prove runs
                  these kernels (every path below but runtime checks none
                  launched);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
@@ -156,9 +161,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
   9. runtime   - the port's entry points on the card at N=128, in this
                  process: ``cli build`` and a witness-only ``cli prove`` of
                  skip 2 -> 6 (valid, header 6), its witness kernels'
-                 launches exactly those of skip_verify's structure (21
-                 SHA-256, one SHA-512, binding and ladder at N=128: the
-                 kernels line's ``launches`` of these four); skip_verify
+                 launches exactly those of skip_verify's structure (two
+                 validator trees, one header-proof batch, one SHA-512,
+                 binding and ladder, no sha256_blocks, at N=128: the
+                 kernels line's ``launches`` of these); skip_verify
                  timed on the card, its launches held the same way (with
                  --profile also sha256_blocks, sha512_blocks,
                  straus_verify, verify_bound and step_verify, and each
@@ -182,7 +188,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  seconds, peak memory; the quotient and the DEEP kernel
                  once per shard per statement, the column sponge once per shard for each
                  column-major tree), sharded_lane_checks over
-                 its 128 lanes (each witness kernel once a shard; equal
+                 its 128 lanes (sha256_blocks, SHA-512, binding and ladder
+                 once a shard, no tree or proof: sha256_blocks's
+                 ``launches`` in the kernels line; equal
                  to single-device verify_bound,
                  hash_validator_leaves and Python-int sums), the card's N=4
                  parity proof wrapped with mesh= (equal to its single-device
@@ -1575,9 +1583,19 @@ def phase_fri_shapes(rows: dict) -> dict:
 # csrc/ed25519.cu
 # ---------------------------------------------------------------------------
 
-WITNESS_ENTRIES = ("sha256_blocks", "sha512_blocks", "straus_verify", "bind_witness")
+WITNESS_ENTRIES = ("sha256_blocks", "sha256_validator_root", "sha256_header_proofs", "sha512_blocks",
+                   "straus_verify", "bind_witness")
+# the entries of csrc/sha.cu's tree and proof kernels, which the witness
+# programs call through circuits/gadgets.py: (wrapper in ops/sha256.py, its
+# plain twin in gadgets.py)
+SHA256_GADGETS = {"sha256_validator_root": ("validator_root_cuda", "validator_root_plain"),
+                  "sha256_header_proofs": ("header_proofs_cuda", "header_proof_root_plain")}
 # circuits/gadgets.py::header_proof_root: a header Merkle proof's depth
 HEADER_PROOF_DEPTH = 4
+# the byte rows the witness packs (circuits/variables.py): a validator leaf
+# (0x00 and its encoding), a header proof's leaf
+VALIDATOR_LEAF_WIDTH = 47
+HEADER_LEAF_WIDTH = 73
 # Hopper instructions of one compression, at 64 a clock per SM (the
 # integer pipe's rate): a rotation or shift is one SHF, a 3-input xor, Ch
 # or Maj one LOP3, a 3-input add one IADD3. A schedule word: two sigmas of
@@ -1618,28 +1636,29 @@ PRODUCT_CHAIN = 1 + 10 + 12 * 3
 SUM_CHAIN = 3
 LADDER_STEP_CHAIN = 4 * PRODUCT_CHAIN + 4 * SUM_CHAIN
 DEPENDENT_ISSUE_CLOCKS = 4
+# A SHA-256 round's dependent chain: e's next value waits on Sigma1 (an SHF,
+# then a LOP3 of the three rotations), Ch's LOP3 and two IADD3; a's
+# (Sigma0 and Maj beside t1) is no longer. A compression is 64 such rounds.
+SHA256_ROUND_CHAIN = 4
 
 
 def _witness_launches(n_validators: int, kind: str) -> dict:
     """Each witness kernel's launches in one skip_verify or step_verify of
-    n_validators lanes, from circuits/verify.py's structure: SHA-256 once
-    for a lane set's leaves and once a level of its Merkle tree (the
-    target's, and for a skip the trusted set's), once for the header
-    proofs' leaves and once a proof level; SHA-512, the binding and the
-    ladder once (verify_bound)."""
-    levels = max(n_validators - 1, 0).bit_length()
-    trees = 2 if kind == "skip" else 1
-    return {"sha256_blocks": trees * (1 + levels) + 1 + HEADER_PROOF_DEPTH,
-            "sha512_blocks": 1, "straus_verify": 1, "bind_witness": 1}
+    n_validators lanes, from circuits/verify.py's structure: the validator
+    tree once a lane set (the target's, and for a skip the trusted set's),
+    the header proofs once (all of a program's in one batch); SHA-512, the
+    binding and the ladder once (verify_bound); sha256_blocks none (the
+    mesh's lane checks launch it)."""
+    return {"sha256_blocks": 0, "sha256_validator_root": 2 if kind == "skip" else 1,
+            "sha256_header_proofs": 1, "sha512_blocks": 1, "straus_verify": 1, "bind_witness": 1}
 
 
-def _witness_sha256_shapes(n_validators: int, kind: str) -> set:
-    """(lanes, blocks) of every SHA-256 call of one skip_verify or
-    step_verify: the leaves (one block), each Merkle level's pairs and the
-    header proofs (two blocks: 4 proofs in a skip, 5 in a step)."""
-    width = 1 << max(n_validators - 1, 0).bit_length()
-    levels = {(width >> (l + 1), 2) for l in range(width.bit_length() - 1)}
-    return {(n_validators, 1), (4 if kind == "skip" else 5, 2)} | levels
+def _witness_sha256_shapes(n_validators: int, kind: str) -> dict:
+    """The byte rows of the SHA-256 gadget calls of one skip_verify or
+    step_verify: the validator trees' (n_validators, VALIDATOR_LEAF_WIDTH)
+    and the header proofs' (4 in a skip, 5 in a step, HEADER_LEAF_WIDTH)."""
+    return {"sha256_validator_root": {(n_validators, VALIDATOR_LEAF_WIDTH)},
+            "sha256_header_proofs": {(4 if kind == "skip" else 5, HEADER_LEAF_WIDTH)}}
 
 
 def _flip(b: bytes, i: int) -> bytes:
@@ -1733,6 +1752,40 @@ def _sha_bound(kind: str, blocks: torch.Tensor, n_active: torch.Tensor, ops_per_
     return _ops_bound(ops, compressed * 16 * 8 + 8 * int(blocks.shape[0]) * (1 + 8), ops_per_ms)
 
 
+def _sha256_chain_ms(compressions: int, clock_mhz: float) -> float:
+    """A run of dependent SHA-256 compressions: 64 rounds of
+    SHA256_ROUND_CHAIN dependent instructions of DEPENDENT_ISSUE_CLOCKS
+    clocks each, at the maximum SM clock."""
+    return compressions * 64 * SHA256_ROUND_CHAIN * DEPENDENT_ISSUE_CLOCKS / (clock_mhz * 1e3)
+
+
+def _tree_bound(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled: torch.Tensor, ops_per_ms: float,
+                clock_mhz: float) -> dict:
+    """A validator tree's bound over what its root needs: the first n of
+    its leaves (n = n_enabled within 1..lanes; one block each, their bytes
+    and lengths read once) and the n - 1 pairs that merge them (two blocks
+    each), the root written; its dependent-chain floor beside, the leaf and
+    two compressions a level on the path of ceil(log2 n) levels."""
+    lanes, width = int(leaf_bytes.shape[0]), int(leaf_bytes.shape[1])
+    n = min(max(int(n_enabled), 1), lanes)
+    levels = (n - 1).bit_length()
+    return {**_ops_bound((n + 2 * (n - 1)) * SHA256_OPS_PER_BLOCK, n * (width + 8) + 8 + 32, ops_per_ms),
+            "compressions": n + 2 * (n - 1), "chain_floor_ms": _sha256_chain_ms(1 + 2 * levels, clock_mhz)}
+
+
+def _proofs_bound(leaf_len: torch.Tensor, width: int, ops_per_ms: float, clock_mhz: float) -> dict:
+    """k header proofs' bound: each leaf's blocks (one or two by its
+    length) and four pairs of two blocks, the leaf bytes, lengths, aunts
+    and path bits read once, the roots written; the chain floor of the
+    longest proof beside."""
+    blocks = [(int(n) + 9 + 63) // 64 for n in leaf_len.tolist()]
+    k = len(blocks)
+    compressions = sum(blocks) + k * 2 * HEADER_PROOF_DEPTH
+    nbytes = k * (width + 8 + HEADER_PROOF_DEPTH * (32 + 8) + 32)
+    return {**_ops_bound(compressions * SHA256_OPS_PER_BLOCK, nbytes, ops_per_ms), "compressions": compressions,
+            "chain_floor_ms": _sha256_chain_ms(max(blocks, default=0) + 2 * HEADER_PROOF_DEPTH, clock_mhz)}
+
+
 def _ladder_bound(lanes: int, steps: int, ops_per_ms: float, clock_mhz: float) -> dict:
     """The ladder's throughput bound (field products' multiply-adds, or
     the inputs' bytes) and, beside it, its dependent-chain floor: one
@@ -1762,7 +1815,7 @@ def _bind_bound(lanes: int, ops_per_ms: float) -> dict:
 
 
 class _WitnessCheck:
-    """While installed, holds every call of the four witness wrappers
+    """While installed, holds every call of the six witness wrappers
     (ops/sha256.py, ops/sha512.py, ops/ed25519.py: *_cuda) exactly against
     its plain twin on the same CUDA tensors, and keeps the first inputs of
     each shape (name -> {shape: args}). The twins' launches are not
@@ -1773,12 +1826,15 @@ class _WitnessCheck:
         self.checked = dict.fromkeys(WITNESS_ENTRIES, 0)
 
     def __enter__(self):
+        from tendermintx_tpu_torch.circuits import gadgets
         from tendermintx_tpu_torch.ops import ed25519 as ed
         from tendermintx_tpu_torch.ops import sha256, sha512
 
         self.saved = []
+        rows = lambda a: tuple(a[0].shape)
         for name, mod, cuda, plain, key in (
             ("sha256_blocks", sha256, "sha256_blocks_cuda", sha256.sha256_blocks_plain, lambda a: tuple(a[0].shape[:2])),
+            *((name, sha256, cuda, getattr(gadgets, plain), rows) for name, (cuda, plain) in SHA256_GADGETS.items()),
             ("sha512_blocks", sha512, "sha512_blocks_cuda", sha512.sha512_blocks_plain, lambda a: tuple(a[0].shape[:2])),
             ("straus_verify", ed, "straus_verify_cuda", ed.straus_verify_plain, lambda a: tuple(a[3].shape)),
             ("bind_witness", ed, "bind_witness_cuda", ed.bind_witness_plain, lambda a: tuple(a[3].shape)),
@@ -1823,18 +1879,65 @@ def _sha_edge_cases(kind: str, gen, dev) -> list[dict]:
     return cases
 
 
+def _sha256_gadget_cases(gen, dev) -> dict:
+    """csrc/sha.cu's tree and proof entries on random bytes, each call held
+    exactly against its twin (circuits/gadgets.py): validator trees of 1,
+    5, 100 and 128 lanes (5 and 100 padded to 8 and 128 rows) at n_enabled
+    0, 1, odd, even and B, leaf lengths 1 to 55 (55 in lane 0: one block's
+    most, past the 47-byte row) with bytes past each length that the
+    padding must mask; header proofs of 1, 5 and 33 (two blocks of 32
+    threads) with leaves of one and two blocks (55 and 119 bytes) and path
+    bits both ways (all 0, all 1, and a 2, which is a left child).
+    -> {entry: [case, ...]}."""
+    from tendermintx_tpu_torch.circuits import gadgets as g
+    from tendermintx_tpu_torch.ops import sha256
+
+    rand = lambda high, *shape: torch.randint(0, high, shape, generator=gen, device=dev)
+    out = {"sha256_validator_root": [], "sha256_header_proofs": []}
+    for lanes in (1, 5, 100, 128):
+        data = rand(256, lanes, VALIDATOR_LEAF_WIDTH).to(torch.uint8)
+        lens = (rand(55, lanes) + 1).index_fill_(0, torch.tensor([0], device=dev), 55)
+        counts = sorted({0, 1, lanes, lanes // 2, (lanes // 2) | 1} & set(range(lanes + 1)))
+        for n in counts:
+            n_t = torch.tensor(n, device=dev)
+            _check_equal(sha256.validator_root_cuda(data, lens, n_t), g.validator_root_plain(data, lens, n_t),
+                         f"sha256_validator_root at {lanes} lanes, n_enabled {n}")
+        out["sha256_validator_root"].append({"lanes": lanes, "n_enabled": counts, "max_abs_err": 0.0})
+    for k in (1, 5, 33):
+        data = rand(256, k, HEADER_LEAF_WIDTH).to(torch.uint8)
+        lens = rand(119, k) + 1
+        lens[0] = 119
+        bits = rand(2, k, HEADER_PROOF_DEPTH)
+        bits[0] = 0
+        if k > 1:
+            lens[1] = 55
+            bits[1] = 1
+            bits[-1, 2] = 2
+        args = (data, lens, rand(256, k, HEADER_PROOF_DEPTH, 32).to(torch.uint8), bits)
+        _check_equal(sha256.header_proofs_cuda(*args), g.header_proof_root_plain(*args),
+                     f"sha256_header_proofs at {k} proofs")
+        out["sha256_header_proofs"].append({"proofs": k, "leaf_len": sorted(set(lens.tolist())), "max_abs_err": 0.0})
+    return out
+
+
 def phase_witness(sc: SkipChain, build: dict) -> dict:
-    """The witness programs' four kernels on the card (part of the kernels
-    line). skip_verify (skip 2 -> 6) and step_verify (4 -> 5) at N=128 run
-    with every call of the four wrappers held exactly against its plain
+    """The witness programs' kernels on the card (part of the kernels
+    line). skip_verify (skip 2 -> 6) and step_verify (4 -> 5) at N=128
+    run with every call of the wrappers held exactly against its plain
     twin (_WitnessCheck): every shape these paths give them, on their own
-    data, and the SHA-256 shapes must be the ones circuits/verify.py's
-    structure gives (_witness_sha256_shapes). Then the SHA entries on
-    random words at ragged lane counts with n_active 0, below and above
-    the block count (_sha_edge_cases), and the ladder and the binding on
-    lanes with both outcomes (_witness_cases). Each entry is timed at its
-    N=128 shapes (the median of five rounds) beside its plain twin and its
-    bound; the ladder's dependent-chain floor beside its bound."""
+    data; the calls (_witness_launches) and the tree and proof entries'
+    byte rows (_witness_sha256_shapes) must be circuits/verify.py's
+    structure's. Then the SHA entries on random words at ragged lane
+    counts with n_active 0, below and above the block count
+    (_sha_edge_cases), the tree and proof entries on random trees and
+    proofs (_sha256_gadget_cases), and the ladder and the binding on lanes
+    with both outcomes (_witness_cases). sha256_blocks, which no witness
+    program calls now, is checked and timed at a lane-check shard of the
+    mesh phase (N / MESH_SHARDS leaves, one block). Each entry is timed at
+    its N=128 shapes (the median of five rounds) beside its plain twin and
+    its bound; the ladder's and the tree and proof entries'
+    dependent-chain floors beside their bounds."""
+    from tendermintx_tpu_torch.circuits import gadgets
     from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
     from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
     from tendermintx_tpu_torch.ops import ed25519 as ed
@@ -1847,10 +1950,10 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
     cl, cn = chain_id_leaf_const(CHAIN_ID)
     trusted, _, skip_inputs = sc.skip(2, 6)
     prev, step_inputs = sc.step(4)
+    skip_witness = pack_skip_witness(skip_inputs).to(dev)
     runs = {
-        "skip": lambda: skip_verify(pack_skip_witness(skip_inputs).to(dev),
-                                    torch.frombuffer(bytearray(trusted), dtype=torch.uint8), 2, 0, 6, 0, cl, cn,
-                                    SKIP_MAX)[0],
+        "skip": lambda: skip_verify(skip_witness, torch.frombuffer(bytearray(trusted), dtype=torch.uint8),
+                                    2, 0, 6, 0, cl, cn, SKIP_MAX)[0],
         "step": lambda: step_verify(pack_step_witness(step_inputs).to(dev),
                                     torch.frombuffer(bytearray(prev), dtype=torch.uint8), 4, 0, cl, cn)[0],
     }
@@ -1865,16 +1968,22 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
                 raise AssertionError(f"the N={sc.n} {kind}_verify called the witness kernels {n_calls} times; "
                                      f"its structure gives {_witness_launches(sc.n, kind)}")
             out[f"{kind}_calls"] = n_calls
-        sha256_shapes = set(check.calls["sha256_blocks"])
-        want_shapes = _witness_sha256_shapes(sc.n, "skip") | _witness_sha256_shapes(sc.n, "step")
-        if sha256_shapes != want_shapes:
-            raise AssertionError(f"the N={sc.n} witness programs hash SHA-256 at {sorted(sha256_shapes)}; "
-                                 f"their structure gives {sorted(want_shapes)}")
+        for name in SHA256_GADGETS:
+            want = _witness_sha256_shapes(sc.n, "skip")[name] | _witness_sha256_shapes(sc.n, "step")[name]
+            if set(check.calls[name]) != want:
+                raise AssertionError(f"the N={sc.n} witness programs call {name} at {sorted(check.calls[name])}; "
+                                     f"their structure gives {sorted(want)}")
+        # a lane-check shard's leaves (parallel/sharding.py hashes each
+        # shard's with sha256_blocks), checked as the programs' calls are
+        shard = sc.n // MESH_SHARDS
+        lanes = skip_witness.lanes
+        sha256.sha256_blocks_cuda(*gadgets.bytes_to_blocks(lanes.leaf_bytes[:shard], lanes.leaf_len[:shard], 1))
         calls = check.calls
     out["checked_calls"] = check.checked
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
     edges = {kind: _sha_edge_cases(kind, gen, dev) for kind in ("sha256", "sha512")}
+    edges.update(_sha256_gadget_cases(gen, dev))
     ladder, bind = _witness_cases(dev)
     outcomes = {}
     for name, kernel, plain, args in (("straus_verify", ed.straus_verify_cuda, ed.straus_verify_plain, ladder),
@@ -1891,6 +2000,9 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
         return {**rounds, "burst_ms": _launch_burst_ms(*burst, lambda: kernel(*args)), "plain_ms": plain_ms}
 
     sha_burst, ed_burst = (sha256, "_sha_launch", "_sha_library"), (ed, "_ed_launch", "_ed_library")
+    row_keys = ("shape", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms", "bound_by",
+                "operations_bound_ms", "bytes_bound_ms", "max_abs_err")
+    sha_common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/sha.cu", "library_ms": None}
 
     sha_rows = {}
     for name, kind, mod, kernel, plain in (
@@ -1901,16 +2013,38 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
         for shape, args in sorted(calls[name].items(), key=lambda kv: (-kv[0][0], -kv[0][1])):
             shapes.append({"shape": [*shape, 16], **timed(kernel, plain, args, sha_burst),
                            **_sha_bound(kind, *args, ops_per_ms), "max_abs_err": 0.0})
-        top = shapes[0]  # the most lanes: SHA-256's leaves, SHA-512's challenge
+        top = shapes[0]  # SHA-256's lane-check shard, SHA-512's challenge
         sha_rows[name] = {
-            "route": "cuda", "source": "tendermintx_tpu_torch/csrc/sha.cu",
-            "replaces": f"tendermintx_tpu/ops/{kind}.py:{82 if kind == 'sha256' else 143}",
+            **sha_common, "replaces": f"tendermintx_tpu/ops/{kind}.py:{82 if kind == 'sha256' else 143}",
             "replaces_program": f"{kind}_blocks (jitted as {kind}_blocks_jit)",
-            **{k: top[k] for k in ("shape", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms", "bound_by",
-                                   "operations_bound_ms", "bytes_bound_ms", "max_abs_err")},
-            "library_ms": None, **_registers_of(build["sha"]["ptxas"], f"tmx_{kind}"),
+            **{k: top[k] for k in row_keys}, **_registers_of(build["sha"]["ptxas"], f"tmx_{kind}"),
             "shapes": shapes, "edge_cases": edges[kind],
         }
+    # the validator tree at the skip's target set (the trusted set's and
+    # the step's have the same shape); the header proofs at the skip's 4
+    # and the step's 5
+    (tshape, tree_args), = calls["sha256_validator_root"].items()
+    sha_rows["sha256_validator_root"] = {
+        **sha_common, "replaces": "tendermintx_tpu/circuits/gadgets.py:94",
+        "replaces_program": "merkle_root_dynamic over hash_validator_leaves (:89), traced into the jitted "
+                            "skip / step verification",
+        "shape": list(tshape), "n_enabled": int(tree_args[2]),
+        **timed(sha256.validator_root_cuda, gadgets.validator_root_plain, tree_args, sha_burst),
+        **_tree_bound(*tree_args, ops_per_ms, clock_mhz), "max_abs_err": 0.0,
+        **_registers_of(build["sha"]["ptxas"], "tmx_sha256_root"), "edge_cases": edges["sha256_validator_root"],
+    }
+    proofs = []
+    for shape, args in sorted(calls["sha256_header_proofs"].items()):
+        proofs.append({"shape": list(shape), **timed(sha256.header_proofs_cuda, gadgets.header_proof_root_plain,
+                                                     args, sha_burst),
+                       **_proofs_bound(args[1], int(shape[1]), ops_per_ms, clock_mhz), "max_abs_err": 0.0})
+    sha_rows["sha256_header_proofs"] = {
+        **sha_common, "replaces": "tendermintx_tpu/circuits/gadgets.py:123",
+        "replaces_program": "header_proof_root, traced into the jitted skip / step verification",
+        **{k: proofs[0][k] for k in row_keys}, "chain_floor_ms": proofs[0]["chain_floor_ms"],
+        **_registers_of(build["sha"]["ptxas"], "tmx_sha256_proofs"), "shapes": proofs,
+        "edge_cases": edges["sha256_header_proofs"],
+    }
     (lshape, ladder_args), = calls["straus_verify"].items()
     (_, bind_args), = calls["bind_witness"].items()
     lanes, steps = lshape
@@ -1933,9 +2067,10 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
             **_registers_of(build["ed25519"]["ptxas"], "tmx_bind"), "check_lanes": outcomes["bind_witness"],
         },
     }
-    rows["straus_verify"]["chain_floor_share"] = rows["straus_verify"]["chain_floor_ms"] / rows["straus_verify"]["ms"]
     for row in rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        if "chain_floor_ms" in row:
+            row["chain_floor_share"] = row["chain_floor_ms"] / row["ms"]
     out.update(rows)
     emit(out)
     return rows
@@ -2175,6 +2310,8 @@ LAUNCH_COUNTERS = {
     "fri_fold": ("tendermintx_tpu_torch.stark.fri", "fri_fold_kernel_launches"),
     "fri_inject": ("tendermintx_tpu_torch.stark.fri", "fri_inject_kernel_launches"),
     "sha256_blocks": ("tendermintx_tpu_torch.ops.sha256", "sha256_kernel_launches"),
+    "sha256_validator_root": ("tendermintx_tpu_torch.ops.sha256", "validator_root_kernel_launches"),
+    "sha256_header_proofs": ("tendermintx_tpu_torch.ops.sha256", "header_proofs_kernel_launches"),
     "sha512_blocks": ("tendermintx_tpu_torch.ops.sha512", "sha512_kernel_launches"),
     "straus_verify": ("tendermintx_tpu_torch.ops.ed25519", "straus_kernel_launches"),
     "bind_witness": ("tendermintx_tpu_torch.ops.ed25519", "bind_kernel_launches"),
@@ -2308,8 +2445,9 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
 def _check_launched(launches: dict, path: str, absent: tuple = (), witness: bool = False):
     """Every kernel launched by the path, but those of `absent`, which
     must not be; the witness programs' kernels only on a `witness` path
-    (no prove runs them)."""
-    absent = absent if witness else absent + WITNESS_ENTRIES
+    (no prove runs them), and sha256_blocks on none (only the mesh's lane
+    checks launch it)."""
+    absent = absent + ("sha256_blocks",) if witness else absent + WITNESS_ENTRIES
     for name, n in launches.items():
         if name in absent:
             if n:
@@ -3079,11 +3217,13 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     after = _launch_counts()
-    lane_launches = {k: after[k] - before[k] for k in WITNESS_ENTRIES}
-    # per shard: verify_bound (SHA-512, binding, ladder) and the leaf hashes
-    if lane_launches != dict.fromkeys(WITNESS_ENTRIES, MESH_SHARDS):
-        raise AssertionError(f"the sharded lane checks launched {lane_launches}; one of each a shard "
-                             f"({MESH_SHARDS}) wanted")
+    lane_path = {k: after[k] - before[k] for k in after}
+    lane_launches = {k: lane_path[k] for k in WITNESS_ENTRIES}
+    # per shard: verify_bound (SHA-512, binding, ladder) and the leaf
+    # hashes (sha256_blocks); no tree and no header proof
+    want_lanes = {k: 0 if k in SHA256_GADGETS else MESH_SHARDS for k in WITNESS_ENTRIES}
+    if lane_launches != want_lanes:
+        raise AssertionError(f"the sharded lane checks launched {lane_launches}; {want_lanes} wanted")
     flags = ed25519.verify_bound(*args[:12])
     power = lambda pair: int(pair[0]) | (int(pair[1]) << 32)
     want_total = sum(l.voting_power for l in lanes if l.enabled)
@@ -3158,7 +3298,7 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     out["launches"] = launches
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
-    return out, launches, four_step
+    return out, launches, four_step, lane_path
 
 
 def _time_fri_tables(n: int, config, card: bool = False) -> float:
@@ -3313,7 +3453,7 @@ def main(argv: list[str]) -> int:
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
             _, runtime_launches, witness_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile,
                                                 (warm_launches, wrap_launches, step_launches))
-            _, mesh_launches, four_step_launches = phase_mesh(n128, warm_proof, parity)
+            _, mesh_launches, four_step_launches, lane_launches = phase_mesh(n128, warm_proof, parity)
             phase_fri_shapes(rows)
             phase_parity(parity)  # before the profile, which the CPU jobs would disturb
             if profile:
@@ -3326,18 +3466,20 @@ def main(argv: list[str]) -> int:
     paths = {"skip_cold": cold_launches, "skip_warm": warm_launches, "step": step_launches,
              "hashes": hashes_launches, "wrap": wrap_launches, "runtime": runtime_launches,
              "witness_prove": witness_launches,
-             "mesh": mesh_launches, "mesh_four_step": four_step_launches}
+             "mesh": mesh_launches, "mesh_four_step": four_step_launches, "mesh_lane_checks": lane_launches}
     count = lambda launches, name: sum(launches[e] for e in KERNEL_ENTRIES.get(name, (name,)))
     kernels = []
     for name, row in rows.items():
-        # the witness kernels' main path is the witness-only cli prove;
-        # every other kernel's the two N=128 skip proves
-        main_launches = (count(witness_launches, name) if name in WITNESS_ENTRIES
+        # the witness kernels' main path is the witness-only cli prove
+        # (sha256_blocks's the mesh's lane checks, the one path that still
+        # calls it); every other kernel's the two N=128 skip proves
+        main_launches = (count(lane_launches, name) if name == "sha256_blocks"
+                         else count(witness_launches, name) if name in WITNESS_ENTRIES
                          else count(cold_launches, name) + count(warm_launches, name))
         entry = {"name": name, **{k: row[k] for k in kept}, "launches": main_launches,
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
         entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "tiles", "registers", "spill_bytes",
-                                          "check_lanes") if k in row})
+                                          "check_lanes", "chain_floor_ms") if k in row})
         if name in WITNESS_ENTRIES and "shapes" in row:
             entry["shapes"] = [{k: r[k] for k in ("shape", "ms", "burst_ms", "plain_ms", "bound_ms", "bound_by")}
                                for r in row["shapes"]]

@@ -61,10 +61,13 @@ def digests_to_bytes_dev(digests: torch.Tensor) -> torch.Tensor:
     return ((digests[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(digests.shape[0], 32)
 
 
-def sha256_bytes_var(data: torch.Tensor, byte_len: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """Variable-length SHA-256 of byte lanes -> (B, 32) uint8 digests."""
+def sha256_bytes_var(data: torch.Tensor, byte_len: torch.Tensor, n_blocks: int, plain: bool = False) -> torch.Tensor:
+    """Variable-length SHA-256 of byte lanes -> (B, 32) uint8 digests:
+    sha256.sha256_blocks (the kernel on a card), or with `plain` its plain
+    rounds on any device."""
     blocks, n_active = bytes_to_blocks(data, byte_len, n_blocks)
-    return digests_to_bytes_dev(sha256.sha256_blocks(blocks, n_active))
+    hash_blocks = sha256.sha256_blocks_plain if plain else sha256.sha256_blocks
+    return digests_to_bytes_dev(hash_blocks(blocks, n_active))
 
 
 # ---------------------------------------------------------------------------
@@ -79,15 +82,17 @@ def hash_validator_leaves(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor) -> t
 
 
 def _pair_hashes(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """SHA-256(0x01 ‖ left ‖ right) per row: an inner Merkle node."""
+    """SHA-256(0x01 ‖ left ‖ right) per row (an inner Merkle node), the
+    plain rounds."""
     prefix = torch.ones((left.shape[0], 1), dtype=torch.uint8, device=left.device)
     inp = torch.cat([prefix, left, right], dim=1)
-    return sha256_bytes_var(inp, torch.full((left.shape[0],), 65, device=left.device), n_blocks=2)
+    return sha256_bytes_var(inp, torch.full((left.shape[0],), 65, device=left.device), n_blocks=2, plain=True)
 
 
 def merkle_root_dynamic(leaf_digests: torch.Tensor, n_enabled) -> torch.Tensor:
     """CometBFT variable-size Merkle root over the first n_enabled of B leaf
-    digests. Level-wise pair-and-promote equals the largest-power-of-two
+    digests, as torch ops with the plain SHA-256 rounds (validator_root's
+    twin). Level-wise pair-and-promote equals the largest-power-of-two
     split recursion (RFC 6962).
 
     leaf_digests: (B, 32) uint8; n_enabled: () int or tensor. -> (32,) uint8."""
@@ -115,9 +120,49 @@ def merkle_root_dynamic(leaf_digests: torch.Tensor, n_enabled) -> torch.Tensor:
     return nodes[0]
 
 
+def validator_root_plain(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled) -> torch.Tensor:
+    """validator_root as torch ops (any device): the leaves and every
+    level through the plain SHA-256 rounds."""
+    return merkle_root_dynamic(sha256_bytes_var(leaf_bytes, leaf_len, n_blocks=1, plain=True), n_enabled)
+
+
+def validator_root(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled) -> torch.Tensor:
+    """The validators hash: the CometBFT Merkle root over the first
+    n_enabled of the B validator leaves, merkle_root_dynamic of
+    hash_validator_leaves (leaf_bytes (B, 47) uint8 0x00-prefixed,
+    leaf_len (B,) their lengths; n_enabled () int or tensor). -> (32,)
+    uint8: the plain twin for a CPU tensor, one csrc/sha.cu launch for a
+    CUDA tensor (at most ops/sha256.py's MAX_TREE_LANES lanes)."""
+    t = leaf_bytes.device.type
+    if t == "cpu":
+        return validator_root_plain(leaf_bytes, leaf_len, n_enabled)
+    if t == "cuda":
+        dev = leaf_bytes.device
+        return sha256.validator_root_cuda(leaf_bytes, as_tensor(leaf_len, dev), as_tensor(n_enabled, dev))
+    raise ValueError(f"no validator root for device {leaf_bytes.device}")
+
+
 # ---------------------------------------------------------------------------
 # Header-field Merkle proofs (fixed depth 4)
 # ---------------------------------------------------------------------------
+
+
+def header_proof_root_plain(
+    leaf_bytes: torch.Tensor,
+    leaf_len: torch.Tensor,
+    aunts: torch.Tensor,
+    path_bits: torch.Tensor,
+) -> torch.Tensor:
+    """header_proof_root as torch ops with the plain SHA-256 rounds (any
+    device)."""
+    digest = sha256_bytes_var(leaf_bytes, leaf_len, n_blocks=2, plain=True)
+    for d in range(4):
+        aunt = aunts[:, d, :]
+        right_child = (path_bits[:, d] == 1)[:, None]
+        left = torch.where(right_child, aunt, digest)
+        right = torch.where(right_child, digest, aunt)
+        digest = _pair_hashes(left, right)
+    return digest
 
 
 def header_proof_root(
@@ -130,15 +175,14 @@ def header_proof_root(
 
     leaf_bytes: (B, L) uint8 (0x00-prefixed leaf, padded), leaf_len: (B,),
     aunts: (B, 4, 32) uint8, path_bits: (B, 4) (1 = the current node is
-    the right child). -> roots (B, 32) uint8."""
-    digest = sha256_bytes_var(leaf_bytes, leaf_len, n_blocks=2)
-    for d in range(4):
-        aunt = aunts[:, d, :]
-        right_child = (path_bits[:, d] == 1)[:, None]
-        left = torch.where(right_child, aunt, digest)
-        right = torch.where(right_child, digest, aunt)
-        digest = _pair_hashes(left, right)
-    return digest
+    the right child). -> roots (B, 32) uint8: the plain twin for a CPU
+    tensor, one csrc/sha.cu launch for a CUDA tensor."""
+    t = leaf_bytes.device.type
+    if t == "cpu":
+        return header_proof_root_plain(leaf_bytes, leaf_len, aunts, path_bits)
+    if t == "cuda":
+        return sha256.header_proofs_cuda(leaf_bytes, leaf_len, aunts, path_bits)
+    raise ValueError(f"no header proofs for device {leaf_bytes.device}")
 
 
 # ---------------------------------------------------------------------------

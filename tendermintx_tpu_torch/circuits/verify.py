@@ -56,7 +56,8 @@ def _height_leaf(h_lo, h_hi, width: int):
 
 
 def _proof_roots(proofs: list[HeaderProof]) -> torch.Tensor:
-    """Roots of several header proofs, evaluated as one batch. -> (k, 32)."""
+    """Roots of several header proofs, evaluated as one batch (one launch
+    on a card). -> (k, 32)."""
     return g.header_proof_root(
         torch.cat([p.leaf_bytes for p in proofs]),
         torch.cat([p.leaf_len for p in proofs]),
@@ -93,8 +94,7 @@ def _lanes_checks(lanes, nb, round_, height_lo, height_hi, header_hash):
     lane_shape_ok = (lanes.enabled == (torch.arange(B, device=dev) < as_tensor(nb, dev))).all() & (
         ~lanes.signed | lanes.enabled
     ).all()
-    leaf_digests = g.hash_validator_leaves(lanes.leaf_bytes, lanes.leaf_len)
-    computed_vhash = g.merkle_root_dynamic(leaf_digests, nb)
+    computed_vhash = g.validator_root(lanes.leaf_bytes, lanes.leaf_len, nb)
     threshold_ok = g.voting_threshold_ok(lanes.vp_lo, lanes.vp_hi, lanes.signed, lanes.enabled, 2, 3)
     return sig_ok & pk_ok & msg_ok & lane_shape_ok & threshold_ok, computed_vhash
 
@@ -183,9 +183,7 @@ def skip_verify(
 
     # the trusted validators hash binds to the trusted header
     tl = w.trusted_lanes
-    trusted_vhash = g.merkle_root_dynamic(
-        g.hash_validator_leaves(tl.leaf_bytes, tl.leaf_len), w.nb_trusted_validators
-    )
+    trusted_vhash = g.validator_root(tl.leaf_bytes, tl.leaf_len, w.nb_trusted_validators)
     tvh_ok = g.bytes_equal(roots[3], trusted_header_hash) & g.bytes_equal(
         _leaf_hash_window(tvh, 3), trusted_vhash
     )

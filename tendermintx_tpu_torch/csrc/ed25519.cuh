@@ -64,6 +64,17 @@ __device__ __forceinline__ Fe sub(const Fe& f, const Fe& g) {
     return carry(h);
 }
 
+// f + g, or f - g + 2p where `neg` is all ones (0 where it is zero): the
+// limb sums of add or sub, g's limbs complemented under the mask (~g + 1 =
+// -g mod 2^32), so that threads that add and threads that subtract run one
+// instruction stream
+__device__ __forceinline__ Fe addsub(const Fe& f, const Fe& g, uint32_t neg) {
+    Fe h;
+#pragma unroll
+    for (int k = 0; k < LIMBS; ++k) h.v[k] = f.v[k] + (g.v[k] ^ neg) + ((two_p(k) + 1) & neg);
+    return carry(h);
+}
+
 // ref10's carry chain over the ten 64-bit product sums, interleaved as two
 // chains (from limbs 0 and 4) for parallelism, limb 9's carry re-entering
 // limb 0 times 19

@@ -1,30 +1,54 @@
 // Batched SHA-256 and SHA-512 compressions of the witness programs on Hopper
 // (ops/sha256.py and ops/sha512.py bind them with ctypes):
 //
-//   tmx_sha256_blocks  lanes of (n_blocks, 16) 32-bit words (the low 32
-//                      bits of int64 inputs) -> (lanes, 8) digest words;
-//   tmx_sha512_blocks  the same over 64-bit words (int64 bit patterns),
-//                      80 rounds.
+//   tmx_sha256_blocks          lanes of (n_blocks, 16) 32-bit words (the low
+//                              32 bits of int64 inputs) -> (lanes, 8) digest
+//                              words;
+//   tmx_sha512_blocks          the same over 64-bit words (int64 bit
+//                              patterns), 80 rounds;
+//   tmx_sha256_validator_root  a validator set's CometBFT Merkle root: each
+//                              lane's 0x00-prefixed leaf bytes padded and
+//                              hashed, then every level's pairs, in one
+//                              block (circuits/gadgets.py::validator_root);
+//   tmx_sha256_header_proofs   k header Merkle proofs of depth 4: each
+//                              proof's leaf bytes hashed, then its 4 aunts
+//                              walked by its path bits, a thread a proof
+//                              (circuits/gadgets.py::header_proof_root).
 //
 // Replace the XLA programs of tendermintx_tpu/ops/sha256.py:82
 // `sha256_blocks` (jitted as `sha256_blocks_jit`) and
-// tendermintx_tpu/ops/sha512.py:143 `sha512_blocks` (`sha512_blocks_jit`).
+// tendermintx_tpu/ops/sha512.py:143 `sha512_blocks` (`sha512_blocks_jit`);
+// the tree and proof entries replace the per-level programs of
+// tendermintx_tpu/circuits/gadgets.py:94 `merkle_root_dynamic` (over :89
+// `hash_validator_leaves`) and :123 `header_proof_root`, which the JAX
+// package traces into its jitted step / skip verification.
 //
 // A lane compresses its blocks 0 .. min(n_active, n_blocks) - 1: none when
 // n_active <= 0, all of them when n_active > n_blocks. That is what the
 // plain versions' `keep = i < n_active` loop gives. Digest words are
 // written as int64 (SHA-256's below 2^32).
 //
+// The tree and proof entries pad byte messages as gadgets.py's
+// bytes_to_blocks does: the bytes below the lane's length (zero past the
+// buffer's width), 0x80, zeros, the bit length in the last active block's
+// final word. A length outside [0, 64 n_blocks - 9] (bytes_to_blocks'
+// contract) is clamped into it, so no lane reads past its row.
+//
 // Bounds and design: the witness programs hash 1-129 lanes of one or two
-// blocks a call (N = 128: 21 calls a skip, 13 a step, one SHA-512 call of
-// 128 lanes x 2 blocks), a few kilobytes. The work is ~2,200 32-bit
-// operations a SHA-256 block and ~5,500 a SHA-512 block, nanoseconds over
-// the card; what a call costs is its launch and one lane's dependent chain
-// of rounds. So one thread takes one lane: its message schedule is a ring
-// of 16 words in registers, K and the initial state sit in __constant__
-// (every round reads one word at a compile-time index), and the rounds
-// unroll. Each entry has a plain C interface, launches on the caller's
-// stream and returns cudaGetLastError(); the kernels allocate nothing.
+// blocks a call, a few kilobytes. The work is ~1,400 Hopper instructions a
+// SHA-256 block and ~3,500 a SHA-512 block, nanoseconds over the card;
+// what a call costs is its launch and its dependent chain of compressions.
+// So one thread takes one lane: its message schedule is a ring of 16 words
+// in registers, K and the initial state sit in __constant__ (every round
+// reads one word at a compile-time index), and the rounds unroll. A tree
+// is one block of B' threads (B' the lane count rounded up to a power of
+// two, at most 1,024): a thread hashes its leaf into shared memory, then
+// each level's pair-and-promote runs there with n_enabled read on the card,
+// the 65-byte pair message 0x01 || left || right built from the digest
+// words in registers (two blocks, the second one byte, 0x80 and the length
+// 520). Its chain is the leaf and two compressions a level. Each entry has
+// a plain C interface, launches on the caller's stream and returns
+// cudaGetLastError(); the kernels allocate nothing.
 
 #include <cstdint>
 #include <climits>
@@ -90,6 +114,36 @@ struct ShaArgs {
     int64_t* out;
 };
 
+// ops/sha256.py::_RootArgs, field for field: leaf_bytes (lanes, width)
+// uint8, leaf_len (lanes,) and n_enabled (one value) int64, contiguous;
+// out (32,) uint8
+struct RootArgs {
+    const uint8_t* leaf_bytes;
+    const int64_t* leaf_len;
+    const int64_t* n_enabled;
+    int64_t lanes;
+    int64_t width;
+    uint8_t* out;
+};
+
+// ops/sha256.py::_ProofArgs, field for field: leaf_bytes (proofs, width)
+// and aunts (proofs, 4, 32) uint8, leaf_len (proofs,) and path_bits
+// (proofs, 4) int64, contiguous; out (proofs, 32) uint8
+struct ProofArgs {
+    const uint8_t* leaf_bytes;
+    const int64_t* leaf_len;
+    const uint8_t* aunts;
+    const int64_t* path_bits;
+    int64_t proofs;
+    int64_t width;
+    uint8_t* out;
+};
+
+// the most lanes a validator tree takes: one block, a thread a leaf
+constexpr int MAX_TREE_LANES = 1024;
+// circuits/gadgets.py::header_proof_root: a header proof's depth
+constexpr int PROOF_DEPTH = 4;
+
 namespace {
 
 __device__ __forceinline__ uint32_t rotr(uint32_t x, int n) { return __funnelshift_r(x, x, n); }
@@ -123,16 +177,50 @@ struct Spec<uint64_t> {
     static __device__ __forceinline__ uint64_t s1(uint64_t w) { return rotr(w, 19) ^ rotr(w, 61) ^ (w >> 6); }
 };
 
+// One block of 16 words into the state h (FIPS 180-4's compression with
+// its feed-forward add).
+template <typename Word>
+__device__ __forceinline__ void compress(Word (&h)[8], Word (&w)[16]) {
+    using S = Spec<Word>;
+    Word v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = h[i];
+#pragma unroll
+    for (int t = 0; t < S::ROUNDS; ++t) {
+        if (t >= 16)
+            w[t & 15] += S::s0(w[(t - 15) & 15]) + w[(t - 7) & 15] + S::s1(w[(t - 2) & 15]);
+        // v = (a, b, c, d, e, f, g, h) rotated by t: v[(8 - t) & 7] is a
+        Word& A = v[(8 - t) & 7];
+        Word& B = v[(9 - t) & 7];
+        Word& C = v[(10 - t) & 7];
+        Word& D = v[(11 - t) & 7];
+        Word& E = v[(12 - t) & 7];
+        Word& F = v[(13 - t) & 7];
+        Word& G = v[(14 - t) & 7];
+        Word& H = v[(15 - t) & 7];
+        const Word t1 = H + S::S1(E) + ((E & F) ^ (~E & G)) + S::k(t) + w[t & 15];
+        const Word t2 = S::S0(A) + ((A & B) ^ (A & C) ^ (B & C));
+        D += t1;        // the new e
+        H = t1 + t2;    // the new a: h's slot is a's next round
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] += v[i];
+}
+
+template <typename Word>
+__device__ __forceinline__ void init(Word (&h)[8]) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = Spec<Word>::h0(i);
+}
+
 // One lane a thread: its active blocks compressed in order, the digest
 // words written as int64.
 template <typename Word>
 __device__ __forceinline__ void sha_lane(const ShaArgs& a) {
-    using S = Spec<Word>;
     const int64_t lane = int64_t(blockIdx.x) * THREADS + threadIdx.x;
     if (lane >= a.lanes) return;
     Word h[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) h[i] = S::h0(i);
+    init(h);
     const int64_t active = a.n_active[lane];
     const int64_t n = active < a.n_blocks ? active : a.n_blocks;
     const int64_t* block = a.blocks + lane * a.n_blocks * 16;
@@ -140,32 +228,143 @@ __device__ __forceinline__ void sha_lane(const ShaArgs& a) {
         Word w[16];
 #pragma unroll
         for (int t = 0; t < 16; ++t) w[t] = Word(uint64_t(block[t]));
-        Word v[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] = h[i];
-#pragma unroll
-        for (int t = 0; t < S::ROUNDS; ++t) {
-            if (t >= 16)
-                w[t & 15] += S::s0(w[(t - 15) & 15]) + w[(t - 7) & 15] + S::s1(w[(t - 2) & 15]);
-            // v = (a, b, c, d, e, f, g, h) rotated by t: v[(8 - t) & 7] is a
-            Word& A = v[(8 - t) & 7];
-            Word& B = v[(9 - t) & 7];
-            Word& C = v[(10 - t) & 7];
-            Word& D = v[(11 - t) & 7];
-            Word& E = v[(12 - t) & 7];
-            Word& F = v[(13 - t) & 7];
-            Word& G = v[(14 - t) & 7];
-            Word& H = v[(15 - t) & 7];
-            const Word t1 = H + S::S1(E) + ((E & F) ^ (~E & G)) + S::k(t) + w[t & 15];
-            const Word t2 = S::S0(A) + ((A & B) ^ (A & C) ^ (B & C));
-            D += t1;        // the new e
-            H = t1 + t2;    // the new a: h's slot is a's next round
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) h[i] += v[i];
+        compress(h, w);
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) a.out[lane * 8 + i] = int64_t(uint64_t(h[i]));
+}
+
+// SHA-256 of a byte message of `len` bytes (clamped to [0, 64 NB - 9]) in a
+// row of `width` bytes, padded as gadgets.py::bytes_to_blocks pads it: byte
+// p of the padded stream is the row's byte p below len (zero at and past
+// width), 0x80 at len, else zero, and the last active block's word 15 is
+// the bit length (its word 14 is zero: len < 2^29).
+template <int NB>
+__device__ __forceinline__ void sha256_bytes(const uint8_t* row, int64_t width, int64_t len, uint32_t (&h)[8]) {
+    constexpr int64_t CAP = 64 * NB - 9;
+    len = len < 0 ? 0 : len > CAP ? CAP : len;
+    const int64_t have = len < width ? len : width;
+    const int active = int((len + 9 + 63) / 64);
+    init(h);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+        if (b >= active) break;
+        uint32_t w[16];
+#pragma unroll
+        for (int t = 0; t < 16; ++t) {
+            uint32_t word = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int64_t p = 64 * b + 4 * t + j;
+                const uint32_t byte = p < have ? row[p] : p == len ? 0x80u : 0u;
+                word |= byte << (24 - 8 * j);
+            }
+            w[t] = word;
+        }
+        if (b == active - 1) w[15] = uint32_t(len * 8);
+        compress(h, w);
+    }
+}
+
+// SHA-256(0x01 || left || right), a CometBFT inner node: the 65 bytes and
+// their padding as two blocks of words shifted by the prefix byte
+__device__ __forceinline__ void sha256_pair(const uint32_t (&l)[8], const uint32_t (&r)[8], uint32_t (&h)[8]) {
+    uint32_t w[16];
+    w[0] = 0x01000000u | (l[0] >> 8);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) w[k] = (l[k - 1] << 24) | (l[k] >> 8);
+    w[8] = (l[7] << 24) | (r[0] >> 8);
+#pragma unroll
+    for (int k = 1; k < 8; ++k) w[8 + k] = (r[k - 1] << 24) | (r[k] >> 8);
+    init(h);
+    compress(h, w);
+    w[0] = (r[7] << 24) | 0x00800000u;
+#pragma unroll
+    for (int k = 1; k < 15; ++k) w[k] = 0;
+    w[15] = 65 * 8;
+    compress(h, w);
+}
+
+__device__ __forceinline__ void store_digest(const uint32_t (&h)[8], uint8_t* out) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) out[4 * i + j] = uint8_t(h[i] >> (24 - 8 * j));
+}
+
+// One block, B' = blockDim.x threads (a power of two >= lanes): leaf i's
+// digest (zeros for the padding rows i >= lanes), then log2 B' levels of
+// pair-and-promote in shared memory with n read on the card: node i of the
+// next level is H(node 2i, node 2i + 1) for i < n / 2, node n - 1 promoted
+// at i = n / 2 when n is odd, else zeros; n becomes n / 2 + n % 2 (floor
+// division, as torch's on a negative n). Reads happen before the barrier,
+// writes after it: a level rewrites its nodes in place.
+__global__ void __launch_bounds__(MAX_TREE_LANES) tmx_sha256_root_kernel(RootArgs a) {
+    __shared__ uint32_t node[MAX_TREE_LANES][8];
+    const int i = threadIdx.x;
+    uint32_t h[8] = {};
+    if (i < a.lanes) sha256_bytes<1>(a.leaf_bytes + i * a.width, a.width, a.leaf_len[i], h);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) node[i][k] = h[k];
+    int64_t n = *a.n_enabled;
+    __syncthreads();
+    for (int size = blockDim.x; size > 1; size >>= 1) {
+        const int half = size >> 1;
+        const int64_t pairs = n >> 1, odd = n & 1;
+        uint32_t v[8] = {};
+        if (i < half && i < pairs) {
+            uint32_t l[8], r[8];
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                l[k] = node[2 * i][k];
+                r[k] = node[2 * i + 1][k];
+            }
+            sha256_pair(l, r, v);
+        } else if (i < half && i == pairs && odd) {
+            const int64_t last = n - 1 < size - 1 ? n - 1 : size - 1;  // n <= size within the contract
+#pragma unroll
+            for (int k = 0; k < 8; ++k) v[k] = node[last][k];
+        }
+        __syncthreads();
+        if (i < half)
+#pragma unroll
+            for (int k = 0; k < 8; ++k) node[i][k] = v[k];
+        __syncthreads();
+        n = pairs + odd;
+    }
+    if (i == 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) h[k] = node[0][k];
+        store_digest(h, a.out);
+    }
+}
+
+// A thread a proof: the leaf (up to two blocks), then at each depth d the
+// pair (aunt, node) when path bit d is 1 (the node is a right child), else
+// (node, aunt).
+__global__ void __launch_bounds__(THREADS) tmx_sha256_proofs_kernel(ProofArgs a) {
+    const int64_t p = int64_t(blockIdx.x) * THREADS + threadIdx.x;
+    if (p >= a.proofs) return;
+    uint32_t h[8];
+    sha256_bytes<2>(a.leaf_bytes + p * a.width, a.width, a.leaf_len[p], h);
+#pragma unroll 1
+    for (int d = 0; d < PROOF_DEPTH; ++d) {
+        const uint8_t* aunt = a.aunts + (p * PROOF_DEPTH + d) * 32;
+        uint32_t s[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+            s[k] = (uint32_t(aunt[4 * k]) << 24) | (uint32_t(aunt[4 * k + 1]) << 16) |
+                   (uint32_t(aunt[4 * k + 2]) << 8) | uint32_t(aunt[4 * k + 3]);
+        uint32_t l[8], r[8];
+        const bool right = a.path_bits[p * PROOF_DEPTH + d] == 1;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            l[k] = right ? s[k] : h[k];
+            r[k] = right ? h[k] : s[k];
+        }
+        sha256_pair(l, r, h);
+    }
+    store_digest(h, a.out + p * 32);
 }
 
 __global__ void __launch_bounds__(THREADS) tmx_sha256_kernel(ShaArgs a) { sha_lane<uint32_t>(a); }
@@ -189,4 +388,25 @@ extern "C" int tmx_sha256_blocks(const ShaArgs* args, void* stream) {
 
 extern "C" int tmx_sha512_blocks(const ShaArgs* args, void* stream) {
     return launch(tmx_sha512_kernel, *args, stream);
+}
+
+// one block of lanes rounded up to a power of two; 1 <= lanes <=
+// MAX_TREE_LANES, else cudaErrorInvalidValue and no launch
+extern "C" int tmx_sha256_validator_root(const RootArgs* args, void* stream) {
+    const RootArgs& a = *args;
+    if (a.lanes < 1 || a.lanes > MAX_TREE_LANES || a.width < 0) return (int)cudaErrorInvalidValue;
+    int threads = 1;
+    while (threads < a.lanes) threads <<= 1;
+    tmx_sha256_root_kernel<<<1, threads, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int tmx_sha256_header_proofs(const ProofArgs* args, void* stream) {
+    const ProofArgs& a = *args;
+    if (a.proofs < 0 || a.width < 0) return (int)cudaErrorInvalidValue;
+    if (a.proofs == 0) return 0;
+    const int64_t blocks = (a.proofs + THREADS - 1) / THREADS;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+    tmx_sha256_proofs_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
 }

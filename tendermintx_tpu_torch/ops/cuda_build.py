@@ -8,6 +8,7 @@ includes, so an edited source or header never loads a stale library. A
 failed build raises with nvcc's stderr; nothing falls back. The build keeps
 ptxas's resource report (``-Xptxas -v``) beside the library;
 ``ptxas_report`` reads each kernel's registers and spill bytes from it.
+``operand`` checks a tensor a kernel entry takes and gives its pointer.
 """
 
 from __future__ import annotations
@@ -124,3 +125,13 @@ def ptxas_report(name: str) -> dict[str, dict]:
 @cache
 def load_library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build(name))
+
+
+def operand(t, dev, dtype, shape: tuple, what: str) -> int:
+    """The pointer of a kernel operand: a contiguous `dtype` tensor of
+    `shape` on `dev`, else raise ValueError."""
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dtype} {shape} tensor on {dev}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+                         f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+    return t.data_ptr()

@@ -36,6 +36,8 @@ from functools import cache
 import numpy as np
 import torch
 
+from .cuda_build import operand
+
 P25519 = 2**255 - 19
 L_ORDER = 2**252 + 27742317777372353535851937790883648493
 D_ED = (-121665 * pow(121666, P25519 - 2, P25519)) % P25519
@@ -560,16 +562,6 @@ def _ed_launch(fn: str, args, dev):
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
 
 
-def _operand(t: torch.Tensor, dev, dtype, shape: tuple, what: str) -> int:
-    """The pointer of a kernel operand: a contiguous `dtype` tensor of
-    `shape` on `dev`, else raise."""
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous {dtype} {shape} tensor on {dev}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-                         f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-    return t.data_ptr()
-
-
 def _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=None) -> tuple[list[int], int, int]:
     """(pointers, lanes, steps) of the ladder's inputs on one card."""
     dev = table_x.device
@@ -580,7 +572,7 @@ def _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=None) -
         steps = int(bits2.shape[-1]) if bits2.dim() == 2 else -1
     shapes = ((B, 4, N_LIMBS),) * 3 + ((B, steps), (B, N_LIMBS), (B, N_LIMBS))
     names = ("table_x", "table_y", "table_t", "bits2", "rx", "ry")
-    ptrs = [_operand(t, dev, torch.int64, shape, f"{fn}'s {name}")
+    ptrs = [operand(t, dev, torch.int64, shape, f"{fn}'s {name}")
             for t, shape, name in zip((table_x, table_y, table_t, bits2, rx, ry), shapes, names)]
     return ptrs, B, steps
 
@@ -588,9 +580,10 @@ def _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=None) -
 def straus_verify_cuda(table_x, table_y, table_t, bits2, rx, ry):
     """straus_verify_plain's (B,) bool by one csrc/ed25519.cu launch, on
     every input whose limbs lie in [0, 2^13) and for any int64 selector
-    (one outside 0..3 selects the all-zero operand): a thread a lane in
-    blocks of 32, the lane's table operands in shared memory. Contiguous
-    int64 operands on one card, else raise."""
+    (one outside 0..3 selects the all-zero operand): a quad of thread
+    pairs a lane, a pair a field product of each phase of a step, 4 lanes
+    a one-warp block, the lane's table operands in shared memory.
+    Contiguous int64 operands on one card, else raise."""
     global straus_kernel_launches
     ptrs, B, steps = _ladder_operands("straus_verify_cuda", table_x, table_y, table_t, bits2, rx, ry)
     out = torch.empty((B,), dtype=torch.bool, device=table_x.device)
@@ -614,10 +607,10 @@ def bind_witness_cuda(
     fn = "bind_witness_cuda"
     ptrs, B, _ = _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=N_BITS)
     dev = table_x.device
-    ptrs += [_operand(t, dev, torch.uint8, (B, n), f"{fn}'s {name}")
+    ptrs += [operand(t, dev, torch.uint8, (B, n), f"{fn}'s {name}")
              for t, n, name in ((sig_r, 32, "sig_r"), (sig_s, 32, "sig_s"), (sig_pk, 32, "sig_pk"),
                                 (digest_bytes, 64, "digest_bytes"))]
-    ptrs.append(_operand(k_q, dev, torch.int64, (B, N_LIMBS), f"{fn}'s k_q"))
+    ptrs.append(operand(k_q, dev, torch.int64, (B, N_LIMBS), f"{fn}'s k_q"))
     out = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
         _ed_launch("tmx_bind_witness", _BindArgs(*ptrs, lanes=B, out=out.data_ptr()), dev)

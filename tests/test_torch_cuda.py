@@ -1300,10 +1300,11 @@ def test_bind_kernel_matches_plain_on_both_outcomes(dev, witness_cases):
     assert got.any() and not got.all()
 
 
-@pytest.mark.parametrize("lanes", [1, 31, 33, 128])
+@pytest.mark.parametrize("lanes", [1, 7, 8, 9, 31, 33, 128])
 def test_ed25519_kernels_match_plain_at_ragged_lanes(dev, witness_cases, lanes):
-    """The check lanes repeated to 1-128 lanes: blocks of 32 lanes, the
-    last one partial."""
+    """The check lanes repeated to 1-128 lanes: the ladder's blocks of 8
+    lanes (a quad of threads each) and the binding's of 32, the last one
+    partial."""
     from tendermintx_tpu_torch.ops import ed25519 as ed
 
     ladder, bind = witness_cases
@@ -1362,3 +1363,86 @@ def test_witness_kernels_refuse_instead_of_falling_back(dev, witness_cases):
     with pytest.raises(ValueError):
         ed.bind_witness_cuda(*bind[:3], bind[3][:, :200].contiguous(), *bind[4:])
     assert _witness_counts() == before
+
+
+def _gadget_counts():
+    from tendermintx_tpu_torch.ops import sha256
+
+    return (sha256.sha256_kernel_launches, sha256.validator_root_kernel_launches,
+            sha256.header_proofs_kernel_launches)
+
+
+def test_sha256_tree_and_proof_kernels_match_twins(dev):
+    """chip_smoke.py's cases: validator trees of 1, 5, 100 and 128 lanes at
+    n_enabled 0, 1, odd, even and B; header proofs of 1, 5 and 33 with
+    leaves of one and two blocks and both path bits; each launch exact
+    against its twin on the card."""
+    import chip_smoke
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    before = _gadget_counts()
+    cases = chip_smoke._sha256_gadget_cases(gen, dev)
+    trees = sum(len(c["n_enabled"]) for c in cases["sha256_validator_root"])
+    assert [a - b for a, b in zip(_gadget_counts(), before)] == [0, trees, 3]
+
+
+def test_sha256_gadgets_on_card_equal_cpu(dev):
+    """The dispatchers on card tensors (one launch each) against the CPU's
+    twins, and the roots against hashlib's CometBFT tree."""
+    import hashlib
+
+    from tendermintx_tpu_torch.circuits import gadgets as g
+
+    rng = np.random.default_rng(11)
+    data = rng.integers(0, 256, size=(100, 47), dtype=np.uint8)
+    data[:, 0] = 0
+    lens = rng.integers(1, 48, size=100).astype(np.int64)
+    cpu = [torch.from_numpy(data), torch.from_numpy(lens)]
+    card = [t.to(dev) for t in cpu]
+    leaves = [hashlib.sha256(bytes(data[i, : lens[i]])).digest() for i in range(100)]
+
+    def cometbft(xs):
+        if len(xs) == 1:
+            return xs[0]
+        k = 1 << ((len(xs) - 1).bit_length() - 1)
+        return hashlib.sha256(b"\x01" + cometbft(xs[:k]) + cometbft(xs[k:])).digest()
+
+    for n in (1, 37, 64, 100):
+        before = _gadget_counts()
+        got = g.validator_root(*card, torch.tensor(n, device=dev))
+        assert [a - b for a, b in zip(_gadget_counts(), before)] == [0, 1, 0]
+        assert torch.equal(got.cpu(), g.validator_root(*cpu, n))
+        assert bytes(got.cpu().numpy()) == cometbft(leaves[:n])
+    pdata = rng.integers(0, 256, size=(5, 73), dtype=np.uint8)
+    plens = np.array([119, 55, 1, 73, 64], dtype=np.int64)
+    aunts = rng.integers(0, 256, size=(5, 4, 32), dtype=np.uint8)
+    bits = np.array([[0, 0, 0, 0], [1, 1, 1, 1], [1, 0, 1, 0], [0, 2, 1, 1], [1, 1, 0, 0]], dtype=np.int64)
+    cpu = [torch.from_numpy(a) for a in (pdata, plens, aunts, bits)]
+    before = _gadget_counts()
+    got = g.header_proof_root(*(t.to(dev) for t in cpu))
+    assert [a - b for a, b in zip(_gadget_counts(), before)] == [0, 0, 1]
+    assert torch.equal(got.cpu(), g.header_proof_root(*cpu))
+
+
+def test_sha256_gadget_kernels_refuse_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.ops import sha256
+
+    u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8, device=dev)
+    i64 = lambda *shape: torch.ones(shape, dtype=torch.int64, device=dev)
+    n = torch.tensor(3, device=dev)
+    before = _gadget_counts()
+    for args in ((u8(0, 47), i64(0), n), (u8(1025, 47), i64(1025), n),  # lanes past one block
+                 (u8(47, 8).t(), i64(8), n), (u8(8, 47), i64(8).to(torch.int32), n),
+                 (u8(8, 47), i64(7), n), (u8(8, 47), i64(8), i64(2)), (u8(8, 47), i64(8), n.to(torch.int32))):
+        with pytest.raises(ValueError):
+            sha256.validator_root_cuda(*args)
+    with pytest.raises(TypeError):
+        sha256.validator_root_cuda(u8(8, 47).cpu(), i64(8).cpu(), n.cpu())
+    proofs = (u8(5, 73), i64(5), u8(5, 4, 32), i64(5, 4))
+    for k, bad in ((0, u8(73, 5).t()), (1, i64(4)), (2, u8(5, 3, 32)), (3, i64(5, 4).to(torch.int32))):
+        with pytest.raises(ValueError):
+            sha256.header_proofs_cuda(*proofs[:k], bad, *proofs[k + 1:])
+    with pytest.raises(TypeError):
+        sha256.header_proofs_cuda(*(t.cpu() for t in proofs))
+    assert _gadget_counts() == before

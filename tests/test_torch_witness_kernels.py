@@ -9,7 +9,10 @@ equal to the plain torch versions (ops/ed25519.py) and to the pure-Python
 oracle on the witness fixture of tests/test_torch_witness.py (whose
 plain ladder is held equal to the JAX package's there), and every limb and
 accumulator is checked against the bounds the kernel assumes, both on
-these runs and by interval arithmetic over all inputs. The SHA edge cases
+these runs and by interval arithmetic over all inputs; the ladder's quad
+code (a thread pair a product of each phase, a phase's sums one a pair,
+both passed through shared memory) and the pair's half products are
+modelled too. The SHA edge cases
 pin the n_active semantics the SHA kernels keep, against the JAX package
 and hashlib; the dispatch tests pin that a CPU tensor takes the plain
 version and never counts a launch. Exact equality throughout."""
@@ -100,6 +103,17 @@ class Model:
     def sub(self, f, g):
         assert (g <= _TWO_P).all()
         return self.carry(f + _TWO_P - g)
+
+    def addsub(self, f, g, neg: bool):
+        """f + (g ^ mask) + ((2p + 1) & mask) in 32-bit words, the mask all
+        ones where `neg`: sub's limb sums, else add's."""
+        if not neg:
+            return self.add(f, g)
+        assert (g <= _TWO_P).all()
+        mask = np.uint64(0xFFFFFFFF)
+        h = (f + (g ^ mask) + (_TWO_P + np.uint64(1))) & mask
+        assert (h == f + _TWO_P - g).all()
+        return self.carry(h)
 
     def mul(self, f, g):
         g19 = self._u32(np.uint64(19) * g)
@@ -198,6 +212,63 @@ def straus_model(table_x, table_y, table_t, bits2, rx, ry, m: Model) -> np.ndarr
         o = [np.stack([ops[e][j][:, b] for b, e in zip(lanes, sel)], axis=1) for j in range(3)]
         X, Y, Z, T = m.madd(X, Y, Z, T, *o)
     return m.eq(X, m.mul(m.load13(rx), Z)) & m.eq(Y, m.mul(m.load13(ry), Z))
+
+
+def straus_quad_model(table_x, table_y, table_t, bits2, rx, ry, m: Model) -> np.ndarray:
+    """tmx_straus_kernel as its quads run it: thread q of a lane's quad
+    makes table entry q's operands; each phase of a step reads the rows
+    (three product buffers P0-P2, the sums S, the zero row) the kernel's
+    thread q addresses and writes its one product or sum: the doubling's
+    f = u1 + u2 times f (2Z times Z on thread 2), its sums u - (A + w),
+    the addition's (u -+ v) times a table operand and its sums
+    (u1 + u2) -+ v, each point S[f] S[g]; at the end even threads check
+    X == rx Z, odd ones Y == ry Z. Lane-parallel over the (10, lanes)
+    arrays, thread by thread."""
+    B = table_x.shape[0]
+    d2 = m.const(ed.D2_ED, B)
+    zero = np.zeros((LIMBS, B), dtype=np.uint64)
+    ops = []
+    for q in range(4):
+        x, y = m.load13(table_x[:, q]), m.load13(table_y[:, q])
+        ops.append((m.sub(y, x), m.add(y, x), m.mul(m.load13(table_t[:, q]), d2)))
+    ops.append((zero, zero, zero))
+    P0, P1, P2, S, Z0 = 0, 4, 8, 12, 16
+    rows = [zero] * 17
+    for q, t in enumerate((table_x, table_y, table_y, table_t)):
+        rows[P2 + q] = m.load13(t[:, 0])
+    lanes = np.arange(B)
+    for i in range(bits2.shape[1]):
+        sel = np.where((bits2[:, i] >= 0) & (bits2[:, i] <= 3), bits2[:, i], 4)
+
+        def phase(out, value):
+            rows[out:out + 4] = [value(q) for q in range(4)]
+
+        def squares(q):
+            f = m.add(rows[P2 + (0 if q == 3 else q)], rows[P2 + 1 if q == 3 else P2 + 2 if q == 2 else Z0])
+            return m.mul(f, rows[P2 + 2] if q == 2 else f)
+
+        def point(q):
+            return m.mul(rows[S + (2 if q == 1 else 1 if q == 2 else 0)], rows[S + (1 if q == 0 else 2 if q == 2 else 3)])
+
+        def products(q):
+            o = np.stack([ops[e][min(q, 2)][:, b] for b, e in zip(lanes, sel)], axis=1)
+            f = m.addsub(rows[P0 + 1 if q < 2 else P0 + 3], rows[P0 if q < 2 else Z0], q == 0)
+            return m.mul(f, o)
+
+        def add_sums(q):
+            mid = q in (1, 2)
+            u = m.add(rows[P0 + 2 if mid else P1 + 1], rows[P0 + 2 if mid else Z0])
+            return m.addsub(u, rows[P1 + 2 if mid else P1], q < 2)
+
+        phase(P1, squares)
+        phase(S, lambda q: m.sub(rows[P1 + 3 if q == 0 else Z0 if q == 3 else P1 + 1],
+                                 m.add(rows[P1], rows[P1 + 2 if q == 1 else Z0 if q == 2 else P1 + 1])))
+        phase(P0, point)
+        phase(P1, products)
+        phase(S, add_sums)
+        phase(P2, point)
+    ok = [m.eq(rows[P2 + (q & 1)], m.mul(m.load13(ry if q & 1 else rx), rows[P2 + 2])) for q in range(2)]
+    return ok[0] & ok[1]
 
 
 def byte_limbs(data: np.ndarray, n_limbs: int, n_bits: int) -> np.ndarray:
@@ -334,6 +405,12 @@ def test_limb_bounds_hold_for_every_input():
     assert all(g <= t for g, t in zip(bound, TWO_P))  # sub's pad covers any subtrahend
     assert all(_iv_carry([a + t for a, t in zip(bound, TWO_P)])[k] <= bound[k] for k in range(LIMBS))
     assert all(_iv_mul(bound, bound)[k] <= bound[k] for k in range(LIMBS))
+    # addsub under the all-ones mask: f + ~g + 2p + 1 is sub's f + 2p - g
+    # mod 2^32, and that sum is below 2^31 (so the same word) for every f
+    # and g within the bounds
+    for k in range(LIMBS):
+        for f, g in ((0, 0), (bound[k], 0), (0, bound[k]), (bound[k], bound[k]), (0, TWO_P[k])):
+            assert (f + (g ^ 0xFFFFFFFF) + TWO_P[k] + 1) % 2**32 == f + TWO_P[k] - g < U32_BOUND
     load = [MASK[k] + (19 * 31 if k == 0 else 0) for k in range(LIMBS)]
     assert all(load[k] <= bound[k] for k in range(LIMBS))
     # canon: after its sequential carry, limbs 1..9 within their width and
@@ -400,6 +477,54 @@ def test_ladder_model_equals_plain_and_oracle(ladder_inputs):
     # and -3 add the all-zero operand, which zeroes the point (X = Y = Z =
     # 0 passes the projective check): the binding rejects that lane
     assert got[8] and got[9]
+    assert m.max32 < U32_BOUND and m.max64 < PRODUCT_SUM_BOUND
+
+
+def pair_product_sums(f: np.ndarray, g: np.ndarray, half: int) -> np.ndarray:
+    """mul_pair's five sums on thread `half` of a pair: output kk is the
+    product's limb 5 half + kk, from g rotated by 5 half limbs (gr), its 19
+    multiples (gr19), gx (gr in half 1, gr19 in half 0) and f's odd limbs
+    doubled by j0's parity and the half, as csrc/ed25519.cu writes it."""
+    rot = [(m + 5 * half) % LIMBS for m in range(LIMBS)]
+    gr = g[rot]
+    gr19 = np.uint64(19) * gr
+    gx = gr if half else gr19
+    fe, fo = (np.uint64(2) * f, f) if half else (f, np.uint64(2) * f)
+    part = np.zeros((5,) + f.shape[1:], dtype=np.uint64)
+    for kk in range(5):
+        for i in range(LIMBS):
+            j0 = (kk - i) % LIMBS
+            a = (fo[i] if j0 & 1 else fe[i]) if i & 1 else f[i]
+            b = gr[j0] if i <= kk else gx[j0] if i <= kk + 5 else gr19[j0]
+            part[kk] += a * b
+    return part
+
+
+def test_pair_product_halves_are_the_products_sums():
+    """Half 0's five sums and half 1's are mul's ten sums before its carry
+    chain, on limbs at the bounds and at random below them."""
+    rng = np.random.default_rng(9)
+    top = np.array(LIMB_BOUND, dtype=np.uint64)[:, None]
+    f = np.concatenate([top, rng.integers(0, top + 1, size=(LIMBS, 64), dtype=np.uint64)], axis=1)
+    g = np.concatenate([top, rng.integers(0, top + 1, size=(LIMBS, 64), dtype=np.uint64)], axis=1)
+    want = np.zeros_like(f)
+    for i in range(LIMBS):
+        for j in range(LIMBS):
+            want[(i + j) % LIMBS] += ((2 if i & j & 1 else 1) * f[i]) * ((19 if i + j >= LIMBS else 1) * g[j])
+    got = np.concatenate([pair_product_sums(f, g, 0), pair_product_sums(f, g, 1)])
+    assert (got == want).all()
+    assert int(want.max()) < PRODUCT_SUM_BOUND
+
+
+def test_quad_ladder_schedule_equals_plain(ladder_inputs):
+    """The quad schedule (every buffer read, every pick by q) gives the
+    lane model's and the plain ladder's outcome on every check lane, with
+    every op within the bounds."""
+    ladder, _, _ = _witness_lanes(ladder_inputs)
+    m = Model()
+    got = straus_quad_model(*ladder, m)
+    want = ed.straus_verify_plain(*(torch.from_numpy(a) for a in ladder)).numpy()
+    assert got.tolist() == want.tolist() == [True] * 4 + [False] * 4 + [True] * 2
     assert m.max32 < U32_BOUND and m.max64 < PRODUCT_SUM_BOUND
 
 
@@ -507,7 +632,8 @@ def test_sha512_n_active_edges_match_jax_and_hashlib():
 
 def _counters():
     return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches,
-            ed.straus_kernel_launches, ed.bind_kernel_launches)
+            ed.straus_kernel_launches, ed.bind_kernel_launches,
+            sha256.validator_root_kernel_launches, sha256.header_proofs_kernel_launches)
 
 
 def test_cpu_tensors_take_the_plain_versions(ladder_inputs):
@@ -522,7 +648,7 @@ def test_cpu_tensors_take_the_plain_versions(ladder_inputs):
                        sha512.sha512_blocks_plain(blocks512, n_active512))
     assert torch.equal(ed.straus_verify(*ladder), ed.straus_verify_plain(*ladder))
     assert torch.equal(ed.bind_witness(*ladder, *bind), ed.bind_witness_plain(*ladder, *bind))
-    assert _counters() == before == (0, 0, 0, 0)
+    assert _counters() == before == (0,) * 6
 
 
 @pytest.mark.parametrize("fn", ["sha256", "sha512", "straus", "bind"])
@@ -541,21 +667,36 @@ def test_wrappers_refuse_other_devices(fn):
 
 
 def test_chip_smoke_witness_calls_are_the_programs_calls(tmp_path, monkeypatch):
-    """chip_smoke.py's launch counts (_witness_launches) and SHA-256 shapes
-    (_witness_sha256_shapes), from which the card run holds the kernels'
-    launches, are the calls skip_verify and step_verify make (here through
-    the plain twins, at N=8)."""
+    """chip_smoke.py's launch counts (_witness_launches) and the tree and
+    proof entries' byte rows (_witness_sha256_shapes), from which the card
+    run holds the kernels' launches, are the calls skip_verify and
+    step_verify make (here through the plain twins, at N=8): two validator
+    trees and one header-proof batch a skip, one and one a step, and no
+    sha256_blocks call outside the twins of those two."""
     import chip_smoke
 
+    from tendermintx_tpu_torch.circuits import gadgets
     from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
     from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
 
     calls = {name: [] for name in chip_smoke.WITNESS_ENTRIES}
-    for name, mod in (("sha256_blocks", sha256), ("sha512_blocks", sha512), ("straus_verify", ed),
-                      ("bind_witness", ed)):
-        plain = getattr(mod, f"{name}_plain")
-        monkeypatch.setattr(mod, f"{name}_plain",
-                            lambda *a, name=name, plain=plain: calls[name].append(tuple(a[0].shape[:2])) or plain(*a))
+    twins = {"sha256_blocks": (sha256, "sha256_blocks_plain"), "sha512_blocks": (sha512, "sha512_blocks_plain"),
+             "straus_verify": (ed, "straus_verify_plain"), "bind_witness": (ed, "bind_witness_plain"),
+             **{name: (gadgets, plain) for name, (_, plain) in chip_smoke.SHA256_GADGETS.items()}}
+    inside = []  # a twin's own calls of the others are not the program's
+
+    def recorded(*a, name, plain):
+        if not inside:
+            calls[name].append(tuple(a[0].shape))
+        inside.append(name)
+        try:
+            return plain(*a)
+        finally:
+            inside.pop()
+
+    for name, (mod, attr) in twins.items():
+        monkeypatch.setattr(mod, attr, lambda *a, name=name, plain=getattr(mod, attr): recorded(*a, name=name,
+                                                                                                 plain=plain))
     sc = chip_smoke.SkipChain(8, str(tmp_path))
     cl, cn = chain_id_leaf_const(chip_smoke.CHAIN_ID)
     trusted, _, skip_inputs = sc.skip(2, 6)
@@ -570,4 +711,5 @@ def test_chip_smoke_witness_calls_are_the_programs_calls(tmp_path, monkeypatch):
             c.clear()
         assert bool(run())
         assert {k: len(c) for k, c in calls.items()} == chip_smoke._witness_launches(8, kind)
-        assert set(calls["sha256_blocks"]) == chip_smoke._witness_sha256_shapes(8, kind)
+        for name, shapes in chip_smoke._witness_sha256_shapes(8, kind).items():
+            assert set(calls[name]) == shapes

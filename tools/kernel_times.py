@@ -3,7 +3,8 @@ main-path shape on one card, and the LogUp and OOD kernels round by round.
 
     python3 tools/kernel_times.py [--root DIR] [--label NAME]
         [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers,fri_fold,fri_inject,
-                sha256_blocks,sha512_blocks,straus_verify,bind_witness,witness_programs] [--rounds R]
+                sha256_blocks,sha256_validator_root,sha256_header_proofs,sha512_blocks,straus_verify,
+                bind_witness,witness_programs] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -35,9 +36,14 @@ false where `FRI_MAX_SETS` sets stay under that), so that `ms` and
 `kernel_ms` read the inputs from HBM as the bytes bound counts them;
 `burst_ms` launches on one input set. The witness programs' kernels
 (csrc/sha.cu, csrc/ed25519.cu) are timed in rounds the same way at their
-N=128 shapes: `sha256_blocks` at every shape skip_verify and step_verify
-give it (`_witness_sha256_shapes`) on random words, every lane's blocks
-active; `sha512_blocks` at 128 lanes x 2 blocks; `straus_verify` and
+N=128 shapes: `sha256_blocks` at a mesh lane-check shard (32 lanes x 1
+block, the one path that calls it) and at 128 x 1 and 64 x 2 (the leaves
+and the first Merkle level as the witness programs hashed them before the
+tree kernel) on random words, every lane's blocks active;
+`sha256_validator_root` over 128 random leaves (lengths 1 to 47) with all
+128 enabled; `sha256_header_proofs` at a skip's 4 and a step's 5 proofs
+(leaves of 73 bytes, one of 119); `sha512_blocks` at 128 lanes x 2
+blocks; `straus_verify` and
 `bind_witness` at 128 lanes repeated from `_witness_cases`' 8 chain
 lanes (in every range, so that no binding lane stops early).
 `burst_ms` launches on one input set. `witness_programs` runs
@@ -46,7 +52,7 @@ chip_smoke.py's `_witness_programs` with its profile (skip_verify on skip
 seconds of one call and its torch ops) R times after a first call, on
 `SkipChain(128)`, then times the witness-only `cli prove` of skip 2 -> 6
 (`--device cuda`, host clock) R times after a warm-up; in a checkout
-whose ops have no witness kernels it counts no launches. Prints one JSON line: the card's
+without the tree and proof kernels it counts no launches. Prints one JSON line: the card's
 name and power limit, the label, and per shape the ms. Two checkouts are compared by running
 this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
@@ -254,11 +260,25 @@ def main(argv=None) -> int:
         lanes = lambda args, n: tuple(a[torch.arange(n, device=dev) % 8].contiguous() for a in args)
         runs = {}
         if "sha256_blocks" in only:
-            shapes = sorted(cs._witness_sha256_shapes(128, "skip") | cs._witness_sha256_shapes(128, "step"),
-                            reverse=True)
+            shapes = [(128 // cs.MESH_SHARDS, 1), (128, 1), (64, 2)]
             runs["sha256_blocks"] = [(shape, sha256.sha256_blocks_cuda, sha_burst, (
                 torch.randint(0, 1 << 32, (*shape, 16), generator=gen, device=dev),
                 torch.full((shape[0],), shape[1], dtype=torch.int64, device=dev))) for shape in shapes]
+        if "sha256_validator_root" in only:
+            leaf_len = torch.randint(1, 48, (128,), generator=gen, device=dev)
+            runs["sha256_validator_root"] = [((128, cs.VALIDATOR_LEAF_WIDTH), sha256.validator_root_cuda, sha_burst, (
+                torch.randint(0, 256, (128, cs.VALIDATOR_LEAF_WIDTH), generator=gen, device=dev).to(torch.uint8),
+                leaf_len, torch.tensor(128, device=dev)))]
+        if "sha256_header_proofs" in only:
+            runs["sha256_header_proofs"] = []
+            for k in (4, 5):
+                leaf_len = torch.full((k,), cs.HEADER_LEAF_WIDTH, dtype=torch.int64, device=dev)
+                leaf_len[0] = 119
+                runs["sha256_header_proofs"].append(((k, cs.HEADER_LEAF_WIDTH), sha256.header_proofs_cuda, sha_burst, (
+                    torch.randint(0, 256, (k, cs.HEADER_LEAF_WIDTH), generator=gen, device=dev).to(torch.uint8),
+                    leaf_len, torch.randint(0, 256, (k, cs.HEADER_PROOF_DEPTH, 32), generator=gen,
+                                            device=dev).to(torch.uint8),
+                    torch.randint(0, 2, (k, cs.HEADER_PROOF_DEPTH), generator=gen, device=dev))))
         if "sha512_blocks" in only:
             words = (torch.randint(0, 1 << 32, (128, 2, 16), generator=gen, device=dev) << 32) | torch.randint(
                 0, 1 << 32, (128, 2, 16), generator=gen, device=dev)
@@ -280,9 +300,10 @@ def main(argv=None) -> int:
 
         from tendermintx_tpu_torch.circuits.skip import encode_skip_input
 
-        # a checkout whose witness programs run as torch ops has no
-        # launches to count
-        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.ops.sha256"), "sha256_kernel_launches")
+        # launches are held to this checkout's structure (_witness_launches):
+        # another checkout's (an earlier one's per-level SHA-256, or torch
+        # ops) are not counted
+        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.ops.sha256"), "header_proofs_kernel_launches")
         with tempfile.TemporaryDirectory(prefix="kernel_times_") as workdir:
             sc = cs.SkipChain(128, os.path.join(workdir, "n128"))
             first, *rounds = [cs._witness_programs(sc, True, kernels) for _ in range(args.rounds + 1)]
