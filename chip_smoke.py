@@ -1586,8 +1586,8 @@ def phase_fri_shapes(rows: dict) -> dict:
 WITNESS_ENTRIES = ("sha256_blocks", "sha256_validator_root", "sha256_header_proofs", "sha512_blocks",
                    "straus_verify", "bind_witness")
 # the entries of csrc/sha.cu's tree and proof kernels, which the witness
-# programs call through circuits/gadgets.py: (wrapper in ops/sha256.py, its
-# plain twin in gadgets.py)
+# programs call through circuits/gadgets.py: (their wrapper and plain twin
+# there)
 SHA256_GADGETS = {"sha256_validator_root": ("validator_root_cuda", "validator_root_plain"),
                   "sha256_header_proofs": ("header_proofs_cuda", "header_proof_root_plain")}
 # circuits/gadgets.py::header_proof_root: a header Merkle proof's depth
@@ -1816,7 +1816,8 @@ def _bind_bound(lanes: int, ops_per_ms: float) -> dict:
 
 class _WitnessCheck:
     """While installed, holds every call of the six witness wrappers
-    (ops/sha256.py, ops/sha512.py, ops/ed25519.py: *_cuda) exactly against
+    (ops/sha256.py, circuits/gadgets.py, ops/sha512.py, ops/ed25519.py:
+    *_cuda) exactly against
     its plain twin on the same CUDA tensors, and keeps the first inputs of
     each shape (name -> {shape: args}). The twins' launches are not
     counted."""
@@ -1834,7 +1835,7 @@ class _WitnessCheck:
         rows = lambda a: tuple(a[0].shape)
         for name, mod, cuda, plain, key in (
             ("sha256_blocks", sha256, "sha256_blocks_cuda", sha256.sha256_blocks_plain, lambda a: tuple(a[0].shape[:2])),
-            *((name, sha256, cuda, getattr(gadgets, plain), rows) for name, (cuda, plain) in SHA256_GADGETS.items()),
+            *((name, gadgets, cuda, getattr(gadgets, plain), rows) for name, (cuda, plain) in SHA256_GADGETS.items()),
             ("sha512_blocks", sha512, "sha512_blocks_cuda", sha512.sha512_blocks_plain, lambda a: tuple(a[0].shape[:2])),
             ("straus_verify", ed, "straus_verify_cuda", ed.straus_verify_plain, lambda a: tuple(a[3].shape)),
             ("bind_witness", ed, "bind_witness_cuda", ed.bind_witness_plain, lambda a: tuple(a[3].shape)),
@@ -1890,7 +1891,6 @@ def _sha256_gadget_cases(gen, dev) -> dict:
     bits both ways (all 0, all 1, and a 2, which is a left child).
     -> {entry: [case, ...]}."""
     from tendermintx_tpu_torch.circuits import gadgets as g
-    from tendermintx_tpu_torch.ops import sha256
 
     rand = lambda high, *shape: torch.randint(0, high, shape, generator=gen, device=dev)
     out = {"sha256_validator_root": [], "sha256_header_proofs": []}
@@ -1900,7 +1900,7 @@ def _sha256_gadget_cases(gen, dev) -> dict:
         counts = sorted({0, 1, lanes, lanes // 2, (lanes // 2) | 1} & set(range(lanes + 1)))
         for n in counts:
             n_t = torch.tensor(n, device=dev)
-            _check_equal(sha256.validator_root_cuda(data, lens, n_t), g.validator_root_plain(data, lens, n_t),
+            _check_equal(g.validator_root_cuda(data, lens, n_t), g.validator_root_plain(data, lens, n_t),
                          f"sha256_validator_root at {lanes} lanes, n_enabled {n}")
         out["sha256_validator_root"].append({"lanes": lanes, "n_enabled": counts, "max_abs_err": 0.0})
     for k in (1, 5, 33):
@@ -1914,7 +1914,7 @@ def _sha256_gadget_cases(gen, dev) -> dict:
             bits[1] = 1
             bits[-1, 2] = 2
         args = (data, lens, rand(256, k, HEADER_PROOF_DEPTH, 32).to(torch.uint8), bits)
-        _check_equal(sha256.header_proofs_cuda(*args), g.header_proof_root_plain(*args),
+        _check_equal(g.header_proofs_cuda(*args), g.header_proof_root_plain(*args),
                      f"sha256_header_proofs at {k} proofs")
         out["sha256_header_proofs"].append({"proofs": k, "leaf_len": sorted(set(lens.tolist())), "max_abs_err": 0.0})
     return out
@@ -1999,7 +1999,7 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
         _, plain_ms = _timed_once(lambda: plain(*args))
         return {**rounds, "burst_ms": _launch_burst_ms(*burst, lambda: kernel(*args)), "plain_ms": plain_ms}
 
-    sha_burst, ed_burst = (sha256, "_sha_launch", "_sha_library"), (ed, "_ed_launch", "_ed_library")
+    sha_burst, ed_burst = (sha256, "sha_launch", "_sha_library"), (ed, "_ed_launch", "_ed_library")
     row_keys = ("shape", "ms", "ms_min", "ms_max", "burst_ms", "plain_ms", "bound_ms", "bound_by",
                 "operations_bound_ms", "bytes_bound_ms", "max_abs_err")
     sha_common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/sha.cu", "library_ms": None}
@@ -2029,13 +2029,13 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
         "replaces_program": "merkle_root_dynamic over hash_validator_leaves (:89), traced into the jitted "
                             "skip / step verification",
         "shape": list(tshape), "n_enabled": int(tree_args[2]),
-        **timed(sha256.validator_root_cuda, gadgets.validator_root_plain, tree_args, sha_burst),
+        **timed(gadgets.validator_root_cuda, gadgets.validator_root_plain, tree_args, sha_burst),
         **_tree_bound(*tree_args, ops_per_ms, clock_mhz), "max_abs_err": 0.0,
         **_registers_of(build["sha"]["ptxas"], "tmx_sha256_root"), "edge_cases": edges["sha256_validator_root"],
     }
     proofs = []
     for shape, args in sorted(calls["sha256_header_proofs"].items()):
-        proofs.append({"shape": list(shape), **timed(sha256.header_proofs_cuda, gadgets.header_proof_root_plain,
+        proofs.append({"shape": list(shape), **timed(gadgets.header_proofs_cuda, gadgets.header_proof_root_plain,
                                                      args, sha_burst),
                        **_proofs_bound(args[1], int(shape[1]), ops_per_ms, clock_mhz), "max_abs_err": 0.0})
     sha_rows["sha256_header_proofs"] = {
@@ -2310,8 +2310,8 @@ LAUNCH_COUNTERS = {
     "fri_fold": ("tendermintx_tpu_torch.stark.fri", "fri_fold_kernel_launches"),
     "fri_inject": ("tendermintx_tpu_torch.stark.fri", "fri_inject_kernel_launches"),
     "sha256_blocks": ("tendermintx_tpu_torch.ops.sha256", "sha256_kernel_launches"),
-    "sha256_validator_root": ("tendermintx_tpu_torch.ops.sha256", "validator_root_kernel_launches"),
-    "sha256_header_proofs": ("tendermintx_tpu_torch.ops.sha256", "header_proofs_kernel_launches"),
+    "sha256_validator_root": ("tendermintx_tpu_torch.circuits.gadgets", "validator_root_kernel_launches"),
+    "sha256_header_proofs": ("tendermintx_tpu_torch.circuits.gadgets", "header_proofs_kernel_launches"),
     "sha512_blocks": ("tendermintx_tpu_torch.ops.sha512", "sha512_kernel_launches"),
     "straus_verify": ("tendermintx_tpu_torch.ops.ed25519", "straus_kernel_launches"),
     "bind_witness": ("tendermintx_tpu_torch.ops.ed25519", "bind_kernel_launches"),
@@ -3479,7 +3479,7 @@ def main(argv: list[str]) -> int:
         entry = {"name": name, **{k: row[k] for k in kept}, "launches": main_launches,
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
         entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "tiles", "registers", "spill_bytes",
-                                          "check_lanes", "chain_floor_ms") if k in row})
+                                          "check_lanes") if k in row})
         if name in WITNESS_ENTRIES and "shapes" in row:
             entry["shapes"] = [{k: r[k] for k in ("shape", "ms", "burst_ms", "plain_ms", "bound_ms", "bound_by")}
                                for r in row["shapes"]]

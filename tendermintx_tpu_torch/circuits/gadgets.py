@@ -9,9 +9,13 @@ the reference's wrap-around arithmetic; digests are uint8 (..., 32).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..ops import sha256
+from ..ops.cuda_build import operand
+from .consts import HEADER_PROOF_DEPTH
 
 MASK32 = 0xFFFFFFFF
 
@@ -61,13 +65,15 @@ def digests_to_bytes_dev(digests: torch.Tensor) -> torch.Tensor:
     return ((digests[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(digests.shape[0], 32)
 
 
-def sha256_bytes_var(data: torch.Tensor, byte_len: torch.Tensor, n_blocks: int, plain: bool = False) -> torch.Tensor:
-    """Variable-length SHA-256 of byte lanes -> (B, 32) uint8 digests:
-    sha256.sha256_blocks (the kernel on a card), or with `plain` its plain
-    rounds on any device."""
-    blocks, n_active = bytes_to_blocks(data, byte_len, n_blocks)
-    hash_blocks = sha256.sha256_blocks_plain if plain else sha256.sha256_blocks
-    return digests_to_bytes_dev(hash_blocks(blocks, n_active))
+def sha256_bytes_var(data: torch.Tensor, byte_len: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """Variable-length SHA-256 of byte lanes -> (B, 32) uint8 digests."""
+    return digests_to_bytes_dev(sha256.sha256_blocks(*bytes_to_blocks(data, byte_len, n_blocks)))
+
+
+def _sha256_bytes_plain(data: torch.Tensor, byte_len: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """sha256_bytes_var through the plain SHA-256 rounds on any device (the
+    twins' hashes)."""
+    return digests_to_bytes_dev(sha256.sha256_blocks_plain(*bytes_to_blocks(data, byte_len, n_blocks)))
 
 
 # ---------------------------------------------------------------------------
@@ -86,7 +92,7 @@ def _pair_hashes(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     plain rounds."""
     prefix = torch.ones((left.shape[0], 1), dtype=torch.uint8, device=left.device)
     inp = torch.cat([prefix, left, right], dim=1)
-    return sha256_bytes_var(inp, torch.full((left.shape[0],), 65, device=left.device), n_blocks=2, plain=True)
+    return _sha256_bytes_plain(inp, torch.full((left.shape[0],), 65, device=left.device), n_blocks=2)
 
 
 def merkle_root_dynamic(leaf_digests: torch.Tensor, n_enabled) -> torch.Tensor:
@@ -120,10 +126,97 @@ def merkle_root_dynamic(leaf_digests: torch.Tensor, n_enabled) -> torch.Tensor:
     return nodes[0]
 
 
+# ---------------------------------------------------------------------------
+# csrc/sha.cu's validator-tree and header-proof entries
+# ---------------------------------------------------------------------------
+
+
+class _RootArgs(ctypes.Structure):
+    """csrc/sha.cu's RootArgs, field for field."""
+
+    _fields_ = [
+        ("leaf_bytes", ctypes.c_void_p), ("leaf_len", ctypes.c_void_p), ("n_enabled", ctypes.c_void_p),
+        ("lanes", ctypes.c_int64), ("width", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+class _ProofArgs(ctypes.Structure):
+    """csrc/sha.cu's ProofArgs, field for field."""
+
+    _fields_ = [
+        ("leaf_bytes", ctypes.c_void_p), ("leaf_len", ctypes.c_void_p), ("aunts", ctypes.c_void_p),
+        ("path_bits", ctypes.c_void_p), ("proofs", ctypes.c_int64), ("width", ctypes.c_int64),
+        ("out", ctypes.c_void_p),
+    ]
+
+
+# csrc/sha.cu's MAX_TREE_LANES: one block, a thread a leaf
+MAX_TREE_LANES = 1024
+
+# incremented exactly where csrc/sha.cu's tree and proof entries are launched
+validator_root_kernel_launches = 0
+header_proofs_kernel_launches = 0
+
+
+def _byte_rows(fn: str, leaf_bytes: torch.Tensor) -> tuple[int, int]:
+    dev = leaf_bytes.device
+    if dev.type != "cuda":
+        raise TypeError(f"{fn} hashes on a card, got {dev}")
+    if leaf_bytes.dim() != 2:
+        raise ValueError(f"{fn}: leaf_bytes must be (lanes, width), got {tuple(leaf_bytes.shape)}")
+    return int(leaf_bytes.shape[0]), int(leaf_bytes.shape[1])
+
+
+def validator_root_cuda(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled: torch.Tensor) -> torch.Tensor:
+    """validator_root_plain's (32,) uint8 root by one csrc/sha.cu launch:
+    one block of B' threads (B' the lane count rounded up to a power of
+    two), the leaves hashed and every level paired and promoted in shared
+    memory, n_enabled read on the card. Contiguous uint8 leaf_bytes (B,
+    width), int64 leaf_len (B,) and a one-element int64 n_enabled on one
+    card, 1 <= B <= MAX_TREE_LANES; else raise."""
+    global validator_root_kernel_launches
+    fn = "validator_root_cuda"
+    B, width = _byte_rows(fn, leaf_bytes)
+    if not 1 <= B <= MAX_TREE_LANES:
+        raise ValueError(f"{fn}: one block takes 1 to {MAX_TREE_LANES} lanes, got {B}")
+    dev = leaf_bytes.device
+    if n_enabled.numel() != 1:
+        raise ValueError(f"{fn}: n_enabled must hold one value, got {tuple(n_enabled.shape)}")
+    ptrs = (operand(leaf_bytes, dev, torch.uint8, (B, width), f"{fn}'s leaf_bytes"),
+            operand(leaf_len, dev, torch.int64, (B,), f"{fn}'s leaf_len"),
+            operand(n_enabled.reshape(()), dev, torch.int64, (), f"{fn}'s n_enabled"))
+    out = torch.empty((32,), dtype=torch.uint8, device=dev)
+    sha256.sha_launch("tmx_sha256_validator_root", _RootArgs(*ptrs, lanes=B, width=width, out=out.data_ptr()), dev)
+    validator_root_kernel_launches += 1
+    return out
+
+
+def header_proofs_cuda(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, aunts: torch.Tensor,
+                       path_bits: torch.Tensor) -> torch.Tensor:
+    """header_proof_root_plain's (k, 32) uint8 roots by one csrc/sha.cu
+    launch, a thread a proof. Contiguous uint8 leaf_bytes (k, width) and
+    aunts (k, 4, 32), int64 leaf_len (k,) and path_bits (k, 4) on one
+    card, else raise; k = 0 launches nothing."""
+    global header_proofs_kernel_launches
+    fn = "header_proofs_cuda"
+    k, width = _byte_rows(fn, leaf_bytes)
+    dev = leaf_bytes.device
+    ptrs = (operand(leaf_bytes, dev, torch.uint8, (k, width), f"{fn}'s leaf_bytes"),
+            operand(leaf_len, dev, torch.int64, (k,), f"{fn}'s leaf_len"),
+            operand(aunts, dev, torch.uint8, (k, HEADER_PROOF_DEPTH, 32), f"{fn}'s aunts"),
+            operand(path_bits, dev, torch.int64, (k, HEADER_PROOF_DEPTH), f"{fn}'s path_bits"))
+    out = torch.empty((k, 32), dtype=torch.uint8, device=dev)
+    if k:
+        sha256.sha_launch("tmx_sha256_header_proofs", _ProofArgs(*ptrs, proofs=k, width=width, out=out.data_ptr()),
+                          dev)
+        header_proofs_kernel_launches += 1
+    return out
+
+
 def validator_root_plain(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled) -> torch.Tensor:
     """validator_root as torch ops (any device): the leaves and every
     level through the plain SHA-256 rounds."""
-    return merkle_root_dynamic(sha256_bytes_var(leaf_bytes, leaf_len, n_blocks=1, plain=True), n_enabled)
+    return merkle_root_dynamic(_sha256_bytes_plain(leaf_bytes, leaf_len, n_blocks=1), n_enabled)
 
 
 def validator_root(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled) -> torch.Tensor:
@@ -132,13 +225,13 @@ def validator_root(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled) 
     hash_validator_leaves (leaf_bytes (B, 47) uint8 0x00-prefixed,
     leaf_len (B,) their lengths; n_enabled () int or tensor). -> (32,)
     uint8: the plain twin for a CPU tensor, one csrc/sha.cu launch for a
-    CUDA tensor (at most ops/sha256.py's MAX_TREE_LANES lanes)."""
+    CUDA tensor (at most MAX_TREE_LANES lanes)."""
     t = leaf_bytes.device.type
     if t == "cpu":
         return validator_root_plain(leaf_bytes, leaf_len, n_enabled)
     if t == "cuda":
         dev = leaf_bytes.device
-        return sha256.validator_root_cuda(leaf_bytes, as_tensor(leaf_len, dev), as_tensor(n_enabled, dev))
+        return validator_root_cuda(leaf_bytes, as_tensor(leaf_len, dev), as_tensor(n_enabled, dev))
     raise ValueError(f"no validator root for device {leaf_bytes.device}")
 
 
@@ -155,8 +248,8 @@ def header_proof_root_plain(
 ) -> torch.Tensor:
     """header_proof_root as torch ops with the plain SHA-256 rounds (any
     device)."""
-    digest = sha256_bytes_var(leaf_bytes, leaf_len, n_blocks=2, plain=True)
-    for d in range(4):
+    digest = _sha256_bytes_plain(leaf_bytes, leaf_len, n_blocks=2)
+    for d in range(HEADER_PROOF_DEPTH):
         aunt = aunts[:, d, :]
         right_child = (path_bits[:, d] == 1)[:, None]
         left = torch.where(right_child, aunt, digest)
@@ -181,7 +274,7 @@ def header_proof_root(
     if t == "cpu":
         return header_proof_root_plain(leaf_bytes, leaf_len, aunts, path_bits)
     if t == "cuda":
-        return sha256.header_proofs_cuda(leaf_bytes, leaf_len, aunts, path_bits)
+        return header_proofs_cuda(leaf_bytes, leaf_len, aunts, path_bits)
     raise ValueError(f"no header proofs for device {leaf_bytes.device}")
 
 

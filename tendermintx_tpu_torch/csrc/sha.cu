@@ -1,5 +1,5 @@
 // Batched SHA-256 and SHA-512 compressions of the witness programs on Hopper
-// (ops/sha256.py and ops/sha512.py bind them with ctypes):
+// (ops/sha256.py, ops/sha512.py and circuits/gadgets.py bind them with ctypes):
 //
 //   tmx_sha256_blocks          lanes of (n_blocks, 16) 32-bit words (the low
 //                              32 bits of int64 inputs) -> (lanes, 8) digest
@@ -114,7 +114,7 @@ struct ShaArgs {
     int64_t* out;
 };
 
-// ops/sha256.py::_RootArgs, field for field: leaf_bytes (lanes, width)
+// circuits/gadgets.py::_RootArgs, field for field: leaf_bytes (lanes, width)
 // uint8, leaf_len (lanes,) and n_enabled (one value) int64, contiguous;
 // out (32,) uint8
 struct RootArgs {
@@ -126,7 +126,7 @@ struct RootArgs {
     uint8_t* out;
 };
 
-// ops/sha256.py::_ProofArgs, field for field: leaf_bytes (proofs, width)
+// circuits/gadgets.py::_ProofArgs, field for field: leaf_bytes (proofs, width)
 // and aunts (proofs, 4, 32) uint8, leaf_len (proofs,) and path_bits
 // (proofs, 4) int64, contiguous; out (proofs, 32) uint8
 struct ProofArgs {

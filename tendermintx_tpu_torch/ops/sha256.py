@@ -6,11 +6,9 @@ active-block count gives the variable-length semantics inside one
 fixed-shape program. Words are uint32 values held in int64 tensors.
 ``sha256_blocks`` runs the plain torch rounds (masked after every add: CPU
 torch has no unsigned 32-bit arithmetic) for a CPU tensor and
-csrc/sha.cu's kernel, one launch a call, for a CUDA tensor. The card
-entries of a validator set's Merkle root and of a batch of header proofs
-(``validator_root_cuda``, ``header_proofs_cuda``: one launch each) are
-bound here too; circuits/gadgets.py holds their plain twins and
-dispatchers.
+csrc/sha.cu's kernel, one launch a call, for a CUDA tensor.
+``sha_launch`` launches any of csrc/sha.cu's entries; circuits/gadgets.py
+binds its validator-tree and header-proof entries.
 """
 
 from __future__ import annotations
@@ -20,8 +18,6 @@ from functools import cache
 
 import numpy as np
 import torch
-
-from .cuda_build import operand
 
 _K = np.array(
     [
@@ -119,43 +115,20 @@ class _ShaArgs(ctypes.Structure):
     ]
 
 
-class _RootArgs(ctypes.Structure):
-    """csrc/sha.cu's RootArgs, field for field."""
-
-    _fields_ = [
-        ("leaf_bytes", ctypes.c_void_p), ("leaf_len", ctypes.c_void_p), ("n_enabled", ctypes.c_void_p),
-        ("lanes", ctypes.c_int64), ("width", ctypes.c_int64), ("out", ctypes.c_void_p),
-    ]
-
-
-class _ProofArgs(ctypes.Structure):
-    """csrc/sha.cu's ProofArgs, field for field."""
-
-    _fields_ = [
-        ("leaf_bytes", ctypes.c_void_p), ("leaf_len", ctypes.c_void_p), ("aunts", ctypes.c_void_p),
-        ("path_bits", ctypes.c_void_p), ("proofs", ctypes.c_int64), ("width", ctypes.c_int64),
-        ("out", ctypes.c_void_p),
-    ]
-
-
-# csrc/sha.cu: MAX_TREE_LANES (one block, a thread a leaf) and PROOF_DEPTH
-MAX_TREE_LANES = 1024
-PROOF_DEPTH = 4
-
-
 @cache
 def _sha_library():
     from .cuda_build import load_library
 
     lib = load_library("sha")
-    for fn, args in (("tmx_sha256_blocks", _ShaArgs), ("tmx_sha512_blocks", _ShaArgs),
-                     ("tmx_sha256_validator_root", _RootArgs), ("tmx_sha256_header_proofs", _ProofArgs)):
+    for fn in ("tmx_sha256_blocks", "tmx_sha512_blocks", "tmx_sha256_validator_root", "tmx_sha256_header_proofs"):
         getattr(lib, fn).restype = ctypes.c_int
-        getattr(lib, fn).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+        getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib
 
 
-def _sha_launch(fn: str, args, dev):
+def sha_launch(fn: str, args, dev):
+    """Launch csrc/sha.cu's entry `fn` with its argument struct `args` (a
+    ctypes.Structure matching the entry's) on `dev`'s current stream."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(_sha_library(), fn)(ctypes.byref(args), stream)
@@ -182,7 +155,7 @@ def sha_blocks_cuda(fn: str, blocks: torch.Tensor, n_active: torch.Tensor) -> tu
     if B:
         args = _ShaArgs(blocks=blocks.data_ptr(), n_active=n_active.data_ptr(), lanes=B, n_blocks=n_blocks,
                         out=out.data_ptr())
-        _sha_launch(fn, args, dev)
+        sha_launch(fn, args, dev)
     return out, B > 0
 
 
@@ -192,65 +165,6 @@ def sha256_blocks_cuda(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Te
     global sha256_kernel_launches
     out, launched = sha_blocks_cuda("tmx_sha256_blocks", blocks, n_active)
     sha256_kernel_launches += launched
-    return out
-
-
-# incremented exactly where csrc/sha.cu's tree and proof entries are launched
-validator_root_kernel_launches = 0
-header_proofs_kernel_launches = 0
-
-
-def _byte_rows(fn: str, leaf_bytes: torch.Tensor) -> tuple[int, int]:
-    dev = leaf_bytes.device
-    if dev.type != "cuda":
-        raise TypeError(f"{fn} hashes on a card, got {dev}")
-    if leaf_bytes.dim() != 2:
-        raise ValueError(f"{fn}: leaf_bytes must be (lanes, width), got {tuple(leaf_bytes.shape)}")
-    return int(leaf_bytes.shape[0]), int(leaf_bytes.shape[1])
-
-
-def validator_root_cuda(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, n_enabled: torch.Tensor) -> torch.Tensor:
-    """circuits/gadgets.py::validator_root_plain's (32,) uint8 root by one
-    csrc/sha.cu launch: one block of B' threads (B' the lane count rounded
-    up to a power of two), the leaves hashed and every level paired and
-    promoted in shared memory, n_enabled read on the card. Contiguous
-    uint8 leaf_bytes (B, width), int64 leaf_len (B,) and a one-element
-    int64 n_enabled on one card, 1 <= B <= MAX_TREE_LANES; else raise."""
-    global validator_root_kernel_launches
-    fn = "validator_root_cuda"
-    B, width = _byte_rows(fn, leaf_bytes)
-    if not 1 <= B <= MAX_TREE_LANES:
-        raise ValueError(f"{fn}: one block takes 1 to {MAX_TREE_LANES} lanes, got {B}")
-    dev = leaf_bytes.device
-    if n_enabled.numel() != 1:
-        raise ValueError(f"{fn}: n_enabled must hold one value, got {tuple(n_enabled.shape)}")
-    ptrs = (operand(leaf_bytes, dev, torch.uint8, (B, width), f"{fn}'s leaf_bytes"),
-            operand(leaf_len, dev, torch.int64, (B,), f"{fn}'s leaf_len"),
-            operand(n_enabled.reshape(()), dev, torch.int64, (), f"{fn}'s n_enabled"))
-    out = torch.empty((32,), dtype=torch.uint8, device=dev)
-    _sha_launch("tmx_sha256_validator_root", _RootArgs(*ptrs, lanes=B, width=width, out=out.data_ptr()), dev)
-    validator_root_kernel_launches += 1
-    return out
-
-
-def header_proofs_cuda(leaf_bytes: torch.Tensor, leaf_len: torch.Tensor, aunts: torch.Tensor,
-                       path_bits: torch.Tensor) -> torch.Tensor:
-    """circuits/gadgets.py::header_proof_root_plain's (k, 32) uint8 roots by
-    one csrc/sha.cu launch, a thread a proof. Contiguous uint8 leaf_bytes
-    (k, width) and aunts (k, 4, 32), int64 leaf_len (k,) and path_bits
-    (k, 4) on one card, else raise; k = 0 launches nothing."""
-    global header_proofs_kernel_launches
-    fn = "header_proofs_cuda"
-    k, width = _byte_rows(fn, leaf_bytes)
-    dev = leaf_bytes.device
-    ptrs = (operand(leaf_bytes, dev, torch.uint8, (k, width), f"{fn}'s leaf_bytes"),
-            operand(leaf_len, dev, torch.int64, (k,), f"{fn}'s leaf_len"),
-            operand(aunts, dev, torch.uint8, (k, PROOF_DEPTH, 32), f"{fn}'s aunts"),
-            operand(path_bits, dev, torch.int64, (k, PROOF_DEPTH), f"{fn}'s path_bits"))
-    out = torch.empty((k, 32), dtype=torch.uint8, device=dev)
-    if k:
-        _sha_launch("tmx_sha256_header_proofs", _ProofArgs(*ptrs, proofs=k, width=width, out=out.data_ptr()), dev)
-        header_proofs_kernel_launches += 1
     return out
 
 

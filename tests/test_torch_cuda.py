@@ -1366,10 +1366,11 @@ def test_witness_kernels_refuse_instead_of_falling_back(dev, witness_cases):
 
 
 def _gadget_counts():
+    from tendermintx_tpu_torch.circuits import gadgets
     from tendermintx_tpu_torch.ops import sha256
 
-    return (sha256.sha256_kernel_launches, sha256.validator_root_kernel_launches,
-            sha256.header_proofs_kernel_launches)
+    return (sha256.sha256_kernel_launches, gadgets.validator_root_kernel_launches,
+            gadgets.header_proofs_kernel_launches)
 
 
 def test_sha256_tree_and_proof_kernels_match_twins(dev):
@@ -1426,7 +1427,7 @@ def test_sha256_gadgets_on_card_equal_cpu(dev):
 
 
 def test_sha256_gadget_kernels_refuse_instead_of_falling_back(dev):
-    from tendermintx_tpu_torch.ops import sha256
+    from tendermintx_tpu_torch.circuits import gadgets
 
     u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8, device=dev)
     i64 = lambda *shape: torch.ones(shape, dtype=torch.int64, device=dev)
@@ -1436,13 +1437,13 @@ def test_sha256_gadget_kernels_refuse_instead_of_falling_back(dev):
                  (u8(47, 8).t(), i64(8), n), (u8(8, 47), i64(8).to(torch.int32), n),
                  (u8(8, 47), i64(7), n), (u8(8, 47), i64(8), i64(2)), (u8(8, 47), i64(8), n.to(torch.int32))):
         with pytest.raises(ValueError):
-            sha256.validator_root_cuda(*args)
+            gadgets.validator_root_cuda(*args)
     with pytest.raises(TypeError):
-        sha256.validator_root_cuda(u8(8, 47).cpu(), i64(8).cpu(), n.cpu())
+        gadgets.validator_root_cuda(u8(8, 47).cpu(), i64(8).cpu(), n.cpu())
     proofs = (u8(5, 73), i64(5), u8(5, 4, 32), i64(5, 4))
     for k, bad in ((0, u8(73, 5).t()), (1, i64(4)), (2, u8(5, 3, 32)), (3, i64(5, 4).to(torch.int32))):
         with pytest.raises(ValueError):
-            sha256.header_proofs_cuda(*proofs[:k], bad, *proofs[k + 1:])
+            gadgets.header_proofs_cuda(*proofs[:k], bad, *proofs[k + 1:])
     with pytest.raises(TypeError):
-        sha256.header_proofs_cuda(*(t.cpu() for t in proofs))
+        gadgets.header_proofs_cuda(*(t.cpu() for t in proofs))
     assert _gadget_counts() == before

@@ -32,6 +32,7 @@ from test_torch_witness import _t, ladder_inputs  # noqa: F401  (the witness fix
 
 from tendermintx_tpu.ops import sha256 as jsha256
 from tendermintx_tpu.ops import sha512 as jsha512
+from tendermintx_tpu_torch.circuits import gadgets
 from tendermintx_tpu_torch.ops import ed25519 as ed
 from tendermintx_tpu_torch.ops import sha256, sha512
 
@@ -633,7 +634,7 @@ def test_sha512_n_active_edges_match_jax_and_hashlib():
 def _counters():
     return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches,
             ed.straus_kernel_launches, ed.bind_kernel_launches,
-            sha256.validator_root_kernel_launches, sha256.header_proofs_kernel_launches)
+            gadgets.validator_root_kernel_launches, gadgets.header_proofs_kernel_launches)
 
 
 def test_cpu_tensors_take_the_plain_versions(ladder_inputs):
@@ -675,7 +676,6 @@ def test_chip_smoke_witness_calls_are_the_programs_calls(tmp_path, monkeypatch):
     sha256_blocks call outside the twins of those two."""
     import chip_smoke
 
-    from tendermintx_tpu_torch.circuits import gadgets
     from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
     from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
 

@@ -37,9 +37,8 @@ false where `FRI_MAX_SETS` sets stay under that), so that `ms` and
 `burst_ms` launches on one input set. The witness programs' kernels
 (csrc/sha.cu, csrc/ed25519.cu) are timed in rounds the same way at their
 N=128 shapes: `sha256_blocks` at a mesh lane-check shard (32 lanes x 1
-block, the one path that calls it) and at 128 x 1 and 64 x 2 (the leaves
-and the first Merkle level as the witness programs hashed them before the
-tree kernel) on random words, every lane's blocks active;
+block, the one path that calls it) on random words, every lane's blocks
+active;
 `sha256_validator_root` over 128 random leaves (lengths 1 to 47) with all
 128 enabled; `sha256_header_proofs` at a skip's 4 and a step's 5 proofs
 (leaves of 73 bytes, one of 119); `sha512_blocks` at 128 lanes x 2
@@ -251,22 +250,23 @@ def main(argv=None) -> int:
             out[name] = rows
     witness = [name for name in cs.WITNESS_ENTRIES if name in only]
     if witness:
+        from tendermintx_tpu_torch.circuits import gadgets
         from tendermintx_tpu_torch.ops import ed25519, sha256, sha512
 
-        sha_burst, ed_burst = (sha256, "_sha_launch", "_sha_library"), (ed25519, "_ed_launch", "_ed_library")
+        sha_burst, ed_burst = (sha256, "sha_launch", "_sha_library"), (ed25519, "_ed_launch", "_ed_library")
         ladder, bind = cs._witness_cases(dev)
         # the chain's 8 signature lanes (in every range: each binding check
         # runs to its end), repeated
         lanes = lambda args, n: tuple(a[torch.arange(n, device=dev) % 8].contiguous() for a in args)
         runs = {}
         if "sha256_blocks" in only:
-            shapes = [(128 // cs.MESH_SHARDS, 1), (128, 1), (64, 2)]
+            shape = (128 // cs.MESH_SHARDS, 1)  # a lane-check shard, its one path
             runs["sha256_blocks"] = [(shape, sha256.sha256_blocks_cuda, sha_burst, (
                 torch.randint(0, 1 << 32, (*shape, 16), generator=gen, device=dev),
-                torch.full((shape[0],), shape[1], dtype=torch.int64, device=dev))) for shape in shapes]
+                torch.full((shape[0],), shape[1], dtype=torch.int64, device=dev)))]
         if "sha256_validator_root" in only:
             leaf_len = torch.randint(1, 48, (128,), generator=gen, device=dev)
-            runs["sha256_validator_root"] = [((128, cs.VALIDATOR_LEAF_WIDTH), sha256.validator_root_cuda, sha_burst, (
+            runs["sha256_validator_root"] = [((128, cs.VALIDATOR_LEAF_WIDTH), gadgets.validator_root_cuda, sha_burst, (
                 torch.randint(0, 256, (128, cs.VALIDATOR_LEAF_WIDTH), generator=gen, device=dev).to(torch.uint8),
                 leaf_len, torch.tensor(128, device=dev)))]
         if "sha256_header_proofs" in only:
@@ -274,7 +274,7 @@ def main(argv=None) -> int:
             for k in (4, 5):
                 leaf_len = torch.full((k,), cs.HEADER_LEAF_WIDTH, dtype=torch.int64, device=dev)
                 leaf_len[0] = 119
-                runs["sha256_header_proofs"].append(((k, cs.HEADER_LEAF_WIDTH), sha256.header_proofs_cuda, sha_burst, (
+                runs["sha256_header_proofs"].append(((k, cs.HEADER_LEAF_WIDTH), gadgets.header_proofs_cuda, sha_burst, (
                     torch.randint(0, 256, (k, cs.HEADER_LEAF_WIDTH), generator=gen, device=dev).to(torch.uint8),
                     leaf_len, torch.randint(0, 256, (k, cs.HEADER_PROOF_DEPTH, 32), generator=gen,
                                             device=dev).to(torch.uint8),
@@ -303,7 +303,8 @@ def main(argv=None) -> int:
         # launches are held to this checkout's structure (_witness_launches):
         # another checkout's (an earlier one's per-level SHA-256, or torch
         # ops) are not counted
-        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.ops.sha256"), "header_proofs_kernel_launches")
+        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.circuits.gadgets"),
+                          "header_proofs_kernel_launches")
         with tempfile.TemporaryDirectory(prefix="kernel_times_") as workdir:
             sc = cs.SkipChain(128, os.path.join(workdir, "n128"))
             first, *rounds = [cs._witness_programs(sc, True, kernels) for _ in range(args.rounds + 1)]
