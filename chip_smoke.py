@@ -90,14 +90,19 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  that exceed twice the L2 together (``l2_cold``),
                  burst_ms, plain ms and the bytes bound;
   4b. witness - the witness programs' kernels (csrc/sha.cu's SHA-256,
-                 validator tree, header proofs and SHA-512, csrc/ed25519.cu's
-                 Straus ladder and witness binding): skip_verify (2 -> 6) and
-                 step_verify (4 -> 5) at N=128 with every call of the
-                 wrappers held exactly against its plain twin on its own data
-                 (every shape these paths give them; the calls and the tree
-                 and proof shapes those of circuits/verify.py's structure:
-                 no sha256_blocks, which is checked and timed at a mesh
-                 lane-check shard), the SHA entries on random words at 1, 7
+                 validator tree, header proofs, SHA-512 and the SHA-512
+                 challenge, csrc/ed25519.cu's Straus ladder and witness
+                 binding): skip_verify (2 -> 6) and step_verify (4 -> 5) at
+                 N=128 with every call of the wrappers held exactly against
+                 its plain twin on its own data (every shape these paths
+                 give them; the calls and the tree and proof shapes those
+                 of circuits/verify.py's structure: no sha256_blocks, which
+                 is checked and timed at a mesh lane-check shard, and no
+                 sha512_blocks, checked and timed at the challenge's
+                 blocks), the challenge on random bytes at 1, 7, 33 and 129
+                 lanes with msg_len at 0, 1, 47, 48, W - 1 and W and
+                 outside [0, W] (clamped as the twin clamps it), at message
+                 widths 0, 124 and 300, the SHA entries on random words at 1, 7
                  and 129 lanes of 1 and 2 blocks with n_active -1, 0, 1,
                  n_blocks and above, validator trees of 1, 5, 100 and 128
                  lanes at n_enabled 0, 1, odd, even and B, header proofs of
@@ -108,8 +113,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  N=128 shapes (median of five rounds) beside its plain twin
                  and its bound (32-bit operations at 64 a clock per SM or
                  bytes at 3.35 TB/s), the ladder's dependent-chain floor
-                 beside (253 steps of a step's critical path), and the tree's
-                 and the proofs' (their dependent compressions); no prove runs
+                 beside (253 steps of a step's critical path), the binding's
+                 (its longest chain of field products), and the tree's,
+                 the proofs' and the challenge's (their dependent
+                 compressions); no prove runs
                  these kernels (every path below but runtime checks none
                  launched);
   5. slice     - the N=128 skip composite at DEFAULT_COMPOSITE_CONFIG,
@@ -162,12 +169,14 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  process: ``cli build`` and a witness-only ``cli prove`` of
                  skip 2 -> 6 (valid, header 6), its witness kernels'
                  launches exactly those of skip_verify's structure (two
-                 validator trees, one header-proof batch, one SHA-512,
-                 binding and ladder, no sha256_blocks, at N=128: the
+                 validator trees, one header-proof batch, one SHA-512
+                 challenge, binding and ladder, no sha256_blocks or
+                 sha512_blocks, at N=128: the
                  kernels line's ``launches`` of these); skip_verify
                  timed on the card, its launches held the same way (with
                  --profile also sha256_blocks, sha512_blocks,
-                 straus_verify, verify_bound and step_verify, and each
+                 sha512_challenge, straus_verify, verify_bound and
+                 step_verify, and each
                  one's torch op count: the launches of eager torch); a
                  ProverService on
                  the card that prewarms and answers a wrapped skip 2 -> 6
@@ -188,8 +197,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  seconds, peak memory; the quotient and the DEEP kernel
                  once per shard per statement, the column sponge once per shard for each
                  column-major tree), sharded_lane_checks over
-                 its 128 lanes (sha256_blocks, SHA-512, binding and ladder
-                 once a shard, no tree or proof: sha256_blocks's
+                 its 128 lanes (sha256_blocks, the SHA-512 challenge,
+                 binding and ladder once a shard, no tree, proof or
+                 sha512_blocks: sha256_blocks's
                  ``launches`` in the kernels line; equal
                  to single-device verify_bound,
                  hash_validator_leaves and Python-int sums), the card's N=4
@@ -1584,7 +1594,12 @@ def phase_fri_shapes(rows: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 WITNESS_ENTRIES = ("sha256_blocks", "sha256_validator_root", "sha256_header_proofs", "sha512_blocks",
-                   "straus_verify", "bind_witness")
+                   "sha512_challenge", "straus_verify", "bind_witness")
+# the entries no witness program calls: sha256_blocks (the mesh's lane
+# checks' leaf hashes call it) and sha512_blocks (sha512_challenge pads and
+# hashes R || A || M itself); each is checked and timed at the shape of the
+# calls it replaced
+NOT_IN_PROGRAMS = ("sha256_blocks", "sha512_blocks")
 # the entries of csrc/sha.cu's tree and proof kernels, which the witness
 # programs call through circuits/gadgets.py: (their wrapper and plain twin
 # there)
@@ -1596,6 +1611,8 @@ HEADER_PROOF_DEPTH = 4
 # (0x00 and its encoding), a header proof's leaf
 VALIDATOR_LEAF_WIDTH = 47
 HEADER_LEAF_WIDTH = 73
+# circuits/variables.py: a signed message's row
+MESSAGE_WIDTH = 124
 # Hopper instructions of one compression, at 64 a clock per SM (the
 # integer pipe's rate): a rotation or shift is one SHF, a 3-input xor, Ch
 # or Maj one LOP3, a 3-input add one IADD3. A schedule word: two sigmas of
@@ -1640,17 +1657,28 @@ DEPENDENT_ISSUE_CLOCKS = 4
 # then a LOP3 of the three rotations), Ch's LOP3 and two IADD3; a's
 # (Sigma0 and Maj beside t1) is no longer. A compression is 64 such rounds.
 SHA256_ROUND_CHAIN = 4
+# A SHA-512 round's: Sigma1's SHF and LOP3, then e = d + h + K + W + Sigma1
+# + Ch as two 64-bit adds (d + h + K + W is ready a round early), each an
+# IADD3 and an IADD3.X.
+SHA512_ROUND_CHAIN = 6
+# The binding's longest dependent chain: slot 3's check, four field products
+# in sequence (2d t_2, C = t_B 2d t_2, Z_3 = F G, x_3 Z_3) with the sum F =
+# 2 - C between, then a canonical comparison (three sequential carries over
+# ten limbs, a shift and an add a step).
+CANON_CHAIN = 3 * 2 * 10
+BIND_CHAIN = 4 * PRODUCT_CHAIN + SUM_CHAIN + CANON_CHAIN
 
 
 def _witness_launches(n_validators: int, kind: str) -> dict:
     """Each witness kernel's launches in one skip_verify or step_verify of
     n_validators lanes, from circuits/verify.py's structure: the validator
     tree once a lane set (the target's, and for a skip the trusted set's),
-    the header proofs once (all of a program's in one batch); SHA-512, the
-    binding and the ladder once (verify_bound); sha256_blocks none (the
-    mesh's lane checks launch it)."""
+    the header proofs once (all of a program's in one batch); the SHA-512
+    challenge, the binding and the ladder once (verify_bound);
+    sha256_blocks and sha512_blocks none."""
     return {"sha256_blocks": 0, "sha256_validator_root": 2 if kind == "skip" else 1,
-            "sha256_header_proofs": 1, "sha512_blocks": 1, "straus_verify": 1, "bind_witness": 1}
+            "sha256_header_proofs": 1, "sha512_blocks": 0, "sha512_challenge": 1, "straus_verify": 1,
+            "bind_witness": 1}
 
 
 def _witness_sha256_shapes(n_validators: int, kind: str) -> dict:
@@ -1803,19 +1831,43 @@ def _ladder_bound(lanes: int, steps: int, ops_per_ms: float, clock_mhz: float) -
 
 
 
-def _bind_bound(lanes: int, ops_per_ms: float) -> dict:
+def _bind_bound(lanes: int, ops_per_ms: float, clock_mhz: float) -> dict:
     """Every input read once (the ladder's, the signature bytes, the
     digest, k_q), one flag written; or the field products' and k_q L's
-    multiply-adds."""
+    multiply-adds. Beside it the dependent-chain floor, as the ladder's:
+    BIND_CHAIN dependent instructions of DEPENDENT_ISSUE_CLOCKS clocks at
+    the maximum SM clock."""
     from tendermintx_tpu_torch.ops.ed25519 import N_BITS, N_LIMBS
 
     nbytes = lanes * (8 * (3 * 4 * N_LIMBS + N_BITS + 3 * N_LIMBS) + 3 * 32 + 64 + 1)
     macs = BIND_PRODUCTS * FE_MACS + BIND_SQUARINGS * FE_SQ_MACS + BIND_MOD_L_MACS
-    return _ops_bound(lanes * macs, nbytes, ops_per_ms)
+    return {**_ops_bound(lanes * macs, nbytes, ops_per_ms),
+            "chain_floor_ms": BIND_CHAIN * DEPENDENT_ISSUE_CLOCKS / (clock_mhz * 1e3),
+            "chain_instructions": BIND_CHAIN}
+
+
+def _challenge_bound(sig_r: torch.Tensor, sig_pk: torch.Tensor, messages: torch.Tensor, msg_len: torch.Tensor,
+                     ops_per_ms: float, clock_mhz: float) -> dict:
+    """The challenge's bound over what this call's lanes need: each lane's
+    active blocks (by its clamped byte length) at SHA512_OPS_PER_BLOCK, or
+    R, A, msg_len and the message bytes below each length read once and
+    the digests written; its dependent-chain floor beside, the longest
+    lane's compressions of 80 rounds of SHA512_ROUND_CHAIN dependent
+    instructions of DEPENDENT_ISSUE_CLOCKS clocks."""
+    from tendermintx_tpu_torch.ops.sha512 import challenge_byte_len
+
+    width = int(messages.shape[1])
+    byte_len = challenge_byte_len(msg_len, width)
+    blocks = (byte_len + 17 + 127) // 128
+    compressions = int(blocks.sum())
+    nbytes = int(sig_r.shape[0]) * (32 + 32 + 8 + 64) + int(torch.clamp(byte_len - 64, 0, width).sum())
+    chain_ms = int(blocks.max()) * 80 * SHA512_ROUND_CHAIN * DEPENDENT_ISSUE_CLOCKS / (clock_mhz * 1e3)
+    return {**_ops_bound(compressions * SHA512_OPS_PER_BLOCK, nbytes, ops_per_ms), "compressions": compressions,
+            "chain_floor_ms": chain_ms}
 
 
 class _WitnessCheck:
-    """While installed, holds every call of the six witness wrappers
+    """While installed, holds every call of the seven witness wrappers
     (ops/sha256.py, circuits/gadgets.py, ops/sha512.py, ops/ed25519.py:
     *_cuda) exactly against
     its plain twin on the same CUDA tensors, and keeps the first inputs of
@@ -1837,6 +1889,8 @@ class _WitnessCheck:
             ("sha256_blocks", sha256, "sha256_blocks_cuda", sha256.sha256_blocks_plain, lambda a: tuple(a[0].shape[:2])),
             *((name, gadgets, cuda, getattr(gadgets, plain), rows) for name, (cuda, plain) in SHA256_GADGETS.items()),
             ("sha512_blocks", sha512, "sha512_blocks_cuda", sha512.sha512_blocks_plain, lambda a: tuple(a[0].shape[:2])),
+            ("sha512_challenge", sha512, "sha512_challenge_cuda", sha512.sha512_challenge_plain,
+             lambda a: tuple(a[2].shape)),
             ("straus_verify", ed, "straus_verify_cuda", ed.straus_verify_plain, lambda a: tuple(a[3].shape)),
             ("bind_witness", ed, "bind_witness_cuda", ed.bind_witness_plain, lambda a: tuple(a[3].shape)),
         ):
@@ -1877,6 +1931,35 @@ def _sha_edge_cases(kind: str, gen, dev) -> list[dict]:
             _check_equal(kernel(words, n_active), plain(words, n_active), f"{kind} edge case {lanes} x {n_blocks}")
             cases.append({"lanes": lanes, "n_blocks": n_blocks, "n_active": sorted(set(n_active.tolist())),
                           "max_abs_err": 0.0})
+    return cases
+
+
+def _challenge_edge_cases(gen, dev) -> list[dict]:
+    """csrc/sha.cu's challenge on random bytes (past each length too, which
+    the padding must mask) at B = 1, 7, 33 and 129 lanes (a block of 32
+    lanes, ragged), message widths 0, 124 (the witness's) and 300 (three
+    blocks: a schedule slot reused), msg_len cycling through the edges 0,
+    1, 47, 48, W - 1 and W (one and two blocks at W = 124) in one call and
+    outside [0, W] in another: -2^40, -65, -64 and -1 (a prefix of R || A,
+    none at -64 and below), W + 1, the clamp's last length 128 n - 81 and
+    the first past it, 2^40. Each call held exactly against its twin."""
+    from tendermintx_tpu_torch.ops import sha512
+
+    cases = []
+    for width in (0, MESSAGE_WIDTH, 300):
+        cap = 128 * sha512.challenge_blocks(width) - 81
+        edges = {"inside": sorted({0, 1, 47, 48, width - 1, width} & set(range(width + 1))),
+                 "outside": [-(1 << 40), -65, -64, -1, width + 1, cap, cap + 1, 1 << 40]}
+        for lanes in (1, 7, 33, 129):
+            rand = lambda *shape: torch.randint(0, 256, shape, generator=gen, device=dev).to(torch.uint8)
+            sig_r, sig_pk, msgs = rand(lanes, 32), rand(lanes, 32), rand(lanes, width)
+            for where, lens in edges.items():
+                msg_len = torch.tensor(lens, device=dev)[(torch.arange(lanes, device=dev) + lanes) % len(lens)]
+                _check_equal(sha512.sha512_challenge_cuda(sig_r, sig_pk, msgs, msg_len),
+                             sha512.sha512_challenge_plain(sig_r, sig_pk, msgs, msg_len),
+                             f"sha512_challenge at {lanes} lanes x {width} bytes, msg_len {where} [0, W]")
+                cases.append({"lanes": lanes, "width": width, "msg_len": sorted(set(msg_len.tolist())),
+                              "max_abs_err": 0.0})
     return cases
 
 
@@ -1929,14 +2012,17 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
     byte rows (_witness_sha256_shapes) must be circuits/verify.py's
     structure's. Then the SHA entries on random words at ragged lane
     counts with n_active 0, below and above the block count
-    (_sha_edge_cases), the tree and proof entries on random trees and
-    proofs (_sha256_gadget_cases), and the ladder and the binding on lanes
-    with both outcomes (_witness_cases). sha256_blocks, which no witness
-    program calls now, is checked and timed at a lane-check shard of the
-    mesh phase (N / MESH_SHARDS leaves, one block). Each entry is timed at
-    its N=128 shapes (the median of five rounds) beside its plain twin and
-    its bound; the ladder's and the tree and proof entries'
-    dependent-chain floors beside their bounds."""
+    (_sha_edge_cases), the challenge on random bytes at its edge lengths
+    (_challenge_edge_cases), the tree and proof entries on random trees
+    and proofs (_sha256_gadget_cases), and the ladder and the binding on
+    lanes with both outcomes (_witness_cases). sha256_blocks, which no
+    witness program calls now, is checked and timed at a lane-check shard
+    of the mesh phase (N / MESH_SHARDS leaves, one block), and
+    sha512_blocks at the skip's challenge blocks (N lanes, two blocks, as
+    the reference's byte assembly pads them). Each entry is timed at its
+    N=128 shapes (the median of five rounds) beside its plain twin and its
+    bound; the ladder's, the binding's, the challenge's and the tree and
+    proof entries' dependent-chain floors beside their bounds."""
     from tendermintx_tpu_torch.circuits import gadgets
     from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
     from tendermintx_tpu_torch.circuits.verify import chain_id_leaf_const, skip_verify, step_verify
@@ -1978,11 +2064,17 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
         shard = sc.n // MESH_SHARDS
         lanes = skip_witness.lanes
         sha256.sha256_blocks_cuda(*gadgets.bytes_to_blocks(lanes.leaf_bytes[:shard], lanes.leaf_len[:shard], 1))
+        # the skip's challenge blocks, as the reference pads them
+        width = int(lanes.messages.shape[1])
+        sha512.sha512_blocks_cuda(*sha512.bytes_to_blocks512(
+            torch.cat([lanes.sig_r, lanes.sig_pubkeys, lanes.messages], 1),
+            sha512.challenge_byte_len(lanes.msg_len, width), sha512.challenge_blocks(width)))
         calls = check.calls
     out["checked_calls"] = check.checked
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
     edges = {kind: _sha_edge_cases(kind, gen, dev) for kind in ("sha256", "sha512")}
+    edges["sha512_challenge"] = _challenge_edge_cases(gen, dev)
     edges.update(_sha256_gadget_cases(gen, dev))
     ladder, bind = _witness_cases(dev)
     outcomes = {}
@@ -2013,13 +2105,26 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
         for shape, args in sorted(calls[name].items(), key=lambda kv: (-kv[0][0], -kv[0][1])):
             shapes.append({"shape": [*shape, 16], **timed(kernel, plain, args, sha_burst),
                            **_sha_bound(kind, *args, ops_per_ms), "max_abs_err": 0.0})
-        top = shapes[0]  # SHA-256's lane-check shard, SHA-512's challenge
+        top = shapes[0]  # SHA-256's lane-check shard, SHA-512's challenge blocks
         sha_rows[name] = {
             **sha_common, "replaces": f"tendermintx_tpu/ops/{kind}.py:{82 if kind == 'sha256' else 143}",
             "replaces_program": f"{kind}_blocks (jitted as {kind}_blocks_jit)",
             **{k: top[k] for k in row_keys}, **_registers_of(build["sha"]["ptxas"], f"tmx_{kind}"),
             "shapes": shapes, "edge_cases": edges[kind],
         }
+    # the challenge at the programs' one shape (the skip's lanes; the
+    # step's are as many)
+    (cshape, chal_args), = calls["sha512_challenge"].items()
+    sha_rows["sha512_challenge"] = {
+        **sha_common, "replaces": "tendermintx_tpu/ops/ed25519.py:536",
+        "replaces_program": "verify_bound's byte assembly (:536-541: the concatenation, sha512.py:160 "
+                            "bytes_to_blocks512, :193 digest_words_to_bytes_dev) and sha512.py:143 sha512_blocks, "
+                            "in verify_bound (:524), jitted whole",
+        "shape": list(cshape),
+        **timed(sha512.sha512_challenge_cuda, sha512.sha512_challenge_plain, chal_args, sha_burst),
+        **_challenge_bound(*chal_args, ops_per_ms, clock_mhz), "max_abs_err": 0.0,
+        **_registers_of(build["sha"]["ptxas"], "tmx_sha512_challenge"), "edge_cases": edges["sha512_challenge"],
+    }
     # the validator tree at the skip's target set (the trusted set's and
     # the step's have the same shape); the header proofs at the skip's 4
     # and the step's 5
@@ -2063,7 +2168,7 @@ def phase_witness(sc: SkipChain, build: dict) -> dict:
             **ed_common, "replaces": "tendermintx_tpu/ops/ed25519.py:448",
             "replaces_program": "bind_witness (in verify_bound, :524, jitted whole)", "shape": [lanes],
             **timed(ed.bind_witness_cuda, ed.bind_witness_plain, bind_args, ed_burst),
-            **_bind_bound(lanes, ops_per_ms),
+            **_bind_bound(lanes, ops_per_ms, clock_mhz),
             **_registers_of(build["ed25519"]["ptxas"], "tmx_bind"), "check_lanes": outcomes["bind_witness"],
         },
     }
@@ -2313,6 +2418,7 @@ LAUNCH_COUNTERS = {
     "sha256_validator_root": ("tendermintx_tpu_torch.circuits.gadgets", "validator_root_kernel_launches"),
     "sha256_header_proofs": ("tendermintx_tpu_torch.circuits.gadgets", "header_proofs_kernel_launches"),
     "sha512_blocks": ("tendermintx_tpu_torch.ops.sha512", "sha512_kernel_launches"),
+    "sha512_challenge": ("tendermintx_tpu_torch.ops.sha512", "sha512_challenge_kernel_launches"),
     "straus_verify": ("tendermintx_tpu_torch.ops.ed25519", "straus_kernel_launches"),
     "bind_witness": ("tendermintx_tpu_torch.ops.ed25519", "bind_kernel_launches"),
 }
@@ -2445,9 +2551,9 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
 def _check_launched(launches: dict, path: str, absent: tuple = (), witness: bool = False):
     """Every kernel launched by the path, but those of `absent`, which
     must not be; the witness programs' kernels only on a `witness` path
-    (no prove runs them), and sha256_blocks on none (only the mesh's lane
-    checks launch it)."""
-    absent = absent + ("sha256_blocks",) if witness else absent + WITNESS_ENTRIES
+    (no prove runs them), and NOT_IN_PROGRAMS' on none (sha256_blocks
+    runs only in the mesh's lane checks, sha512_blocks on no path)."""
+    absent = absent + NOT_IN_PROGRAMS if witness else absent + WITNESS_ENTRIES
     for name, n in launches.items():
         if name in absent:
             if n:
@@ -2892,7 +2998,8 @@ def _witness_programs(sc: SkipChain, profile: bool, count_launches: bool = True)
     (CUDA events; the CLI's witness prove ran the same programs at the
     same shapes before) of skip_verify on the skip 2 -> 6 witness and,
     with `profile`, of each program below (step_verify on the step 4 -> 5
-    witness) and the torch ops one call dispatches. With
+    witness; the challenge where the checkout has it) and the torch ops
+    one call dispatches. With
     `count_launches`, each program's witness kernel launches, held
     exactly for skip_verify and step_verify; without, for a checkout
     whose witness programs have no kernels (tools/kernel_times.py's
@@ -2915,6 +3022,9 @@ def _witness_programs(sc: SkipChain, profile: bool, count_launches: bool = True)
     programs = {
         "sha256_blocks": (lambda: sha256.sha256_blocks(*leaf_blocks), f"{sc.n} lanes x 1 block"),
         "sha512_blocks": (lambda: sha512.sha512_blocks(*chal_blocks), f"{sc.n} lanes x 2 blocks"),
+        "sha512_challenge": (lambda: sha512.sha512_challenge(lanes.sig_r, lanes.sig_pubkeys, lanes.messages,
+                                                             lanes.msg_len),
+                             f"{sc.n} lanes x {lanes.messages.shape[1]} bytes"),
         "straus_verify": (lambda: ed25519.straus_verify(*ladder), f"{sc.n} lanes"),
         "verify_bound": (
             lambda: ed25519.verify_bound(
@@ -2926,6 +3036,8 @@ def _witness_programs(sc: SkipChain, profile: bool, count_launches: bool = True)
             lambda: skip_verify(w, trusted_t, 2, 0, 6, 0, cl, cn, SKIP_MAX)[0], f"N={sc.n} skip 2->6"
         ),
     }
+    if not hasattr(sha512, "sha512_challenge"):  # a checkout from before the challenge kernel
+        del programs["sha512_challenge"]
     if profile:
         prev, step_inputs = sc.step(4)
         sw = pack_step_witness(step_inputs).to(RUNTIME_DEVICE)
@@ -3219,9 +3331,10 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     after = _launch_counts()
     lane_path = {k: after[k] - before[k] for k in after}
     lane_launches = {k: lane_path[k] for k in WITNESS_ENTRIES}
-    # per shard: verify_bound (SHA-512, binding, ladder) and the leaf
-    # hashes (sha256_blocks); no tree and no header proof
-    want_lanes = {k: 0 if k in SHA256_GADGETS else MESH_SHARDS for k in WITNESS_ENTRIES}
+    # per shard: verify_bound (the SHA-512 challenge, binding, ladder) and
+    # the leaf hashes (sha256_blocks); no tree, header proof or
+    # sha512_blocks
+    want_lanes = {k: 0 if k in SHA256_GADGETS or k == "sha512_blocks" else MESH_SHARDS for k in WITNESS_ENTRIES}
     if lane_launches != want_lanes:
         raise AssertionError(f"the sharded lane checks launched {lane_launches}; {want_lanes} wanted")
     flags = ed25519.verify_bound(*args[:12])

@@ -52,11 +52,36 @@
 // ahead. The values equal a thread-a-lane ladder's mod p; their limbs are
 // the bounded ones every add, sub and mul keeps, and a product's sums are
 // mul's (tests/test_torch_witness_kernels.py models the quad's code and
-// the pair's halves and checks the bounds). The binding is straight-line
-// code a lane in blocks of 32: ~22 field products and the 20 x 20 limb
-// product k_q L, bytes-bound (~4.6 KB a lane). Each entry has a plain C
-// interface, launches on the caller's stream and returns
-// cudaGetLastError(); the kernels allocate nothing.
+// the pair's halves and checks the bounds).
+//
+// The binding is bound by its loads and its chain, not its work (~20 field
+// products and the 20 x 20 limb product k_q L a lane, ~4.6 KB of inputs).
+// A block takes 4 lanes and two warps, each with the ladder's layout (8
+// threads a lane; 32 blocks at N = 128). The block first copies its lanes'
+// rows of all eleven inputs into shared memory as contiguous spans, one
+// burst of 16-byte cp.async copies (csrc/stage.cuh; a lane's 2,024-byte
+// selector row is not a multiple of 16), where a thread a lane made ~50
+// dependent strided loads. The range checks run over those rows, a lane's
+// 553 int64 values split over its 16 threads, one vote a warp; a block
+// whose lanes all fail them writes false before any arithmetic, and a
+// failing lane of a block that goes on is false whatever its arithmetic
+// gives (it runs on its limbs masked to 13 bits). Then the two warps run
+// side by side on their own schedulers. Warp 1 takes the scalar checks:
+// each thread recomposes the s and k limbs it owns (limbs t, t + 8, t + 16
+// of 20) from the selectors and compares s with sig_s's; four threads
+// compare y_R, y_A, s and k against p or L; k_q L + k runs as 40 column
+// sums, five a thread, and one 39-step carry. Warp 0 takes the field
+// checks: five phases of four independent products, a quad of thread
+// pairs a lane and a pair a product (mul_pair), in the order their
+// dependencies allow (the squares; d x^2, 2d t, A; d x^2 y^2, B, C; the
+// slot-3 point and t = x y of slot 2; its check and t = x y of slot 3),
+// two phases of sums one a thread, and sixteen canonical comparisons two
+// a thread, every operand addressed by its row in the tables
+// BIND_PRODUCTS, BIND_SUMS and BIND_CHECKS. Slot 0's and slot 1's t = x y
+// checks become t == 0 and t == B's t, equal under the checks that their
+// x and y are the identity's and B's. Each entry has a plain C interface,
+// launches on the caller's stream and returns cudaGetLastError(); the
+// kernels allocate nothing.
 
 #include <cstdint>
 #include <climits>
@@ -64,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "ed25519.cuh"
+#include "stage.cuh"
 
 namespace {
 
@@ -79,35 +105,22 @@ constexpr int LANE_THREADS = 2 * QUAD;
 constexpr int LADDER_LANES = THREADS / LANE_THREADS;
 constexpr int N_BITS = 253;  // ops/ed25519.py: N_BITS
 
-// ops/ed25519.py's constants in radix 2^25.5 (tests/test_torch_witness_kernels.py
-// checks them against the Python values): 2d, d, and the base point's x,
-// y and t = x y
+// ops/ed25519.py's 2d in radix 2^25.5 (tests/test_torch_witness_kernels.py
+// checks it and BIND_FE against the Python values)
 __constant__ uint32_t D2_FE[LIMBS] = {0x2b2f159, 0x1a6e509, 0x22add7a, 0x0d4141d, 0x0038052,
                                       0x0f3d130, 0x3407977, 0x19ce331, 0x1c56dff, 0x0901b67};
-__constant__ uint32_t D_FE[LIMBS] = {0x35978a3, 0x0d37284, 0x3156ebd, 0x06a0a0e, 0x001c029,
-                                     0x179e898, 0x3a03cbb, 0x1ce7198, 0x2e2b6ff, 0x1480db3};
-__constant__ uint32_t BX_FE[LIMBS] = {0x325d51a, 0x18b5823, 0x0f6592a, 0x104a92d, 0x1a4b31d,
-                                      0x1d6dc5c, 0x27118fe, 0x07fd814, 0x13cd6e5, 0x085a4db};
-__constant__ uint32_t BY_FE[LIMBS] = {0x2666658, 0x1999999, 0x0cccccc, 0x1333333, 0x1999999,
-                                      0x0666666, 0x3333333, 0x0cccccc, 0x2666666, 0x1999999};
-__constant__ uint32_t BT_FE[LIMBS] = {0x1b7dda3, 0x1a2ace9, 0x25eadbb, 0x003ba8a, 0x083c27e,
-                                      0x0abe37d, 0x1274732, 0x0ccacdd, 0x0fd78b7, 0x19e1d7c};
-// p and the group order L in 13-bit limbs
-__constant__ uint32_t P13[20] = {8173, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191,
-                                 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 8191, 255};
-__constant__ uint32_t L13[20] = {5101, 1966, 1687, 1222, 1409, 3691, 3038, 7124, 7929, 166,
-                                 0,    0,    0,    0,    0,    0,    0,    0,    0,    32};
+// limb j of p and of the group order L in 13-bit limbs, at compile time
+// (the k_q L column sums skip L's nine zero limbs)
+__host__ __device__ constexpr uint32_t p13(int j) { return j == 0 ? 8173 : j == 19 ? 255 : 8191; }
+__host__ __device__ constexpr uint32_t l13(int j) {
+    return j == 0 ? 5101 : j == 1 ? 1966 : j == 2 ? 1687 : j == 3 ? 1222 : j == 4 ? 1409 : j == 5 ? 3691
+         : j == 6 ? 3038 : j == 7 ? 7124 : j == 8 ? 7929 : j == 9 ? 166 : j == 19 ? 32 : 0;
+}
 
 __device__ __forceinline__ Fe fe_const(const uint32_t (&c)[LIMBS]) {
     Fe f;
 #pragma unroll
     for (int k = 0; k < LIMBS; ++k) f.v[k] = c[k];
-    return f;
-}
-
-__device__ __forceinline__ Fe fe_small(uint32_t v) {
-    Fe f{};
-    f.v[0] = v;
     return f;
 }
 
@@ -333,137 +346,292 @@ __device__ __forceinline__ uint32_t byte_limb(const uint8_t* b, int nbytes, int 
     return keep >= 13 ? v : keep > 0 ? v & ((1u << keep) - 1) : 0;
 }
 
-// a < c for canonical 13-bit limbs
-template <int N>
-__device__ __forceinline__ bool lt(const uint32_t (&a)[N], const uint32_t (&c)[N]) {
+// a < L (`order`) or a < p for canonical 13-bit limbs
+__device__ __forceinline__ bool lt20(const uint32_t* a, bool order) {
     bool less = false, decided = false;
 #pragma unroll
-    for (int k = N - 1; k >= 0; --k) {
-        less = decided ? less : a[k] < c[k];
-        decided = decided || a[k] != c[k];
+    for (int k = 19; k >= 0; --k) {
+        const uint32_t c = order ? l13(k) : p13(k);
+        less = decided ? less : a[k] < c;
+        decided = decided || a[k] != c;
     }
     return less;
 }
 
-// -x^2 + y^2 == 1 + d x^2 y^2
-__device__ __forceinline__ bool on_curve(const Fe& x, const Fe& y) {
-    const Fe x2 = tmx_ed::sq(x), y2 = tmx_ed::sq(y);
-    const Fe rhs = tmx_ed::add(fe_small(1), tmx_ed::mul(tmx_ed::mul(fe_const(D_FE), x2), y2));
-    return tmx_ed::eq(tmx_ed::sub(y2, x2), rhs);
-}
+// The binding's field elements, one 12-word row each in shared memory: the
+// constants (one copy a block), then each lane's inputs (its 13-bit limbs
+// made field elements: R's x and y, the table's x, y and t by slot, y_R and
+// y_A from the key and signature bytes), sums and products, in this order
+// (tests/test_torch_witness_kernels.py reads the list and the tables)
+enum BindRow : uint8_t {
+    K_ZERO, K_ONE, K_TWO, K_BX, K_BY, K_BT, K_D, K_D2, K_YMX_B, K_YPX_B,
+    R_RX, R_RY, R_X0, R_X1, R_X2, R_X3, R_Y0, R_Y1, R_Y2, R_Y3, R_T0, R_T1, R_T2, R_T3, R_YR, R_YA,
+    R_YMX, R_YPX, R_RX2, R_RY2, R_AX2, R_AY2, R_DRX2, R_DAX2, R_T2D, R_A, R_DRXY, R_DAXY, R_B, R_C,
+    R_E, R_F, R_G, R_H, R_LR, R_RR, R_LA, R_RA, R_X3P, R_Y3P, R_Z3P, R_TXY2, R_X3Z, R_Y3Z, R_TXY3,
+    R_NONE,  // a table entry that writes nothing
+    N_ROWS
+};
+constexpr int N_KONST = R_RX;
+constexpr int LANE_ROWS = N_ROWS - N_KONST;
 
-__global__ void __launch_bounds__(THREADS) tmx_bind_kernel(BindArgs a) {
-    const int64_t lane = int64_t(blockIdx.x) * THREADS + threadIdx.x;
-    if (lane >= a.lanes) return;
-    const int64_t* tx = a.table_x + lane * 80;
-    const int64_t* ty = a.table_y + lane * 80;
-    const int64_t* tt = a.table_t + lane * 80;
-    const int64_t* bits = a.bits2 + lane * N_BITS;
-    const int64_t* rx = a.rx + lane * 20;
-    const int64_t* ry = a.ry + lane * 20;
-    const int64_t* kq = a.k_q + lane * 20;
-    const uint8_t* sig_r = a.sig_r + lane * 32;
-    const uint8_t* sig_s = a.sig_s + lane * 32;
-    const uint8_t* sig_pk = a.sig_pk + lane * 32;
-    const uint8_t* digest = a.digest + lane * 64;
+// the constant rows K_ZERO .. K_YPX_B: 0, 1, 2, B's x, y and t, d, 2d, and
+// B's y - x and y + x (mod p, canonical)
+__constant__ uint32_t BIND_FE[N_KONST][LIMBS] = {
+    {0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000},
+    {0x0000001, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000},
+    {0x0000002, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000, 0x0000000},
+    {0x325d51a, 0x18b5823, 0x0f6592a, 0x104a92d, 0x1a4b31d, 0x1d6dc5c, 0x27118fe, 0x07fd814, 0x13cd6e5, 0x085a4db},
+    {0x2666658, 0x1999999, 0x0cccccc, 0x1333333, 0x1999999, 0x0666666, 0x3333333, 0x0cccccc, 0x2666666, 0x1999999},
+    {0x1b7dda3, 0x1a2ace9, 0x25eadbb, 0x003ba8a, 0x083c27e, 0x0abe37d, 0x1274732, 0x0ccacdd, 0x0fd78b7, 0x19e1d7c},
+    {0x35978a3, 0x0d37284, 0x3156ebd, 0x06a0a0e, 0x001c029, 0x179e898, 0x3a03cbb, 0x1ce7198, 0x2e2b6ff, 0x1480db3},
+    {0x2b2f159, 0x1a6e509, 0x22add7a, 0x0d4141d, 0x0038052, 0x0f3d130, 0x3407977, 0x19ce331, 0x1c56dff, 0x0901b67},
+    {0x340913e, 0x00e4175, 0x3d673a2, 0x02e8a05, 0x3f4e67c, 0x08f8a09, 0x0c21a34, 0x04cf4b8, 0x1298f81, 0x113f4be},
+    {0x18c3b85, 0x124f1bd, 0x1c325f7, 0x037dc60, 0x33e4cb7, 0x03d42c2, 0x1a44c32, 0x14ca4e1, 0x3a33d4b, 0x01f3e74},
+};
 
-    // 0. limb and selector ranges: a lane outside them is false before any
-    //    arithmetic
-    bool ok = true;
+// The field products, five phases of one a pair: {f, g, product}. R and
+// -A on the curve (-x^2 + y^2 == 1 + d x^2 y^2: x^2, y^2, d x^2, d x^2
+// y^2), slot 3 = B + slot 2 by ed25519.cuh's madd (A = (y - x)_B (y -
+// x)_2, B = (y + x)_B (y + x)_2, C = t_B 2d t_2, then E F, G H, F G) and
+// its projective check (x_3 Z, y_3 Z), and t = x y of slots 2 and 3.
+__constant__ uint8_t BIND_PRODUCTS[5][QUAD][3] = {
+    {{R_RX, R_RX, R_RX2}, {R_RY, R_RY, R_RY2}, {R_X2, R_X2, R_AX2}, {R_Y2, R_Y2, R_AY2}},
+    {{K_D, R_RX2, R_DRX2}, {K_D, R_AX2, R_DAX2}, {R_T2, K_D2, R_T2D}, {K_YMX_B, R_YMX, R_A}},
+    {{R_DRX2, R_RY2, R_DRXY}, {R_DAX2, R_AY2, R_DAXY}, {K_YPX_B, R_YPX, R_B}, {K_BT, R_T2D, R_C}},
+    {{R_E, R_F, R_X3P}, {R_G, R_H, R_Y3P}, {R_F, R_G, R_Z3P}, {R_X2, R_Y2, R_TXY2}},
+    {{R_X3, R_Z3P, R_X3Z}, {R_Y3, R_Z3P, R_Y3Z}, {R_X3, R_Y3, R_TXY3}, {K_ZERO, K_ZERO, R_NONE}},
+};
+
+// The sums, one a thread: {u, v, 1 for u - v (else u + v), sum}; the
+// first set beside the first products (slot 2's y -+ x), the second after
+// the third (madd's E, F, G, H with D = 2, each curve check's two sides)
+__constant__ uint8_t BIND_SUMS[2][LANE_THREADS][4] = {
+    {{R_Y2, R_X2, 1, R_YMX}, {R_Y2, R_X2, 0, R_YPX}, {K_ZERO, K_ZERO, 0, R_NONE}, {K_ZERO, K_ZERO, 0, R_NONE},
+     {K_ZERO, K_ZERO, 0, R_NONE}, {K_ZERO, K_ZERO, 0, R_NONE}, {K_ZERO, K_ZERO, 0, R_NONE}, {K_ZERO, K_ZERO, 0, R_NONE}},
+    {{R_B, R_A, 1, R_E}, {K_TWO, R_C, 1, R_F}, {K_TWO, R_C, 0, R_G}, {R_B, R_A, 0, R_H},
+     {R_RY2, R_RX2, 1, R_LR}, {K_ONE, R_DRXY, 0, R_RR}, {R_AY2, R_AX2, 1, R_LA}, {K_ONE, R_DAXY, 0, R_RA}},
+};
+
+// The canonical comparisons, two a thread: {kind, a, b}. CHK_EQ: a == b;
+// CHK_SIGN_R: a's parity is R's sign bit; CHK_SIGN_A: a = -A's x, zero
+// where A's sign bit is 0, else of the opposite parity
+enum BindCheck : uint8_t { CHK_EQ, CHK_SIGN_R, CHK_SIGN_A };
+__constant__ uint8_t BIND_CHECKS[LANE_THREADS][2][3] = {
+    {{CHK_EQ, R_RY, R_YR}, {CHK_EQ, R_LR, R_RR}},
+    {{CHK_SIGN_R, R_RX, K_ZERO}, {CHK_EQ, R_X0, K_ZERO}},
+    {{CHK_EQ, R_Y0, K_ONE}, {CHK_EQ, R_X1, K_BX}},
+    {{CHK_EQ, R_Y1, K_BY}, {CHK_EQ, R_T0, K_ZERO}},
+    {{CHK_EQ, R_T1, K_BT}, {CHK_EQ, R_T2, R_TXY2}},
+    {{CHK_EQ, R_T3, R_TXY3}, {CHK_EQ, R_Y2, R_YA}},
+    {{CHK_EQ, R_LA, R_RA}, {CHK_SIGN_A, R_X2, K_ZERO}},
+    {{CHK_EQ, R_X3Z, R_X3P}, {CHK_EQ, R_Y3Z, R_Y3P}},
+};
+
+// a block's staged rows (csrc/stage.cuh), by input: the three tables,
+// bits2, rx, ry and k_q, the signature halves and key, the digest
+constexpr int BIND_LANES = LADDER_LANES;
+constexpr int64_t TABLE_ROW = 4 * 20 * 8, BITS_ROW = N_BITS * 8, LIMB_ROW = 20 * 8;
+constexpr int64_t STAGED = 3 * tmx_stage::bytes(BIND_LANES * TABLE_ROW) + tmx_stage::bytes(BIND_LANES * BITS_ROW) +
+                           3 * tmx_stage::bytes(BIND_LANES * LIMB_ROW) + 3 * tmx_stage::bytes(BIND_LANES * 32) +
+                           tmx_stage::bytes(BIND_LANES * 64);
+
+// a block's two warps: the field checks' and the scalar checks'
+constexpr int BIND_THREADS = 2 * THREADS;
+
+__global__ void __launch_bounds__(BIND_THREADS) tmx_bind_kernel(BindArgs a) {
+    __shared__ __align__(16) uint8_t staged[STAGED];
+    __shared__ Row konst[N_KONST];
+    __shared__ Row rows[BIND_LANES][LANE_ROWS];
+    __shared__ uint32_t lim[BIND_LANES][4][20];  // y_R, y_A, s (sig_s's) and k (the selectors') in 13-bit limbs
+    __shared__ uint32_t acc[BIND_LANES][40];     // k_q L + k
+    __shared__ unsigned votes[2];                 // each warp's failing threads
+    // each warp takes the block's 4 lanes, 8 threads a lane
+    const int warp = threadIdx.x / THREADS, lane_t = threadIdx.x % THREADS;
+    const int t8 = lane_t % LANE_THREADS, q = t8 / 2, half = t8 % 2, l = lane_t / LANE_THREADS;
+    const int64_t first = int64_t(blockIdx.x) * BIND_LANES, mine = first + l;
+    const int n = int(a.lanes - first < BIND_LANES ? a.lanes - first : BIND_LANES);
+    // a lane's threads past the last lane repeat it and write nothing:
+    // every thread of a warp takes part in each shuffle and vote
+    const int li = l < n ? l : n - 1;
+
+    uint8_t* dst = staged;
+    auto stage = [&](const void* base, int64_t row) {
+        const uint8_t* s = tmx_stage::span(dst, static_cast<const uint8_t*>(base) + first * row, n * row,
+                                           threadIdx.x, BIND_THREADS);
+        dst += tmx_stage::bytes(BIND_LANES * row);
+        return s + li * row;
+    };
+    const int64_t* tx = reinterpret_cast<const int64_t*>(stage(a.table_x, TABLE_ROW));
+    const int64_t* ty = reinterpret_cast<const int64_t*>(stage(a.table_y, TABLE_ROW));
+    const int64_t* tt = reinterpret_cast<const int64_t*>(stage(a.table_t, TABLE_ROW));
+    const int64_t* bits = reinterpret_cast<const int64_t*>(stage(a.bits2, BITS_ROW));
+    const int64_t* rx = reinterpret_cast<const int64_t*>(stage(a.rx, LIMB_ROW));
+    const int64_t* ry = reinterpret_cast<const int64_t*>(stage(a.ry, LIMB_ROW));
+    const int64_t* kq = reinterpret_cast<const int64_t*>(stage(a.k_q, LIMB_ROW));
+    const uint8_t* sig_r = stage(a.sig_r, 32);
+    const uint8_t* sig_s = stage(a.sig_s, 32);
+    const uint8_t* sig_pk = stage(a.sig_pk, 32);
+    const uint8_t* digest = stage(a.digest, 64);
+    if (threadIdx.x < N_KONST) put(konst[threadIdx.x], fe_const(BIND_FE[threadIdx.x]));
+    tmx_stage::wait();
+    __syncthreads();
+
+    // 0. limb and selector ranges, a lane's values split over its 16
+    //    threads (8 in each warp); a block none of whose lanes passes
+    //    writes false and stops
+    const int r16 = warp * LANE_THREADS + t8;
+    bool in_range = true;
+#pragma unroll
+    for (int i = r16; i < 80; i += 2 * LANE_THREADS) in_range &= in13(tx[i]) & in13(ty[i]) & in13(tt[i]);
+    for (int i = r16; i < 20; i += 2 * LANE_THREADS) in_range &= in13(rx[i]) & in13(ry[i]) & in13(kq[i]);
 #pragma unroll 4
-    for (int i = 0; i < 80; ++i) ok &= in13(tx[i]) & in13(ty[i]) & in13(tt[i]);
-#pragma unroll 4
-    for (int i = 0; i < 20; ++i) ok &= in13(rx[i]) & in13(ry[i]) & in13(kq[i]);
-#pragma unroll 11
-    for (int i = 0; i < N_BITS; ++i) ok &= uint64_t(bits[i]) <= 3;
-    if (!ok) {
-        a.out[lane] = 0;
+    for (int i = r16; i < N_BITS; i += 2 * LANE_THREADS) in_range &= uint64_t(bits[i]) <= 3;
+    const unsigned out_of_range = __ballot_sync(0xffffffffu, !in_range);
+    if (lane_t == 0) votes[warp] = out_of_range;
+    __syncthreads();
+    const unsigned lane_bits = 0xFFu << (LANE_THREADS * l);
+    in_range = ((votes[0] | votes[1]) & lane_bits) == 0;
+    if (!__syncthreads_or(in_range)) {
+        if (warp == 0 && t8 == 0 && mine < a.lanes) a.out[mine] = 0;
         return;
     }
 
-    // 1. R: ry is the canonical 255-bit y of sig_r, (rx, ry) is on the
-    //    curve and rx has the encoded parity
-    uint32_t y_r[20], y_a[20];
+    // Each lane's limbs are masked to 13 bits where they are read, which
+    // changes no lane in range.
+    bool ok = true;
+    if (warp == 1) {
+        // The scalar checks. 1. The y limbs of R's and A's encodings, and
+        //    the s and k limbs the thread owns (t, t + 8, t + 16), s against
+        //    sig_s's.
 #pragma unroll
-    for (int i = 0; i < 20; ++i) {
-        y_r[i] = byte_limb(sig_r, 32, 255, i);
-        y_a[i] = byte_limb(sig_pk, 32, 255, i);
+        for (int k = 0; k < 3; ++k) {
+            const int m = t8 + LANE_THREADS * k;
+            if (m < 20) {
+                lim[l][0][m] = byte_limb(sig_r, 32, 255, m);
+                lim[l][1][m] = byte_limb(sig_pk, 32, 255, m);
+                uint32_t s = 0, kb = 0;
+#pragma unroll
+                for (int b = 0; b < 13; ++b) {
+                    const int pos = 13 * m + b;  // bits2 is MSB first: selector N_BITS - 1 - pos
+                    const uint32_t sel = pos < N_BITS ? uint32_t(bits[N_BITS - 1 - pos]) & 3 : 0;
+                    s |= (sel & 1) << b;
+                    kb |= (sel >> 1) << b;
+                }
+                const uint32_t s13 = byte_limb(sig_s, 32, 256, m);
+                ok &= s == s13;
+                lim[l][2][m] = s13;
+                lim[l][3][m] = kb;
+            }
+        }
+        __syncwarp();
+        // 2. y_R < p, y_A < p, s < L, k < L (threads 0-3), and the column
+        //    sums of k_q L + k (columns t, t + 8, ..., t + 32)
+        ok &= lt20(lim[l][t8 & 3], t8 & 2) || t8 >= 4;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+            const int m = t8 + LANE_THREADS * k;
+            uint32_t sum = m < 20 ? lim[l][3][m] : 0;
+#pragma unroll
+            for (int j = 0; j < 20; ++j) {
+                const int i = m - j;
+                if (l13(j) != 0 && i >= 0 && i < 20) sum += (uint32_t(kq[i]) & 0x1FFF) * l13(j);
+            }
+            acc[l][m] = sum;
+        }
+        __syncwarp();
+        // 3. its carry (the lane's first thread), then k_q L + k == h limb
+        //    by limb (the thread's columns)
+        if (t8 == 0) {
+            uint32_t c[40];
+#pragma unroll
+            for (int i = 0; i < 40; ++i) c[i] = acc[l][i];
+#pragma unroll
+            for (int i = 0; i < 39; ++i) {
+                c[i + 1] += c[i] >> 13;
+                c[i] &= 0x1FFF;
+            }
+#pragma unroll
+            for (int i = 0; i < 40; ++i) acc[l][i] = c[i];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+            const int m = t8 + LANE_THREADS * k;
+            ok &= acc[l][m] == byte_limb(digest, 64, 512, m);
+        }
+    } else {
+        // The field checks. 1. The inputs as field elements (thread t makes
+        //    inputs t and t + 8).
+        auto row = [&](int r) -> Row& { return r < N_KONST ? konst[r] : rows[l][r - N_KONST]; };
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const int i = t8 + LANE_THREADS * k;  // row R_RX + i
+            uint32_t limbs[20];
+            if (i < R_YR - R_RX) {
+                const int64_t* src = i == 0 ? rx : i == 1 ? ry : (i < 6 ? tx : i < 10 ? ty : tt) + 20 * ((i - 2) % 4);
+#pragma unroll
+                for (int j = 0; j < 20; ++j) limbs[j] = uint32_t(src[j]) & 0x1FFF;
+            } else {  // y_R, y_A: the point encodings' 255-bit y
+#pragma unroll
+                for (int j = 0; j < 20; ++j) limbs[j] = byte_limb(i == R_YR - R_RX ? sig_r : sig_pk, 32, 255, j);
+            }
+            put(row(R_RX + i), tmx_ed::load13(limbs));
+        }
+        __syncwarp();
+        // 2. the sums and product phases in their order, a __syncwarp
+        //    between a step's writes and the next step's reads
+        auto sums = [&](int set) {
+            const uint8_t* op = BIND_SUMS[set][t8];
+            const Fe r = tmx_ed::addsub(get(row(op[0])), get(row(op[1])), op[2] ? ~0u : 0u);
+            if (op[3] != R_NONE) put(row(op[3]), r);
+        };
+        auto products = [&](int phase) {
+            const uint8_t* op = BIND_PRODUCTS[phase][q];
+            const Fe r = mul_pair(get(row(op[0])), get(row(op[1])), half);
+            if (half == 0 && op[2] != R_NONE) put(row(op[2]), r);
+        };
+        sums(0);
+        products(0);
+        __syncwarp();
+        products(1);
+        __syncwarp();
+        products(2);
+        __syncwarp();
+        sums(1);
+        __syncwarp();
+        products(3);
+        __syncwarp();
+        products(4);
+        __syncwarp();
+        // 3. the comparisons
+        const uint32_t sign_r = sig_r[31] >> 7, sign_a = sig_pk[31] >> 7;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const uint8_t* op = BIND_CHECKS[t8][k];
+            const Fe ca = tmx_ed::canon(get(row(op[1]))), cb = tmx_ed::canon(get(row(op[2])));
+            uint32_t d = 0;
+#pragma unroll
+            for (int j = 0; j < LIMBS; ++j) d |= ca.v[j] ^ cb.v[j];
+            const uint32_t parity = ca.v[0] & 1;
+            ok &= op[0] == CHK_EQ       ? d == 0
+                  : op[0] == CHK_SIGN_R ? parity == sign_r
+                                        : (d == 0 ? sign_a == 0 : parity == 1 - sign_a);
+        }
     }
-    const uint32_t sign_r = sig_r[31] >> 7, sign_a = sig_pk[31] >> 7;
-    const Fe RX = tmx_ed::load13(rx), RY = tmx_ed::load13(ry);
-    ok &= lt(y_r, P13);
-    ok &= tmx_ed::eq(RY, tmx_ed::load13(y_r));
-    ok &= on_curve(RX, RY);
-    ok &= (tmx_ed::canon(RX).v[0] & 1) == sign_r;
-
-    // 2. the table: [identity, B, -A, B + (-A)], t = x y in every slot
-    Fe X[4], Y[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        X[j] = tmx_ed::load13(tx + 20 * j);
-        Y[j] = tmx_ed::load13(ty + 20 * j);
-    }
-    const Fe bx = fe_const(BX_FE), by = fe_const(BY_FE), one = fe_small(1);
-    ok &= tmx_ed::eq(X[0], fe_small(0)) & tmx_ed::eq(Y[0], one);
-    ok &= tmx_ed::eq(X[1], bx) & tmx_ed::eq(Y[1], by);
-#pragma unroll  // X and Y stay in registers only at compile-time indices
-    for (int j = 0; j < 4; ++j) ok &= tmx_ed::eq(tmx_ed::load13(tt + 20 * j), tmx_ed::mul(X[j], Y[j]));
-    // slot 2 = -A: y from the public key's bytes; negation flips x's parity
-    ok &= lt(y_a, P13);
-    ok &= tmx_ed::eq(Y[2], tmx_ed::load13(y_a));
-    ok &= on_curve(X[2], Y[2]);
-    const Fe c2x = tmx_ed::canon(X[2]);
-    uint32_t nz = 0;
-#pragma unroll
-    for (int k = 0; k < LIMBS; ++k) nz |= c2x.v[k];
-    ok &= nz ? (c2x.v[0] & 1) == 1 - sign_a : sign_a == 0;
-    // slot 3 = slot 1 + slot 2, projectively, by the unified addition
-    const Point s3 = tmx_ed::madd(Point{bx, by, one, fe_const(BT_FE)}, tmx_ed::sub(Y[2], X[2]),
-                                  tmx_ed::add(Y[2], X[2]), tmx_ed::mul(tmx_ed::load13(tt + 40), fe_const(D2_FE)));
-    ok &= tmx_ed::eq(tmx_ed::mul(X[3], s3.Z), s3.X) & tmx_ed::eq(tmx_ed::mul(Y[3], s3.Z), s3.Y);
-
-    // 3. s: the s-bits of bits2 (MSB first) are sig_s, and s < L
-    // 4. the challenge: k from the k-bits, k < L, and k_q L + k == h, the
-    //    digest as a little-endian integer, limb by limb after one carry
-    uint32_t s_rec[20] = {}, k_rec[20] = {}, s13[20];
-#pragma unroll
-    for (int i = 0; i < N_BITS; ++i) {
-        const uint32_t b = uint32_t(bits[i]);
-        const int pos = N_BITS - 1 - i;
-        s_rec[pos / 13] |= (b & 1) << (pos % 13);
-        k_rec[pos / 13] |= (b >> 1) << (pos % 13);
-    }
-#pragma unroll
-    for (int i = 0; i < 20; ++i) s13[i] = byte_limb(sig_s, 32, 256, i);
-    ok &= lt(s13, L13) & lt(k_rec, L13);
-#pragma unroll
-    for (int i = 0; i < 20; ++i) ok &= s_rec[i] == s13[i];
-    uint32_t acc[40] = {};
-#pragma unroll
-    for (int i = 0; i < 20; ++i) {
-        const uint32_t q = uint32_t(kq[i]);
-#pragma unroll
-        for (int j = 0; j < 20; ++j) acc[i + j] += q * L13[j];
-        acc[i] += k_rec[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 39; ++i) {
-        acc[i + 1] += acc[i] >> 13;
-        acc[i] &= 0x1FFF;
-    }
-#pragma unroll
-    for (int i = 0; i < 40; ++i) ok &= acc[i] == byte_limb(digest, 64, 512, i);
-    a.out[lane] = ok;
+    const unsigned fails = __ballot_sync(0xffffffffu, !ok);
+    if (lane_t == 0) votes[warp] = fails;
+    __syncthreads();
+    if (warp == 0 && t8 == 0 && mine < a.lanes) a.out[mine] = in_range && ((votes[0] | votes[1]) & lane_bits) == 0;
 }
 
-// blocks of THREADS threads, `lanes_per_block` lanes each
+// blocks of `threads` threads, `lanes_per_block` lanes each
 template <typename Args>
-int launch(void (*kernel)(Args), const Args& a, int lanes_per_block, void* stream) {
+int launch(void (*kernel)(Args), const Args& a, int lanes_per_block, int threads, void* stream) {
     if (a.lanes < 0) return (int)cudaErrorInvalidValue;
     if (a.lanes == 0) return 0;
     const int64_t blocks = (a.lanes + lanes_per_block - 1) / lanes_per_block;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 
@@ -471,9 +639,9 @@ int launch(void (*kernel)(Args), const Args& a, int lanes_per_block, void* strea
 
 extern "C" int tmx_straus_verify(const StrausArgs* args, void* stream) {
     if (args->steps < 0) return (int)cudaErrorInvalidValue;
-    return launch(tmx_straus_kernel, *args, LADDER_LANES, stream);
+    return launch(tmx_straus_kernel, *args, LADDER_LANES, THREADS, stream);
 }
 
 extern "C" int tmx_bind_witness(const BindArgs* args, void* stream) {
-    return launch(tmx_bind_kernel, *args, THREADS, stream);
+    return launch(tmx_bind_kernel, *args, BIND_LANES, BIND_THREADS, stream);
 }

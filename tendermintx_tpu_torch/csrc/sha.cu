@@ -6,6 +6,11 @@
 //                              words;
 //   tmx_sha512_blocks          the same over 64-bit words (int64 bit
 //                              patterns), 80 rounds;
+//   tmx_sha512_challenge       the Ed25519 challenge SHA-512(R || A || M) of
+//                              each lane's raw signature half R, key A and
+//                              message bytes M of msg_len bytes -> (lanes, 64)
+//                              digest bytes, padded on the card
+//                              (ops/sha512.py::sha512_challenge);
 //   tmx_sha256_validator_root  a validator set's CometBFT Merkle root: each
 //                              lane's 0x00-prefixed leaf bytes padded and
 //                              hashed, then every level's pairs, in one
@@ -18,7 +23,11 @@
 // Replace the XLA programs of tendermintx_tpu/ops/sha256.py:82
 // `sha256_blocks` (jitted as `sha256_blocks_jit`) and
 // tendermintx_tpu/ops/sha512.py:143 `sha512_blocks` (`sha512_blocks_jit`);
-// the tree and proof entries replace the per-level programs of
+// the challenge replaces those and the byte assembly before them in
+// tendermintx_tpu/ops/ed25519.py:524 `verify_bound` (:533-536: the
+// concatenation, ops/sha512.py:160 `bytes_to_blocks512`, :193
+// `digest_words_to_bytes_dev`), which the JAX package jits whole; the tree
+// and proof entries replace the per-level programs of
 // tendermintx_tpu/circuits/gadgets.py:94 `merkle_root_dynamic` (over :89
 // `hash_validator_leaves`) and :123 `header_proof_root`, which the JAX
 // package traces into its jitted step / skip verification.
@@ -32,7 +41,13 @@
 // bytes_to_blocks does: the bytes below the lane's length (zero past the
 // buffer's width), 0x80, zeros, the bit length in the last active block's
 // final word. A length outside [0, 64 n_blocks - 9] (bytes_to_blocks'
-// contract) is clamped into it, so no lane reads past its row.
+// contract) is clamped into it, so no lane reads past its row. The
+// challenge pads R || A || M as bytes_to_blocks512 does, over n_blocks =
+// (64 + width + 17 + 127) / 128 blocks, its byte length 64 + msg_len
+// clamped into bytes_to_blocks512's contract [0, 128 n_blocks - 17] (so
+// msg_len into [-64, 128 n_blocks - 81]: within it, the bytes past the
+// width are zeros and a negative msg_len hashes a prefix of R || A, as the
+// reference does).
 //
 // Bounds and design: the witness programs hash 1-129 lanes of one or two
 // blocks a call, a few kilobytes. The work is ~1,400 Hopper instructions a
@@ -46,14 +61,36 @@
 // each level's pair-and-promote runs there with n_enabled read on the card,
 // the 65-byte pair message 0x01 || left || right built from the digest
 // words in registers (two blocks, the second one byte, 0x80 and the length
-// 520). Its chain is the leaf and two compressions a level. Each entry has
-// a plain C interface, launches on the caller's stream and returns
-// cudaGetLastError(); the kernels allocate nothing.
+// 520). Its chain is the leaf and two compressions a level.
+//
+// The challenge is one launch of 32 lanes a block (128 lanes over 4 SMs),
+// three warps: its R, A and message rows come into shared memory as the
+// block's three contiguous spans in one burst of 16-byte copies (a lane's
+// 124-byte message row is not a multiple of 16: copied lane by lane it
+// would touch a sector a load); then warp 0 runs the 80 rounds a block
+// (the rounds core the other SHA-512 entry runs) off schedule words that
+// warps 1 and 2 write into shared memory, each for the blocks of its slot
+// (even and odd blocks): it pads the lane's stream into the block's 16
+// words (three aligned 32-bit loads, a funnel shift and a byte swap a
+// word) and expands the schedule 16 words ahead of the rounds. A warp
+// issues an integer instruction every other clock (16 lanes a scheduler),
+// and each warp has a scheduler of its own: the rounds warp issues ~2,450
+// instructions a block (~30 a round), a thread-a-lane compression ~3,600.
+// Each chunk of 16 words is handed over by a named barrier (bar.arrive by
+// the schedule warp, bar.sync by the rounds warp); a slot is freed by the
+// rounds warp before its schedule warp refills it (blocks 2 and on). A
+// lane past its last active block runs the block's remaining blocks and
+// keeps its state.
+//
+// Each entry has a plain C interface, launches on the caller's stream and
+// returns cudaGetLastError(); the kernels allocate nothing.
 
 #include <cstdint>
 #include <climits>
 
 #include <cuda_runtime.h>
+
+#include "stage.cuh"
 
 namespace {
 
@@ -112,6 +149,19 @@ struct ShaArgs {
     int64_t lanes;
     int64_t n_blocks;
     int64_t* out;
+};
+
+// ops/sha512.py::_ChallengeArgs, field for field: sig_r and sig_pk (lanes,
+// 32) and messages (lanes, width) uint8, msg_len (lanes,) int64,
+// contiguous; out (lanes, 64) uint8
+struct ChallengeArgs {
+    const uint8_t* sig_r;
+    const uint8_t* sig_pk;
+    const uint8_t* messages;
+    const int64_t* msg_len;
+    int64_t lanes;
+    int64_t width;
+    uint8_t* out;
 };
 
 // circuits/gadgets.py::_RootArgs, field for field: leaf_bytes (lanes, width)
@@ -177,18 +227,26 @@ struct Spec<uint64_t> {
     static __device__ __forceinline__ uint64_t s1(uint64_t w) { return rotr(w, 19) ^ rotr(w, 61) ^ (w >> 6); }
 };
 
-// One block of 16 words into the state h (FIPS 180-4's compression with
-// its feed-forward add).
+// FIPS 180-4's message schedule: word t >= 16 into the ring w of the last
+// 16 words
 template <typename Word>
-__device__ __forceinline__ void compress(Word (&h)[8], Word (&w)[16]) {
+__device__ __forceinline__ Word schedule(Word (&w)[16], int t) {
+    using S = Spec<Word>;
+    w[t & 15] += S::s0(w[(t - 15) & 15]) + w[(t - 7) & 15] + S::s1(w[(t - 2) & 15]);
+    return w[t & 15];
+}
+
+// The rounds of one block into the state h (FIPS 180-4's compression with
+// its feed-forward add): word(t) gives schedule word t, called once for
+// each t in ascending order. Every SHA entry runs this core.
+template <typename Word, typename Words>
+__device__ __forceinline__ void rounds(Word (&h)[8], Words&& word) {
     using S = Spec<Word>;
     Word v[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = h[i];
 #pragma unroll
     for (int t = 0; t < S::ROUNDS; ++t) {
-        if (t >= 16)
-            w[t & 15] += S::s0(w[(t - 15) & 15]) + w[(t - 7) & 15] + S::s1(w[(t - 2) & 15]);
         // v = (a, b, c, d, e, f, g, h) rotated by t: v[(8 - t) & 7] is a
         Word& A = v[(8 - t) & 7];
         Word& B = v[(9 - t) & 7];
@@ -198,13 +256,21 @@ __device__ __forceinline__ void compress(Word (&h)[8], Word (&w)[16]) {
         Word& F = v[(13 - t) & 7];
         Word& G = v[(14 - t) & 7];
         Word& H = v[(15 - t) & 7];
-        const Word t1 = H + S::S1(E) + ((E & F) ^ (~E & G)) + S::k(t) + w[t & 15];
+        // h + K + W is ready a round early: only Sigma1 and Ch of e wait
+        const Word hkw = H + S::k(t) + word(t);
+        const Word t1 = hkw + S::S1(E) + ((E & F) ^ (~E & G));
         const Word t2 = S::S0(A) + ((A & B) ^ (A & C) ^ (B & C));
         D += t1;        // the new e
         H = t1 + t2;    // the new a: h's slot is a's next round
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) h[i] += v[i];
+}
+
+// One block of 16 words into h, its schedule expanded in the ring w.
+template <typename Word>
+__device__ __forceinline__ void compress(Word (&h)[8], Word (&w)[16]) {
+    rounds(h, [&](int t) { return t < 16 ? w[t] : schedule(w, t); });
 }
 
 template <typename Word>
@@ -367,6 +433,129 @@ __global__ void __launch_bounds__(THREADS) tmx_sha256_proofs_kernel(ProofArgs a)
     store_digest(h, a.out + p * 32);
 }
 
+// The challenge: 32 lanes a block of three warps (see the head of the file).
+constexpr int CHAL_LANES = 32;
+constexpr int CHAL_THREADS = 3 * 32;
+constexpr int CHUNK = 16;            // schedule words a hand-over
+constexpr int CHUNKS = 80 / CHUNK;   // hand-overs a block
+// shared memory of a launch over messages of `width` bytes: two slots of
+// 80 words x 32 lanes, the spans of R, A and the messages, each with 16
+// bytes past it that a word's aligned loads may touch
+constexpr int64_t CHAL_WORDS_BYTES = 2 * 80 * CHAL_LANES * 8;
+__host__ __device__ constexpr int64_t chal_span(int64_t row) { return tmx_stage::bytes(CHAL_LANES * row) + 16; }
+__host__ __device__ constexpr int64_t chal_smem(int64_t width) {
+    return CHAL_WORDS_BYTES + 2 * chal_span(32) + chal_span(width);
+}
+// the most shared memory a block may take on Hopper
+constexpr int64_t MAX_SMEM = 232448;
+
+// named barriers of the hand-over between the rounds warp and the
+// schedule warp of slot s (64 threads): chunk c of slot s ready (the
+// schedule warp arrives, the rounds warp waits), slot s free (the
+// reverse); barrier 0 is __syncthreads'
+__device__ __forceinline__ int ready_bar(int slot, int c) { return 1 + CHUNKS * slot + c; }
+__device__ __forceinline__ int free_bar(int slot) { return 1 + 2 * CHUNKS + slot; }
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory"); }
+
+// Big-endian word t of block b of a lane's padded stream: byte p is R's,
+// A's, then the message's below `have` (the byte length, at most 64 +
+// width), 0x80 at the byte length `len`, else zero; the last active
+// block's word 15 is the bit length (its word 14 zero: len < 2^29). R and
+// A end on word boundaries (32, 64), so a word's 8 bytes come from one row
+// (r, pk or m in shared memory): three aligned 32-bit loads, a funnel
+// shift and a byte swap, the bytes at and past `have` masked off (a word
+// wholly past it reads its row's first bytes, never past the row's span).
+__device__ __forceinline__ uint64_t stream_word(const uint8_t* r, const uint8_t* pk, const uint8_t* m, int64_t len,
+                                                int64_t have, int64_t b, int t, int64_t last) {
+    const int64_t p0 = 128 * b + 8 * t;
+    if (b == last && t == 15) return uint64_t(uint32_t(len * 8));
+    const uint8_t* row = p0 < 32 ? r : p0 < 64 ? pk : m;
+    const int64_t off = p0 < have ? p0 - (p0 < 32 ? 0 : p0 < 64 ? 32 : 64) : 0;
+    const int mis = int(reinterpret_cast<uintptr_t>(row + off) & 3);
+    const uint32_t* a = reinterpret_cast<const uint32_t*>(row + off - mis);  // shared loads, not generic
+    const uint32_t sh = uint32_t(mis) * 8;
+    const uint32_t lo = __funnelshift_r(a[0], a[1], sh), hi = __funnelshift_r(a[1], a[2], sh);
+    uint64_t w = (uint64_t(__byte_perm(lo, 0, 0x0123)) << 32) | __byte_perm(hi, 0, 0x0123);
+    const int64_t keep = have - p0;  // bytes of the word below `have`
+    w = keep >= 8 ? w : keep <= 0 ? 0 : w & (~uint64_t(0) << (64 - 8 * keep));
+    const int64_t at = len - p0;  // where 0x80 goes
+    return at >= 0 && at < 8 ? w | (uint64_t(0x80) << (56 - 8 * at)) : w;
+}
+
+__global__ void __launch_bounds__(CHAL_THREADS) tmx_sha512_challenge_kernel(ChallengeArgs a, int64_t n_blocks) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    uint64_t(*words)[80][CHAL_LANES] = reinterpret_cast<uint64_t(*)[80][CHAL_LANES]>(smem);  // [slot][t][lane]
+    uint8_t* spans = smem + CHAL_WORDS_BYTES;
+    const int64_t first = int64_t(blockIdx.x) * CHAL_LANES;
+    const int n = int(a.lanes - first < CHAL_LANES ? a.lanes - first : CHAL_LANES);
+    const int tid = threadIdx.x, warp = tid / CHAL_LANES;
+    const uint8_t* rs = tmx_stage::span(spans, a.sig_r + first * 32, int64_t(n) * 32, tid, CHAL_THREADS);
+    spans += chal_span(32);
+    const uint8_t* pks = tmx_stage::span(spans, a.sig_pk + first * 32, int64_t(n) * 32, tid, CHAL_THREADS);
+    spans += chal_span(32);
+    const uint8_t* ms = tmx_stage::span(spans, a.messages + first * a.width, int64_t(n) * a.width, tid, CHAL_THREADS);
+    // each warp takes the block's 32 lanes, one a thread; threads past the
+    // last lane repeat it and write nothing
+    const int l = tid % CHAL_LANES, li = l < n ? l : n - 1;
+    const int64_t cap = 128 * n_blocks - 17, ml = a.msg_len[first + li];
+    const int64_t len = ml < -64 ? 0 : ml > cap - 64 ? cap : ml + 64;
+    const int64_t have = len < 64 + a.width ? len : 64 + a.width;
+    const int64_t last = (len + 17 + 127) / 128 - 1;  // the lane's last active block
+    // the block's blocks: the most any of its lanes has (the same in every
+    // warp: they take the same lanes)
+    const int64_t blocks = __reduce_max_sync(0xffffffffu, int(last)) + 1;
+    tmx_stage::wait();
+    __syncthreads();
+    if (warp > 0) {  // a schedule warp: the blocks of its slot
+        const int slot = warp - 1;
+        const uint8_t *r = rs + 32 * li, *pk = pks + 32 * li, *m = ms + a.width * li;
+#pragma unroll 1
+        for (int64_t b = slot; b < blocks; b += 2) {
+            if (b >= 2) bar_sync(free_bar(slot));
+            uint64_t w[16];
+#pragma unroll
+            for (int t = 0; t < 16; ++t) {
+                w[t] = stream_word(r, pk, m, len, have, b, t, last);
+                words[slot][t][l] = w[t];
+            }
+            bar_arrive(ready_bar(slot, 0));
+#pragma unroll
+            for (int c = 1; c < CHUNKS; ++c) {
+#pragma unroll
+                for (int t = CHUNK * c; t < CHUNK * (c + 1); ++t) words[slot][t][l] = schedule(w, t);
+                bar_arrive(ready_bar(slot, c));
+            }
+        }
+        return;
+    }
+    uint64_t h[8];  // the rounds warp
+    init(h);
+#pragma unroll 1
+    for (int64_t b = 0; b < blocks; ++b) {
+        const int slot = int(b & 1);
+        uint64_t g[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) g[i] = h[i];
+        rounds(g, [&](int t) {
+            if (t % CHUNK == 0) bar_sync(ready_bar(slot, t / CHUNK));
+            return words[slot][t][l];
+        });
+        if (b + 2 < blocks) bar_arrive(free_bar(slot));
+#pragma unroll
+        for (int i = 0; i < 8; ++i) h[i] = b <= last ? g[i] : h[i];
+    }
+    if (l < n) {
+        uint4* out = reinterpret_cast<uint4*>(a.out + (first + l) * 64);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const uint64_t x = h[2 * k], y = h[2 * k + 1];
+            out[k] = make_uint4(__byte_perm(uint32_t(x >> 32), 0, 0x0123), __byte_perm(uint32_t(x), 0, 0x0123),
+                                __byte_perm(uint32_t(y >> 32), 0, 0x0123), __byte_perm(uint32_t(y), 0, 0x0123));
+        }
+    }
+}
+
 __global__ void __launch_bounds__(THREADS) tmx_sha256_kernel(ShaArgs a) { sha_lane<uint32_t>(a); }
 
 __global__ void __launch_bounds__(THREADS) tmx_sha512_kernel(ShaArgs a) { sha_lane<uint64_t>(a); }
@@ -388,6 +577,24 @@ extern "C" int tmx_sha256_blocks(const ShaArgs* args, void* stream) {
 
 extern "C" int tmx_sha512_blocks(const ShaArgs* args, void* stream) {
     return launch(tmx_sha512_kernel, *args, stream);
+}
+
+// lanes of 32 a block; cudaErrorInvalidValue and no launch for a width
+// whose staged rows do not fit a block's shared memory
+extern "C" int tmx_sha512_challenge(const ChallengeArgs* args, void* stream) {
+    const ChallengeArgs& a = *args;
+    if (a.lanes < 0 || a.width < 0) return (int)cudaErrorInvalidValue;
+    if (a.lanes == 0) return 0;
+    const int64_t blocks = (a.lanes + CHAL_LANES - 1) / CHAL_LANES, smem = chal_smem(a.width);
+    if (blocks > INT_MAX || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+    if (smem > 48 * 1024) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(tmx_sha512_challenge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        if (err != cudaSuccess) return (int)err;
+    }
+    tmx_sha512_challenge_kernel<<<(unsigned)blocks, CHAL_THREADS, size_t(smem), (cudaStream_t)stream>>>(
+        a, (64 + a.width + 17 + 127) / 128);
+    return (int)cudaGetLastError();
 }
 
 // one block of lanes rounded up to a power of two; 1 <= lanes <=

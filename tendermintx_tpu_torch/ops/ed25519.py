@@ -7,10 +7,10 @@ the witness preparation. The device part verifies one signature per lane,
 the cofactorless equation [s]B == R + [k]A as Q = [s]B + [k](-A), Q == R
 projectively: a 253-step double-and-add Straus ladder over a 4-entry
 table, plus ``bind_witness``, which re-derives every ladder input from the
-raw (pubkey, message, signature) bytes. ``straus_verify`` and
-``bind_witness`` run the plain torch versions below for a CPU tensor and
-csrc/ed25519.cu's kernels (radix 2^25.5, csrc/ed25519.cuh) for a CUDA
-tensor.
+raw (pubkey, message, signature) bytes and the challenge digest
+(ops/sha512.py: sha512_challenge). ``straus_verify`` and ``bind_witness``
+run the plain torch versions below for a CPU tensor and csrc/ed25519.cu's
+kernels (radix 2^25.5, csrc/ed25519.cuh) for a CUDA tensor.
 
 Field elements mod p = 2^255 - 19 are 20 limbs of 13 bits in int64
 tensors. The reference normalises limbs after every operation with a
@@ -599,10 +599,13 @@ def bind_witness_cuda(
     sig_r, sig_s, sig_pk, digest_bytes, k_q,
 ):
     """bind_witness_plain's (B,) bool by one csrc/ed25519.cu launch, on
-    every int64 input (the range checks first). Contiguous operands on one
-    card: the ladder's int64 inputs with N_BITS steps, uint8 (B, 32)
-    signature halves and key, uint8 (B, 64) digest and int64 (B, 20) k_q;
-    else raise."""
+    every int64 input (the range checks first): 4 lanes a block of two
+    warps, their rows staged in shared memory in one burst; one warp runs
+    the field checks on a quad of thread pairs a lane (a pair a field
+    product of each phase), the other the scalar checks. Contiguous
+    operands on one card: the ladder's int64 inputs with N_BITS steps,
+    uint8 (B, 32) signature halves and key, uint8 (B, 64) digest and int64
+    (B, 20) k_q; else raise."""
     global bind_kernel_launches
     fn = "bind_witness_cuda"
     ptrs, B, _ = _ladder_operands(fn, table_x, table_y, table_t, bits2, rx, ry, steps=N_BITS)
@@ -626,14 +629,12 @@ def verify_bound(
     bytes, bind every witness array, then run the Straus ladder.
 
     messages: (B, max_len) uint8 zero-padded; msg_len: (B,). The digest
-    input R‖A‖M is assembled on the device, so the verified message is
+    input R‖A‖M is assembled where it is hashed (ops/sha512.py:
+    sha512_challenge, one kernel on a card), so the verified message is
     exactly the lane's message buffer."""
-    from . import sha512 as sha512mod
+    from .sha512 import sha512_challenge
 
-    data = torch.cat([sig_r, sig_pk, messages], dim=1)
-    byte_len = msg_len.to(torch.int64) + 64
-    n_blocks = (64 + messages.shape[1] + 17 + 127) // 128
-    digest = sha512mod.digest_words_to_bytes_dev(sha512mod.sha512_bytes_var(data, byte_len, n_blocks))
+    digest = sha512_challenge(sig_r, sig_pk, messages, msg_len)
     bound = bind_witness(
         table_x, table_y, table_t, bits2, rx, ry, sig_r, sig_s, sig_pk, digest, k_q
     )

@@ -120,7 +120,8 @@ def _sha_library():
     from .cuda_build import load_library
 
     lib = load_library("sha")
-    for fn in ("tmx_sha256_blocks", "tmx_sha512_blocks", "tmx_sha256_validator_root", "tmx_sha256_header_proofs"):
+    for fn in ("tmx_sha256_blocks", "tmx_sha512_blocks", "tmx_sha512_challenge", "tmx_sha256_validator_root",
+               "tmx_sha256_header_proofs"):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     return lib

@@ -6,15 +6,20 @@ bit pattern of one int64 (two's-complement adds wrap exactly as uint64
 adds do), with logical right shifts emulated by a mask. Interfaces that
 expose words take and return one (..., 8) or (..., 16) int64 tensor.
 ``sha512_blocks`` runs the plain torch rounds for a CPU tensor and
-csrc/sha.cu's kernel, one launch a call, for a CUDA tensor.
+csrc/sha.cu's kernel, one launch a call, for a CUDA tensor;
+``sha512_challenge`` (the Ed25519 challenge SHA-512(R || A || M) from the
+raw bytes, padding included) likewise.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from .sha256 import sha_blocks_cuda
+from . import sha256
+from .cuda_build import operand
 
 _K = [
     0x428A2F98D728AE22, 0x7137449123EF65CD, 0xB5C0FBCFEC4D3B2F, 0xE9B5DBA58189DBBC,
@@ -116,7 +121,7 @@ def sha512_blocks_cuda(blocks: torch.Tensor, n_active: torch.Tensor) -> torch.Te
     """sha512_blocks_plain's digests by one csrc/sha.cu launch (exact on
     every int64 word): a thread a lane."""
     global sha512_kernel_launches
-    out, launched = sha_blocks_cuda("tmx_sha512_blocks", blocks, n_active)
+    out, launched = sha256.sha_blocks_cuda("tmx_sha512_blocks", blocks, n_active)
     sha512_kernel_launches += launched
     return out
 
@@ -165,6 +170,90 @@ def digest_words_to_bytes_dev(words: torch.Tensor) -> torch.Tensor:
     """(B, 8) int64 words -> (B, 64) uint8 big-endian digest bytes."""
     shifts = torch.arange(56, -8, -8, device=words.device)
     return ((words[..., None] >> shifts) & 0xFF).to(torch.uint8).reshape(words.shape[0], 64)
+
+
+# ---------------------------------------------------------------------------
+# The Ed25519 challenge: SHA-512(R || A || M) from the raw bytes
+# ---------------------------------------------------------------------------
+
+# incremented exactly where csrc/sha.cu's challenge entry is launched
+sha512_challenge_kernel_launches = 0
+# the widest message rows the kernel takes: a block's 32 rows, staged in
+# shared memory beside its two schedule slots, fit Hopper's 227 KB
+CHALLENGE_MAX_WIDTH = 4096
+
+
+def challenge_blocks(width: int) -> int:
+    """SHA-512 blocks of R || A || M for message rows of `width` bytes."""
+    return (64 + width + 17 + 127) // 128
+
+
+def challenge_byte_len(msg_len: torch.Tensor, width: int) -> torch.Tensor:
+    """64 + msg_len clamped into bytes_to_blocks512's contract [0,
+    128 n_blocks - 17]: within it, the reference's byte length (the bytes
+    past the width zeros, a negative msg_len a prefix of R || A)."""
+    cap = 128 * challenge_blocks(width) - 17
+    return torch.clamp(msg_len.to(torch.int64), -64, cap - 64) + 64
+
+
+def sha512_challenge(sig_r: torch.Tensor, sig_pk: torch.Tensor, messages: torch.Tensor,
+                     msg_len: torch.Tensor) -> torch.Tensor:
+    """SHA-512(R || A || M) of each lane: sig_r, sig_pk (B, 32) and messages
+    (B, W) uint8, msg_len (B,) (clamped as challenge_byte_len clamps it).
+    -> (B, 64) uint8 digest bytes: the plain composition for a CPU tensor,
+    one csrc/sha.cu launch for a CUDA tensor."""
+    t = sig_r.device.type
+    if t == "cpu":
+        return sha512_challenge_plain(sig_r, sig_pk, messages, msg_len)
+    if t == "cuda":
+        return sha512_challenge_cuda(sig_r, sig_pk, messages, msg_len)
+    raise ValueError(f"no SHA-512 challenge for device {sig_r.device}")
+
+
+def sha512_challenge_plain(sig_r, sig_pk, messages, msg_len) -> torch.Tensor:
+    """sha512_challenge as torch ops (any device): the reference's byte
+    assembly (tendermintx_tpu/ops/ed25519.py:533-536) over
+    sha512_blocks_plain."""
+    n_blocks = challenge_blocks(int(messages.shape[1]))
+    data = torch.cat([sig_r, sig_pk, messages], dim=1)
+    blocks, n_active = bytes_to_blocks512(data, challenge_byte_len(msg_len, int(messages.shape[1])), n_blocks)
+    return digest_words_to_bytes_dev(sha512_blocks_plain(blocks, n_active))
+
+
+class _ChallengeArgs(ctypes.Structure):
+    """csrc/sha.cu's ChallengeArgs, field for field."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("sig_r", "sig_pk", "messages", "msg_len")),
+        ("lanes", ctypes.c_int64), ("width", ctypes.c_int64), ("out", ctypes.c_void_p),
+    ]
+
+
+def sha512_challenge_cuda(sig_r, sig_pk, messages, msg_len) -> torch.Tensor:
+    """sha512_challenge_plain's digests by one csrc/sha.cu launch, on every
+    int64 msg_len: contiguous uint8 (B, 32) sig_r and sig_pk, (B, W)
+    messages (W at most CHALLENGE_MAX_WIDTH) and int64 (B,) msg_len on one
+    card, else raise. 32 lanes a block of two warps: one pads the lanes'
+    streams and expands their schedules into shared memory ahead of the
+    other's rounds."""
+    global sha512_challenge_kernel_launches
+    fn = "sha512_challenge_cuda"
+    dev = sig_r.device
+    if dev.type != "cuda":
+        raise TypeError(f"{fn} hashes on a card, got {dev}")
+    if messages.dim() != 2 or not 0 <= messages.shape[1] <= CHALLENGE_MAX_WIDTH:
+        raise ValueError(f"{fn}: messages must be (B, W) with W <= {CHALLENGE_MAX_WIDTH}, "
+                         f"got {tuple(messages.shape)}")
+    B, W = int(messages.shape[0]), int(messages.shape[1])
+    ptrs = [operand(t, dev, torch.uint8, shape, f"{fn}'s {name}")
+            for t, shape, name in ((sig_r, (B, 32), "sig_r"), (sig_pk, (B, 32), "sig_pk"),
+                                   (messages, (B, W), "messages"))]
+    ptrs.append(operand(msg_len, dev, torch.int64, (B,), f"{fn}'s msg_len"))
+    out = torch.empty((B, 64), dtype=torch.uint8, device=dev)
+    if B:
+        sha256.sha_launch("tmx_sha512_challenge", _ChallengeArgs(*ptrs, lanes=B, width=W, out=out.data_ptr()), dev)
+        sha512_challenge_kernel_launches += 1
+    return out
 
 
 def pad_messages(msgs: list[bytes], n_blocks: int | None = None, device=None):

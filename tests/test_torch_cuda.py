@@ -1229,7 +1229,7 @@ def test_toy_dryrun_on_card(dev):
 def _witness_counts():
     from tendermintx_tpu_torch.ops import ed25519, sha256, sha512
 
-    return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches,
+    return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches, sha512.sha512_challenge_kernel_launches,
             ed25519.straus_kernel_launches, ed25519.bind_kernel_launches)
 
 
@@ -1254,7 +1254,7 @@ def test_sha_kernels_match_plain(dev, kind, lanes, n_blocks):
     got = getattr(mod, f"{kind}_blocks")(words, n_active)
     assert torch.equal(got, getattr(mod, f"{kind}_blocks_plain")(words, n_active))
     launched = [a - b for a, b in zip(_witness_counts(), before)]
-    assert launched == ([1, 0, 0, 0] if kind == "sha256" else [0, 1, 0, 0])
+    assert launched == ([1, 0, 0, 0, 0] if kind == "sha256" else [0, 1, 0, 0, 0])
 
 
 def test_sha_kernels_match_hashlib(dev):
@@ -1282,7 +1282,7 @@ def test_straus_kernel_matches_plain_on_both_outcomes(dev, witness_cases):
     ladder, _ = witness_cases
     before = _witness_counts()
     got = ed.straus_verify(*ladder)
-    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 1, 0]
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 0, 1, 0]
     want = ed.straus_verify_plain(*ladder)
     assert torch.equal(got, want)
     assert got.any() and not got.all()
@@ -1294,17 +1294,17 @@ def test_bind_kernel_matches_plain_on_both_outcomes(dev, witness_cases):
     _, bind = witness_cases
     before = _witness_counts()
     got = ed.bind_witness(*bind)
-    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 0, 1]
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 0, 0, 1]
     want = ed.bind_witness_plain(*bind)
     assert torch.equal(got, want)
     assert got.any() and not got.all()
 
 
-@pytest.mark.parametrize("lanes", [1, 7, 8, 9, 31, 33, 128])
+@pytest.mark.parametrize("lanes", [1, 7, 8, 9, 31, 33, 128, 129])
 def test_ed25519_kernels_match_plain_at_ragged_lanes(dev, witness_cases, lanes):
-    """The check lanes repeated to 1-128 lanes: the ladder's blocks of 8
-    lanes (a quad of threads each) and the binding's of 32, the last one
-    partial."""
+    """The check lanes repeated to 1-129 lanes: the ladder's and the
+    binding's blocks of 4 lanes (a quad of thread pairs each), the last
+    one partial."""
     from tendermintx_tpu_torch.ops import ed25519 as ed
 
     ladder, bind = witness_cases
@@ -1315,8 +1315,9 @@ def test_ed25519_kernels_match_plain_at_ragged_lanes(dev, witness_cases, lanes):
 
 
 def test_verify_bound_on_card_equals_cpu(dev):
-    """verify_bound (SHA-512, binding and ladder kernels) and the batch
-    entry points on the card against the CPU's plain programs."""
+    """verify_bound (the SHA-512 challenge, binding and ladder kernels)
+    and the batch entry points on the card against the CPU's plain
+    programs."""
     import chip_smoke
     from tendermintx_tpu_torch.inputs.conversion import get_validator_data_from_block, signature_lanes
     from tendermintx_tpu_torch.inputs.testchain import TestChain
@@ -1329,7 +1330,7 @@ def test_verify_bound_on_card_equals_cpu(dev):
     msgs[2] = chip_smoke._flip(msgs[2], 10)
     before = _witness_counts()
     card = ed.verify_batch_bound(pks, msgs, sigs, device=dev)
-    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 1, 1, 1]
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 1, 1, 1]
     assert card.tolist() == ed.verify_batch_bound(pks, msgs, sigs, device="cpu").tolist()
     assert card.tolist() == [ed.verify_ints(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
     assert ed.verify_batch(pks, msgs, sigs, device=dev).tolist() == card.tolist()
@@ -1362,6 +1363,67 @@ def test_witness_kernels_refuse_instead_of_falling_back(dev, witness_cases):
         ed.bind_witness_cuda(*bind[:6], bind[6].to(torch.int64), *bind[7:])
     with pytest.raises(ValueError):
         ed.bind_witness_cuda(*bind[:3], bind[3][:, :200].contiguous(), *bind[4:])
+    assert _witness_counts() == before
+
+
+def _challenge_inputs(lanes: int, width: int, lens: list[int], seed: int, dev):
+    rng = np.random.default_rng(seed)
+    r, pk, m = (torch.from_numpy(rng.integers(0, 256, size=(lanes, n), dtype=np.uint8)).to(dev)
+                for n in (32, 32, width))
+    return r, pk, m, torch.tensor([lens[i % len(lens)] for i in range(lanes)], dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("lanes", [1, 7, 33, 129])
+@pytest.mark.parametrize("where", ["inside", "outside"])
+def test_challenge_kernel_matches_twin(dev, lanes, where):
+    """Ragged lane counts (blocks of 32), msg_len at the edges 0, 1, 47,
+    48, W - 1 and W of the witness's 124-byte rows, or outside [0, W]
+    (clamped alike); one launch, exact against the twin and hashlib."""
+    import hashlib
+
+    from tendermintx_tpu_torch.ops import sha512
+
+    W = 124
+    cap = 128 * sha512.challenge_blocks(W) - 81
+    lens = [0, 1, 47, 48, W - 1, W] if where == "inside" else [-(1 << 40), -65, -64, -1, W + 1, cap, cap + 1, 1 << 40]
+    r, pk, m, msg_len = _challenge_inputs(lanes, W, lens, lanes, dev)
+    before = _witness_counts()
+    got = sha512.sha512_challenge(r, pk, m, msg_len)
+    assert [a - b for a, b in zip(_witness_counts(), before)] == [0, 0, 1, 0, 0]
+    assert torch.equal(got, sha512.sha512_challenge_plain(r, pk, m, msg_len))
+    data = torch.cat([r, pk, m], 1).cpu().numpy().tobytes()
+    for i, n in enumerate(msg_len.tolist()):
+        row = data[i * (64 + W):(i + 1) * (64 + W)] + bytes(cap - W)
+        want = hashlib.sha512(row[:min(max(n, -64), cap) + 64]).digest()
+        assert bytes(got[i].cpu().numpy()) == want
+
+
+@pytest.mark.parametrize("width", [0, 1, 300, 1000])
+def test_challenge_kernel_at_other_widths(dev, width):
+    """Message rows of 0, 1, 300 (three blocks: a schedule slot reused) and
+    1,000 bytes (shared memory past 48 KB), lengths over the whole range."""
+    from tendermintx_tpu_torch.ops import sha512
+
+    cap = 128 * sha512.challenge_blocks(width) - 81
+    lens = sorted({-1, 0, 1, width // 2, width, width + 1, cap, 500})
+    r, pk, m, msg_len = _challenge_inputs(70, width, lens, width, dev)
+    assert torch.equal(sha512.sha512_challenge_cuda(r, pk, m, msg_len),
+                       sha512.sha512_challenge_plain(r, pk, m, msg_len))
+
+
+def test_challenge_kernel_refuses_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.ops import sha512
+
+    r, pk, m, msg_len = _challenge_inputs(4, 124, [100], 1, dev)
+    before = _witness_counts()
+    for bad in ((r.to(torch.int64), pk, m, msg_len), (r, pk[:, :31].contiguous(), m, msg_len),
+                (r, pk, m.t().contiguous().t(), msg_len), (r, pk, m, msg_len.to(torch.int32)),
+                (r, pk, m, msg_len[:3]), (r, pk, torch.zeros((4, 5000), dtype=torch.uint8, device=dev), msg_len),
+                (r, pk, m.cpu(), msg_len)):
+        with pytest.raises(ValueError):
+            sha512.sha512_challenge_cuda(*bad)
+    with pytest.raises(TypeError):
+        sha512.sha512_challenge_cuda(r.cpu(), pk.cpu(), m.cpu(), msg_len.cpu())
     assert _witness_counts() == before
 
 

@@ -321,53 +321,139 @@ def mod_l_model(k_q: np.ndarray, k_rec: np.ndarray, track: list) -> np.ndarray:
     return acc
 
 
+def bind_tables() -> dict:
+    """tmx_bind_kernel's schedule as csrc/ed25519.cu writes it: the row
+    names (enum BindRow), the constant rows (BIND_FE), the product phases
+    (BIND_PRODUCTS: {f, g, out} a pair), the sum sets (BIND_SUMS: {u, v,
+    subtract, out} a thread) and the comparisons (BIND_CHECKS: {kind, a,
+    b}, two a thread), names resolved to row numbers."""
+    src = open(os.path.join(CSRC, "ed25519.cu")).read()
+
+    def enum(name):
+        body = re.search(rf"enum {name} : uint8_t \{{(.*?)\}};", src, re.S).group(1)
+        return [t.strip() for t in re.sub(r"//[^\n]*", "", body).split(",") if t.strip()]
+
+    index = {n: i for i, n in enumerate(enum("BindRow"))}
+    index.update({n: i for i, n in enumerate(enum("BindCheck"))})
+
+    def table(name, ctype="uint8_t"):
+        body = re.search(rf"__constant__ {ctype} {name}(?:\[\w+\])+ = \{{(.*?)\}};", src, re.S).group(1)
+        return np.array([index[t] if t in index else int(t, 0) for t in re.findall(r"\w+", body)], dtype=np.int64)
+
+    rows = enum("BindRow")
+    return {"rows": rows, "index": index, "n_konst": rows.index("R_RX"),
+            "fe": table("BIND_FE", "uint32_t").reshape(-1, LIMBS),
+            "products": table("BIND_PRODUCTS").reshape(5, 4, 3), "sums": table("BIND_SUMS").reshape(2, 8, 4),
+            "checks": table("BIND_CHECKS").reshape(8, 2, 3), "check_kinds": enum("BindCheck")}
+
+
+# the values of the binding's constant rows K_ZERO .. K_YPX_B
+BIND_KONST = [0, 1, 2, ed.BASE_POINT[0], ed.BASE_POINT[1], ed.BASE_T, ed.D_ED, ed.D2_ED,
+              (ed.BASE_POINT[1] - ed.BASE_POINT[0]) % P, (ed.BASE_POINT[1] + ed.BASE_POINT[0]) % P]
+
+
 def bind_model(table_x, table_y, table_t, bits2, rx, ry, sig_r, sig_s, sig_pk, digest, k_q, m: Model):
-    """tmx_bind_kernel, lane-parallel. The range checks first; the field
-    checks then run on the lanes that pass them alone (the kernel returns
-    false for a lane before any arithmetic)."""
+    """tmx_bind_kernel, lane-parallel, as its two warps run it. The range
+    checks first (a lane's values split over its 16 threads, a vote a
+    warp); a lane that fails them is false, and runs the rest on its limbs
+    masked to 13 bits (the model checks the bounds there too). The scalar
+    warp: thread t's s and k limbs (t, t + 8, t + 16) from the selectors,
+    s against sig_s's; y_R, y_A against p and s, k against L (threads
+    0-3); k_q L + k as column sums, five a thread, one carry, the thread's
+    columns against the digest. The field warp, step by step from the
+    source's tables: the inputs (thread t: t and t + 8), the first sum set
+    beside the first products, products 2 and 3, the second sum set,
+    products 4 and 5, the comparisons; a step reads only rows written by
+    earlier steps and writes each row once."""
+    T = bind_tables()
+    ix, nk = T["index"], T["n_konst"]
     in13 = lambda a, axes: ((a >= 0) & (a <= 8191)).all(axis=axes)
     ok = in13(table_x, (1, 2)) & in13(table_y, (1, 2)) & in13(table_t, (1, 2))
-    ok &= in13(rx, 1) & in13(ry, 1) & in13(k_q, 1) & ((bits2 >= 0) & (bits2 <= 3)).all(1)
-    out = np.zeros(len(ok), dtype=bool)
-    live = np.flatnonzero(ok)
-    if not len(live):
-        return out
-    table_x, table_y, table_t, bits2, rx, ry, sig_r, sig_s, sig_pk, digest, k_q = (
-        np.asarray(a)[live] for a in (table_x, table_y, table_t, bits2, rx, ry, sig_r, sig_s, sig_pk, digest, k_q))
-    B = len(live)
-    y_r, y_a = byte_limbs(sig_r, 20, 255), byte_limbs(sig_pk, 20, 255)
-    sign_r, sign_a = sig_r[:, 31] >> 7, sig_pk[:, 31] >> 7
-    RX, RY = m.load13(rx), m.load13(ry)
-    good = lt13(y_r, P13) & m.eq(RY, m.load13(y_r)) & m.on_curve(RX, RY)
-    good &= (m.canon(RX)[0] & np.uint64(1)) == sign_r
-    X = [m.load13(table_x[:, j]) for j in range(4)]
-    Y = [m.load13(table_y[:, j]) for j in range(4)]
-    bx, by, bt, one = (m.const(v, B) for v in (ed.BASE_POINT[0], ed.BASE_POINT[1], ed.BASE_T, 1))
-    good &= m.eq(X[0], np.zeros_like(X[0])) & m.eq(Y[0], one) & m.eq(X[1], bx) & m.eq(Y[1], by)
-    for j in range(4):
-        good &= m.eq(m.load13(table_t[:, j]), m.mul(X[j], Y[j]))
-    good &= lt13(y_a, P13) & m.eq(Y[2], m.load13(y_a)) & m.on_curve(X[2], Y[2])
-    c2x = m.canon(X[2])
-    nz = (c2x != 0).any(0)
-    good &= np.where(nz, (c2x[0] & np.uint64(1)) == 1 - sign_a, sign_a == 0)
-    X3, Y3, Z3, _ = m.madd(bx, by, one, bt, m.sub(Y[2], X[2]), m.add(Y[2], X[2]),
-                           m.mul(m.load13(table_t[:, 2]), m.const(ed.D2_ED, B)))
-    good &= m.eq(m.mul(X[3], Z3), X3) & m.eq(m.mul(Y[3], Z3), Y3)
+    in_range = ok & in13(rx, 1) & in13(ry, 1) & in13(k_q, 1) & ((bits2 >= 0) & (bits2 <= 3)).all(1)
+    mask = lambda a: np.asarray(a, dtype=np.int64) & 0x1FFF
+    table_x, table_y, table_t, rx, ry, k_q = (mask(a) for a in (table_x, table_y, table_t, rx, ry, k_q))
+    bits2 = np.asarray(bits2, dtype=np.int64) & 3
+    sig_r, sig_s, sig_pk, digest = (np.asarray(a) for a in (sig_r, sig_s, sig_pk, digest))
+    B = len(in_range)
+    good = np.ones(B, dtype=bool)
+
+    # the scalar checks
+    y_r, y_a, s13 = byte_limbs(sig_r, 20, 255), byte_limbs(sig_pk, 20, 255), byte_limbs(sig_s, 20, 256)
     s_rec = np.zeros((B, 20), dtype=np.uint32)
     k_rec = np.zeros((B, 20), dtype=np.uint32)
-    for i in range(ed.N_BITS):
-        pos = ed.N_BITS - 1 - i
-        b = bits2[:, i].astype(np.uint32)
-        s_rec[:, pos // 13] |= (b & 1) << np.uint32(pos % 13)
-        k_rec[:, pos // 13] |= (b >> 1) << np.uint32(pos % 13)
-    s13 = byte_limbs(sig_s, 20, 256)
-    good &= lt13(s13, L13) & lt13(k_rec, L13) & (s_rec == s13).all(1)
-    track = []
-    acc = mod_l_model(k_q, k_rec, track)
-    assert max(track) < 1 << 32
+    for t in range(8):
+        for mm in range(t, 20, 8):
+            for b in range(13):
+                pos = 13 * mm + b
+                sel = bits2[:, ed.N_BITS - 1 - pos].astype(np.uint32) if pos < ed.N_BITS else np.zeros(B, np.uint32)
+                s_rec[:, mm] |= (sel & 1) << np.uint32(b)
+                k_rec[:, mm] |= (sel >> 1) << np.uint32(b)
+    good &= (s_rec == s13).all(1)
+    for lim, c in ((y_r, P13), (y_a, P13), (s13, L13), (k_rec, L13)):
+        good &= lt13(lim, c)
+    acc = np.zeros((B, 40), dtype=np.uint64)
+    for t in range(8):
+        for col in range(t, 40, 8):
+            acc[:, col] = k_rec[:, col] if col < 20 else 0
+            for j in range(20):
+                if 0 <= col - j < 20:
+                    acc[:, col] += k_q[:, col - j].astype(np.uint64) * np.uint64(L13[j])
+    assert int(acc.max()) < 1 << 32
+    assert (acc == _pre_carry(k_q, k_rec)).all()  # the split sums are the whole product's columns
+    for i in range(39):
+        acc[:, i + 1] += acc[:, i] >> np.uint64(13)
+        acc[:, i] &= np.uint64(0x1FFF)
+        assert int(acc[:, i + 1].max()) < 1 << 32
     good &= (acc == byte_limbs(digest, 40, 512)).all(1)
-    out[live] = good
-    return out
+
+    # the field checks
+    assert (T["fe"] == np.array([radix(v) for v in BIND_KONST])).all()
+    rows = {k: m.const(v, B) for k, v in enumerate(BIND_KONST)}
+    assert len(rows) == nk
+    sources = [rx, ry, *(table_x[:, j] for j in range(4)), *(table_y[:, j] for j in range(4)),
+               *(table_t[:, j] for j in range(4)), y_r, y_a]
+    for i, limbs in enumerate(sources):
+        rows[ix["R_RX"] + i] = m.load13(limbs)
+    none = ix["R_NONE"]
+
+    def step(ops):
+        """ops: (reads, out, value) of one step; reads before writes."""
+        written = {out for _, out, _ in ops if out != none}
+        for reads, out, _ in ops:
+            assert all(r in rows and r not in written for r in reads)
+        new = {out: value() for _, out, value in ops}
+        for out, v in new.items():
+            if out != none:
+                assert out not in rows
+                rows[out] = v
+
+    sums = lambda k: [((u, v), out, lambda u=u, v=v, neg=neg: m.addsub(rows[u], rows[v], bool(neg)))
+                      for u, v, neg, out in T["sums"][k]]
+    products = lambda p: [((f, g), out, lambda f=f, g=g: m.mul(rows[f], rows[g])) for f, g, out in T["products"][p]]
+    step(sums(0) + products(0))
+    step(products(1))
+    step(products(2))
+    step(sums(1))
+    step(products(3))
+    step(products(4))
+    kinds = T["check_kinds"]
+    sign_r, sign_a = (sig_r[:, 31] >> 7).astype(np.uint64), (sig_pk[:, 31] >> 7).astype(np.uint64)
+    for kind, a, b in T["checks"].reshape(-1, 3):
+        ca, cb = m.canon(rows[a]), m.canon(rows[b])
+        same, parity = (ca == cb).all(0), ca[0] & np.uint64(1)
+        good &= {"CHK_EQ": same, "CHK_SIGN_R": parity == sign_r,
+                 "CHK_SIGN_A": np.where(same, sign_a == 0, parity == 1 - sign_a)}[kinds[kind]]
+    return in_range & good
+
+
+def _pre_carry(k_q, k_rec) -> np.ndarray:
+    """k_q L + k's 40 column sums before the carry."""
+    acc = np.zeros((k_q.shape[0], 40), dtype=np.uint64)
+    for i in range(20):
+        for j in range(20):
+            acc[:, i + j] += k_q[:, i].astype(np.uint64) * np.uint64(L13[j])
+        acc[:, i] += k_rec[:, i]
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -428,10 +514,16 @@ def test_constants_in_the_sources_match_python():
         m = re.search(rf"__constant__ uint32_t {name}\[\w+\] = \{{([^}}]*)\}}", src)
         return [int(v, 0) for v in m.group(1).replace("\n", " ").split(",") if v.strip()]
 
-    for name, v in (("D2_FE", ed.D2_ED), ("D_FE", ed.D_ED), ("BX_FE", ed.BASE_POINT[0]),
-                    ("BY_FE", ed.BASE_POINT[1]), ("BT_FE", ed.BASE_T)):
-        assert table(name) == radix(v), name
-    assert table("P13") == P13 and table("L13") == L13
+    assert table("D2_FE") == radix(ed.D2_ED)
+    assert bind_tables()["fe"].tolist() == [radix(v) for v in BIND_KONST]
+
+    def limbs13(name, otherwise):  # a constexpr limb function: j == k ? v : ... : otherwise
+        body = re.search(rf"constexpr uint32_t {name}\(int j\) \{{(.*?)\}}", src, re.S).group(1)
+        assert re.search(rf": {otherwise};", body)
+        listed = {int(j): int(v) for j, v in re.findall(r"j == (\d+) \? (\d+)", body)}
+        return [listed.get(j, otherwise) for j in range(20)]
+
+    assert limbs13("p13", 8191) == P13 and limbs13("l13", 0) == L13
     sha = open(os.path.join(CSRC, "sha.cu")).read()
 
     def sha_table(name):
@@ -632,7 +724,7 @@ def test_sha512_n_active_edges_match_jax_and_hashlib():
 
 
 def _counters():
-    return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches,
+    return (sha256.sha256_kernel_launches, sha512.sha512_kernel_launches, sha512.sha512_challenge_kernel_launches,
             ed.straus_kernel_launches, ed.bind_kernel_launches,
             gadgets.validator_root_kernel_launches, gadgets.header_proofs_kernel_launches)
 
@@ -649,16 +741,21 @@ def test_cpu_tensors_take_the_plain_versions(ladder_inputs):
                        sha512.sha512_blocks_plain(blocks512, n_active512))
     assert torch.equal(ed.straus_verify(*ladder), ed.straus_verify_plain(*ladder))
     assert torch.equal(ed.bind_witness(*ladder, *bind), ed.bind_witness_plain(*ladder, *bind))
-    assert _counters() == before == (0,) * 6
+    msgs = torch.zeros((len(bind[0]), 124), dtype=torch.uint8)
+    msg_len = torch.arange(len(bind[0])) * 15 - 20
+    assert torch.equal(sha512.sha512_challenge(bind[0], bind[2], msgs, msg_len),
+                       sha512.sha512_challenge_plain(bind[0], bind[2], msgs, msg_len))
+    assert _counters() == before == (0,) * 7
 
 
-@pytest.mark.parametrize("fn", ["sha256", "sha512", "straus", "bind"])
+@pytest.mark.parametrize("fn", ["sha256", "sha512", "challenge", "straus", "bind"])
 def test_wrappers_refuse_other_devices(fn):
     meta = lambda *shape, dtype=torch.int64: torch.empty(shape, dtype=dtype, device="meta")
     ladder = (meta(2, 4, 20), meta(2, 4, 20), meta(2, 4, 20), meta(2, ed.N_BITS), meta(2, 20), meta(2, 20))
     call = {
         "sha256": lambda: sha256.sha256_blocks(meta(2, 1, 16), meta(2)),
         "sha512": lambda: sha512.sha512_blocks(meta(2, 1, 16), meta(2)),
+        "challenge": lambda: sha512.sha512_challenge(*(meta(2, n, dtype=torch.uint8) for n in (32, 32, 124)), meta(2)),
         "straus": lambda: ed.straus_verify(*ladder),
         "bind": lambda: ed.bind_witness(*ladder, *(meta(2, n, dtype=torch.uint8) for n in (32, 32, 32, 64)),
                                         meta(2, 20)),
@@ -672,8 +769,9 @@ def test_chip_smoke_witness_calls_are_the_programs_calls(tmp_path, monkeypatch):
     proof entries' byte rows (_witness_sha256_shapes), from which the card
     run holds the kernels' launches, are the calls skip_verify and
     step_verify make (here through the plain twins, at N=8): two validator
-    trees and one header-proof batch a skip, one and one a step, and no
-    sha256_blocks call outside the twins of those two."""
+    trees and one header-proof batch a skip, one and one a step, one
+    challenge a program, and no sha256_blocks or sha512_blocks call outside
+    the twins of those."""
     import chip_smoke
 
     from tendermintx_tpu_torch.circuits.variables import pack_skip_witness, pack_step_witness
@@ -681,6 +779,7 @@ def test_chip_smoke_witness_calls_are_the_programs_calls(tmp_path, monkeypatch):
 
     calls = {name: [] for name in chip_smoke.WITNESS_ENTRIES}
     twins = {"sha256_blocks": (sha256, "sha256_blocks_plain"), "sha512_blocks": (sha512, "sha512_blocks_plain"),
+             "sha512_challenge": (sha512, "sha512_challenge_plain"),
              "straus_verify": (ed, "straus_verify_plain"), "bind_witness": (ed, "bind_witness_plain"),
              **{name: (gadgets, plain) for name, (_, plain) in chip_smoke.SHA256_GADGETS.items()}}
     inside = []  # a twin's own calls of the others are not the program's

@@ -3,8 +3,8 @@ main-path shape on one card, and the LogUp and OOD kernels round by round.
 
     python3 tools/kernel_times.py [--root DIR] [--label NAME]
         [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers,fri_fold,fri_inject,
-                sha256_blocks,sha256_validator_root,sha256_header_proofs,sha512_blocks,straus_verify,
-                bind_witness,witness_programs] [--rounds R]
+                sha256_blocks,sha256_validator_root,sha256_header_proofs,sha512_blocks,sha512_challenge,
+                straus_verify,bind_witness,witness_programs] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -42,7 +42,10 @@ active;
 `sha256_validator_root` over 128 random leaves (lengths 1 to 47) with all
 128 enabled; `sha256_header_proofs` at a skip's 4 and a step's 5 proofs
 (leaves of 73 bytes, one of 119); `sha512_blocks` at 128 lanes x 2
-blocks; `straus_verify` and
+blocks; `sha512_challenge` at 128 lanes of random R, A and 124-byte
+message rows with msg_len 110 (two blocks, as a precommit's; in a checkout
+without the challenge kernel, the byte assembly and `sha512_blocks` its
+`verify_bound` ran instead, `composition` true); `straus_verify` and
 `bind_witness` at 128 lanes repeated from `_witness_cases`' 8 chain
 lanes (in every range, so that no binding lane stops early).
 `burst_ms` launches on one input set. `witness_programs` runs
@@ -51,7 +54,7 @@ chip_smoke.py's `_witness_programs` with its profile (skip_verify on skip
 seconds of one call and its torch ops) R times after a first call, on
 `SkipChain(128)`, then times the witness-only `cli prove` of skip 2 -> 6
 (`--device cuda`, host clock) R times after a warm-up; in a checkout
-without the tree and proof kernels it counts no launches. Prints one JSON line: the card's
+without the challenge kernel it counts no launches. Prints one JSON line: the card's
 name and power limit, the label, and per shape the ms. Two checkouts are compared by running
 this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
@@ -284,6 +287,16 @@ def main(argv=None) -> int:
                 0, 1 << 32, (128, 2, 16), generator=gen, device=dev)
             runs["sha512_blocks"] = [((128, 2), sha512.sha512_blocks_cuda, sha_burst,
                                       (words, torch.full((128,), 2, dtype=torch.int64, device=dev)))]
+        if "sha512_challenge" in only:
+            rand = lambda *shape: torch.randint(0, 256, shape, generator=gen, device=dev).to(torch.uint8)
+            chal = (rand(128, 32), rand(128, 32), rand(128, cs.MESSAGE_WIDTH),
+                    torch.full((128,), 110, dtype=torch.int64, device=dev))
+            if hasattr(sha512, "sha512_challenge_cuda"):
+                run = sha512.sha512_challenge_cuda
+            else:  # the parent's verify_bound: byte assembly, then sha512_blocks
+                run = lambda r, pk, m, n: sha512.digest_words_to_bytes_dev(
+                    sha512.sha512_bytes_var(torch.cat([r, pk, m], 1), n + 64, 2))
+            runs["sha512_challenge"] = [((128, cs.MESSAGE_WIDTH), run, sha_burst, chal)]
         if "straus_verify" in only:
             runs["straus_verify"] = [((128, 253), ed25519.straus_verify_cuda, ed_burst, lanes(ladder, 128))]
         if "bind_witness" in only:
@@ -292,8 +305,9 @@ def main(argv=None) -> int:
             rows = []
             for shape, kernel, burst, kargs in cases:
                 run = lambda: kernel(*kargs)
+                composition = name == "sha512_challenge" and not hasattr(sha512, "sha512_challenge_cuda")
                 rows.append({"shape": list(shape), "rounds": timed_rounds(run, reps_for(run), burst),
-                             "kernel_ms": kernel_ms(run)})
+                             "kernel_ms": kernel_ms(run), **({"composition": True} if composition else {})})
             out[name] = rows
     if "witness_programs" in only:
         import tempfile
@@ -301,10 +315,10 @@ def main(argv=None) -> int:
         from tendermintx_tpu_torch.circuits.skip import encode_skip_input
 
         # launches are held to this checkout's structure (_witness_launches):
-        # another checkout's (an earlier one's per-level SHA-256, or torch
-        # ops) are not counted
-        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.circuits.gadgets"),
-                          "header_proofs_kernel_launches")
+        # another checkout's (an earlier one's sha512_blocks after torch
+        # byte assembly) are not counted
+        kernels = hasattr(importlib.import_module("tendermintx_tpu_torch.ops.sha512"),
+                          "sha512_challenge_kernel_launches")
         with tempfile.TemporaryDirectory(prefix="kernel_times_") as workdir:
             sc = cs.SkipChain(128, os.path.join(workdir, "n128"))
             first, *rounds = [cs._witness_programs(sc, True, kernels) for _ in range(args.rounds + 1)]
