@@ -163,8 +163,18 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  ``n128_wrapped_proof_gz_bytes``); peak device memory; the
                  same wrap once more (host tables warm), byte-identical;
                  with --profile that second wrap runs under torch.profiler
-                 and the line times its plain torch programs
-                 (expand_perm_states and the EvalAir aux pieces);
+                 and the line times the ranges around its round-state and
+                 EvalAir kernels (expand_perm_states, eval_terms,
+                 eval_scan: the reference's programs that were plain torch
+                 before). The wrap launches EvalAir's terms kernel once,
+                 the scan's two kernels and the round-state kernel once;
+                 no other path but runtime launches them;
+  8b. wrap_kernels - csrc/logup.cu's eval_terms and eval_scan and
+                 csrc/poseidon.cu's poseidon_expand on the inputs the wraps
+                 gave them (the latest call of each shape), exact against
+                 their plain twins on the whole outputs; at the N=128
+                 wrap's shapes (EvalAir 2^17 rows, WrapAir 2^15 states)
+                 timed beside the twins, with bounds and registers;
   9. runtime   - the port's entry points on the card at N=128, in this
                  process: ``cli build`` and a witness-only ``cli prove`` of
                  skip 2 -> 6 (valid, header 6), its witness kernels'
@@ -211,6 +221,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  four-step run alone held to its shards' pass plans), and
                  dryrun_multichip(4) in each
                  of its shapes (default, toy, full), each timed;
+ 10b. grind    - csrc/poseidon.cu's grinding kernel on every batch that
+                 every path's FRIs searched (one launch a batch, checked on
+                 every path against its FRI proofs' nonces), again against
+                 grind_plain on the card and check_grind, then a seed whose
+                 first 20-bit hit lies past the first batch; timed at the
+                 first batch of the run's first 16-bit search that hit
+                 there, beside grind_plain;
  11. fri_shapes - every fold and injection shape the run called
                  csrc/fri.cu's wrappers with (_FriCalls) that the kernels
                  phase did not check (the N=4 proofs': the parity prove,
@@ -2421,6 +2438,10 @@ LAUNCH_COUNTERS = {
     "sha512_challenge": ("tendermintx_tpu_torch.ops.sha512", "sha512_challenge_kernel_launches"),
     "straus_verify": ("tendermintx_tpu_torch.ops.ed25519", "straus_kernel_launches"),
     "bind_witness": ("tendermintx_tpu_torch.ops.ed25519", "bind_kernel_launches"),
+    "eval_terms": ("tendermintx_tpu_torch.stark.evalair", "eval_terms_kernel_launches"),
+    "eval_scan": ("tendermintx_tpu_torch.stark.evalair", "eval_scan_kernel_launches"),
+    "poseidon_expand": ("tendermintx_tpu_torch.ops.poseidon", "expand_kernel_launches"),
+    "poseidon_grind": ("tendermintx_tpu_torch.ops.poseidon", "grind_kernel_launches"),
 }
 # the rows of the kernels line that sum several counted entries of one
 # kernel: csrc/ntt.cu's forward, inverse and coset LDE entries
@@ -2434,6 +2455,9 @@ NOT_PROVED_BY = ("ntt_forward",)
 LOGUP_ENTRIES = ("logup_terms", "logup_scan")
 # the hash bundles' single-statement FRI injects nothing
 NOT_INJECTED_BY = ("fri_inject",)
+# the recursion wrap's kernels (EvalAir's aux columns, WrapAir's round
+# states): only a path that wraps launches them
+WRAP_ENTRIES = ("eval_terms", "eval_scan", "poseidon_expand")
 
 
 class _NttCalls:
@@ -2548,12 +2572,14 @@ def _prove_and_verify(sc: SkipChain, trusted_h: int, target_h: int) -> tuple[dic
     }, proof
 
 
-def _check_launched(launches: dict, path: str, absent: tuple = (), witness: bool = False):
+def _check_launched(launches: dict, path: str, absent: tuple = (), witness: bool = False, wrap: bool = False):
     """Every kernel launched by the path, but those of `absent`, which
     must not be; the witness programs' kernels only on a `witness` path
     (no prove runs them), and NOT_IN_PROGRAMS' on none (sha256_blocks
-    runs only in the mesh's lane checks, sha512_blocks on no path)."""
+    runs only in the mesh's lane checks, sha512_blocks on no path); the
+    wrap's only on a path that wraps."""
     absent = absent + NOT_IN_PROGRAMS if witness else absent + WITNESS_ENTRIES
+    absent = absent if wrap else absent + WRAP_ENTRIES
     for name, n in launches.items():
         if name in absent:
             if n:
@@ -2595,24 +2621,43 @@ def _check_ood_launches(launches: dict, statements: int, ed25519: int, path: str
                              f"launched {got}; {want} wanted")
 
 
+def _grind_batches(proof, pow_bits: int) -> int:
+    """The grinding launches of one FRI proof on the card: one a batch of
+    GRIND_BATCH candidates searched up to its nonce; none at 0 bits."""
+    from tendermintx_tpu_torch.stark.fri import GRIND_BATCH
+
+    return proof.pow_nonce // GRIND_BATCH + 1 if pow_bits else 0
+
+
 def _check_fri_launches(launches: dict, fris: list, sizes: int, path: str, shards: int = 1):
-    """FRI proofs, (proof, n_max) each over codewords of at most n_max
-    values, fold once a committed layer (once a shard where a mesh of
-    `shards` shards the layer: at least 4 values a shard) and inject once
+    """FRI proofs, (proof, n_max, pow_bits) each over codewords of at most
+    n_max values, fold once a committed layer (once a shard where a mesh of
+    `shards` shards the layer: at least 4 values a shard), inject once
     a codeword size of a batch (`sizes` in all; none in a
-    single-statement FRI)."""
+    single-statement FRI) and grind once a batch searched."""
     folds = sum(shards if shards > 1 and (n_max >> l) >= 4 * shards else 1
-                for proof, n_max in fris for l in range(len(proof.layer_caps)))
-    want = {"fri_fold": folds, "fri_inject": sizes}
+                for proof, n_max, _ in fris for l in range(len(proof.layer_caps)))
+    want = {"fri_fold": folds, "fri_inject": sizes,
+            "poseidon_grind": sum(_grind_batches(proof, bits) for proof, _, bits in fris)}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"the {path} path launched {got}; its FRI layers and codeword sizes give {want}")
 
 
-def _check_batch_fri(launches: dict, batch, rate_bits: int, path: str, shards: int = 1):
-    """_check_fri_launches for one BatchStarkProof."""
+def _check_batch_fri(launches: dict, batch, config, path: str, shards: int = 1):
+    """_check_fri_launches for one BatchStarkProof at its StarkConfig."""
     rows = {st.n_rows for st in batch.statements}
-    _check_fri_launches(launches, [(batch.fri_proof, max(rows) << rate_bits)], len(rows), path, shards)
+    _check_fri_launches(launches, [(batch.fri_proof, max(rows) << config.rate_bits, config.proof_of_work_bits)],
+                        len(rows), path, shards)
+
+
+def _check_wrap_launches(launches: dict, wraps: int, path: str):
+    """A wrap on the card launches EvalAir's terms kernel once, the scan's
+    two kernels and WrapAir's round-state kernel once."""
+    want = {"eval_terms": wraps, "eval_scan": 2 * wraps, "poseidon_expand": wraps}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"the {path} path launched {got}; {wraps} wrap(s) give {want}")
 
 
 def _check_deep_launches(launches: dict, statements: int, shards: int, path: str):
@@ -2628,7 +2673,7 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
-    cold, _ = _prove_and_verify(sc, 1, 5)
+    cold, cold_proof = _prove_and_verify(sc, 1, 5)
     cold_launches = _launch_counts()
     first_call = len(NTT_CALLS.calls)
     warm, warm_proof = _prove_and_verify(sc, 2, 6)
@@ -2652,9 +2697,8 @@ def phase_slice(sc: SkipChain) -> tuple[dict, dict, object]:
     _check_deep_launches(cold_launches, n_stmts, 1, "cold skip")
     _check_ood_launches(warm_launches, n_stmts, 1, "warm skip")
     _check_ood_launches(cold_launches, n_stmts, 1, "cold skip")
-    rate = DEFAULT_COMPOSITE_CONFIG.rate_bits
-    _check_batch_fri(warm_launches, warm_proof.batch, rate, "warm skip")
-    _check_batch_fri(cold_launches, warm_proof.batch, rate, "cold skip")
+    _check_batch_fri(warm_launches, warm_proof.batch, DEFAULT_COMPOSITE_CONFIG, "warm skip")
+    _check_batch_fri(cold_launches, cold_proof.batch, DEFAULT_COMPOSITE_CONFIG, "cold skip")
     # one sponge launch per column-major tree: trace, quotient and (where
     # the AIR has one) aux commitment of every statement
     trees = sum(2 + (st.aux_cap is not None) for st in warm_proof.batch.statements)
@@ -2703,7 +2747,7 @@ def phase_step(sc: SkipChain) -> tuple[dict, dict, bytes]:
     _check_launched(launches, "step")
     _check_deep_launches(launches, len(proof.batch.statements), 1, "step")
     _check_ood_launches(launches, len(proof.batch.statements), 1, "step")
-    _check_batch_fri(launches, proof.batch, DEFAULT_COMPOSITE_CONFIG.rate_bits, "step")
+    _check_batch_fri(launches, proof.batch, DEFAULT_COMPOSITE_CONFIG, "step")
     blob = proof.to_bytes()
     t2 = time.perf_counter()
     result = verify_step_composite(CompositeProof.from_bytes(blob), CHAIN_ID)
@@ -2791,7 +2835,8 @@ def phase_hashes(sc: SkipChain, parity: dict, card: str) -> tuple[dict, dict]:
     # two single-statement SHA-256 proves
     _check_ood_launches(launches, 2, 0, "hashes")
     rate = DEFAULT_HASH_CONFIG.rate_bits
-    _check_fri_launches(launches, [(b.proof.fri_proof, b.proof.n_rows << rate) for b in (skip, step)], 0, "hashes")
+    _check_fri_launches(launches, [(b.proof.fri_proof, b.proof.n_rows << rate, DEFAULT_HASH_CONFIG.proof_of_work_bits)
+                                   for b in (skip, step)], 0, "hashes")
 
     facts, more = _verify_bundle(verify_skip_hashes, skip, (trusted, target), 6)
     skip_line.update(more)
@@ -2852,26 +2897,265 @@ def phase_hashes(sc: SkipChain, parity: dict, card: str) -> tuple[dict, dict]:
     return out, launches
 
 
-PLAIN_RANGES = ("expand_perm_states", "eval_terms", "eval_scan", "eval_assemble")
+class _WrapCalls:
+    """While installed: the inputs of the latest call of each shape of the
+    wrap's kernel wrappers (stark/evalair.py: eval_terms_cuda, the trace,
+    static rows and challenges; ops/poseidon.py: expand_cuda, the states)
+    and every grinding batch (ops/poseidon.py: grind_cuda) with its result,
+    so that phase_wrap_kernels and phase_grind hold the kernels against
+    their twins on what the paths gave them. `originals` are the
+    wrappers, for those checks."""
+
+    def __init__(self):
+        self.eval: dict = {}
+        self.expand: dict = {}
+        self.grinds: list = []
+        self.originals: dict = {}
+
+    def install(self):
+        from tendermintx_tpu_torch.ops import poseidon as ps
+        from tendermintx_tpu_torch.ops.ext import GF2
+        from tendermintx_tpu_torch.ops.goldilocks import GF
+        from tendermintx_tpu_torch.stark import evalair as ev
+
+        terms, expand, grind = ev.eval_terms_cuda, ps.expand_cuda, ps.grind_cuda
+        self.originals = {"eval_terms": terms, "eval_scan": ev.eval_scan_cuda, "expand": expand, "grind": grind}
+        copy = lambda g: GF2(GF(g.c0.v.clone()), GF(g.c1.v.clone()))
+
+        def eval_terms(trace, rows, gamma, delta, out):
+            self.eval[int(trace.v.shape[-1])] = (GF(trace.v.clone()), rows, copy(gamma), copy(delta))
+            return terms(trace, rows, gamma, delta, out)
+
+        def expand_states(states):
+            self.expand[int(states.shape[0])] = states.clone()
+            return expand(states)
+
+        def grind_batch(seed, pow_bits, start, batch, device):
+            nonce = grind(seed, pow_bits, start, batch, device)
+            self.grinds.append((seed, pow_bits, start, batch, nonce))
+            return nonce
+
+        ev.eval_terms_cuda, ps.expand_cuda, ps.grind_cuda = eval_terms, expand_states, grind_batch
+
+
+WRAP_CALLS = _WrapCalls()
+# the least field multiplies of an EvalAir row: a term's delta v0 and
+# delta^2 v1 (2 each), its norm (2), its share of a batch inversion
+# (BATCH_INV_MULS) and m conj(D) / N(D) (4); one inversion a launch
+EVAL_TERM_MULS = 2 + 2 + 2 + 3 + 4
+
+
+def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
+    """csrc/logup.cu's EvalAir entries and csrc/poseidon.cu's round-state
+    kernel on the inputs the wraps of the run gave them (WRAP_CALLS: the
+    latest call of each shape, the N=128 wrap's and, where it differs, the
+    card's N=4 parity wrap's), each held exactly against its plain twin on the whole output
+    (eval_terms_plain: the term rows and row sums; eval_scan_plain: S;
+    eval_aux_plain: the (10, n) aux rows; expand_plain: the 106 columns);
+    at the N=128 wrap's shapes (`wrap_rows`: WrapAir's and EvalAir's rows)
+    each timed (the median of five rounds, a raw-launch burst for the two
+    eval entries) beside its plain twin's time and its bound. Adds rows
+    eval_terms, eval_scan and poseidon_expand."""
+    from tendermintx_tpu_torch.ops import poseidon as ps
+    from tendermintx_tpu_torch.stark import evalair as ev
+    from tendermintx_tpu_torch.stark.lookup import scan_tiles
+
+    dev = torch.device("cuda", 0)
+    clock_mhz = float(_nvidia_smi("clocks.max.sm"))
+    muls_per_ms = MULS_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_mhz * 1e3
+    terms_fn, scan_fn, expand_fn = (WRAP_CALLS.originals[k] for k in ("eval_terms", "eval_scan", "expand"))
+    wrap_n, eval_n = wrap_rows
+    if eval_n not in WRAP_CALLS.eval or wrap_n not in WRAP_CALLS.expand:
+        raise AssertionError(f"the N=128 wrap's shapes {wrap_rows} were not recorded: {list(WRAP_CALLS.eval)}, "
+                             f"{list(WRAP_CALLS.expand)}")
+
+    def check_eval(trace, srows, gamma, delta):
+        n = int(trace.v.shape[-1])
+        out = torch.empty((ev.N_AUX, n), dtype=torch.int64, device=dev)
+        partial = terms_fn(trace, srows, gamma, delta, out)
+        inter, want_partial = ev.eval_terms_plain(trace, srows, gamma, delta)
+        _check_equal(out[:8], inter, f"eval_terms at {n} rows")
+        _check_equal(partial, want_partial, f"eval_terms' row sums at {n} rows")
+        scan_fn(partial, out)
+        _check_equal(out[8:], ev.eval_scan_plain(partial), f"eval_scan at {n} rows")
+        _check_equal(out, ev.eval_aux_plain(trace, srows, gamma, delta).v, f"the EvalAir aux rows at {n} rows")
+        return out, partial
+
+    checked_eval, checked_expand = [], []
+    for n, args in sorted(WRAP_CALLS.eval.items()):
+        check_eval(*args)
+        checked_eval.append({"rows": n, "max_abs_err": 0.0})
+    for n, states in sorted(WRAP_CALLS.expand.items()):
+        _check_equal(expand_fn(states), ps.expand_plain(states), f"poseidon_expand at {n} states")
+        checked_expand.append({"rows": n, "max_abs_err": 0.0})
+
+    trace, srows, gamma, delta = WRAP_CALLS.eval[eval_n]
+    out, partial = check_eval(trace, srows, gamma, delta)
+    n = eval_n
+    _, terms_plain_ms = _timed_once(lambda: ev.eval_terms_plain(trace, srows, gamma, delta))
+    _, scan_plain_ms = _timed_once(lambda: ev.eval_scan_plain(partial))
+    _, aux_plain_ms = _timed_once(lambda: ev.eval_aux_plain(trace, srows, gamma, delta))
+    terms = _time_rounds(lambda: terms_fn(trace, srows, gamma, delta, out), 20)
+    terms["burst_ms"] = _launch_burst_ms(ev, "_eval_launch", "_eval_library",
+                                         lambda: terms_fn(trace, srows, gamma, delta, out))
+    scan = _time_rounds(lambda: scan_fn(partial, out), 20)
+    scan["burst_ms"] = _launch_burst_ms(ev, "_eval_launch", "_eval_library", lambda: scan_fn(partial, out))
+    aux = _time_rounds(lambda: ev.eval_aux_cuda(trace, srows, gamma, delta), 20)
+    states = WRAP_CALLS.expand[wrap_n]
+    _, expand_plain_ms = _timed_once(lambda: ps.expand_plain(states))
+    expand = _time_rounds(lambda: expand_fn(states), 20)
+    # reads: the 8 trace and 8 static rows; writes: the 8 term rows and the
+    # 2 row-sum rows; the scan reads the row sums and writes S
+    terms_bound = _field_bound(n * 4 * EVAL_TERM_MULS + INV_MULS, 8 * n * (8 + 8 + 8 + 2), muls_per_ms)
+    scan_bound = _field_bound(0, 8 * n * (2 + 2), muls_per_ms)
+    expand_bound = _bound(wrap_n, 8 * wrap_n * (ps.WIDTH + ps.EXPAND_COLS), clock_mhz)
+    common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/logup.cu", "library_ms": None,
+              "library": "none: no PyTorch call computes GF(p^2) inverses or scans", "max_abs_err": 0.0,
+              "checked": checked_eval}
+    out_rows = {
+        "eval_terms": {
+            **common, "replaces": "tendermintx_tpu/stark/evalair.py:945",
+            "replaces_program": "_eval_terms_kernel (:945) and _eval_assemble_kernel (:987)",
+            "shape": [8, n], **terms, "plain_ms": terms_plain_ms, **terms_bound,
+            **_registers_of(build["logup"]["ptxas"], "tmx_eval_terms"),
+            "aux": {**aux, "plain_ms": aux_plain_ms},
+        },
+        "eval_scan": {
+            **common, "replaces": "tendermintx_tpu/stark/evalair.py:966", "replaces_program": "_eval_scan_kernel",
+            "shape": [2, 1, n], "tiles": list(scan_tiles(n)), **scan, "plain_ms": scan_plain_ms, **scan_bound,
+            **_registers_of(build["logup"]["ptxas"], "tmx_logup_tile_sums", "tmx_logup_scan"),
+        },
+        "poseidon_expand": {
+            "route": "cuda", "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
+            "replaces": "tendermintx_tpu/stark/recursion.py:220",
+            "replaces_program": "expand_perm_states (jitted at :275 as _expand_jit)",
+            "library_ms": None, "library": "none: no PyTorch call computes Poseidon rounds",
+            "max_abs_err": 0.0, "checked": checked_expand, "shape": [wrap_n, ps.WIDTH], **expand,
+            "plain_ms": expand_plain_ms, **expand_bound,
+            **_registers_of(build["poseidon"]["ptxas"], "tmx_poseidon_expand"),
+        },
+    }
+    for row in out_rows.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "wrap_kernels", **out_rows})
+    rows.update(out_rows)
+    return out_rows
+
+
+# the pow_bits of the seed phase_grind searches past the first batch
+GRIND_PAST_BITS = 20
+
+
+def _grind_burst_ms(seed: int, pow_bits: int, batch: int, dev, reps: int = 200) -> float:
+    """ms a launch of csrc/poseidon.cu's grinding kernel from a burst of
+    raw C-entry calls on one batch (no read-back between them)."""
+    from tendermintx_tpu_torch.ops import poseidon as ps
+
+    hit = torch.full((1,), batch, dtype=torch.int64, device=dev)
+    entry = ps._library().tmx_poseidon_grind
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry(seed, pow_bits, 0, batch, hit.data_ptr(), stream)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    errs = [entry(seed, pow_bits, 0, batch, hit.data_ptr(), stream) for _ in range(reps)]
+    end.record()
+    torch.cuda.synchronize()
+    if any(errs):
+        raise RuntimeError(f"tmx_poseidon_grind launch failed: CUDA error {max(errs)}")
+    return start.elapsed_time(end) / reps
+
+
+def phase_grind(rows: dict, build: dict) -> dict:
+    """csrc/poseidon.cu's grinding kernel on every batch the run's FRIs
+    searched (WRAP_CALLS.grinds: every path's seeds), each launched again
+    and held exactly against grind_plain on the card (the batch's first hit
+    or None, which must also be what the path got), each search's nonce
+    accepted by check_grind; then a seed whose first hit at GRIND_PAST_BITS
+    lies past the first batch, searched by fri.grind on the card and held
+    to grind_plain batch by batch, one launch a batch. Timed (the median of
+    five rounds through the wrapper, with its read-back, and a raw-launch
+    burst) at the run's first 16-bit seed's first batch beside grind_plain's
+    time; the bound counts the candidates that search needs (its nonce + 1
+    permutations), the batch's beside it. Adds the row poseidon_grind."""
+    from tendermintx_tpu_torch.ops import poseidon as ps
+    from tendermintx_tpu_torch.stark import fri
+
+    dev = torch.device("cuda", 0)
+    clock_mhz = float(_nvidia_smi("clocks.max.sm"))
+    grind_fn = WRAP_CALLS.originals["grind"]
+    calls = list(dict.fromkeys(WRAP_CALLS.grinds))
+    for seed, bits, start, batch, nonce in calls:
+        got = grind_fn(seed, bits, start, batch, dev)
+        want = ps.grind_plain(seed, bits, start, batch, dev)
+        if not got == want == nonce:
+            raise AssertionError(f"grinding batch {(seed, bits, start, batch)}: the path got {nonce}, the kernel "
+                                 f"{got}, grind_plain {want}")
+        if nonce is not None and not fri.check_grind(seed, nonce, bits):
+            raise AssertionError(f"check_grind refuses nonce {nonce} of seed {seed} at {bits} bits")
+    batch = fri.GRIND_BATCH
+    for seed in range(SEED, SEED + 32):
+        before = ps.grind_kernel_launches
+        nonce = fri.grind(seed, GRIND_PAST_BITS, dev)
+        if nonce >= batch:
+            break
+    else:
+        raise AssertionError(f"no seed of 32 has its first {GRIND_PAST_BITS}-bit hit past {batch} candidates")
+    searched = ps.grind_kernel_launches - before
+    plain = [ps.grind_plain(seed, GRIND_PAST_BITS, s, batch, dev) for s in range(0, nonce + 1, batch)]
+    if searched != nonce // batch + 1 or plain != [None] * (nonce // batch) + [nonce]:
+        raise AssertionError(f"seed {seed} at {GRIND_PAST_BITS} bits: nonce {nonce} in {searched} launches, "
+                             f"grind_plain's batches {plain}")
+    past = {"seed": seed, "pow_bits": GRIND_PAST_BITS, "nonce": nonce, "batches": searched}
+    # the first 16-bit search of the run that hit in its first batch
+    t_seed, t_bits, _, _, t_nonce = next(c for c in calls if c[1] == 16 and c[2] == 0 and c[4] is not None)
+    timed = _time_rounds(lambda: grind_fn(t_seed, t_bits, 0, batch, dev), 20)
+    timed["burst_ms"] = _grind_burst_ms(t_seed, t_bits, batch, dev)
+    _, plain_ms = _timed_once(lambda: ps.grind_plain(t_seed, t_bits, 0, batch, dev))
+    bound = _bound(t_nonce + 1, 0, clock_mhz)
+    row = {
+        "route": "cuda", "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
+        "replaces": "tendermintx_tpu/stark/fri.py:624", "replaces_program": "_grind_fn",
+        "library_ms": None, "library": "none: no PyTorch call computes Poseidon",
+        "max_abs_err": 0.0, "shape": [batch], "seed": t_seed, "pow_bits": t_bits, "nonce": t_nonce, **timed,
+        "plain_ms": plain_ms, **bound, "batch_bound_ms": _bound(batch, 0, clock_mhz)["bound_ms"],
+        **_registers_of(build["poseidon"]["ptxas"], "tmx_poseidon_grind"),
+        "checked": {"batches": len(calls), "searches": len({c[:2] for c in calls}), "past_first_batch": past},
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    emit({"phase": "grind", "poseidon_grind": row})
+    rows["poseidon_grind"] = row
+    return row
+
+
+# the torch.profiler ranges around the wrap's former plain programs, now
+# around the kernels that replace them (stark/recursion.py: witness_trace,
+# stark/evalair.py: eval_aux_cuda)
+PLAIN_RANGES = ("expand_perm_states", "eval_terms", "eval_scan")
 
 
 def _range_times(prof, names) -> dict:
     """Seconds of each named record_function range in a torch.profiler
     run: `host` is the range's wall time, `device` the summed time of the
-    kernels launched inside it. Raises if a range is missing."""
+    card's work (kernels, copies, fills) whose CUDA API call (a CPU event
+    named cuda* or cu*, paired with its device event by correlation id)
+    started inside it: torch ops' and the ctypes-launched hand kernels'
+    alike. Raises if a range is missing."""
     from torch.autograd import DeviceType
 
-    def kernel_us(evt):
-        own = sum(k.duration for k in evt.kernels if k.name != evt.name)
-        return own + sum(kernel_us(ch) for ch in evt.cpu_children)
-
+    events = prof.events()
+    calls = {e.id: e.time_range.start for e in events if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    on_card = [(calls[e.id], e.time_range.elapsed_us()) for e in events
+               if e.device_type == DeviceType.CUDA and e.id in calls]
     out: dict[str, dict] = {}
-    for evt in prof.events():
+    for evt in events:
         if evt.name in names and evt.device_type == DeviceType.CPU:
             row = out.setdefault(evt.name, {"count": 0, "host_seconds": 0.0, "device_seconds": 0.0})
+            t0, t1 = evt.time_range.start, evt.time_range.end
             row["count"] += 1
             row["host_seconds"] += evt.cpu_time_total / 1e6
-            row["device_seconds"] += kernel_us(evt) / 1e6
+            row["device_seconds"] += sum(us for t, us in on_card if t0 <= t <= t1) / 1e6
     missing = [n for n in names if n not in out]
     if missing:
         raise AssertionError(f"the profiled run passed through no range {missing}")
@@ -2883,7 +3167,8 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
     on the card, timed as bench.py times it, then verified after a wire
     round trip at the default 100-bit floor on both configs. With
     `profile`, the second wrap runs under torch.profiler and the line
-    gives the times of the plain torch programs (PLAIN_RANGES) in it."""
+    gives the times of the ranges around the round-state and EvalAir
+    kernels (PLAIN_RANGES) in it."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -2903,10 +3188,11 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     launches = _launch_counts()
-    _check_launched(launches, "wrap", absent=LOGUP_ENTRIES)
+    _check_launched(launches, "wrap", absent=LOGUP_ENTRIES, wrap=True)
+    _check_wrap_launches(launches, 1, "wrap")
     _check_deep_launches(launches, len(wrapped.batch.wrapper.statements), 1, "wrap")
     _check_ood_launches(launches, len(wrapped.batch.wrapper.statements), 0, "wrap")
-    _check_batch_fri(launches, wrapped.batch.wrapper, default_wrap_config().rate_bits, "wrap")
+    _check_batch_fri(launches, wrapped.batch.wrapper, default_wrap_config(), "wrap")
     peak = torch.cuda.max_memory_allocated()
     # the same wrap again: first-use host tables (FRI inverse tables of
     # the 2^21-point domain, the N=128 eval tape) are built by now
@@ -2949,7 +3235,7 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         "phases": phases.lines,
     }
     if plain_programs is not None:
-        out["wrap_plain_program_seconds"] = plain_programs
+        out["wrap_range_seconds"] = plain_programs
     emit(out)
     return out, launches, blob
 
@@ -3092,7 +3378,7 @@ def phase_runtime(
     the service makes again (its FRI launches are checked exactly against
     them, the prewarm's and the operator's leaf bundle's)."""
     from tendermintx_tpu_torch.circuits.composite import CompositeProof
-    from tendermintx_tpu_torch.circuits.proving import verify_leaf_bundle
+    from tendermintx_tpu_torch.circuits.proving import _default_config, verify_leaf_bundle
     from tendermintx_tpu_torch.circuits.skip import encode_skip_input
     from tendermintx_tpu_torch.circuits.step import encode_step_input
     from tendermintx_tpu_torch.runtime.cli import submit_file
@@ -3202,12 +3488,16 @@ def phase_runtime(
                        "witness_launches": {k: tick[k] for k in WITNESS_ENTRIES}}
 
     launches = _launch_counts()
-    _check_launched(launches, "runtime", witness=True)
-    # the FRI: the prewarm's N=4 proof (its launches as counted around it),
-    # the service's wrapped skip and step (their paths' launches) and the
-    # leaf bundle's single FRI (one fold a committed layer)
-    want = {k: prewarm[k] + sum(p[k] for p in proved) for k in ("fri_fold", "fri_inject")}
-    want["fri_fold"] += len(op.last_bundle.proof.fri_proof.layer_caps)
+    _check_launched(launches, "runtime", witness=True, wrap=True)
+    # the FRI and the wrap: the prewarm's N=4 proof (its launches as
+    # counted around it), the service's wrapped skip and step (their paths'
+    # launches) and the leaf bundle's single FRI (one fold a committed
+    # layer, its grinding batches)
+    want = {k: prewarm[k] + sum(p[k] for p in proved) for k in ("fri_fold", "fri_inject", "poseidon_grind",
+                                                                 *WRAP_ENTRIES)}
+    leaf = op.last_bundle.proof.fri_proof
+    want["fri_fold"] += len(leaf.layer_caps)
+    want["poseidon_grind"] += _grind_batches(leaf, _default_config().proof_of_work_bits)
     got = {k: launches[k] for k in want}
     if got != want or not prewarm["fri_fold"]:
         raise AssertionError(f"the runtime path launched {got}; the prewarm ({prewarm['fri_fold']} folds), "
@@ -3301,7 +3591,7 @@ def phase_mesh(sc: SkipChain, warm_proof, parity: dict) -> tuple[dict, dict]:
     _check_deep_launches(launches, len(proof.batch.statements), MESH_SHARDS, "mesh")
     # OOD and the DEEP inverses run once a statement on the mesh's first device
     _check_ood_launches(launches, len(proof.batch.statements), 1, "mesh")
-    _check_batch_fri(launches, proof.batch, DEFAULT_COMPOSITE_CONFIG.rate_bits, "mesh", MESH_SHARDS)
+    _check_batch_fri(launches, proof.batch, DEFAULT_COMPOSITE_CONFIG, "mesh", MESH_SHARDS)
     trees = sum(2 + (st.aux_cap is not None) for st in proof.batch.statements)
     if sponges != MESH_SHARDS * trees:
         raise AssertionError(
@@ -3553,6 +3843,7 @@ def main(argv: list[str]) -> int:
     build = phase_build()
     NTT_CALLS.install()
     FRI_CALLS.install()
+    WRAP_CALLS.install()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         parity = parity_start(workdir)
         try:
@@ -3564,9 +3855,11 @@ def main(argv: list[str]) -> int:
             _, hashes_launches = phase_hashes(n128, parity, card)
             profile = "--profile" in argv
             wrap, wrap_launches, wrapped_blob = phase_wrap(n128, warm_proof, profile)
+            phase_wrap_kernels(rows, build, wrap["wrap_rows"])
             _, runtime_launches, witness_launches = phase_runtime(n128, workdir, wrapped_blob, step_blob, profile,
                                                 (warm_launches, wrap_launches, step_launches))
             _, mesh_launches, four_step_launches, lane_launches = phase_mesh(n128, warm_proof, parity)
+            phase_grind(rows, build)
             phase_fri_shapes(rows)
             phase_parity(parity)  # before the profile, which the CPU jobs would disturb
             if profile:
@@ -3585,9 +3878,11 @@ def main(argv: list[str]) -> int:
     for name, row in rows.items():
         # the witness kernels' main path is the witness-only cli prove
         # (sha256_blocks's the mesh's lane checks, the one path that still
-        # calls it); every other kernel's the two N=128 skip proves
+        # calls it), the wrap kernels' the N=128 wrap; every other kernel's
+        # the two N=128 skip proves
         main_launches = (count(lane_launches, name) if name == "sha256_blocks"
                          else count(witness_launches, name) if name in WITNESS_ENTRIES
+                         else count(wrap_launches, name) if name in WRAP_ENTRIES
                          else count(cold_launches, name) + count(warm_launches, name))
         entry = {"name": name, **{k: row[k] for k in kept}, "launches": main_launches,
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
@@ -3639,8 +3934,10 @@ def main(argv: list[str]) -> int:
                                                   "ms", "burst_ms", "l2_cold", "plain_ms", "bound_ms", "bound_by",
                                                   "max_abs_err") if k in r}
                                for r in rows[entry["name"]][part]]
-        if entry["name"] in LOGUP_ENTRIES:
+        if entry["name"] in LOGUP_ENTRIES + WRAP_ENTRIES + ("poseidon_grind",):
             entry["checked"] = rows[entry["name"]]["checked"]
+        if entry["name"] == "poseidon_grind":
+            entry.update({k: rows["poseidon_grind"][k] for k in ("pow_bits", "nonce", "batch_bound_ms")})
     emit({"kernels": kernels})
     emit({
         "ok": True,

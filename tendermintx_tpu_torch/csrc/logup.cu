@@ -66,6 +66,36 @@
 // another. Field arithmetic is exact in any order, so every value equals
 // the plain torch version's bit for bit.
 //
+// EvalAir's memory argument (stark/evalair.py, the recursion wrap's second
+// statement) has the same shape on four fixed columns: for gamma, delta in
+// GF(p^2), at each row the terms
+//
+//   t_k = m_k / (gamma - (a_k + delta v0_k + delta^2 v1_k)),  k = w, a, b, c
+//
+// over the trace's value pairs (v0_k, v1_k) and the tape's static address
+// and multiplicity rows a_k, m_k, and S = the running sum of tw - ta - tb - tc:
+//
+//   tmx_eval_terms   a thread a row: its four denominators D_k, their norms
+//                    and Y_k = m_k conj(D_k), the four divisions together
+//                    by batch_div (a zero norm gives the term 0, as numer *
+//                    inv(0) does in the reference), each term straight into
+//                    its interleaved (c0, c1) rows 0-7 of the (10, n)
+//                    output, and the row's signed sum into a (2, 1, n)
+//                    scratch. v0 and v1 are read from the trace's rows in
+//                    place (no gathered copy);
+//   tmx_eval_scan    S into rows 8-9: the two scan kernels above, over the
+//                    one group of four terms.
+//
+// They replace the XLA programs of tendermintx_tpu/stark/evalair.py:945
+// `_eval_terms_kernel`, :966 `_eval_scan_kernel` and :987
+// `_eval_assemble_kernel` (the interleaving copy is gone). Bound: bytes. At
+// the wrap's 2^17 rows a launch reads 8 trace rows and 8 static rows and
+// writes 8 term rows and the scratch's 2 (the scan reads the scratch twice
+// and writes S): ~31 MB, ~0.009 ms at 3.35 TB/s, against ~240 32-bit
+// multiply-adds a row (0.002 ms). One thread a row keeps every read and
+// write coalesced along the rows; batch_div over the row's 4 terms spends
+// one inversion on them.
+//
 // Each entry has a plain C interface, launches on the caller's stream and
 // returns cudaGetLastError(); the kernels allocate nothing.
 
@@ -83,6 +113,7 @@ constexpr int TERMS = 8;  // stark/lookup.py: _LOGUP_TERMS, terms a batch invers
 constexpr int THREADS = 128;  // stark/lookup.py: _LOGUP_THREADS
 constexpr int SCAN_THREADS = 256;  // stark/lookup.py: _SCAN_THREADS
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+constexpr int EVAL_TERMS = 4;  // stark/evalair.py: the w, a, b and c terms
 
 }  // namespace
 
@@ -106,6 +137,23 @@ struct LogupArgs {
     int64_t tile;              // the scan's rows a tile, a multiple of SCAN_THREADS
     int64_t n_tiles;           // ceil(n / tile)
     uint64_t* tile_sums;       // (2, n_tiles) scratch of the scan
+};
+
+// stark/evalair.py::_EvalArgs, field for field
+struct EvalArgs {
+    const uint64_t* trace;  // (8, n) main trace: the (c0, c1) rows of OUT, AV, BV, CV
+    int64_t trace_ld;
+    const uint64_t* rows;   // (8, n) static: addresses aw, aa, ab, ac, then multiplicities m, g_ra, g_rb, g_rc
+    const uint64_t* gamma0;  // gamma's and delta's c0 and c1, one word each
+    const uint64_t* gamma1;
+    const uint64_t* delta0;
+    const uint64_t* delta1;
+    int64_t n;
+    uint64_t* out;        // (10, n): [tw.c0, tw.c1, ..., tc.c1, S.c0, S.c1]
+    uint64_t* partial;    // (2, 1, n)
+    int64_t tile;         // the scan's rows a tile, a multiple of SCAN_THREADS
+    int64_t n_tiles;
+    uint64_t* tile_sums;  // (2, n_tiles)
 };
 
 namespace {
@@ -332,6 +380,37 @@ __global__ void __launch_bounds__(SCAN_THREADS) tmx_logup_scan_kernel(LogupArgs 
     }
 }
 
+// EvalAir's four terms at row r (see the top)
+__global__ void __launch_bounds__(THREADS) tmx_eval_terms_kernel(EvalArgs a) {
+    const int64_t r = int64_t(blockIdx.x) * THREADS + threadIdx.x;
+    if (r >= a.n) return;
+    const E2 g{ld(a.gamma0), ld(a.gamma1)}, d{ld(a.delta0), ld(a.delta1)};
+    const E2 e = tmx_ext::mul(d, d);  // delta^2
+    uint64_t nrm[EVAL_TERMS];
+    E2 y[EVAL_TERMS];
+#pragma unroll
+    for (int k = 0; k < EVAL_TERMS; ++k) {
+        const uint64_t v0 = ld(a.trace + (2 * k) * a.trace_ld + r), v1 = ld(a.trace + (2 * k + 1) * a.trace_ld + r);
+        const uint64_t addr = ld(a.rows + k * a.n + r), m = ld(a.rows + (EVAL_TERMS + k) * a.n + r);
+        const uint64_t D0 = tmx_gl::sub(tmx_gl::sub(g.c0, addr), dot2(d.c0, v0, e.c0, v1));
+        const uint64_t D1 = tmx_gl::sub(g.c1, dot2(d.c1, v0, e.c1, v1));
+        const uint64_t nwd1 = tmx_gl::neg(tmx_gl::mul(D1, tmx_ext::W));  // -W D1
+        nrm[k] = dot2(D0, D0, nwd1, D1);
+        y[k] = E2{tmx_gl::mul(m, D0), tmx_gl::neg(tmx_gl::mul(m, D1))};
+    }
+    tmx_ext::batch_div(nrm, y);  // m / D, 0 for D = 0
+    E2 sum = y[0];
+#pragma unroll
+    for (int k = 1; k < EVAL_TERMS; ++k) sum = tmx_ext::sub(sum, y[k]);
+#pragma unroll
+    for (int k = 0; k < EVAL_TERMS; ++k) {
+        a.out[(2 * k) * a.n + r] = y[k].c0;
+        a.out[(2 * k + 1) * a.n + r] = y[k].c1;
+    }
+    a.partial[r] = sum.c0;
+    a.partial[a.n + r] = sum.c1;
+}
+
 bool valid(const LogupArgs& a) {
     return a.n >= 1 && a.n_checked >= 0 && a.n_batches == (a.n_checked + BATCH - 1) / BATCH && a.width >= 0 &&
            a.span >= 1 && a.group >= 1 && a.group % TERMS == 0 &&
@@ -349,8 +428,9 @@ extern "C" int tmx_logup_terms(const LogupArgs* args, void* stream) {
     return (int)cudaGetLastError();
 }
 
-extern "C" int tmx_logup_scan(const LogupArgs* args, void* stream) {
-    const LogupArgs& a = *args;
+namespace {
+
+int launch_scan(const LogupArgs& a, void* stream) {
     if (!valid(a) || !a.tile_sums || a.tile < SCAN_THREADS || a.tile % SCAN_THREADS != 0 ||
         a.n_tiles != (a.n + a.tile - 1) / a.tile || a.n_tiles > INT_MAX)
         return (int)cudaErrorInvalidValue;
@@ -360,4 +440,37 @@ extern "C" int tmx_logup_scan(const LogupArgs* args, void* stream) {
     if (err != cudaSuccess) return (int)err;
     tmx_logup_scan_kernel<<<(unsigned)a.n_tiles, SCAN_THREADS, 0, s>>>(a);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tmx_logup_scan(const LogupArgs* args, void* stream) { return launch_scan(*args, stream); }
+
+extern "C" int tmx_eval_terms(const EvalArgs* args, void* stream) {
+    const EvalArgs& a = *args;
+    const int64_t blocks = (a.n + THREADS - 1) / THREADS;
+    if (a.n < 1 || a.trace_ld < a.n || blocks > INT_MAX || !a.trace || !a.rows || !a.gamma0 || !a.gamma1 ||
+        !a.delta0 || !a.delta1 || !a.out || !a.partial)
+        return (int)cudaErrorInvalidValue;
+    tmx_eval_terms_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    return (int)cudaGetLastError();
+}
+
+// The scan of the LogUp statements with the EvalAir output as one group of
+// EVAL_TERMS terms and no checked columns: S goes to the rows after the four
+// term pairs, as a lookup's follows its n_batches + width.
+extern "C" int tmx_eval_scan(const EvalArgs* args, void* stream) {
+    const EvalArgs& e = *args;
+    LogupArgs a{};
+    a.n = e.n;
+    a.width = EVAL_TERMS;
+    a.span = 1;
+    a.group = TERMS;
+    a.n_groups = 1;
+    a.out = e.out;
+    a.partial = e.partial;
+    a.tile = e.tile;
+    a.n_tiles = e.n_tiles;
+    a.tile_sums = e.tile_sums;
+    return launch_scan(a, stream);
 }

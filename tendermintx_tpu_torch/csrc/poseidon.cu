@@ -48,7 +48,34 @@
 //                              one thread per leaf absorbing all ceil(L/8)
 //                              chunks (a ragged last chunk is zero-filled);
 //   tmx_poseidon_merkle_layer  (n, 4) digests -> (n/2, 4), out[i] =
-//                              two_to_one(d[2i], d[2i+1]).
+//                              two_to_one(d[2i], d[2i+1]);
+//   tmx_poseidon_expand        (R, 12) input states -> (106, R) witness
+//                              columns of the recursion wrap's WrapAir
+//                              (stark/recursion.py: COL_S..N_PERM_COLS): S1..S3
+//                              (the states after rounds 0-2), p4..p25 (each
+//                              partial round's lane 0 before its S-box),
+//                              w26 and w27..w29 (the states after rounds
+//                              25-28). Replaces the XLA program of
+//                              tendermintx_tpu/stark/recursion.py:220
+//                              `expand_perm_states` (jitted at :275 as
+//                              `_expand_jit`). A thread a state runs rounds
+//                              0-28 and stores each kept value canonical in
+//                              its column-major row, so consecutive threads
+//                              write consecutive words. Bound: operations
+//                              (2^15 states at 6,656 multiply-adds, 0.013
+//                              ms; the 31 MB it moves 0.009 ms);
+//   tmx_poseidon_grind         one batch of the FRI's proof-of-work search:
+//                              candidates poseidon([seed, start + i, 0,
+//                              ...]) for i < batch, made in registers; a
+//                              thread whose output's lane 0 has its low
+//                              pow_bits zero takes atomicMin of i into one
+//                              device word, which the wrapper reads once a
+//                              batch: the smallest hit. Replaces the XLA
+//                              program of tendermintx_tpu/stark/fri.py:624
+//                              `_grind_fn` (and the card's former (batch,
+//                              12) state tensor, permute launch, mask and
+//                              nonzero). Bound: operations (a 2^18 batch at
+//                              6,656 multiply-adds a candidate, 0.104 ms).
 // The kernels allocate nothing; the wrappers allocate the outputs.
 
 #include <cstdint>
@@ -331,6 +358,76 @@ tmx_poseidon_merkle_layer_kernel(const uint64_t* __restrict__ in, uint64_t* __re
     dst[1] = make_ulonglong2(s[2], s[3]);
 }
 
+// (n, 12) -> (106, n): the WrapAir witness columns of each state (see the
+// top). The stored states are taken after an MDS layer that adds the zero
+// row, their next round's constants added apart; the partial rounds keep
+// the fused form, whose state is lane 0's pre-S-box value.
+extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tmx_poseidon_expand_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
+    constexpr int FIRST_PARTIAL = HALF_FULL_ROUNDS, END_PARTIAL = HALF_FULL_ROUNDS + PARTIAL_ROUNDS;
+    const int64_t b = thread_index();
+    if (b >= n) return;
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(in + b * WIDTH);
+    uint64_t s[WIDTH];
+#pragma unroll
+    for (int k = 0; k < WIDTH / 2; ++k) {
+        const ulonglong2 v = src[k];
+        s[2 * k] = v.x;
+        s[2 * k + 1] = v.y;
+    }
+    uint64_t* col = out + b;  // the next column's word of this state
+    const auto store = [&](uint64_t v) {
+        *col = v >= P ? v - P : v;
+        col += n;
+    };
+    // S1..S3 after rounds 0-2 (stored), S4 after round 3 with round 4's constants
+#pragma unroll 1
+    for (int r = 0; r < FIRST_PARTIAL; ++r) {
+#pragma unroll
+        for (int j = 0; j < WIDTH; ++j) s[j] = sbox(add_const(s[j], c_rc[r][j]));
+        if (r + 1 < FIRST_PARTIAL) {
+            mds_layer(s, c_rc[N_ROUNDS], Lanes{});
+#pragma unroll
+            for (int j = 0; j < WIDTH; ++j) store(s[j]);
+        } else {
+            mds_layer(s, c_rc[r + 1], Lanes{});
+        }
+    }
+    // p4..p25; after round 25 the zero row, for w26
+#pragma unroll 1
+    for (int r = FIRST_PARTIAL; r < END_PARTIAL; ++r) {
+        store(s[0]);
+        s[0] = sbox(s[0]);
+        mds_layer(s, c_rc[r + 1 < END_PARTIAL ? r + 1 : N_ROUNDS], Lanes{});
+    }
+#pragma unroll
+    for (int j = 0; j < WIDTH; ++j) store(s[j]);
+    // w27..w29 after rounds 26-28
+#pragma unroll 1
+    for (int r = END_PARTIAL; r < N_ROUNDS - 1; ++r) {
+#pragma unroll
+        for (int j = 0; j < WIDTH; ++j) s[j] = sbox(add_const(s[j], c_rc[r][j]));
+        mds_layer(s, c_rc[N_ROUNDS], Lanes{});
+#pragma unroll
+        for (int j = 0; j < WIDTH; ++j) store(s[j]);
+    }
+}
+
+// One grinding batch (see the top): *hit = min(*hit, i) over the candidates
+// i < batch whose output's lane 0 & mask is 0; the wrapper sets *hit to
+// batch first.
+extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tmx_poseidon_grind_kernel(uint64_t seed, uint64_t mask, int64_t start, int64_t batch,
+                          unsigned long long* __restrict__ hit) {
+    const int64_t i = thread_index();
+    if (i >= batch) return;
+    uint64_t s[WIDTH] = {};
+    s[0] = seed;
+    s[1] = uint64_t(start + i);
+    permute_state(s);
+    if ((s[0] & mask) == 0) atomicMin(hit, (unsigned long long)i);
+}
+
 namespace {
 
 int blocks_for(int64_t n, int* blocks) {
@@ -369,5 +466,26 @@ extern "C" int tmx_poseidon_merkle_layer(const void* in, void* out, int64_t n_ou
     if (int e = blocks_for(n_out, &blocks)) return e;
     tmx_poseidon_merkle_layer_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint64_t*)in, (uint64_t*)out, n_out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int tmx_poseidon_expand(const void* in, void* out, int64_t n, void* stream) {
+    if (n <= 0) return 0;
+    int blocks;
+    if (int e = blocks_for(n, &blocks)) return e;
+    tmx_poseidon_expand_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, n);
+    return (int)cudaGetLastError();
+}
+
+// seed canonical, 1 <= pow_bits <= 32, candidates start .. start + batch - 1
+// below p
+extern "C" int tmx_poseidon_grind(uint64_t seed, int64_t pow_bits, int64_t start, int64_t batch, void* hit,
+                                  void* stream) {
+    if (seed >= P || pow_bits < 1 || pow_bits > 32 || start < 0 || batch <= 0 || !hit) return (int)cudaErrorInvalidValue;
+    int blocks;
+    if (int e = blocks_for(batch, &blocks)) return e;
+    tmx_poseidon_grind_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        seed, (uint64_t(1) << pow_bits) - 1, start, batch, (unsigned long long*)hit);
     return (int)cudaGetLastError();
 }

@@ -11,11 +11,13 @@ Three implementations compute the same permutation:
   * ``permute_plain``: int64 torch ops on (..., 12) tensors, any device;
   * the hand-written CUDA kernels in ``csrc/poseidon.cu``.
 
-The kernels have three entries, each beside its plain version: the
+The kernels have five entries, each beside its plain version: the
 permutation (``permute``), the column-major leaf sponge
-(``hash_no_pad_cols``) and one Merkle tree layer (``merkle_layer``). Each
-takes its plain version only for a CPU tensor. For a CUDA tensor it
-launches the kernel or raises: there is no probe and no fallback.
+(``hash_no_pad_cols``), one Merkle tree layer (``merkle_layer``), the
+recursion wrap's round states (``expand_cuda`` / ``expand_plain``) and one
+batch of the FRI's grinding search (``grind_cuda`` / ``grind_plain``). Each
+dispatcher takes the plain version only for a CPU tensor. For a CUDA tensor
+it launches the kernel or raises: there is no probe and no fallback.
 """
 
 from __future__ import annotations
@@ -259,6 +261,8 @@ def permute_plain(state: torch.Tensor) -> torch.Tensor:
 permute_kernel_launches = 0
 sponge_kernel_launches = 0
 layer_kernel_launches = 0
+expand_kernel_launches = 0
+grind_kernel_launches = 0
 
 
 @cache
@@ -271,9 +275,12 @@ def _library():
         (lib.tmx_poseidon_permute, 1),
         (lib.tmx_poseidon_sponge_cols, 2),
         (lib.tmx_poseidon_merkle_layer, 1),
+        (lib.tmx_poseidon_expand, 1),
     ):
         fn.restype = ctypes.c_int
         fn.argtypes = [ptr, ptr] + [i64] * n_ints + [ptr]
+    lib.tmx_poseidon_grind.restype = ctypes.c_int
+    lib.tmx_poseidon_grind.argtypes = [ctypes.c_uint64, i64, i64, i64, ptr, ptr]
     return lib
 
 
@@ -423,3 +430,99 @@ def merkle_layer(layer: GF) -> GF:
     if d.device.type == "cuda":
         return GF(merkle_layer_cuda(d))
     raise ValueError(f"no Poseidon tree layer for device {d.device}")
+
+
+# ---------------------------------------------------------------------------
+# The recursion wrap's round states (stark/recursion.py: expand_perm_states)
+# ---------------------------------------------------------------------------
+
+# S1..S3, p4..p25, w26..w29: the WrapAir columns COL_S..N_PERM_COLS
+EXPAND_COLS = 3 * WIDTH + PARTIAL_ROUNDS + 4 * WIDTH
+
+
+def expand_plain(states: torch.Tensor) -> torch.Tensor:
+    """(R, 12) input states -> (106, R) columns: the states after rounds
+    0-2, each partial round's lane 0 before its S-box, the states after
+    rounds 25-28; the plain round pieces over the rounds (any device)."""
+    rc, mds_t = plain_params(states.device)
+    s = states
+    cols = []
+    for r in range(3):  # S1..S3
+        s = full_round_plain(s, rc[r], mds_t)
+        cols.append(s.t())
+    s = full_round_plain(s, rc[3], mds_t)  # S4 (recomputed in-circuit)
+    p_vals = []
+    for r in range(4, 4 + PARTIAL_ROUNDS):
+        pre = gl.add(s, rc[r])
+        p_vals.append(pre[:, 0])
+        s = partial_round_plain(pre, mds_t)
+    cols.append(torch.stack(p_vals))
+    cols.append(s.t())  # w26
+    for r in range(26, 29):  # w27..w29
+        s = full_round_plain(s, rc[r], mds_t)
+        cols.append(s.t())
+    return torch.cat(cols, dim=0).contiguous()
+
+
+def expand_cuda(states: torch.Tensor) -> torch.Tensor:
+    """Launch the round-state kernel on contiguous (R, 12) int64 CUDA
+    states -> (106, R)."""
+    global expand_kernel_launches
+    _check_cuda_operand(states, "expand_cuda", 16)
+    if states.dim() != 2 or states.shape[1] != WIDTH:
+        raise ValueError(f"expand_cuda takes (R, {WIDTH}) states, got {tuple(states.shape)}")
+    n = int(states.shape[0])
+    out = torch.empty((EXPAND_COLS, n), dtype=torch.int64, device=states.device)
+    if n == 0:
+        return out
+    _launch("tmx_poseidon_expand", states, out, n)
+    expand_kernel_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Grinding (stark/fri.py: grind): one batch of candidates
+# ---------------------------------------------------------------------------
+
+
+def _check_grind(seed: int, pow_bits: int, start: int, batch: int):
+    if not 0 <= seed < P:
+        raise ValueError("the grinding seed must be a canonical field element")
+    if not 1 <= pow_bits <= 32:
+        raise ValueError("pow_bits must be in 1..32")
+    if start < 0 or batch < 1 or start + batch > P:
+        raise ValueError(f"no grinding batch of {batch} candidates from {start}")
+
+
+def grind_plain(seed: int, pow_bits: int, start: int, batch: int, device) -> int | None:
+    """The first nonce in start .. start + batch - 1 whose
+    permute([seed, nonce, 0, ...])[0] has `pow_bits` low zero bits, or None:
+    a (batch, 12) state tensor through permute_plain, a mask and a nonzero
+    (any device)."""
+    _check_grind(seed, pow_bits, start, batch)
+    state = torch.zeros((batch, WIDTH), dtype=torch.int64, device=device)
+    state[:, 0] = gl.scalar_tensor(seed, device)
+    state[:, 1] = torch.arange(start, start + batch, dtype=torch.int64, device=device)
+    out = permute_plain(state)
+    hits = torch.nonzero((out[:, 0] & ((1 << pow_bits) - 1)) == 0)
+    return start + int(hits[0, 0]) if hits.numel() else None
+
+
+def grind_cuda(seed: int, pow_bits: int, start: int, batch: int, device) -> int | None:
+    """grind_plain's batch as one launch of the grinding kernel on the CUDA
+    `device`: the candidates made in registers, the smallest hit taken by
+    atomicMin into one device word, read back once (the one sync a batch)."""
+    global grind_kernel_launches
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise TypeError(f"grind_cuda runs on a CUDA device, got {dev}")
+    _check_grind(seed, pow_bits, start, batch)
+    hit = torch.full((1,), batch, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _library().tmx_poseidon_grind(seed, pow_bits, start, batch, hit.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"tmx_poseidon_grind launch failed: CUDA error {err}")
+    grind_kernel_launches += 1
+    i = int(hit.item())
+    return start + i if i < batch else None

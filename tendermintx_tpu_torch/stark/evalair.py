@@ -31,13 +31,16 @@ Op set (MAC fusion halves the raw tape; see ``_optimize``):
 
 Columns: committed OUT/AV/BV/CV (ext pairs, 8 base); aux TW/TA/TB/TC/S
 (LogUp terms + running sum, 10 base); 20 public schedule columns.
-Constraint degree 3. The aux columns are plain torch ops on the trace's
-device (the reference's jitted ``_eval_*_kernel`` programs).
+Constraint degree 3. The aux columns are csrc/logup.cu's eval entries on a
+CUDA trace (one launch for the terms, one scan call) and their plain torch
+twins on a CPU trace (the reference's jitted ``_eval_*_kernel`` programs).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import ctypes
+from dataclasses import dataclass, field
+from functools import cache
 
 import numpy as np
 import torch
@@ -46,7 +49,7 @@ from torch.profiler import record_function
 from ..ops.ext import GF2, W
 from ..ops.goldilocks import GF, P, tensor_from_u64
 from .air import Air, Frame
-from .lookup import _prefix_sum
+from .lookup import _logup_library, _prefix_sum, scan_tiles
 
 # opcodes
 LOAD, ADD, SUB, MUL, CMUL, MAC, MSUB, CMAC = range(8)
@@ -297,6 +300,8 @@ class Tape:
     input_tags: list[tuple]  # (stmt, kind, i) per input, tape order
     assert_rows: np.ndarray  # rows whose out must equal zero
     m: np.ndarray  # uint32 read multiplicity per row
+    # EvalAir.aux_rows' uploads, one a device
+    device_rows: dict = field(default_factory=dict, repr=False, compare=False)
 
     @property
     def n_ops(self) -> int:
@@ -673,6 +678,8 @@ _PUB_NAMES = (
     "g_cmac", "g_az", "pc", "pv0", "pv1", "aw", "aa", "ab", "ac", "m",
     "g_ra", "g_rb", "g_rc",
 )
+# the public rows the aux columns read: each term's address, then its multiplicity
+_AUX_ROWS = ("aw", "aa", "ab", "ac", "m", "g_ra", "g_rb", "g_rc")
 
 
 class EvalAir(Air):
@@ -762,29 +769,29 @@ class EvalAir(Air):
             arr[base + 1, :T] = vals[:, 1]
         return GF(tensor_from_u64(arr, device))
 
+    def aux_rows(self, device) -> torch.Tensor:
+        """The (8, n) static rows the aux columns read: the addresses aw,
+        aa, ab, ac, then the multiplicities m, g_ra, g_rb, g_rc; uploaded
+        once per tape and device."""
+        device = torch.device(device)
+        rows = self.tape.device_rows.get(device)
+        if rows is None:
+            cols = self._static(self.tape.n_rows)
+            rows = tensor_from_u64(cols[[self._pi[k] for k in _AUX_ROWS]], device)
+            self.tape.device_rows[device] = rows
+        return rows
+
     def aux_columns(self, trace: GF, challenges, publics):
-        """LogUp terms tw/ta/tb/tc + running sum S, as torch ops on the
-        trace's device."""
-        cols = self._static(self.tape.n_rows)
-        pi = self._pi
-        dev = trace.device
-
-        def rows(names) -> GF:
-            idx = [pi[k] for k in names]
-            return GF(tensor_from_u64(cols[idx], dev))
-
-        addrs = rows(("aw", "aa", "ab", "ac"))
-        mults = rows(("m", "g_ra", "g_rb", "g_rc"))
-        v0 = GF(trace.v[[E_OUT, E_AV, E_BV, E_CV]])
-        v1 = GF(trace.v[[E_OUT + 1, E_AV + 1, E_BV + 1, E_CV + 1]])
+        """LogUp terms tw/ta/tb/tc + running sum S: the plain torch
+        programs for a CPU trace, csrc/logup.cu's eval entries for a CUDA
+        one."""
         gamma, delta = challenges
-        # one torch.profiler range per piece
-        with record_function("eval_terms"):
-            terms = _eval_terms(addrs, mults, v0, v1, gamma, delta)
-        with record_function("eval_scan"):
-            S = _eval_scan(terms)
-        with record_function("eval_assemble"):
-            return _eval_assemble(terms, S)
+        t = trace.device.type
+        if t == "cpu":
+            return eval_aux_plain(trace, self.aux_rows(trace.device), gamma, delta)
+        if t == "cuda":
+            return eval_aux_cuda(trace, self.aux_rows(trace.device), gamma, delta)
+        raise ValueError(f"no EvalAir aux columns for device {trace.device}")
 
     # -- constraints (shared host/device via the algebra) --
 
@@ -881,8 +888,22 @@ class EvalAir(Air):
         return [frame.local[A_S], frame.local[A_S + 1]]
 
 
-# -- aux columns (the reference's jitted _eval_*_kernel programs, as torch
-#    ops on any device; ROADMAP queue 2 item J) ------------------------------
+# -- aux columns: the plain twins of the reference's jitted _eval_*_kernel
+#    programs (torch ops, any device) ------------------------------------------
+
+
+def eval_aux_plain(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2) -> GF:
+    """The (10, n) aux rows as torch ops, over the (8, n) trace and the
+    aux_rows: the reference's three programs, one torch.profiler range
+    each."""
+    v0 = GF(trace.v[[E_OUT, E_AV, E_BV, E_CV]])
+    v1 = GF(trace.v[[E_OUT + 1, E_AV + 1, E_BV + 1, E_CV + 1]])
+    with record_function("eval_terms"):
+        terms = _eval_terms(GF(rows[:4]), GF(rows[4:]), v0, v1, gamma, delta)
+    with record_function("eval_scan"):
+        S = _eval_scan(terms)
+    with record_function("eval_assemble"):
+        return _eval_assemble(terms, S)
 
 
 def _eval_terms(addrs: GF, mults: GF, v0: GF, v1: GF, gamma: GF2, delta: GF2) -> GF2:
@@ -900,16 +921,141 @@ def _eval_terms(addrs: GF, mults: GF, v0: GF, v1: GF, gamma: GF2, delta: GF2) ->
     return GF2(inv.c0 * mults, inv.c1 * mults)
 
 
+def _eval_diff(terms: GF2) -> GF2:
+    """(n,) tw - ta - tb - tc."""
+    c0, c1 = terms.c0, terms.c1
+    return GF2(c0[0] - c0[1] - c0[2] - c0[3], c1[0] - c1[1] - c1[2] - c1[3])
+
+
 def _eval_scan(terms: GF2) -> GF2:
     """Running sum S[i] = sum_{r<=i} (tw - ta - tb - tc)[r], component-wise
     mod p (exact, so equal to the reference's sequential lax.scan)."""
-    c0, c1 = terms.c0, terms.c1
-    d0 = c0[0] - c0[1] - c0[2] - c0[3]
-    d1 = c1[0] - c1[1] - c1[2] - c1[3]
-    return GF2(GF(_prefix_sum(d0.v)), GF(_prefix_sum(d1.v)))
+    d = _eval_diff(terms)
+    return GF2(GF(_prefix_sum(d.c0.v)), GF(_prefix_sum(d.c1.v)))
 
 
 def _eval_assemble(terms: GF2, S: GF2) -> GF:
     """(10, n) aux rows [tw.c0, tw.c1, ta.c0, ..., tc.c1, S.c0, S.c1]."""
     inter = torch.stack([terms.c0.v, terms.c1.v], dim=1).reshape(8, -1)
     return GF(torch.cat([inter, torch.stack([S.c0.v, S.c1.v])], dim=0))
+
+
+def eval_terms_plain(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2) -> tuple[torch.Tensor, torch.Tensor]:
+    """eval_terms_cuda's two results as torch ops (any device): the (8, n)
+    interleaved term rows and the (2, 1, n) row sums tw - ta - tb - tc."""
+    v0 = GF(trace.v[[E_OUT, E_AV, E_BV, E_CV]])
+    v1 = GF(trace.v[[E_OUT + 1, E_AV + 1, E_BV + 1, E_CV + 1]])
+    terms = _eval_terms(GF(rows[:4]), GF(rows[4:]), v0, v1, gamma, delta)
+    d = _eval_diff(terms)
+    inter = torch.stack([terms.c0.v, terms.c1.v], dim=1).reshape(8, -1)
+    return inter, torch.stack([d.c0.v, d.c1.v])[:, None]
+
+
+def eval_scan_plain(partial: torch.Tensor) -> torch.Tensor:
+    """eval_scan_cuda's S rows, (2, n), from the (2, 1, n) row sums (any
+    device)."""
+    return torch.stack([_prefix_sum(partial[c, 0]) for c in range(2)])
+
+
+# -- aux columns on the card: csrc/logup.cu's eval entries --------------------
+
+# incremented exactly where each entry is launched, by the CUDA kernels it
+# launches (tmx_eval_scan: the LogUp scan's tile-sum and scan kernels, 2)
+eval_terms_kernel_launches = 0
+eval_scan_kernel_launches = 0
+
+
+class _EvalArgs(ctypes.Structure):
+    """csrc/logup.cu's EvalArgs, field for field."""
+
+    _fields_ = [
+        ("trace", ctypes.c_void_p), ("trace_ld", ctypes.c_int64), ("rows", ctypes.c_void_p),
+        ("gamma0", ctypes.c_void_p), ("gamma1", ctypes.c_void_p),
+        ("delta0", ctypes.c_void_p), ("delta1", ctypes.c_void_p),
+        ("n", ctypes.c_int64), ("out", ctypes.c_void_p), ("partial", ctypes.c_void_p),
+        ("tile", ctypes.c_int64), ("n_tiles", ctypes.c_int64), ("tile_sums", ctypes.c_void_p),
+    ]
+
+
+@cache
+def _eval_library():
+    lib = _logup_library()
+    for fn in ("tmx_eval_terms", "tmx_eval_scan"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = [ctypes.POINTER(_EvalArgs), ctypes.c_void_p]
+    return lib
+
+
+def _eval_launch(fn: str, args: _EvalArgs, dev):
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_eval_library(), fn)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def _check_operand(t: torch.Tensor, dev, shape: tuple, what: str):
+    if t.device != dev or t.dtype != torch.int64:
+        raise TypeError(f"eval aux: {what} must be an int64 tensor on {dev}, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"eval aux: {what} must be a contiguous {shape} tensor, got {tuple(t.shape)}"
+                         f"{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def eval_terms_cuda(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2, out: torch.Tensor) -> torch.Tensor:
+    """One launch: the four terms' interleaved rows 0-7 of the (10, n)
+    `out`; returns the (2, 1, n) row sums tw - ta - tb - tc."""
+    global eval_terms_kernel_launches
+    v = trace.v
+    dev = v.device
+    if dev.type != "cuda" or v.dtype != torch.int64:
+        raise TypeError(f"eval_terms_cuda takes an int64 CUDA trace, got {v.dtype} on {dev}")
+    if v.dim() != 2 or int(v.shape[0]) != N_MAIN or int(v.shape[1]) < 1:
+        raise ValueError(f"eval_terms_cuda: the trace is {tuple(v.shape)}; ({N_MAIN}, n >= 1) wanted")
+    n = int(v.shape[1])
+    if n > 1 and v.stride(1) != 1:
+        raise ValueError("eval_terms_cuda: the trace must have unit stride along its rows")
+    _check_operand(rows, dev, (len(_AUX_ROWS), n), "the static rows")
+    _check_operand(out, dev, (N_AUX, n), "the output")
+    for what, x in (("gamma c0", gamma.c0.v), ("gamma c1", gamma.c1.v), ("delta c0", delta.c0.v),
+                    ("delta c1", delta.c1.v)):
+        if x.device != dev or x.dtype != torch.int64 or x.numel() != 1:
+            raise TypeError(f"eval_terms_cuda: {what} must be one int64 word on {dev}")
+    partial = torch.empty((2, 1, n), dtype=torch.int64, device=dev)
+    args = _EvalArgs(trace=v.data_ptr(), trace_ld=int(v.stride(0)), rows=rows.data_ptr(),
+                     gamma0=gamma.c0.v.data_ptr(), gamma1=gamma.c1.v.data_ptr(),
+                     delta0=delta.c0.v.data_ptr(), delta1=delta.c1.v.data_ptr(),
+                     n=n, out=out.data_ptr(), partial=partial.data_ptr())
+    _eval_launch("tmx_eval_terms", args, dev)
+    eval_terms_kernel_launches += 1
+    return partial
+
+
+def eval_scan_cuda(partial: torch.Tensor, out: torch.Tensor):
+    """S into rows 8-9 of `out` from the (2, 1, n) row sums (the other rows
+    are not read): the LogUp scan's two kernels over scan_tiles(n), their
+    tile sums in a (2, tiles) scratch."""
+    global eval_scan_kernel_launches
+    dev = out.device
+    if dev.type != "cuda":
+        raise TypeError(f"eval_scan_cuda takes CUDA tensors, got {dev}")
+    n = int(out.shape[-1]) if out.dim() == 2 else 0
+    _check_operand(out, dev, (N_AUX, n), "the output")
+    _check_operand(partial, dev, (2, 1, n), "the row sums")
+    tile, n_tiles = scan_tiles(n)
+    tile_sums = torch.empty((2, n_tiles), dtype=torch.int64, device=dev)
+    args = _EvalArgs(n=n, out=out.data_ptr(), partial=partial.data_ptr(), tile=tile, n_tiles=n_tiles,
+                     tile_sums=tile_sums.data_ptr())
+    _eval_launch("tmx_eval_scan", args, dev)
+    eval_scan_kernel_launches += 2
+
+
+def eval_aux_cuda(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2) -> GF:
+    """The (10, n) aux rows on the card: the terms kernel writes rows 0-7
+    and the row sums, the scan rows 8-9; one torch.profiler range each."""
+    out = torch.empty((N_AUX, int(trace.v.shape[-1])), dtype=torch.int64, device=trace.device)
+    with record_function("eval_terms"):
+        partial = eval_terms_cuda(trace, rows, gamma, delta, out)
+    with record_function("eval_scan"):
+        eval_scan_cuda(partial, out)
+    return GF(out)

@@ -774,29 +774,25 @@ GRIND_BATCH = 1 << 18  # ~4x the expected 2^16 search of the default config
 def grind(seed: int, pow_bits: int, device=None) -> int:
     """The smallest nonce with poseidon([seed, nonce, 0, ...])[0] having
     `pow_bits` low zero bits (the hash_ints([seed, nonce]) the verifier
-    checks). On a CUDA device candidates are searched in batches through
-    the Poseidon kernel; otherwise on the host, nonce by nonce."""
+    checks). On a CUDA device candidates are searched in batches of
+    GRIND_BATCH, one launch of csrc/poseidon.cu's grinding kernel each
+    (ops/poseidon.py: grind_cuda); otherwise on the host, nonce by nonce."""
     if pow_bits == 0:
         return 0
     if not 0 < pow_bits <= 32:
         raise ValueError("pow_bits must be in 1..32")
-    mask = (1 << pow_bits) - 1
     if device is None or torch.device(device).type != "cuda":
+        mask = (1 << pow_bits) - 1
         nonce = 0
         while True:
             if ps.hash_ints([seed, nonce])[0] & mask == 0:
                 return nonce
             nonce += 1
-    state = torch.zeros((GRIND_BATCH, ps.WIDTH), dtype=torch.int64, device=device)
-    state[:, 0] = GF.full((), seed, device).v
-    offsets = torch.arange(GRIND_BATCH, dtype=torch.int64, device=device)
     start = 0
     while start < 1 << 32:
-        state[:, 1] = offsets + start
-        out = ps.permute_tensor(state)
-        hits = torch.nonzero((out[:, 0] & mask) == 0)
-        if hits.numel():
-            return start + int(hits[0, 0])
+        nonce = ps.grind_cuda(seed, pow_bits, start, GRIND_BATCH, device)
+        if nonce is not None:
+            return nonce
         start += GRIND_BATCH
     raise RuntimeError("grinding failed")
 

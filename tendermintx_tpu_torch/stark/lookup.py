@@ -48,6 +48,15 @@ _SCAN_THREADS = 256
 _SCAN_TILES = 128
 
 
+def scan_tiles(n: int) -> tuple[int, int]:
+    """(rows a tile, tiles) of csrc/logup.cu's scan over n rows: whole
+    chunks of _SCAN_THREADS rows, as few a tile as keep the tiles at most
+    _SCAN_TILES."""
+    chunks = max(1, -(-n // (_SCAN_THREADS * _SCAN_TILES)))
+    tile = chunks * _SCAN_THREADS
+    return tile, -(-n // tile)
+
+
 @cache
 def _checked_index(cols: tuple[int, ...], device: torch.device) -> torch.Tensor:
     """The checked columns' indices on `device`, uploaded once: a fresh
@@ -194,11 +203,8 @@ class RangeLookup:
         return group, -(-terms // group)
 
     def scan_tiles(self) -> tuple[int, int]:
-        """(rows a tile, tiles) of the scan: whole chunks of _SCAN_THREADS
-        rows, as few a tile as keep the tiles at most _SCAN_TILES."""
-        chunks = max(1, -(-self.n_rows // (_SCAN_THREADS * _SCAN_TILES)))
-        tile = chunks * _SCAN_THREADS
-        return tile, -(-self.n_rows // tile)
+        """(rows a tile, tiles) of the scan over this lookup's rows."""
+        return scan_tiles(self.n_rows)
 
     def build_aux_cuda(self, trace: GF, gamma: GF2) -> GF:
         """logup_terms writes every w_b and wt_j into its rows of the aux

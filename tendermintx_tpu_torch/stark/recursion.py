@@ -39,9 +39,10 @@ and every compare are PUBLIC schedule columns derived from the wrapper's
 public inputs (_Walk), computed identically by prover and verifier.
 
 Device work: the witness trace is built on the given torch device
-(expand_perm_states is plain torch ops, ROADMAP queue 2 item K) and the
-wrap batch is an ordinary prove_batch, so its Merkle trees, FRI layers and
-grinding go through the Poseidon kernel on a CUDA device.
+(expand_perm_states: csrc/poseidon.cu's round-state kernel on a card, the
+plain round pieces on the CPU) and the wrap batch is an ordinary
+prove_batch, so its Merkle trees, FRI layers and grinding go through the
+Poseidon kernels on a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,7 +54,6 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..ops import goldilocks as gl
 from ..ops import ntt as nttmod
 from ..ops import poseidon as ps
 from ..ops.ext import W, ext_add, ext_inv, ext_mul, ext_sub
@@ -192,27 +192,15 @@ def _perm_constraints_and_output(frame: Frame, alg):
 def expand_perm_states(states: GF) -> GF:
     """(R, 12) permutation input states -> (106, R) witness columns
     [S1 ‖ S2 ‖ S3 ‖ p4..p25 ‖ w26..w29] matching the AIR layout (columns
-    COL_S..N_PERM_COLS): the plain round pieces of ops/poseidon.py over the
-    rounds, keeping the states the AIR witnesses. Torch ops on the
-    states' device (the reference's jitted lax.scan)."""
-    rc, mds_t = ps.plain_params(states.device)
-    s = states.v
-    cols = []
-    for r in range(3):  # S1..S3
-        s = ps.full_round_plain(s, rc[r], mds_t)
-        cols.append(s.t())
-    s = ps.full_round_plain(s, rc[3], mds_t)  # S4 (recomputed in-circuit)
-    p_vals = []
-    for r in range(4, 4 + ps.PARTIAL_ROUNDS):
-        pre = gl.add(s, rc[r])
-        p_vals.append(pre[:, 0])
-        s = ps.partial_round_plain(pre, mds_t)
-    cols.append(torch.stack(p_vals))
-    cols.append(s.t())  # w26
-    for r in range(26, 29):  # w27..w29
-        s = ps.full_round_plain(s, rc[r], mds_t)
-        cols.append(s.t())
-    return GF(torch.cat(cols, dim=0).contiguous())
+    COL_S..N_PERM_COLS), the states the AIR witnesses (the reference's
+    jitted lax.scan): ops/poseidon.py's plain round pieces for CPU states,
+    its round-state kernel for CUDA ones."""
+    x = states.v
+    if x.device.type == "cpu":
+        return GF(ps.expand_plain(x))
+    if x.device.type == "cuda":
+        return GF(ps.expand_cuda(x))
+    raise ValueError(f"no Poseidon round states for device {x.device}")
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ torch.set_num_threads(2)
 from tendermintx_tpu_torch.ops import goldilocks as gl
 from tendermintx_tpu_torch.ops import poseidon as ps
 from tendermintx_tpu_torch.stark import fri
+from tendermintx_tpu_torch.stark.air import Air
 
 P = gl.P
 EDGES = [0, 1, P - 1, 2**32 - 1, 2**32, 2**63 % P, P - 2**32]
@@ -1509,3 +1510,261 @@ def test_sha256_gadget_kernels_refuse_instead_of_falling_back(dev):
     with pytest.raises(TypeError):
         gadgets.header_proofs_cuda(*(t.cpu() for t in proofs))
     assert _gadget_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# The recursion wrap's programs: csrc/logup.cu's EvalAir entries,
+# csrc/poseidon.cu's round states and grinding
+# ---------------------------------------------------------------------------
+
+
+def _eval_inputs(n: int, seed: int, dev):
+    """(trace (8, n), static rows (8, n), gamma, delta): random field values,
+    addresses below n, a count row and three 0/1 gate rows."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    rng = np.random.default_rng(seed)
+    rows = np.concatenate([rng.integers(0, n, size=(4, n)), rng.integers(0, 2**32, size=(1, n)),
+                           rng.integers(0, 2, size=(3, n))])
+    g = _felts((len(EDGES) + 4,), seed + 1, dev)[len(EDGES):]
+    ext = lambda k: GF2(gl.GF(g[k : k + 1]), gl.GF(g[k + 1 : k + 2]))
+    return gl.GF(_felts((8, n), seed, dev)), torch.from_numpy(rows).to(dev), ext(0), ext(2)
+
+
+def _eval_counts():
+    from tendermintx_tpu_torch.stark import evalair as ev
+
+    return (ev.eval_terms_kernel_launches, ev.eval_scan_kernel_launches)
+
+
+def _eval_check(trace, rows, gamma, delta):
+    """eval_aux_cuda (one terms launch, the scan's two kernels) and each
+    entry alone against their plain twins, exact on whole outputs."""
+    from tendermintx_tpu_torch.stark import evalair as ev
+
+    before = _eval_counts()
+    got = ev.eval_aux_cuda(trace, rows, gamma, delta)
+    assert _eval_counts() == (before[0] + 1, before[1] + 2)
+    assert torch.equal(got.v, ev.eval_aux_plain(trace, rows, gamma, delta).v)
+    out = torch.empty_like(got.v)
+    partial = ev.eval_terms_cuda(trace, rows, gamma, delta, out)
+    inter, want_partial = ev.eval_terms_plain(trace, rows, gamma, delta)
+    assert torch.equal(out[:8], inter) and torch.equal(partial, want_partial)
+    ev.eval_scan_cuda(partial, out)
+    assert torch.equal(out[8:], ev.eval_scan_plain(partial))
+    return got
+
+
+# ragged row counts about a block (128) and a scan chunk (256), several
+# tiles of several chunks, and the wrap's 2^17 rows
+@pytest.mark.parametrize("n", [1, 7, 255, 257, 5000, 33_000, 1 << 17])
+def test_eval_kernels_match_plain(dev, n):
+    _eval_check(*_eval_inputs(n, 500 + n, dev))
+
+
+def test_eval_kernels_read_a_strided_trace_and_a_zero_denominator(dev):
+    """The trace as rows of a wider tensor (row stride n + 5), and gamma
+    equal to one cell's a + delta v0 + delta^2 v1: that term is 0, as in
+    the plain twin."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+
+    n, r, k = 1000, 333, 1
+    trace, rows, _, delta = _eval_inputs(n, 77, dev)
+    wide = _felts((8, n + 5), 78, dev)
+    wide[:, :n] = trace.v
+    trace = gl.GF(wide[:, :n])
+    assert not trace.v.is_contiguous()
+    d = gl.tensor_to_u64(torch.cat([delta.c0.v, delta.c1.v])).tolist()
+    d2 = ((d[0] * d[0] + 7 * d[1] * d[1]) % P, 2 * d[0] * d[1] % P)
+    v0, v1 = gl.tensor_to_u64(trace.v[2 * k : 2 * k + 2, r]).tolist()
+    a = int(rows[k, r])
+    g = [(a + d[0] * v0 + d2[0] * v1) % P, (d[1] * v0 + d2[1] * v1) % P]
+    gamma = GF2(gl.GF(gl.tensor_from_u64(np.array(g[:1], dtype=np.uint64), dev)),
+                gl.GF(gl.tensor_from_u64(np.array(g[1:], dtype=np.uint64), dev)))
+    got = _eval_check(trace, rows, gamma, delta)
+    assert int(got.v[2 * k, r]) == 0 and int(got.v[2 * k + 1, r]) == 0
+
+
+def test_eval_kernels_refuse_instead_of_falling_back(dev):
+    from tendermintx_tpu_torch.stark import evalair as ev
+
+    n = 64
+    trace, rows, gamma, delta = _eval_inputs(n, 9, dev)
+    out = torch.empty((10, n), dtype=torch.int64, device=dev)
+    before = _eval_counts()
+    for bad in (dict(trace=gl.GF(trace.v.cpu())), dict(trace=gl.GF(trace.v.to(torch.int32))),
+                dict(rows=rows.cpu()), dict(gamma=type(gamma)(gl.GF(gamma.c0.v.cpu()), gamma.c1))):
+        args = dict(trace=trace, rows=rows, gamma=gamma, delta=delta) | bad
+        with pytest.raises(TypeError):
+            ev.eval_terms_cuda(args["trace"], args["rows"], args["gamma"], args["delta"], out)
+    for bad in (dict(trace=gl.GF(trace.v[:7])), dict(trace=gl.GF(trace.v.t().contiguous().t())),
+                dict(rows=rows[:, :-1]), dict(rows=rows.t().contiguous().t()), dict(out=out[:9])):
+        args = dict(trace=trace, rows=rows, out=out) | bad
+        with pytest.raises(ValueError):
+            ev.eval_terms_cuda(args["trace"], args["rows"], gamma, delta, args["out"])
+    partial = torch.zeros((2, 1, n), dtype=torch.int64, device=dev)
+    for p, o, err in ((partial.cpu(), out.cpu(), TypeError), (partial[:, :, :-1], out, ValueError),
+                      (partial, out[:, :-1], ValueError), (partial.to(torch.int32), out, TypeError)):
+        with pytest.raises(err):
+            ev.eval_scan_cuda(p, o)
+    assert _eval_counts() == before
+
+
+@pytest.mark.parametrize("n", [1, 7, 129, 4099, 1 << 15])
+def test_expand_kernel_matches_plain(dev, n):
+    """expand_perm_states on card states: one launch, exactly the plain
+    round pieces' 106 columns; the last full round on w29 gives the
+    permutation."""
+    from tendermintx_tpu_torch.stark import recursion as rec
+
+    s = _felts((n, ps.WIDTH), 600 + n, dev)
+    before = ps.expand_kernel_launches
+    got = rec.expand_perm_states(gl.GF(s))
+    assert ps.expand_kernel_launches == before + 1
+    assert torch.equal(got.v, ps.expand_plain(s))
+    rc, mds_t = ps.plain_params(dev)
+    assert torch.equal(ps.full_round_plain(got.v[94:].t().contiguous(), rc[29], mds_t), ps.permute_cuda(s))
+
+
+def test_expand_kernel_refuses_instead_of_falling_back(dev):
+    s = _felts((64, ps.WIDTH), 5, dev)
+    before = ps.expand_kernel_launches
+    with pytest.raises(TypeError):
+        ps.expand_cuda(s.cpu())
+    with pytest.raises(TypeError):
+        ps.expand_cuda(s.to(torch.int32))
+    for bad in (s[:, :11].contiguous(), s.reshape(-1), s.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            ps.expand_cuda(bad)
+    assert ps.expand_kernel_launches == before
+
+
+@pytest.mark.parametrize("pow_bits", [1, 4, 8, 12, 16, 32])
+def test_grind_kernel_matches_plain(dev, pow_bits):
+    """One launch a batch, the batch's first hit or None as grind_plain's:
+    the default 2^18 batch, ragged batches, a start past 0."""
+    for seed in (1, 12345, P - 1, 2**32):
+        for start, batch in ((0, 1 << 18), (0, 37), (1000, 129), (5, 1)):
+            before = ps.grind_kernel_launches
+            got = ps.grind_cuda(seed, pow_bits, start, batch, dev)
+            assert ps.grind_kernel_launches == before + 1
+            assert got == ps.grind_plain(seed, pow_bits, start, batch, dev)
+
+
+def test_grind_on_card_past_the_first_batch(dev, monkeypatch):
+    """grind on the card with batches of 64: the host loop's nonce, one
+    launch a batch searched."""
+    monkeypatch.setattr(fri, "GRIND_BATCH", 64)
+    nonces = []
+    for seed in (3, 77, P - 1, 2**40):
+        before = ps.grind_kernel_launches
+        nonce = fri.grind(seed, 9, dev)
+        assert nonce == fri.grind(seed, 9) and fri.check_grind(seed, nonce, 9)
+        assert ps.grind_kernel_launches - before == nonce // 64 + 1
+        nonces.append(nonce)
+    assert max(nonces) >= 64
+
+
+def test_grind_kernel_refuses_instead_of_falling_back(dev):
+    before = ps.grind_kernel_launches
+    for args in ((P, 4, 0, 8), (1, 0, 0, 8), (1, 33, 0, 8), (1, 4, -1, 8), (1, 4, 0, 0)):
+        with pytest.raises(ValueError):
+            ps.grind_cuda(*args, dev)
+    with pytest.raises(TypeError):
+        ps.grind_cuda(1, 4, 0, 8, "cpu")
+    assert ps.grind_kernel_launches == before
+
+
+class MixAir(Air):
+    """The reference's tiny multiplicative-mix AIR (tests/test_recursion.py)."""
+
+    n_cols = 4
+    n_public = 2
+    constraint_degree = 3
+    frame_offsets = [0, 1]
+
+    def eval_transition(self, frame, alg):
+        a, b, c, d = frame.local
+        return [frame.next[0] - (a * b + c), frame.next[1] - b, frame.next[2] - (c + d), frame.next[3] - d]
+
+    def eval_first(self, frame, alg):
+        return [frame.local[0] - frame.public[0], frame.local[1] - frame.public[1]]
+
+
+def _wrap_counts():
+    from tendermintx_tpu_torch.stark import evalair as ev
+
+    return (ev.eval_terms_kernel_launches, ev.eval_scan_kernel_launches, ps.expand_kernel_launches,
+            ps.grind_kernel_launches)
+
+
+def test_toy_wrap_on_card_equals_cpu(dev):
+    """The toy two-statement batch of tests/test_torch_recursion.py wrapped
+    on the card and on the CPU: the same bytes; the card's wrap runs the
+    eval terms kernel once, the scan's two kernels, the round-state kernel
+    once and one grinding launch a batch searched; the CPU's none."""
+    import json
+
+    from tendermintx_tpu_torch.stark import recursion as rec
+    from tendermintx_tpu_torch.stark.batch import prove_batch
+    from tendermintx_tpu_torch.stark.prover import StarkConfig
+    from tendermintx_tpu_torch.stark.serialize import wrapped_batch_to_dict
+
+    cfg = StarkConfig(rate_bits=2, n_queries=4, final_poly_len=8, proof_of_work_bits=4, cap_bits=3)
+    wrap_cfg = StarkConfig(rate_bits=3, n_queries=4, final_poly_len=8, proof_of_work_bits=2, cap_bits=2)
+
+    def mix_cols(n, p0, p1):
+        cols, (a, b, c, d) = [[p0], [p1], [3], [5]], (p0, p1, 3, 5)
+        for _ in range(n - 1):
+            a, b, c, d = (a * b + c) % P, b, (c + d) % P, d
+            for col, v in zip(cols, (a, b, c, d)):
+                col.append(v)
+        return np.array(cols, dtype=object)
+
+    airs = [MixAir(), MixAir()]
+    cols, publics = [mix_cols(64, 2, 3), mix_cols(128, 4, 9)], [[2, 3], [4, 9]]
+    base = prove_batch(airs, [gl.GF.from_ints(c) for c in cols], publics, cfg, transcript_seed=[11, 22])
+    before = _wrap_counts()
+    card = rec.wrap_batch(airs, base, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg, device=dev)
+    grinds = card.wrapper.fri_proof.pow_nonce // fri.GRIND_BATCH + 1
+    assert tuple(a - b for a, b in zip(_wrap_counts(), before)) == (1, 2, 1, grinds)
+    launched = _wrap_counts()
+    host = rec.wrap_batch(airs, base, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg, device="cpu")
+    assert _wrap_counts() == launched
+    assert json.dumps(wrapped_batch_to_dict(card)) == json.dumps(wrapped_batch_to_dict(host))
+    assert rec.verify_wrapped_batch(airs, card, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg)
+
+
+def n4_wrapped_sha256(tmp_path, device) -> str:
+    """The SHA-256 of the N=4 skip composite 1 -> 5 of _chain's chain,
+    proven at chip_smoke.py's parity configs (base rate 3, 6 queries, final
+    64, PoW 4; wrap rate 3, 6 queries, final 32, PoW 2) and wrapped, both on
+    `device`."""
+    import hashlib
+
+    from tendermintx_tpu_torch.circuits.composite import prove_skip_composite, wrap_composite
+    from tendermintx_tpu_torch.stark.prover import StarkConfig
+
+    chain, f = _chain(tmp_path, n_validators=4, heights=5)
+    trusted = chain.headers[1].hash()
+    inputs = f.get_skip_inputs(1, trusted, 5, max_validators=4)
+    cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=64, proof_of_work_bits=4)
+    wrap_cfg = StarkConfig(rate_bits=3, n_queries=6, final_poly_len=32, proof_of_work_bits=2)
+    proof = prove_skip_composite(1, trusted, 5, inputs, cfg, device=device)
+    return hashlib.sha256(wrap_composite(proof, cfg, wrap_cfg, device=device).to_bytes()).hexdigest()
+
+
+# n4_wrapped_sha256(tmp_path, "cpu"): the proof and the wrap on the CPU
+# (plain twins throughout), computed once on a CPU host (about 12 minutes
+# on 4 torch threads), not in this file
+N4_CPU_WRAPPED_SHA256 = "cfddfced42cd4aa47bb976ece225106114ec88de9c9c5f269686620ecc32a1ab"
+
+
+def test_n4_wrap_on_card_equals_cpu(dev, tmp_path):
+    """The N=4 composite proven and wrapped on the card has the bytes of
+    the CPU's (N4_CPU_WRAPPED_SHA256: chip_smoke.py's parity phase also
+    wraps such a proof on both devices)."""
+    before = _wrap_counts()
+    assert n4_wrapped_sha256(tmp_path, dev) == N4_CPU_WRAPPED_SHA256
+    got = tuple(a - b for a, b in zip(_wrap_counts(), before))
+    assert got[:3] == (1, 2, 1) and got[3] >= 2  # the prove's grind and the wrap's

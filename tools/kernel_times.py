@@ -4,7 +4,8 @@ main-path shape on one card, and the LogUp and OOD kernels round by round.
     python3 tools/kernel_times.py [--root DIR] [--label NAME]
         [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers,fri_fold,fri_inject,
                 sha256_blocks,sha256_validator_root,sha256_header_proofs,sha512_blocks,sha512_challenge,
-                straus_verify,bind_witness,witness_programs] [--rounds R]
+                straus_verify,bind_witness,witness_programs,eval_terms,eval_scan,poseidon_expand,
+                poseidon_grind] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
 this checkout's chip_smoke.py, the shapes and inputs: every distinct NTT
@@ -54,7 +55,21 @@ chip_smoke.py's `_witness_programs` with its profile (skip_verify on skip
 seconds of one call and its torch ops) R times after a first call, on
 `SkipChain(128)`, then times the witness-only `cli prove` of skip 2 -> 6
 (`--device cuda`, host clock) R times after a warm-up; in a checkout
-without the challenge kernel it counts no launches. Prints one JSON line: the card's
+without the challenge kernel it counts no launches. The recursion wrap's
+kernels are timed in rounds the same way at the N=128 wrap's shapes
+(`_ood_shapes()`' EvalAir and WrapAir rows) on random inputs, each with
+`kernel_ms`, and beside each the checkout's plain program on the card
+(`plain_ms`, the median of R calls): `eval_terms` (`eval_terms_cuda`, its
+burst too; plain: `_eval_terms`, and the three programs of the aux rows
+as `aux_plain_ms`), `eval_scan` (`eval_scan_cuda` over the terms kernel's
+row sums, its burst too; plain: `_eval_scan`), `poseidon_expand`
+(`expand_cuda`; plain: `expand_plain`, or `expand_perm_states` in a
+checkout without the kernel) and `poseidon_grind` (one 2^18 batch,
+`grind_cuda` with its read-back, its first hit in the batch, and its
+burst; plain: `grind_plain`; and `grind_ms`, the whole `fri.grind` on the
+card, which a checkout without the kernel runs as the permutation kernel
+over a state tensor, a mask and a nonzero). A checkout without a kernel
+gives its plain program alone. Prints one JSON line: the card's
 name and power limit, the label, and per shape the ms. Two checkouts are compared by running
 this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
@@ -309,6 +324,65 @@ def main(argv=None) -> int:
                 rows.append({"shape": list(shape), "rounds": timed_rounds(run, reps_for(run), burst),
                              "kernel_ms": kernel_ms(run), **({"composition": True} if composition else {})})
             out[name] = rows
+    wrap_kernels = [k for k in ("eval_terms", "eval_scan", "poseidon_expand", "poseidon_grind") if k in only]
+    if wrap_kernels:
+        from tendermintx_tpu_torch.ops import poseidon as ps
+        from tendermintx_tpu_torch.stark import evalair as ev
+        from tendermintx_tpu_torch.stark import fri
+        from tendermintx_tpu_torch.stark import recursion as rec
+
+        log_n = {name: k for name, _, k, _ in cs._ood_shapes()}
+        n, R = 1 << log_n["evalair"], 1 << log_n["wrap"]
+        median_ms = lambda fn: sorted(cs._timed_once(fn)[1] for _ in range(args.rounds))[args.rounds // 2]
+        felt = lambda: cs._random_felts((1,), gen, dev)
+        trace = GF(cs._random_felts((8, n), gen, dev))
+        srows = torch.cat([torch.randint(0, n, (4, n), generator=gen, device=dev),
+                           torch.randint(0, 1 << 32, (1, n), generator=gen, device=dev),
+                           torch.randint(0, 2, (3, n), generator=gen, device=dev)])
+        gamma, delta = GF2(GF(felt()), GF(felt())), GF2(GF(felt()), GF(felt()))
+        v0, v1 = GF(trace.v[0::2]), GF(trace.v[1::2])
+        terms = lambda: ev._eval_terms(GF(srows[:4]), GF(srows[4:]), v0, v1, gamma, delta)
+        kernels = hasattr(ev, "eval_terms_cuda")
+        eval_burst = (ev, "_eval_launch", "_eval_library")
+        if "eval_terms" in only:
+            row = {"shape": [8, n], "plain_ms": median_ms(terms),
+                   "aux_plain_ms": median_ms(lambda: ev._eval_assemble(t := terms(), ev._eval_scan(t)))}
+            if kernels:
+                aux = torch.empty((10, n), dtype=torch.int64, device=dev)
+                run = lambda: ev.eval_terms_cuda(trace, srows, gamma, delta, aux)
+                row.update(rounds=timed_rounds(run, reps_for(run), eval_burst), kernel_ms=kernel_ms(run))
+            out["eval_terms"] = row
+        if "eval_scan" in only:
+            t = terms()
+            row = {"shape": [2, 1, n], "plain_ms": median_ms(lambda: ev._eval_scan(t))}
+            if kernels:
+                aux = torch.empty((10, n), dtype=torch.int64, device=dev)
+                partial = ev.eval_terms_cuda(trace, srows, gamma, delta, aux)
+                run = lambda: ev.eval_scan_cuda(partial, aux)
+                row.update(rounds=timed_rounds(run, reps_for(run), eval_burst), kernel_ms=kernel_ms(run))
+            out["eval_scan"] = row
+        if "poseidon_expand" in only:
+            states = cs._random_felts((R, 12), gen, dev)
+            row = {"shape": [R, 12]}
+            if hasattr(ps, "expand_cuda"):
+                run = lambda: ps.expand_cuda(states)
+                row.update(plain_ms=median_ms(lambda: ps.expand_plain(states)),
+                           rounds=timed_rounds(run, reps_for(run)), kernel_ms=kernel_ms(run))
+            else:
+                row["plain_ms"] = median_ms(lambda: rec.expand_perm_states(GF(states)))
+            out["poseidon_expand"] = row
+        if "poseidon_grind" in only:
+            batch = fri.GRIND_BATCH
+            # the first seed whose first 16-bit hit lies in the first batch
+            seed = next(s for s in range(cs.SEED, cs.SEED + 64) if fri.grind(s, 16, dev) < batch)
+            row = {"shape": [batch], "seed": seed, "pow_bits": 16, "nonce": fri.grind(seed, 16, dev),
+                   "grind_ms": median_ms(lambda: fri.grind(seed, 16, dev))}
+            if hasattr(ps, "grind_cuda"):
+                run = lambda: ps.grind_cuda(seed, 16, 0, batch, dev)
+                row.update(plain_ms=median_ms(lambda: ps.grind_plain(seed, 16, 0, batch, dev)),
+                           rounds=timed_rounds(run, reps_for(run)), kernel_ms=kernel_ms(run),
+                           burst_ms=cs._grind_burst_ms(seed, 16, batch, dev))
+            out["poseidon_grind"] = row
     if "witness_programs" in only:
         import tempfile
 

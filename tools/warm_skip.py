@@ -23,7 +23,12 @@ proof at default_wrap_config() on the card, the process's first wrap
 (`n128_wrap_seconds`, as chip_smoke.py's wrap phase times it), and times
 the wrap FRI's host fold tables cold (`wrap_fri_tables`, chip_smoke.py's
 `_time_fri_tables`: the plain fold's (2x)^-1 tables and the host
-constants that csrc/fri.cu's fold takes instead).
+constants that csrc/fri.cu's fold takes instead), then wraps the proof
+once more under torch.profiler (`second_wrap_seconds`, host tables warm)
+and reports chip_smoke.py's `_range_times` of the wrap's program ranges
+(`ranges`: expand_perm_states, eval_terms, eval_scan and, in a checkout
+that still assembles the EvalAir aux rows in torch, eval_assemble), their
+card time being that of the kernels launched inside them.
 """
 
 from __future__ import annotations
@@ -136,8 +141,9 @@ def main(argv=None) -> int:
 
 
 def _first_wrap(proof) -> dict:
-    """The process's first wrap of `proof` on the card, timed, and the wrap
-    FRI's host fold tables built cold."""
+    """The process's first wrap of `proof` on the card, timed, the wrap
+    FRI's host fold tables built cold, and a second wrap under
+    torch.profiler with its program ranges' times."""
     import importlib.util
 
     import torch
@@ -156,11 +162,24 @@ def _first_wrap(proof) -> dict:
     spec.loader.exec_module(cs)
     cfg = default_wrap_config()
     n = max(st.n_rows for st in wrapped.batch.wrapper.statements) << cfg.rate_bits
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        again = wrap_composite(proof, device="cuda")
+        torch.cuda.synchronize()
+        second = time.perf_counter() - t0
+    if again.to_bytes() != wrapped.to_bytes():
+        raise AssertionError("two wraps of one proof differ")
+    names = {e.name for e in prof.events()}
+    ranges = [r for r in ("expand_perm_states", "eval_terms", "eval_scan", "eval_assemble") if r in names]
     return {
         "n128_wrap_seconds": seconds,
         "wrapped_sha256": hashlib.sha256(wrapped.to_bytes()).hexdigest(),
         "wrap_fri_tables": {"domain": n, "cold_seconds": cs._time_fri_tables(n, cfg),
                             "card_host_seconds": cs._time_fri_tables(n, cfg, card=True)},
+        "second_wrap_seconds": second,
+        "ranges": cs._range_times(prof, ranges),
     }
 
 
