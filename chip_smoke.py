@@ -436,17 +436,25 @@ MULS_PER_CLOCK_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 
 
-def _bound(permutations: int, nbytes: int, clock_mhz: float) -> dict:
+# WrapAir's round states stop after round 28: the last full round is not run
+EXPAND_MULS_PER_STATE = MULS_PER_PERMUTATION - FULL_ROUND_MULS  # 6,176
+DESIGN_EXPAND_MULS_PER_STATE = DESIGN_MULS_PER_PERMUTATION - FULL_ROUND_MULS  # 10,048
+
+
+def _bound(permutations: int, nbytes: int, clock_mhz: float, muls: int = MULS_PER_PERMUTATION,
+           design_muls: int = DESIGN_MULS_PER_PERMUTATION) -> dict:
+    """The bound of `permutations` states at `muls` multiply-adds each
+    (`design_muls` for design_bound_ms) moving `nbytes`."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
-    ops_ms = permutations * MULS_PER_PERMUTATION / muls_per_ms
+    ops_ms = permutations * muls / muls_per_ms
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "operations_bound_ms": ops_ms,
         "bytes_bound_ms": bytes_ms,
-        "design_bound_ms": max(permutations * DESIGN_MULS_PER_PERMUTATION / muls_per_ms, bytes_ms),
+        "design_bound_ms": max(permutations * design_muls / muls_per_ms, bytes_ms),
         "permutations": permutations,
         "bytes": nbytes,
     }
@@ -2950,13 +2958,15 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     kernel on the inputs the wraps of the run gave them (WRAP_CALLS: the
     latest call of each shape, the N=128 wrap's and, where it differs, the
     card's N=4 parity wrap's), each held exactly against its plain twin on the whole output
-    (eval_terms_plain: the term rows and row sums; eval_scan_plain: S;
-    eval_aux_plain: the (10, n) aux rows; expand_plain: the 106 columns);
+    (eval_aux_plain's (10, n) aux rows: rows 0-7 for the terms entry, rows
+    8-9 for the scan over the terms entry's row sums, all ten for
+    eval_aux_cuda; expand_plain: the 106 columns);
     at the N=128 wrap's shapes (`wrap_rows`: WrapAir's and EvalAir's rows)
     each timed (the median of five rounds, a raw-launch burst for the two
     eval entries) beside its plain twin's time and its bound. Adds rows
     eval_terms, eval_scan and poseidon_expand."""
     from tendermintx_tpu_torch.ops import poseidon as ps
+    from tendermintx_tpu_torch.ops.goldilocks import GF
     from tendermintx_tpu_torch.stark import evalair as ev
     from tendermintx_tpu_torch.stark.lookup import scan_tiles
 
@@ -2971,14 +2981,13 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
 
     def check_eval(trace, srows, gamma, delta):
         n = int(trace.v.shape[-1])
+        want = ev.eval_aux_plain(trace, srows, gamma, delta).v
         out = torch.empty((ev.N_AUX, n), dtype=torch.int64, device=dev)
         partial = terms_fn(trace, srows, gamma, delta, out)
-        inter, want_partial = ev.eval_terms_plain(trace, srows, gamma, delta)
-        _check_equal(out[:8], inter, f"eval_terms at {n} rows")
-        _check_equal(partial, want_partial, f"eval_terms' row sums at {n} rows")
+        _check_equal(out[:8], want[:8], f"eval_terms at {n} rows")
         scan_fn(partial, out)
-        _check_equal(out[8:], ev.eval_scan_plain(partial), f"eval_scan at {n} rows")
-        _check_equal(out, ev.eval_aux_plain(trace, srows, gamma, delta).v, f"the EvalAir aux rows at {n} rows")
+        _check_equal(out[8:], want[8:], f"eval_scan at {n} rows")
+        _check_equal(ev.eval_aux_cuda(trace, srows, gamma, delta).v, want, f"the EvalAir aux rows at {n} rows")
         return out, partial
 
     checked_eval, checked_expand = [], []
@@ -2992,8 +3001,11 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     trace, srows, gamma, delta = WRAP_CALLS.eval[eval_n]
     out, partial = check_eval(trace, srows, gamma, delta)
     n = eval_n
-    _, terms_plain_ms = _timed_once(lambda: ev.eval_terms_plain(trace, srows, gamma, delta))
-    _, scan_plain_ms = _timed_once(lambda: ev.eval_scan_plain(partial))
+    v0 = GF(trace.v[[ev.E_OUT, ev.E_AV, ev.E_BV, ev.E_CV]])
+    v1 = GF(trace.v[[ev.E_OUT + 1, ev.E_AV + 1, ev.E_BV + 1, ev.E_CV + 1]])
+    plain_terms, _ = _timed_once(lambda: ev._eval_terms(GF(srows[:4]), GF(srows[4:]), v0, v1, gamma, delta))
+    _, terms_plain_ms = _timed_once(lambda: ev._eval_terms(GF(srows[:4]), GF(srows[4:]), v0, v1, gamma, delta))
+    _, scan_plain_ms = _timed_once(lambda: ev._eval_scan(plain_terms))
     _, aux_plain_ms = _timed_once(lambda: ev.eval_aux_plain(trace, srows, gamma, delta))
     terms = _time_rounds(lambda: terms_fn(trace, srows, gamma, delta, out), 20)
     terms["burst_ms"] = _launch_burst_ms(ev, "_eval_launch", "_eval_library",
@@ -3008,7 +3020,8 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     # 2 row-sum rows; the scan reads the row sums and writes S
     terms_bound = _field_bound(n * 4 * EVAL_TERM_MULS + INV_MULS, 8 * n * (8 + 8 + 8 + 2), muls_per_ms)
     scan_bound = _field_bound(0, 8 * n * (2 + 2), muls_per_ms)
-    expand_bound = _bound(wrap_n, 8 * wrap_n * (ps.WIDTH + ps.EXPAND_COLS), clock_mhz)
+    expand_bound = _bound(wrap_n, 8 * wrap_n * (ps.WIDTH + ps.EXPAND_COLS), clock_mhz, EXPAND_MULS_PER_STATE,
+                          DESIGN_EXPAND_MULS_PER_STATE)
     common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/logup.cu", "library_ms": None,
               "library": "none: no PyTorch call computes GF(p^2) inverses or scans", "max_abs_err": 0.0,
               "checked": checked_eval}

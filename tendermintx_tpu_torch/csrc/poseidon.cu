@@ -62,8 +62,10 @@
 //                              0-28 and stores each kept value canonical in
 //                              its column-major row, so consecutive threads
 //                              write consecutive words. Bound: operations
-//                              (2^15 states at 6,656 multiply-adds, 0.013
-//                              ms; the 31 MB it moves 0.009 ms);
+//                              (2^15 states at 6,176 multiply-adds, the
+//                              permutation's 6,656 less the last full round,
+//                              which it does not run: 0.0121 ms; the 31 MB
+//                              it moves 0.009 ms);
 //   tmx_poseidon_grind         one batch of the FRI's proof-of-work search:
 //                              candidates poseidon([seed, start + i, 0,
 //                              ...]) for i < batch, made in registers; a

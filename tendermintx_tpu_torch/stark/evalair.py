@@ -921,40 +921,19 @@ def _eval_terms(addrs: GF, mults: GF, v0: GF, v1: GF, gamma: GF2, delta: GF2) ->
     return GF2(inv.c0 * mults, inv.c1 * mults)
 
 
-def _eval_diff(terms: GF2) -> GF2:
-    """(n,) tw - ta - tb - tc."""
-    c0, c1 = terms.c0, terms.c1
-    return GF2(c0[0] - c0[1] - c0[2] - c0[3], c1[0] - c1[1] - c1[2] - c1[3])
-
-
 def _eval_scan(terms: GF2) -> GF2:
     """Running sum S[i] = sum_{r<=i} (tw - ta - tb - tc)[r], component-wise
     mod p (exact, so equal to the reference's sequential lax.scan)."""
-    d = _eval_diff(terms)
-    return GF2(GF(_prefix_sum(d.c0.v)), GF(_prefix_sum(d.c1.v)))
+    c0, c1 = terms.c0, terms.c1
+    d0 = c0[0] - c0[1] - c0[2] - c0[3]
+    d1 = c1[0] - c1[1] - c1[2] - c1[3]
+    return GF2(GF(_prefix_sum(d0.v)), GF(_prefix_sum(d1.v)))
 
 
 def _eval_assemble(terms: GF2, S: GF2) -> GF:
     """(10, n) aux rows [tw.c0, tw.c1, ta.c0, ..., tc.c1, S.c0, S.c1]."""
     inter = torch.stack([terms.c0.v, terms.c1.v], dim=1).reshape(8, -1)
     return GF(torch.cat([inter, torch.stack([S.c0.v, S.c1.v])], dim=0))
-
-
-def eval_terms_plain(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2) -> tuple[torch.Tensor, torch.Tensor]:
-    """eval_terms_cuda's two results as torch ops (any device): the (8, n)
-    interleaved term rows and the (2, 1, n) row sums tw - ta - tb - tc."""
-    v0 = GF(trace.v[[E_OUT, E_AV, E_BV, E_CV]])
-    v1 = GF(trace.v[[E_OUT + 1, E_AV + 1, E_BV + 1, E_CV + 1]])
-    terms = _eval_terms(GF(rows[:4]), GF(rows[4:]), v0, v1, gamma, delta)
-    d = _eval_diff(terms)
-    inter = torch.stack([terms.c0.v, terms.c1.v], dim=1).reshape(8, -1)
-    return inter, torch.stack([d.c0.v, d.c1.v])[:, None]
-
-
-def eval_scan_plain(partial: torch.Tensor) -> torch.Tensor:
-    """eval_scan_cuda's S rows, (2, n), from the (2, 1, n) row sums (any
-    device)."""
-    return torch.stack([_prefix_sum(partial[c, 0]) for c in range(2)])
 
 
 # -- aux columns on the card: csrc/logup.cu's eval entries --------------------

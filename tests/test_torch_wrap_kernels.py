@@ -1,6 +1,6 @@
 """The recursion wrap's device programs on the CPU: the plain twins of
 csrc/logup.cu's EvalAir entries (stark/evalair.py: _eval_terms, _eval_scan,
-_eval_assemble, eval_terms_plain, eval_scan_plain) against the JAX
+_eval_assemble, eval_aux_plain) against the JAX
 package's _eval_terms_kernel, _eval_scan_kernel and _eval_assemble_kernel
 at 2^4, 2^8 and 2^11 rows, with random gamma and delta and with a planted
 zero denominator; Python models of the eval kernels' schedule (the four
@@ -84,9 +84,8 @@ def _ju(g) -> list:
 @pytest.mark.parametrize("planted", [False, True])
 @pytest.mark.parametrize("n", [1 << 4, 1 << 8, 1 << 11])
 def test_eval_programs_match_jax(n, planted):
-    """Each plain program against its JAX program, and the twins of the
-    card's two entries (eval_terms_plain, eval_scan_plain) and
-    eval_aux_plain against the assembled reference rows."""
+    """Each plain program against its JAX program, and eval_aux_plain (the
+    card entries' twin) against the assembled reference rows."""
     trace, rows, gamma, delta = _eval_case(n, 40 + n, planted)
     v0, v1 = GF.from_ints(trace[0::2]), GF.from_ints(trace[1::2])
     addrs, mults = GF.from_ints(rows[:4]), GF.from_ints(rows[4:])
@@ -103,9 +102,6 @@ def test_eval_programs_match_jax(n, planted):
     assert _u(ev._eval_assemble(terms, S).v) == want
     t, r = GF.from_ints(trace), tensor_from_u64(rows.astype(np.uint64))
     assert _u(ev.eval_aux_plain(t, r, _gf2(gamma), _gf2(delta)).v) == want
-    inter, partial = ev.eval_terms_plain(t, r, _gf2(gamma), _gf2(delta))
-    assert _u(inter) == want[:8] and tuple(partial.shape) == (2, 1, n)
-    assert _u(ev.eval_scan_plain(partial)) == want[8:]
 
 
 def _eval_kernel_model(trace, rows, gamma, delta, r: int) -> tuple[list, tuple]:
@@ -128,28 +124,28 @@ def _eval_kernel_model(trace, rows, gamma, delta, r: int) -> tuple[list, tuple]:
 
 @pytest.mark.parametrize("planted", [False, True])
 def test_eval_kernel_model_matches_the_twins(planted, monkeypatch):
-    """The terms kernel's model at every row equals eval_terms_plain's term
-    rows and row sums (the planted zero denominator's term 0); the scan's
-    model over the row sums, at the eval scan's tiles and at tiles of
-    several chunks and a ragged last tile, equals eval_scan_plain."""
+    """The terms kernel's model at every row equals eval_aux_plain's term
+    rows (the planted zero denominator's term 0); the scan's model over the
+    model's row sums, at the eval scan's tiles and at tiles of several
+    chunks and a ragged last tile, equals eval_aux_plain's S rows (of a
+    prefix of m rows, S's first m)."""
     n = 1 << 11
     trace, rows, gamma, delta = _eval_case(n, 7, planted)
-    inter, partial = ev.eval_terms_plain(GF.from_ints(trace), tensor_from_u64(rows.astype(np.uint64)),
-                                         _gf2(gamma), _gf2(delta))
-    inter, sums = _u(inter), _u(partial[:, 0])
+    aux = _u(ev.eval_aux_plain(GF.from_ints(trace), tensor_from_u64(rows.astype(np.uint64)), _gf2(gamma),
+                               _gf2(delta)).v)
+    sums = [[], []]
     for r in range(n):
         terms, s = _eval_kernel_model(trace, rows, gamma, delta, r)
-        assert terms == [(inter[2 * k][r], inter[2 * k + 1][r]) for k in range(4)]
-        assert s == (sums[0][r], sums[1][r])
+        assert terms == [(aux[2 * k][r], aux[2 * k + 1][r]) for k in range(4)]
+        for c in range(2):
+            sums[c].append(s[c])
         if planted and r == n // 2:
             assert terms[2] == (0, 0)
-    S = _u(ev.eval_scan_plain(partial))
     for m, tiles in ((n, 128), (n, 3), (1000, 2), (257, 128)):
         monkeypatch.setattr(lk, "_SCAN_TILES", tiles)
         tile, n_tiles = lk.scan_tiles(m)
         assert tile % lk._SCAN_THREADS == 0 and (n_tiles - 1) * tile < m <= n_tiles * tile
-        want = S if m == n else _u(ev.eval_scan_plain(partial[..., :m]))
-        assert [_scan_model(sums[c][:m], tile, n_tiles) for c in range(2)] == want
+        assert [_scan_model(sums[c][:m], tile, n_tiles) for c in range(2)] == [aux[8 + c][:m] for c in range(2)]
 
 
 def test_eval_args_layout_matches_the_source():
