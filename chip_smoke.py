@@ -170,11 +170,13 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  the scan's two kernels and the round-state kernel once;
                  no other path but runtime launches them;
   8b. wrap_kernels - csrc/logup.cu's eval_terms and eval_scan and
-                 csrc/poseidon.cu's poseidon_expand on the inputs the wraps
-                 gave them (the latest call of each shape), exact against
-                 their plain twins on the whole outputs; at the N=128
-                 wrap's shapes (EvalAir 2^17 rows, WrapAir 2^15 states)
-                 timed beside the twins, with bounds and registers;
+                 csrc/poseidon.cu's poseidon_expand (each state on
+                 EXPAND_GROUP threads; the other group sizes beside it) on
+                 the inputs the wraps gave them (the latest call of each
+                 shape), exact against their plain twins on the whole
+                 outputs; at the N=128 wrap's shapes (EvalAir 2^17 rows,
+                 WrapAir 2^15 states) timed beside the twins, with bounds
+                 and registers;
   9. runtime   - the port's entry points on the card at N=128, in this
                  process: ``cli build`` and a witness-only ``cli prove`` of
                  skip 2 -> 6 (valid, header 6), its witness kernels'
@@ -221,13 +223,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  four-step run alone held to its shards' pass plans), and
                  dryrun_multichip(4) in each
                  of its shapes (default, toy, full), each timed;
- 10b. grind    - csrc/poseidon.cu's grinding kernel on every batch that
-                 every path's FRIs searched (one launch a batch, checked on
-                 every path against its FRI proofs' nonces), again against
-                 grind_plain on the card and check_grind, then a seed whose
-                 first 20-bit hit lies past the first batch; timed at the
-                 first batch of the run's first 16-bit search that hit
-                 there, beside grind_plain;
+ 10b. grind    - csrc/poseidon.cu's grinding kernel on every span that
+                 every path's FRIs searched (one launch a span of
+                 GRIND_SPAN, checked on every path against its FRI proofs'
+                 nonces), again against grind_plain over the same span on
+                 the card and check_grind, then a seed whose first 20-bit
+                 hit lies past 2^18 candidates (several waves of resident
+                 threads), one launch; timed at the run's first 16-bit
+                 search, beside grind_plain, with the bound of its least
+                 work (nonce + 1 permutations) and of the span;
  11. fri_shapes - every fold and injection shape the run called
                  csrc/fri.cu's wrappers with (_FriCalls) that the kernels
                  phase did not check (the N=4 proofs': the parity prove,
@@ -2629,12 +2633,12 @@ def _check_ood_launches(launches: dict, statements: int, ed25519: int, path: str
                              f"launched {got}; {want} wanted")
 
 
-def _grind_batches(proof, pow_bits: int) -> int:
-    """The grinding launches of one FRI proof on the card: one a batch of
-    GRIND_BATCH candidates searched up to its nonce; none at 0 bits."""
-    from tendermintx_tpu_torch.stark.fri import GRIND_BATCH
+def _grind_spans(proof, pow_bits: int) -> int:
+    """The grinding launches of one FRI proof on the card: one a span of
+    GRIND_SPAN candidates searched up to its nonce; none at 0 bits."""
+    from tendermintx_tpu_torch.stark.fri import GRIND_SPAN
 
-    return proof.pow_nonce // GRIND_BATCH + 1 if pow_bits else 0
+    return proof.pow_nonce // GRIND_SPAN + 1 if pow_bits else 0
 
 
 def _check_fri_launches(launches: dict, fris: list, sizes: int, path: str, shards: int = 1):
@@ -2642,11 +2646,11 @@ def _check_fri_launches(launches: dict, fris: list, sizes: int, path: str, shard
     n_max values, fold once a committed layer (once a shard where a mesh of
     `shards` shards the layer: at least 4 values a shard), inject once
     a codeword size of a batch (`sizes` in all; none in a
-    single-statement FRI) and grind once a batch searched."""
+    single-statement FRI) and grind once a span searched."""
     folds = sum(shards if shards > 1 and (n_max >> l) >= 4 * shards else 1
                 for proof, n_max, _ in fris for l in range(len(proof.layer_caps)))
     want = {"fri_fold": folds, "fri_inject": sizes,
-            "poseidon_grind": sum(_grind_batches(proof, bits) for proof, _, bits in fris)}
+            "poseidon_grind": sum(_grind_spans(proof, bits) for proof, _, bits in fris)}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"the {path} path launched {got}; its FRI layers and codeword sizes give {want}")
@@ -2909,7 +2913,7 @@ class _WrapCalls:
     """While installed: the inputs of the latest call of each shape of the
     wrap's kernel wrappers (stark/evalair.py: eval_terms_cuda, the trace,
     static rows and challenges; ops/poseidon.py: expand_cuda, the states)
-    and every grinding batch (ops/poseidon.py: grind_cuda) with its result,
+    and every grinding span (ops/poseidon.py: grind_cuda) with its result,
     so that phase_wrap_kernels and phase_grind hold the kernels against
     their twins on what the paths gave them. `originals` are the
     wrappers, for those checks."""
@@ -2938,12 +2942,12 @@ class _WrapCalls:
             self.expand[int(states.shape[0])] = states.clone()
             return expand(states)
 
-        def grind_batch(seed, pow_bits, start, batch, device):
-            nonce = grind(seed, pow_bits, start, batch, device)
-            self.grinds.append((seed, pow_bits, start, batch, nonce))
+        def grind_span(seed, pow_bits, start, span, device):
+            nonce = grind(seed, pow_bits, start, span, device)
+            self.grinds.append((seed, pow_bits, start, span, nonce))
             return nonce
 
-        ev.eval_terms_cuda, ps.expand_cuda, ps.grind_cuda = eval_terms, expand_states, grind_batch
+        ev.eval_terms_cuda, ps.expand_cuda, ps.grind_cuda = eval_terms, expand_states, grind_span
 
 
 WRAP_CALLS = _WrapCalls()
@@ -2953,6 +2957,11 @@ WRAP_CALLS = _WrapCalls()
 EVAL_TERM_MULS = 2 + 2 + 2 + 3 + 4
 
 
+# the round-state kernel's group sizes (threads a state) and their kernels'
+# names in csrc/poseidon.cu
+EXPAND_GROUPS = {1: "single", 2: "pair", 4: "quad"}
+
+
 def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     """csrc/logup.cu's EvalAir entries and csrc/poseidon.cu's round-state
     kernel on the inputs the wraps of the run gave them (WRAP_CALLS: the
@@ -2960,11 +2969,13 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     card's N=4 parity wrap's), each held exactly against its plain twin on the whole output
     (eval_aux_plain's (10, n) aux rows: rows 0-7 for the terms entry, rows
     8-9 for the scan over the terms entry's row sums, all ten for
-    eval_aux_cuda; expand_plain: the 106 columns);
+    eval_aux_cuda; expand_plain: the 106 columns, at both group sizes);
     at the N=128 wrap's shapes (`wrap_rows`: WrapAir's and EvalAir's rows)
     each timed (the median of five rounds, a raw-launch burst for the two
-    eval entries) beside its plain twin's time and its bound. Adds rows
-    eval_terms, eval_scan and poseidon_expand."""
+    eval entries) beside its plain twin's time and its bound;
+    poseidon_expand at EXPAND_GROUP threads a state, every group size's
+    time and registers under `groups`. Adds rows eval_terms, eval_scan and
+    poseidon_expand."""
     from tendermintx_tpu_torch.ops import poseidon as ps
     from tendermintx_tpu_torch.ops.goldilocks import GF
     from tendermintx_tpu_torch.stark import evalair as ev
@@ -2995,8 +3006,10 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
         check_eval(*args)
         checked_eval.append({"rows": n, "max_abs_err": 0.0})
     for n, states in sorted(WRAP_CALLS.expand.items()):
-        _check_equal(expand_fn(states), ps.expand_plain(states), f"poseidon_expand at {n} states")
-        checked_expand.append({"rows": n, "max_abs_err": 0.0})
+        want = ps.expand_plain(states)
+        for group in EXPAND_GROUPS:
+            _check_equal(expand_fn(states, group), want, f"poseidon_expand at {n} states, {group} threads a state")
+        checked_expand.append({"rows": n, "groups": list(EXPAND_GROUPS), "max_abs_err": 0.0})
 
     trace, srows, gamma, delta = WRAP_CALLS.eval[eval_n]
     out, partial = check_eval(trace, srows, gamma, delta)
@@ -3015,7 +3028,10 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     aux = _time_rounds(lambda: ev.eval_aux_cuda(trace, srows, gamma, delta), 20)
     states = WRAP_CALLS.expand[wrap_n]
     _, expand_plain_ms = _timed_once(lambda: ps.expand_plain(states))
-    expand = _time_rounds(lambda: expand_fn(states), 20)
+    groups = {g: {**_time_rounds(lambda: expand_fn(states, g), 20),
+                  **_registers_of(build["poseidon"]["ptxas"], f"tmx_poseidon_expand_{EXPAND_GROUPS[g]}")}
+              for g in EXPAND_GROUPS}
+    expand = groups[ps.EXPAND_GROUP]
     # reads: the 8 trace and 8 static rows; writes: the 8 term rows and the
     # 2 row-sum rows; the scan reads the row sums and writes S
     terms_bound = _field_bound(n * 4 * EVAL_TERM_MULS + INV_MULS, 8 * n * (8 + 8 + 8 + 2), muls_per_ms)
@@ -3044,8 +3060,8 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
             "replaces_program": "expand_perm_states (jitted at :275 as _expand_jit)",
             "library_ms": None, "library": "none: no PyTorch call computes Poseidon rounds",
             "max_abs_err": 0.0, "checked": checked_expand, "shape": [wrap_n, ps.WIDTH], **expand,
-            "plain_ms": expand_plain_ms, **expand_bound,
-            **_registers_of(build["poseidon"]["ptxas"], "tmx_poseidon_expand"),
+            "plain_ms": expand_plain_ms, **expand_bound, "group": ps.EXPAND_GROUP,
+            "groups": {g: {**t, "bound_share": expand_bound["bound_ms"] / t["ms"]} for g, t in groups.items()},
         },
     }
     for row in out_rows.values():
@@ -3055,24 +3071,29 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     return out_rows
 
 
-# the pow_bits of the seed phase_grind searches past the first batch
+# the pow_bits of the seed phase_grind searches past GRIND_PAST_NONCE
+# candidates in one launch: several waves of the card's resident threads
 GRIND_PAST_BITS = 20
+GRIND_PAST_NONCE = 1 << 18
 
 
-def _grind_burst_ms(seed: int, pow_bits: int, batch: int, dev, reps: int = 200) -> float:
-    """ms a launch of csrc/poseidon.cu's grinding kernel from a burst of
-    raw C-entry calls on one batch (no read-back between them)."""
+def _grind_burst_ms(seed: int, pow_bits: int, span: int, dev, reps: int = 200) -> float:
+    """ms a launch of csrc/poseidon.cu's grinding search from a burst of
+    raw C-entry calls on one span (each zeroes its scratch and launches; no
+    read-back between them). The scratch starts zeroed, which also serves an
+    earlier checkout's batch kernel (an atomicMin into its first word, its
+    work the same whatever that word holds)."""
     from tendermintx_tpu_torch.ops import poseidon as ps
 
-    hit = torch.full((1,), batch, dtype=torch.int64, device=dev)
+    scratch = torch.zeros((2,), dtype=torch.int64, device=dev)
     entry = ps._library().tmx_poseidon_grind
     stream = torch.cuda.current_stream(dev).cuda_stream
-    entry(seed, pow_bits, 0, batch, hit.data_ptr(), stream)
+    entry(seed, pow_bits, 0, span, scratch.data_ptr(), stream)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    errs = [entry(seed, pow_bits, 0, batch, hit.data_ptr(), stream) for _ in range(reps)]
+    errs = [entry(seed, pow_bits, 0, span, scratch.data_ptr(), stream) for _ in range(reps)]
     end.record()
     torch.cuda.synchronize()
     if any(errs):
@@ -3081,17 +3102,18 @@ def _grind_burst_ms(seed: int, pow_bits: int, batch: int, dev, reps: int = 200) 
 
 
 def phase_grind(rows: dict, build: dict) -> dict:
-    """csrc/poseidon.cu's grinding kernel on every batch the run's FRIs
+    """csrc/poseidon.cu's grinding kernel on every span the run's FRIs
     searched (WRAP_CALLS.grinds: every path's seeds), each launched again
-    and held exactly against grind_plain on the card (the batch's first hit
-    or None, which must also be what the path got), each search's nonce
-    accepted by check_grind; then a seed whose first hit at GRIND_PAST_BITS
-    lies past the first batch, searched by fri.grind on the card and held
-    to grind_plain batch by batch, one launch a batch. Timed (the median of
-    five rounds through the wrapper, with its read-back, and a raw-launch
-    burst) at the run's first 16-bit seed's first batch beside grind_plain's
-    time; the bound counts the candidates that search needs (its nonce + 1
-    permutations), the batch's beside it. Adds the row poseidon_grind."""
+    and held exactly against grind_plain over the same span on the card
+    (the span's first hit or None, which must also be what the path got),
+    each search's nonce accepted by check_grind; then a seed whose first
+    hit at GRIND_PAST_BITS lies past GRIND_PAST_NONCE candidates, searched
+    by fri.grind on the card in one launch and held to grind_plain over the
+    same span. Timed (the median of five rounds through the wrapper, with
+    its read-back, and a raw-launch burst) at the run's first 16-bit
+    search beside grind_plain's time; the bound counts the candidates that
+    search needs (its nonce + 1 permutations), the span's beside it. Adds
+    the row poseidon_grind."""
     from tendermintx_tpu_torch.ops import poseidon as ps
     from tendermintx_tpu_torch.stark import fri
 
@@ -3099,42 +3121,42 @@ def phase_grind(rows: dict, build: dict) -> dict:
     clock_mhz = float(_nvidia_smi("clocks.max.sm"))
     grind_fn = WRAP_CALLS.originals["grind"]
     calls = list(dict.fromkeys(WRAP_CALLS.grinds))
-    for seed, bits, start, batch, nonce in calls:
-        got = grind_fn(seed, bits, start, batch, dev)
-        want = ps.grind_plain(seed, bits, start, batch, dev)
+    for seed, bits, start, span, nonce in calls:
+        got = grind_fn(seed, bits, start, span, dev)
+        want = ps.grind_plain(seed, bits, start, span, dev)
         if not got == want == nonce:
-            raise AssertionError(f"grinding batch {(seed, bits, start, batch)}: the path got {nonce}, the kernel "
+            raise AssertionError(f"grinding span {(seed, bits, start, span)}: the path got {nonce}, the kernel "
                                  f"{got}, grind_plain {want}")
         if nonce is not None and not fri.check_grind(seed, nonce, bits):
             raise AssertionError(f"check_grind refuses nonce {nonce} of seed {seed} at {bits} bits")
-    batch = fri.GRIND_BATCH
+    span = fri.GRIND_SPAN
     for seed in range(SEED, SEED + 32):
         before = ps.grind_kernel_launches
         nonce = fri.grind(seed, GRIND_PAST_BITS, dev)
-        if nonce >= batch:
+        if nonce >= GRIND_PAST_NONCE:
             break
     else:
-        raise AssertionError(f"no seed of 32 has its first {GRIND_PAST_BITS}-bit hit past {batch} candidates")
+        raise AssertionError(f"no seed of 32 has its first {GRIND_PAST_BITS}-bit hit past {GRIND_PAST_NONCE}")
     searched = ps.grind_kernel_launches - before
-    plain = [ps.grind_plain(seed, GRIND_PAST_BITS, s, batch, dev) for s in range(0, nonce + 1, batch)]
-    if searched != nonce // batch + 1 or plain != [None] * (nonce // batch) + [nonce]:
+    plain = ps.grind_plain(seed, GRIND_PAST_BITS, 0, span, dev)
+    if searched != 1 or plain != nonce or not fri.check_grind(seed, nonce, GRIND_PAST_BITS):
         raise AssertionError(f"seed {seed} at {GRIND_PAST_BITS} bits: nonce {nonce} in {searched} launches, "
-                             f"grind_plain's batches {plain}")
-    past = {"seed": seed, "pow_bits": GRIND_PAST_BITS, "nonce": nonce, "batches": searched}
-    # the first 16-bit search of the run that hit in its first batch
+                             f"grind_plain's {plain}")
+    past = {"seed": seed, "pow_bits": GRIND_PAST_BITS, "nonce": nonce, "launches": searched}
+    # the run's first 16-bit search
     t_seed, t_bits, _, _, t_nonce = next(c for c in calls if c[1] == 16 and c[2] == 0 and c[4] is not None)
-    timed = _time_rounds(lambda: grind_fn(t_seed, t_bits, 0, batch, dev), 20)
-    timed["burst_ms"] = _grind_burst_ms(t_seed, t_bits, batch, dev)
-    _, plain_ms = _timed_once(lambda: ps.grind_plain(t_seed, t_bits, 0, batch, dev))
+    timed = _time_rounds(lambda: grind_fn(t_seed, t_bits, 0, span, dev), 20)
+    timed["burst_ms"] = _grind_burst_ms(t_seed, t_bits, span, dev)
+    _, plain_ms = _timed_once(lambda: ps.grind_plain(t_seed, t_bits, 0, span, dev))
     bound = _bound(t_nonce + 1, 0, clock_mhz)
     row = {
         "route": "cuda", "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
         "replaces": "tendermintx_tpu/stark/fri.py:624", "replaces_program": "_grind_fn",
         "library_ms": None, "library": "none: no PyTorch call computes Poseidon",
-        "max_abs_err": 0.0, "shape": [batch], "seed": t_seed, "pow_bits": t_bits, "nonce": t_nonce, **timed,
-        "plain_ms": plain_ms, **bound, "batch_bound_ms": _bound(batch, 0, clock_mhz)["bound_ms"],
+        "max_abs_err": 0.0, "shape": [span], "seed": t_seed, "pow_bits": t_bits, "nonce": t_nonce, **timed,
+        "plain_ms": plain_ms, **bound, "span_bound_ms": _bound(span, 0, clock_mhz)["bound_ms"],
         **_registers_of(build["poseidon"]["ptxas"], "tmx_poseidon_grind"),
-        "checked": {"batches": len(calls), "searches": len({c[:2] for c in calls}), "past_first_batch": past},
+        "checked": {"spans": len(calls), "searches": len({c[:2] for c in calls}), "past": past},
     }
     row["bound_share"] = row["bound_ms"] / row["ms"]
     emit({"phase": "grind", "poseidon_grind": row})
@@ -3505,12 +3527,12 @@ def phase_runtime(
     # the FRI and the wrap: the prewarm's N=4 proof (its launches as
     # counted around it), the service's wrapped skip and step (their paths'
     # launches) and the leaf bundle's single FRI (one fold a committed
-    # layer, its grinding batches)
+    # layer, its grinding spans)
     want = {k: prewarm[k] + sum(p[k] for p in proved) for k in ("fri_fold", "fri_inject", "poseidon_grind",
                                                                  *WRAP_ENTRIES)}
     leaf = op.last_bundle.proof.fri_proof
     want["fri_fold"] += len(leaf.layer_caps)
-    want["poseidon_grind"] += _grind_batches(leaf, _default_config().proof_of_work_bits)
+    want["poseidon_grind"] += _grind_spans(leaf, _default_config().proof_of_work_bits)
     got = {k: launches[k] for k in want}
     if got != want or not prewarm["fri_fold"]:
         raise AssertionError(f"the runtime path launched {got}; the prewarm ({prewarm['fri_fold']} folds), "
@@ -3950,7 +3972,9 @@ def main(argv: list[str]) -> int:
         if entry["name"] in LOGUP_ENTRIES + WRAP_ENTRIES + ("poseidon_grind",):
             entry["checked"] = rows[entry["name"]]["checked"]
         if entry["name"] == "poseidon_grind":
-            entry.update({k: rows["poseidon_grind"][k] for k in ("pow_bits", "nonce", "batch_bound_ms")})
+            entry.update({k: rows["poseidon_grind"][k] for k in ("pow_bits", "nonce", "span_bound_ms")})
+        if entry["name"] == "poseidon_expand":
+            entry.update({k: rows["poseidon_expand"][k] for k in ("group", "groups")})
     emit({"kernels": kernels})
     emit({
         "ok": True,

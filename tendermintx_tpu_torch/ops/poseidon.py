@@ -14,8 +14,9 @@ Three implementations compute the same permutation:
 The kernels have five entries, each beside its plain version: the
 permutation (``permute``), the column-major leaf sponge
 (``hash_no_pad_cols``), one Merkle tree layer (``merkle_layer``), the
-recursion wrap's round states (``expand_cuda`` / ``expand_plain``) and one
-batch of the FRI's grinding search (``grind_cuda`` / ``grind_plain``). Each
+recursion wrap's round states (``expand_cuda`` / ``expand_plain``) and the
+FRI's grinding search over a span of nonces (``grind_cuda`` /
+``grind_plain``). Each
 dispatcher takes the plain version only for a CPU tensor. For a CUDA tensor
 it launches the kernel or raises: there is no probe and no fallback.
 """
@@ -275,7 +276,7 @@ def _library():
         (lib.tmx_poseidon_permute, 1),
         (lib.tmx_poseidon_sponge_cols, 2),
         (lib.tmx_poseidon_merkle_layer, 1),
-        (lib.tmx_poseidon_expand, 1),
+        (lib.tmx_poseidon_expand, 2),
     ):
         fn.restype = ctypes.c_int
         fn.argtypes = [ptr, ptr] + [i64] * n_ints + [ptr]
@@ -438,6 +439,11 @@ def merkle_layer(layer: GF) -> GF:
 
 # S1..S3, p4..p25, w26..w29: the WrapAir columns COL_S..N_PERM_COLS
 EXPAND_COLS = 3 * WIDTH + PARTIAL_ROUNDS + 4 * WIDTH
+# threads a state in csrc/poseidon.cu's round-state kernel: 1, or 2 or 4
+# (the same lane of that many neighbouring warps, each with 12 / group
+# lanes and MDS rows). One thread a state is the fastest on an H100: the
+# splits wait at their group's barrier on lane 0's S-box (PERF.md).
+EXPAND_GROUP = 1
 
 
 def expand_plain(states: torch.Tensor) -> torch.Tensor:
@@ -464,65 +470,80 @@ def expand_plain(states: torch.Tensor) -> torch.Tensor:
     return torch.cat(cols, dim=0).contiguous()
 
 
-def expand_cuda(states: torch.Tensor) -> torch.Tensor:
+def expand_cuda(states: torch.Tensor, group: int = EXPAND_GROUP) -> torch.Tensor:
     """Launch the round-state kernel on contiguous (R, 12) int64 CUDA
-    states -> (106, R)."""
+    states -> (106, R), each state on `group` (1, 2 or 4) threads."""
     global expand_kernel_launches
-    _check_cuda_operand(states, "expand_cuda", 16)
+    _check_cuda_operand(states, "expand_cuda", 8)
     if states.dim() != 2 or states.shape[1] != WIDTH:
         raise ValueError(f"expand_cuda takes (R, {WIDTH}) states, got {tuple(states.shape)}")
+    if group not in (1, 2, 4):
+        raise ValueError(f"expand_cuda runs a state on 1, 2 or 4 threads, not {group}")
     n = int(states.shape[0])
     out = torch.empty((EXPAND_COLS, n), dtype=torch.int64, device=states.device)
     if n == 0:
         return out
-    _launch("tmx_poseidon_expand", states, out, n)
+    _launch("tmx_poseidon_expand", states, out, n, group)
     expand_kernel_launches += 1
     return out
 
 
 # ---------------------------------------------------------------------------
-# Grinding (stark/fri.py: grind): one batch of candidates
+# Grinding (stark/fri.py: grind): the smallest hit in a span of nonces
 # ---------------------------------------------------------------------------
 
+# candidates a warp of csrc/poseidon.cu's grinding kernel claims at a time
+GRIND_CHUNK = 32
+# grind_plain takes its span in batches of at most this many candidates
+PLAIN_GRIND_BATCH = 1 << 16
 
-def _check_grind(seed: int, pow_bits: int, start: int, batch: int):
+
+def _check_grind(seed: int, pow_bits: int, start: int, span: int):
     if not 0 <= seed < P:
         raise ValueError("the grinding seed must be a canonical field element")
     if not 1 <= pow_bits <= 32:
         raise ValueError("pow_bits must be in 1..32")
-    if start < 0 or batch < 1 or start + batch > P:
-        raise ValueError(f"no grinding batch of {batch} candidates from {start}")
+    if start < 0 or span < 1 or start + span > P:
+        raise ValueError(f"no grinding span of {span} candidates from {start}")
 
 
-def grind_plain(seed: int, pow_bits: int, start: int, batch: int, device) -> int | None:
-    """The first nonce in start .. start + batch - 1 whose
+def grind_plain(seed: int, pow_bits: int, start: int, span: int, device) -> int | None:
+    """The first nonce in start .. start + span - 1 whose
     permute([seed, nonce, 0, ...])[0] has `pow_bits` low zero bits, or None:
-    a (batch, 12) state tensor through permute_plain, a mask and a nonzero
-    (any device)."""
-    _check_grind(seed, pow_bits, start, batch)
-    state = torch.zeros((batch, WIDTH), dtype=torch.int64, device=device)
-    state[:, 0] = gl.scalar_tensor(seed, device)
-    state[:, 1] = torch.arange(start, start + batch, dtype=torch.int64, device=device)
-    out = permute_plain(state)
-    hits = torch.nonzero((out[:, 0] & ((1 << pow_bits) - 1)) == 0)
-    return start + int(hits[0, 0]) if hits.numel() else None
+    the span in order in batches of at most PLAIN_GRIND_BATCH, each a (batch,
+    12) state tensor through permute_plain, a mask and a nonzero (any
+    device)."""
+    _check_grind(seed, pow_bits, start, span)
+    end = start + span
+    for lo in range(start, end, PLAIN_GRIND_BATCH):
+        batch = min(PLAIN_GRIND_BATCH, end - lo)
+        state = torch.zeros((batch, WIDTH), dtype=torch.int64, device=device)
+        state[:, 0] = gl.scalar_tensor(seed, device)
+        state[:, 1] = torch.arange(lo, lo + batch, dtype=torch.int64, device=device)
+        out = permute_plain(state)
+        hits = torch.nonzero((out[:, 0] & ((1 << pow_bits) - 1)) == 0)
+        if hits.numel():
+            return lo + int(hits[0, 0])
+    return None
 
 
-def grind_cuda(seed: int, pow_bits: int, start: int, batch: int, device) -> int | None:
-    """grind_plain's batch as one launch of the grinding kernel on the CUDA
-    `device`: the candidates made in registers, the smallest hit taken by
-    atomicMin into one device word, read back once (the one sync a batch)."""
+def grind_cuda(seed: int, pow_bits: int, start: int, span: int, device) -> int | None:
+    """grind_plain's search as one launch of the grinding kernel on the
+    CUDA `device`: warps claim chunks of GRIND_CHUNK candidates in order and
+    stop once a chunk starts at or past the best hit; two scratch words,
+    zeroed by the C entry (the chunks claimed, span - the smallest hit),
+    read back once (the one sync a span)."""
     global grind_kernel_launches
     dev = torch.device(device)
     if dev.type != "cuda":
         raise TypeError(f"grind_cuda runs on a CUDA device, got {dev}")
-    _check_grind(seed, pow_bits, start, batch)
-    hit = torch.full((1,), batch, dtype=torch.int64, device=dev)
+    _check_grind(seed, pow_bits, start, span)
+    scratch = torch.empty((2,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().tmx_poseidon_grind(seed, pow_bits, start, batch, hit.data_ptr(), stream)
+        err = _library().tmx_poseidon_grind(seed, pow_bits, start, span, scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"tmx_poseidon_grind launch failed: CUDA error {err}")
     grind_kernel_launches += 1
-    i = int(hit.item())
-    return start + i if i < batch else None
+    best = int(scratch[1].item())
+    return start + span - best if best else None

@@ -768,14 +768,17 @@ def fri_verify_batch(
 # Grinding
 # ---------------------------------------------------------------------------
 
-GRIND_BATCH = 1 << 18  # ~4x the expected 2^16 search of the default config
+# candidates a grinding launch searches on a card: a 16-bit search outlasts
+# its first span once in e^256; a span without a hit is 2^24 permutations
+GRIND_SPAN = 1 << 24
 
 
 def grind(seed: int, pow_bits: int, device=None) -> int:
     """The smallest nonce with poseidon([seed, nonce, 0, ...])[0] having
     `pow_bits` low zero bits (the hash_ints([seed, nonce]) the verifier
-    checks). On a CUDA device candidates are searched in batches of
-    GRIND_BATCH, one launch of csrc/poseidon.cu's grinding kernel each
+    checks). On a CUDA device candidates are searched in spans of
+    GRIND_SPAN, one launch of csrc/poseidon.cu's grinding kernel each, which
+    stops about a wave of resident threads past the span's first hit
     (ops/poseidon.py: grind_cuda); otherwise on the host, nonce by nonce."""
     if pow_bits == 0:
         return 0
@@ -790,10 +793,10 @@ def grind(seed: int, pow_bits: int, device=None) -> int:
             nonce += 1
     start = 0
     while start < 1 << 32:
-        nonce = ps.grind_cuda(seed, pow_bits, start, GRIND_BATCH, device)
+        nonce = ps.grind_cuda(seed, pow_bits, start, GRIND_SPAN, device)
         if nonce is not None:
             return nonce
-        start += GRIND_BATCH
+        start += GRIND_SPAN
     raise RuntimeError("grinding failed")
 
 

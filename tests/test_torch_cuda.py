@@ -1612,10 +1612,13 @@ def test_eval_kernels_refuse_instead_of_falling_back(dev):
     assert _eval_counts() == before
 
 
-@pytest.mark.parametrize("n", [1, 7, 129, 4099, 1 << 15])
+# ragged state counts about a group (32 states), a block (128, 64 or 32)
+# and the wrap's 2^15
+@pytest.mark.parametrize("n", [1, 3, 7, 33, 129, 4099, 1 << 15, (1 << 15) + 5])
 def test_expand_kernel_matches_plain(dev, n):
     """expand_perm_states on card states: one launch, exactly the plain
-    round pieces' 106 columns; the last full round on w29 gives the
+    round pieces' 106 columns, with each state on EXPAND_GROUP threads and
+    on each other group size; the last full round on w29 gives the
     permutation."""
     from tendermintx_tpu_torch.stark import recursion as rec
 
@@ -1623,7 +1626,10 @@ def test_expand_kernel_matches_plain(dev, n):
     before = ps.expand_kernel_launches
     got = rec.expand_perm_states(gl.GF(s))
     assert ps.expand_kernel_launches == before + 1
-    assert torch.equal(got.v, ps.expand_plain(s))
+    want = ps.expand_plain(s)
+    assert torch.equal(got.v, want)
+    for group in (1, 2, 4):
+        assert torch.equal(ps.expand_cuda(s, group), want)
     rc, mds_t = ps.plain_params(dev)
     assert torch.equal(ps.full_round_plain(got.v[94:].t().contiguous(), rc[29], mds_t), ps.permute_cuda(s))
 
@@ -1638,25 +1644,58 @@ def test_expand_kernel_refuses_instead_of_falling_back(dev):
     for bad in (s[:, :11].contiguous(), s.reshape(-1), s.t().contiguous().t()):
         with pytest.raises(ValueError):
             ps.expand_cuda(bad)
+    for group in (0, 3, 8):
+        with pytest.raises(ValueError):
+            ps.expand_cuda(s, group)
     assert ps.expand_kernel_launches == before
 
 
 @pytest.mark.parametrize("pow_bits", [1, 4, 8, 12, 16, 32])
 def test_grind_kernel_matches_plain(dev, pow_bits):
-    """One launch a batch, the batch's first hit or None as grind_plain's:
-    the default 2^18 batch, ragged batches, a start past 0."""
+    """One launch a span, the span's first hit or None as grind_plain's:
+    a 2^18 span, ragged spans, a start past 0."""
     for seed in (1, 12345, P - 1, 2**32):
-        for start, batch in ((0, 1 << 18), (0, 37), (1000, 129), (5, 1)):
+        for start, span in ((0, 1 << 18), (0, 37), (1000, 129), (5, 1)):
             before = ps.grind_kernel_launches
-            got = ps.grind_cuda(seed, pow_bits, start, batch, dev)
+            got = ps.grind_cuda(seed, pow_bits, start, span, dev)
             assert ps.grind_kernel_launches == before + 1
-            assert got == ps.grind_plain(seed, pow_bits, start, batch, dev)
+            assert got == ps.grind_plain(seed, pow_bits, start, span, dev)
+
+
+def test_grind_kernel_hits_in_the_first_and_the_last_chunk_or_none(dev):
+    """Spans about the host loop's 12-bit nonce, one launch each: its hit
+    in the span's first chunk (the span starting 3 before it), in the last
+    chunk, ragged (the span ending at it) and whole (40 chunks ending at
+    it), and a span that stops just short of it (None), as grind_plain's."""
+    chunk = ps.GRIND_CHUNK
+    for seed in (3, 77, P - 1):
+        nonce = fri.grind(seed, 12)
+        k = min((nonce + 1) // chunk, 40)
+        cases = [(max(nonce - 3, 0), 10_000, nonce), (0, nonce + 1, nonce),
+                 (nonce + 1 - k * chunk, k * chunk, nonce)] + ([(0, nonce, None)] if nonce else [])
+        for start, span, want in cases:
+            before = ps.grind_kernel_launches
+            assert ps.grind_cuda(seed, 12, start, span, dev) == want == ps.grind_plain(seed, 12, start, span, dev)
+            assert ps.grind_kernel_launches == before + 1
+
+
+def test_grind_on_card_past_2_18_in_one_launch(dev):
+    """A 20-bit search whose nonce lies past 2^18 candidates (several
+    waves of resident threads): one launch of the default span, the nonce
+    grind_plain finds over the same span, accepted by check_grind."""
+    for seed in range(5, 37):
+        before = ps.grind_kernel_launches
+        nonce = fri.grind(seed, 20, dev)
+        if nonce >= 1 << 18:
+            break
+    assert nonce >= 1 << 18 and ps.grind_kernel_launches == before + 1
+    assert ps.grind_plain(seed, 20, 0, fri.GRIND_SPAN, dev) == nonce and fri.check_grind(seed, nonce, 20)
 
 
 def test_grind_on_card_past_the_first_batch(dev, monkeypatch):
-    """grind on the card with batches of 64: the host loop's nonce, one
-    launch a batch searched."""
-    monkeypatch.setattr(fri, "GRIND_BATCH", 64)
+    """grind on the card with spans of 64: the host loop's nonce, one
+    launch a span searched."""
+    monkeypatch.setattr(fri, "GRIND_SPAN", 64)
     nonces = []
     for seed in (3, 77, P - 1, 2**40):
         before = ps.grind_kernel_launches
@@ -1669,7 +1708,7 @@ def test_grind_on_card_past_the_first_batch(dev, monkeypatch):
 
 def test_grind_kernel_refuses_instead_of_falling_back(dev):
     before = ps.grind_kernel_launches
-    for args in ((P, 4, 0, 8), (1, 0, 0, 8), (1, 33, 0, 8), (1, 4, -1, 8), (1, 4, 0, 0)):
+    for args in ((P, 4, 0, 8), (1, 0, 0, 8), (1, 33, 0, 8), (1, 4, -1, 8), (1, 4, 0, 0), (1, 4, P - 4, 5)):
         with pytest.raises(ValueError):
             ps.grind_cuda(*args, dev)
     with pytest.raises(TypeError):
@@ -1704,7 +1743,7 @@ def test_toy_wrap_on_card_equals_cpu(dev):
     """The toy two-statement batch of tests/test_torch_recursion.py wrapped
     on the card and on the CPU: the same bytes; the card's wrap runs the
     eval terms kernel once, the scan's two kernels, the round-state kernel
-    once and one grinding launch a batch searched; the CPU's none."""
+    once and one grinding launch a span searched; the CPU's none."""
     import json
 
     from tendermintx_tpu_torch.stark import recursion as rec
@@ -1728,7 +1767,7 @@ def test_toy_wrap_on_card_equals_cpu(dev):
     base = prove_batch(airs, [gl.GF.from_ints(c) for c in cols], publics, cfg, transcript_seed=[11, 22])
     before = _wrap_counts()
     card = rec.wrap_batch(airs, base, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg, device=dev)
-    grinds = card.wrapper.fri_proof.pow_nonce // fri.GRIND_BATCH + 1
+    grinds = card.wrapper.fri_proof.pow_nonce // fri.GRIND_SPAN + 1
     assert tuple(a - b for a, b in zip(_wrap_counts(), before)) == (1, 2, 1, grinds)
     launched = _wrap_counts()
     host = rec.wrap_batch(airs, base, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg, device="cpu")

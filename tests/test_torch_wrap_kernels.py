@@ -25,6 +25,7 @@ from tendermintx_tpu.ops.ext import GF2 as JGF2
 from tendermintx_tpu.ops.goldilocks import GF as JGF
 from tendermintx_tpu.stark import evalair as jev
 from tendermintx_tpu.stark import fri as jfri
+from tendermintx_tpu.stark import recursion as jrec
 from tendermintx_tpu_torch.ops import poseidon as ps
 from tendermintx_tpu_torch.ops.ext import GF2, W, ext_mul
 from tendermintx_tpu_torch.ops.goldilocks import GF, P, tensor_from_u64
@@ -186,53 +187,292 @@ def test_grind_matches_jax_and_check_grind():
 
 
 def test_grind_plain_refuses_what_the_kernel_does_not_take():
-    for args in ((P, 4, 0, 8), (-1, 4, 0, 8), (1, 0, 0, 8), (1, 33, 0, 8), (1, 4, -1, 8), (1, 4, 0, 0)):
+    for args in ((P, 4, 0, 8), (-1, 4, 0, 8), (1, 0, 0, 8), (1, 33, 0, 8), (1, 4, -1, 8), (1, 4, 0, 0),
+                 (1, 4, P - 4, 5)):
         with pytest.raises(ValueError):
             ps.grind_plain(*args, "cpu")
     with pytest.raises(TypeError):
         ps.grind_cuda(1, 4, 0, 8, "cpu")
 
 
+def _source(name: str) -> str:
+    return open(os.path.join(os.path.dirname(ps.__file__), "..", "csrc", name)).read()
+
+
+def _source_int(name: str, constant: str) -> int:
+    return int(re.search(rf"constexpr int {constant} = (\d+);", _source(name)).group(1))
+
+
+def _hits(seed: int, pow_bits: int, start: int, span: int) -> np.ndarray:
+    """Whether each candidate start + i, i < span, hits: the host oracle's
+    hash_ints([seed, nonce]) lane 0 with `pow_bits` low zero bits."""
+    mask = (1 << pow_bits) - 1
+    return np.array([ps.hash_ints([seed, start + i])[0] & mask == 0 for i in range(span)])
+
+
+def _grind_schedule_model(hits: np.ndarray, chunk: int, warps: int, rng) -> tuple[int | None, set]:
+    """csrc/poseidon.cu: tmx_poseidon_grind_kernel's schedule over a span
+    whose candidate i hits where hits[i]: `warps` resident warps, each a
+    loop of three steps: lane 0 reads the best hit (span - scratch[1], the
+    span while none), claims the next chunk (atomicAdd on scratch[0]) and
+    stops when the chunk starts at or past what it read, else the warp
+    hashes the chunk's candidates below the span, each hit taking atomicMax
+    of span - i into scratch[1]. Every step is one random warp's, so reads,
+    claims and chunk completions interleave in random orders. Returns the
+    wrapper's read-back (span - scratch[1], None for 0) and the chunks
+    hashed."""
+    span = len(hits)
+    counter, best = 0, 0
+    step = {w: "read" for w in range(warps)}
+    seen, claimed, hashed = {}, {}, set()
+    while step:
+        live = list(step)
+        w = live[rng.integers(len(live))]
+        if step[w] == "read":
+            seen[w] = span - best
+            step[w] = "claim"
+        elif step[w] == "claim":
+            claimed[w], counter = counter, counter + 1
+            if claimed[w] * chunk >= seen[w]:
+                del step[w]
+            else:
+                step[w] = "hash"
+        else:
+            first = claimed[w] * chunk
+            for i in range(first, min(first + chunk, span)):
+                if hits[i]:
+                    best = max(best, span - i)
+            hashed.add(claimed[w])
+            step[w] = "read"
+    return (span - best if best else None), hashed
+
+
+@pytest.mark.parametrize("pow_bits", range(1, 11))
+def test_grind_schedule_model_finds_the_smallest_hit(pow_bits):
+    """The grinding kernel's schedule, modelled at the source's chunk size
+    with 1, 3 and 17 warps in random orders, returns for three seeds (one
+    the largest field element) the JAX package's _grind_fn nonce (batches
+    of 64 from 0), the host loop's and grind_plain's: over a span from 0
+    past the nonce, over one that ends at it (the hit in the span's last,
+    ragged chunk) and over spans that start 5 and 40 candidates before it;
+    over the span from 0 that stops just short of it, no hit (None). Every
+    chunk below the hit is hashed, and at most a wave (one chunk a warp)
+    past it."""
+    chunk = _source_int("poseidon.cu", "GRIND_CHUNK")
+    assert chunk == ps.GRIND_CHUNK == 32
+    jfn = jfri._grind_fn(pow_bits, 64)
+    rng = np.random.default_rng(pow_bits)
+    late = 0
+    for seed in (3, 0x1234_5678_9ABC, P - 1):
+        start, jnonce = 0, None
+        while jnonce is None:
+            idx, found = jfn(np.uint32(seed & 0xFFFFFFFF), np.uint32(seed >> 32), np.uint32(start))
+            jnonce = start + int(idx) if bool(found) else None
+            start += 64
+        nonce = fri.grind(seed, pow_bits)
+        assert nonce == jnonce == ps.grind_plain(seed, pow_bits, 0, nonce + 100, "cpu")
+        hits = _hits(seed, pow_bits, 0, nonce + 100)
+        for begin, end in ((0, nonce + 100), (0, nonce + 1), (max(nonce - 5, 0), nonce + 3),
+                           (max(nonce - 40, 0), nonce + 100)):
+            assert ps.grind_plain(seed, pow_bits, begin, end - begin, "cpu") == nonce
+            hit_chunk = (nonce - begin) // chunk
+            for warps in (1, 3, 17):
+                got, hashed = _grind_schedule_model(hits[begin:end], chunk, warps, rng)
+                assert begin + got == nonce
+                assert set(range(hit_chunk + 1)) <= hashed and max(hashed) <= hit_chunk + warps
+            late += hit_chunk >= 3 and end == nonce + 1
+        if nonce:
+            assert _grind_schedule_model(hits[:nonce], chunk, 5, rng)[0] is None
+            assert ps.grind_plain(seed, pow_bits, 0, nonce, "cpu") is None
+    assert late or pow_bits < 8  # from 8 bits on some hit lies in a late, last chunk
+
+
 def _sbox(x: int) -> int:
     return pow(x, 7, P)
 
 
-def _expand_kernel_model(state: list[int]) -> list[int]:
-    """csrc/poseidon.cu: tmx_poseidon_expand_kernel on one state, in its
-    order of stores: rounds 0-2 each S-boxes s + rc[r], then an MDS layer
-    adding the zero row (stored); round 3's MDS adds round 4's constants;
-    each partial round stores lane 0 (the pre-S-box value), S-boxes it and
-    runs an MDS adding the next round's constants (the zero row after round
-    25: w26, stored); rounds 26-28 as rounds 0-2."""
+_TWO_52 = np.float64(2.0**52)
+
+
+def _half_to_double(x: np.ndarray) -> np.ndarray:
+    """csrc/poseidon.cu: half_to_double, the bits of 2^52 + x less 2^52."""
+    return (np.uint64(0x4330000000000000) | x.astype(np.uint64)).view(np.float64) - _TWO_52
+
+
+def _double_to_u64(v: np.ndarray) -> np.ndarray:
+    """csrc/poseidon.cu: double_to_u64, the mantissa of v + 2^52."""
+    return (v + _TWO_52).view(np.uint64) & np.uint64((1 << 52) - 1)
+
+
+def _run_barriers(ranks: list, G: int, rng):
+    """Runs rank generators that yield ("sync", b), wait until G ranks
+    have reached this phase of named barrier b, or ("arrive", b), counted
+    at once (PTX bar.sync / bar.arrive with G warps): each step is one
+    runnable rank's code up to its next barrier, in a random order."""
+    arrived, phase, waiting, live = {}, [{} for _ in ranks], {}, set(range(len(ranks)))
+    while live:
+        runnable = sorted(i for i in live if i not in waiting or arrived[waiting[i]] == G)
+        assert runnable, "the ranks deadlock"
+        i = runnable[rng.integers(len(runnable))]
+        waiting.pop(i, None)
+        try:
+            kind, bar = next(ranks[i])
+        except StopIteration:
+            live.discard(i)
+            continue
+        ph = phase[i].get(bar, 0)
+        phase[i][bar] = ph + 1
+        arrived[bar, ph] = arrived.get((bar, ph), 0) + 1
+        if kind == "sync":
+            waiting[i] = (bar, ph)
+
+
+def _expand_split_model(states: list[list[int]], G: int, rng) -> tuple[np.ndarray, int]:
+    """csrc/poseidon.cu: expand_groups<G> / expand_rank<G, T> on R states:
+    groups of 32 states, one a lane, each over G warps; rank T owns lanes
+    and MDS rows T L .. T L + L - 1 (L = 12 / G), its row sums over the
+    lanes from its own on (float64, exact below 2^53; in through the bits
+    of 2^52 + x less 2^52, out through the mantissa of v + 2^52). A full
+    round S-boxes the own lanes, writes their doubles into buffer r % 2,
+    syncs on barrier A and reads the other lanes. A partial round writes
+    the own lanes but lane 0, syncs on A and reads the others but lane 0;
+    rank 0 then stores lane 0 (p_r), S-boxes it, writes it and arrives at
+    barrier B; every rank sums its rows over lanes 1-11; the others sync on
+    B and read lane 0; lane 0's terms last. The ranks run in random orders
+    (_run_barriers). Returns the (106, R) output and the number of warp
+    stores; each store must be one column's words of the group's 32
+    consecutive states from a multiple of 32, each word stored once."""
+    R = len(states)
+    L = ps.WIDTH // G
     rc, mds = ps.round_constants(), ps.mds_matrix()
     zero = [0] * ps.WIDTH
-    mds_layer = lambda s, k: [(sum(mds[i][j] * s[j] for j in range(ps.WIDTH)) + k[i]) % P for i in range(ps.WIDTH)]
-    full = lambda s, r: [_sbox((x + c) % P) for x, c in zip(s, rc[r])]
-    s, out = list(state), []
-    for r in range(4):
-        s = mds_layer(full(s, r), zero if r < 3 else rc[4])
-        if r < 3:
-            out += s
-    for r in range(4, 26):
-        out.append(s[0])
-        s = mds_layer([_sbox(s[0])] + s[1:], rc[r + 1] if r < 25 else zero)
-    out += s
-    for r in range(26, 29):
-        s = mds_layer(full(s, r), zero)
-        out += s
-    return out
+    out = np.full((ps.EXPAND_COLS, R), -1, dtype=object)
+    stores = 0
+
+    def store(col, base, vals, live):
+        nonlocal stores
+        assert base % 32 == 0 and live == list(range(base, base + len(live)))
+        for b in live:
+            assert out[col, b] == -1
+            out[col, b] = int(vals[b - base]) % P
+        stores += 1
+
+    def halves(vals):
+        u = np.array([int(v) for v in vals], dtype=object)
+        return (_half_to_double(np.array(u & 0xFFFFFFFF, dtype=np.uint64)),
+                _half_to_double(np.array(u >> 32, dtype=np.uint64)))
+
+    def rank(T, base, x):
+        live = [b for b in range(base, base + 32) if b < R]
+        sbox = lambda a: [_sbox(int(v) % P) for v in a]
+        own = [[states[b][T * L + k] if b < R else 0 for b in range(base, base + 32)] for k in range(L)]
+        order = [(j + T * L) % ps.WIDTH for j in range(ps.WIDTH)]
+        h = [None] * ps.WIDTH
+
+        def publish(r, lanes):
+            for j in lanes:
+                h[j] = halves(own[j - T * L])
+                x[r % 2][j] = h[j]
+
+        def sums(lanes):
+            acc = [[np.zeros(32), np.zeros(32)] for _ in range(L)]
+            for k in range(L):
+                for j in lanes:
+                    for half in (0, 1):
+                        acc[k][half] = np.float64(mds[T * L + k][j]) * h[j][half] + acc[k][half]
+            return acc
+
+        def reduce(acc, k_next):
+            new = []
+            for k in range(L):
+                lo, hi = (_double_to_u64(a).astype(object) for a in acc[k])
+                assert max(lo.max(), hi.max()) < 2**43
+                new.append([(int(a) + (int(c) << 32) + k_next[T * L + k]) % P for a, c in zip(lo, hi)])
+            return new
+
+        def full_round(r, k_next):
+            nonlocal own
+            own = [sbox([(int(v) + rc[r][T * L + k]) % P for v in own[k]]) for k in range(L)]
+            publish(r, range(T * L, T * L + L))
+            yield "sync", "A"
+            for j in range(ps.WIDTH):
+                if j // L != T:
+                    h[j] = x[r % 2][j]
+            own = reduce(sums(order), k_next)
+
+        for r in range(4):
+            yield from full_round(r, zero if r < 3 else rc[4])
+            if r < 3:
+                for k in range(L):
+                    store(r * ps.WIDTH + T * L + k, base, own[k], live)
+        for r in range(4, 26):
+            publish(r, [j for j in range(T * L, T * L + L) if j])
+            yield "sync", "A"
+            for j in range(1, ps.WIDTH):
+                if j // L != T:
+                    h[j] = x[r % 2][j]
+            if T == 0:
+                store(3 * ps.WIDTH + r - 4, base, own[0], live)
+                own[0] = sbox(own[0])
+                publish(r, [0])
+                yield "arrive", "B"
+            acc = sums([j for j in order if j])
+            if T > 0:
+                yield "sync", "B"
+                h[0] = x[r % 2][0]
+            for k in range(L):
+                for half in (0, 1):
+                    acc[k][half] = np.float64(mds[T * L + k][0]) * h[0][half] + acc[k][half]
+            own = reduce(acc, rc[r + 1] if r < 25 else zero)
+        for k in range(L):
+            store(3 * ps.WIDTH + 22 + T * L + k, base, own[k], live)
+        for r in range(26, 29):
+            yield from full_round(r, zero)
+            for k in range(L):
+                store(3 * ps.WIDTH + 22 + ps.WIDTH * (r - 25) + T * L + k, base, own[k], live)
+
+    for base in range(0, R, 32):
+        x = [[None] * ps.WIDTH, [None] * ps.WIDTH]
+        _run_barriers([rank(T, base, x) for T in range(G)], G, rng)
+    return out, stores
 
 
-def test_expand_kernel_model_matches_expand_plain():
-    """The model's 106 stores, in order, are expand_plain's column of each
-    state (edge values included): the kernel writes column c of state b at
-    c n + b."""
-    rng = np.random.default_rng(3)
-    states = _felts(rng, (4, ps.WIDTH))
-    got = _u(ps.expand_plain(GF.from_ints(states).v))
-    assert len(got) == ps.EXPAND_COLS == rec.N_PERM_COLS - rec.COL_S
-    for b in range(4):
-        assert _expand_kernel_model([int(v) for v in states[b]]) == [got[c][b] for c in range(ps.EXPAND_COLS)]
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_expand_kernel_model_matches_expand_plain(G):
+    """The round-state kernel's model on 69 states (two whole groups and a
+    ragged one, edge values included) at G threads a state: every word of
+    the (106, R) output stored once, by one rank's store of 32 consecutive
+    states' words of one column (whole 32-byte sectors), equal to
+    expand_plain's columns and the JAX package's expand_perm_states; the
+    source's group sizes."""
+    src = _source("poseidon.cu")
+    assert ps.EXPAND_GROUP in (1, 2, 4) and f"expand_groups<{G}>" in src
+    rng = np.random.default_rng(3 + G)
+    states = _felts(rng, (69, ps.WIDTH))
+    got, stores = _expand_split_model([[int(v) for v in row] for row in states], G, rng)
+    assert stores == 3 * (ps.EXPAND_COLS - 22) + 3 * 22
+    want = _u(ps.expand_plain(GF.from_ints(states).v))
+    assert len(want) == ps.EXPAND_COLS == rec.N_PERM_COLS - rec.COL_S
+    assert got.tolist() == want == np.asarray(jrec.expand_perm_states(JGF.from_ints(states)).to_ints()).tolist()
+
+
+def test_fp64_mds_rows_are_exact():
+    """csrc/poseidon.cu's FP64 MDS on the largest halves (2^32 - 1 in every
+    lane, the largest sums) and on random ones: each row's two sums through
+    half_to_double, the products and double_to_u64 equal the integer sums,
+    below 2^43."""
+    rng = np.random.default_rng(9)
+    mds = np.array(ps.mds_matrix(), dtype=np.float64)
+    halves = np.concatenate([np.full((1, ps.WIDTH), 2**32 - 1), rng.integers(0, 2**32, size=(63, ps.WIDTH))])
+    d = _half_to_double(halves.astype(np.uint64))
+    assert (d == halves).all()
+    for i in range(ps.WIDTH):
+        acc = np.zeros(len(halves))
+        for j in range(ps.WIDTH):
+            acc = mds[i, j] * d[:, j] + acc
+        want = (halves.astype(object) * np.array(ps.mds_matrix()[i], dtype=object)).sum(axis=1)
+        got = _double_to_u64(acc)
+        assert got.astype(object).tolist() == want.tolist() and int(want.max()) < 2**43
 
 
 def test_cpu_tensors_take_the_plain_twins():

@@ -63,13 +63,19 @@ kernels are timed in rounds the same way at the N=128 wrap's shapes
 burst too; plain: `_eval_terms`, and the three programs of the aux rows
 as `aux_plain_ms`), `eval_scan` (`eval_scan_cuda` over the terms kernel's
 row sums, its burst too; plain: `_eval_scan`), `poseidon_expand`
-(`expand_cuda`; plain: `expand_plain`, or `expand_perm_states` in a
-checkout without the kernel) and `poseidon_grind` (one 2^18 batch,
-`grind_cuda` with its read-back, its first hit in the batch, and its
-burst; plain: `grind_plain`; and `grind_ms`, the whole `fri.grind` on the
-card, which a checkout without the kernel runs as the permutation kernel
-over a state tensor, a mask and a nonzero). A checkout without a kernel
-gives its plain program alone. Prints one JSON line: the card's
+(`expand_cuda`, at each group size where the checkout splits a state
+over a group of threads, `groups`; plain: `expand_plain`, or
+`expand_perm_states` in a checkout without the kernel) and
+`poseidon_grind`: 16-bit searches of the first GRIND_SEEDS seeds from
+chip_smoke.py's SEED, each one `grind_cuda` launch from 0 over the
+checkout's GRIND_SPAN (a 2^18 GRIND_BATCH in a checkout that hashes a
+whole batch) with its read-back, its burst and `kernel_ms`, beside the
+whole `fri.grind` on the card (`grind_ms`: two launches in such a
+checkout where the nonce lies past its batch; the permutation kernel over
+a state tensor, a mask and a nonzero in a checkout without the kernel)
+and `grind_plain` over the same candidates; and, with GRIND_SPAN, a
+32-bit search's first span (`no_hit`: a span hashed whole where it holds
+no hit). A checkout without a kernel gives its plain program alone. Prints one JSON line: the card's
 name and power limit, the label, and per shape the ms. Two checkouts are compared by running
 this in turns from one call (parent, change, change, parent); a
 measuring aid that nothing else uses.
@@ -87,6 +93,8 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# poseidon_grind: the 16-bit searches timed, of consecutive seeds
+GRIND_SEEDS = 4
 
 
 def main(argv=None) -> int:
@@ -365,24 +373,33 @@ def main(argv=None) -> int:
             states = cs._random_felts((R, 12), gen, dev)
             row = {"shape": [R, 12]}
             if hasattr(ps, "expand_cuda"):
-                run = lambda: ps.expand_cuda(states)
-                row.update(plain_ms=median_ms(lambda: ps.expand_plain(states)),
-                           rounds=timed_rounds(run, reps_for(run)), kernel_ms=kernel_ms(run))
+                row["plain_ms"] = median_ms(lambda: ps.expand_plain(states))
+                # a checkout whose kernel takes no group size runs one thread a state
+                for group in (1, 2, 4) if hasattr(ps, "EXPAND_GROUP") else (None,):
+                    run = (lambda g=group: ps.expand_cuda(states, g)) if group else (lambda: ps.expand_cuda(states))
+                    row.setdefault("groups", {})[group or 1] = {"rounds": timed_rounds(run, reps_for(run)),
+                                                                "kernel_ms": kernel_ms(run)}
             else:
                 row["plain_ms"] = median_ms(lambda: rec.expand_perm_states(GF(states)))
             out["poseidon_expand"] = row
         if "poseidon_grind" in only:
-            batch = fri.GRIND_BATCH
-            # the first seed whose first 16-bit hit lies in the first batch
-            seed = next(s for s in range(cs.SEED, cs.SEED + 64) if fri.grind(s, 16, dev) < batch)
-            row = {"shape": [batch], "seed": seed, "pow_bits": 16, "nonce": fri.grind(seed, 16, dev),
-                   "grind_ms": median_ms(lambda: fri.grind(seed, 16, dev))}
-            if hasattr(ps, "grind_cuda"):
-                run = lambda: ps.grind_cuda(seed, 16, 0, batch, dev)
-                row.update(plain_ms=median_ms(lambda: ps.grind_plain(seed, 16, 0, batch, dev)),
-                           rounds=timed_rounds(run, reps_for(run)), kernel_ms=kernel_ms(run),
-                           burst_ms=cs._grind_burst_ms(seed, 16, batch, dev))
-            out["poseidon_grind"] = row
+            n = getattr(fri, "GRIND_SPAN", None) or fri.GRIND_BATCH
+            searches = []
+            for seed in range(cs.SEED, cs.SEED + GRIND_SEEDS):
+                nonce = fri.grind(seed, 16, dev)
+                row = {"seed": seed, "pow_bits": 16, "nonce": nonce, "candidates": n,
+                       "grind_ms": median_ms(lambda: fri.grind(seed, 16, dev))}
+                if hasattr(ps, "grind_cuda"):
+                    run = lambda: ps.grind_cuda(seed, 16, 0, n, dev)
+                    row.update(found=run(), plain_ms=median_ms(lambda: ps.grind_plain(seed, 16, 0, n, dev)),
+                               rounds=timed_rounds(run, reps_for(run)), kernel_ms=kernel_ms(run),
+                               burst_ms=cs._grind_burst_ms(seed, 16, n, dev))
+                searches.append(row)
+            out["poseidon_grind"] = {"searches": searches}
+            if hasattr(fri, "GRIND_SPAN"):
+                run = lambda: ps.grind_cuda(cs.SEED, 32, 0, n, dev)
+                out["poseidon_grind"]["no_hit"] = {"seed": cs.SEED, "pow_bits": 32, "found": run(),
+                                                   "rounds": timed_rounds(run, 3), "kernel_ms": kernel_ms(run, 5)}
     if "witness_programs" in only:
         import tempfile
 
