@@ -170,9 +170,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  the scan's two kernels and the round-state kernel once;
                  no other path but runtime launches them;
   8b. wrap_kernels - csrc/logup.cu's eval_terms and eval_scan and
-                 csrc/poseidon.cu's poseidon_expand (each state on
-                 EXPAND_GROUP threads; the other group sizes beside it) on
-                 the inputs the wraps gave them (the latest call of each
+                 csrc/poseidon.cu's poseidon_expand (one thread a state)
+                 on the inputs the wraps gave them (the latest call of each
                  shape), exact against their plain twins on the whole
                  outputs; at the N=128 wrap's shapes (EvalAir 2^17 rows,
                  WrapAir 2^15 states) timed beside the twins, with bounds
@@ -440,25 +439,44 @@ MULS_PER_CLOCK_PER_SM = 64
 HBM_BYTES_PER_S = 3.35e12
 
 
+# The 7-bit MDS products of that form: the dense layer of the 8 full rounds
+# and the one 7-bit product of each partial round. The round-state and
+# grinding kernels run their MDS sums on the FP64 pipe, 64 DFMAs a clock
+# per SM beside the integer pipe's 64 (the same guide table), so their
+# bound takes these products on that pipe and the rest on the integer one,
+# and the busier of the two.
+MDS_PRODUCTS_PER_PERMUTATION = 8 * 144 * 2 + 22 * 2  # 2,348
+DESIGN_MDS_PRODUCTS_PER_PERMUTATION = 30 * 144 * 2  # 8,640
+
+
 # WrapAir's round states stop after round 28: the last full round is not run
 EXPAND_MULS_PER_STATE = MULS_PER_PERMUTATION - FULL_ROUND_MULS  # 6,176
 DESIGN_EXPAND_MULS_PER_STATE = DESIGN_MULS_PER_PERMUTATION - FULL_ROUND_MULS  # 10,048
+EXPAND_MDS_PRODUCTS_PER_STATE = MDS_PRODUCTS_PER_PERMUTATION - 144 * 2  # 2,060
+DESIGN_EXPAND_MDS_PRODUCTS_PER_STATE = DESIGN_MDS_PRODUCTS_PER_PERMUTATION - 144 * 2  # 8,352
 
 
 def _bound(permutations: int, nbytes: int, clock_mhz: float, muls: int = MULS_PER_PERMUTATION,
-           design_muls: int = DESIGN_MULS_PER_PERMUTATION) -> dict:
+           design_muls: int = DESIGN_MULS_PER_PERMUTATION, fp64: int = 0, design_fp64: int = 0) -> dict:
     """The bound of `permutations` states at `muls` multiply-adds each
-    (`design_muls` for design_bound_ms) moving `nbytes`."""
+    (`design_muls` for design_bound_ms) moving `nbytes`; `fp64` (and
+    `design_fp64`) of those multiply-adds are MDS products on the FP64
+    pipe, the rest on the integer pipe, and the busier pipe bounds."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     muls_per_ms = MULS_PER_CLOCK_PER_SM * sms * clock_mhz * 1e3
-    ops_ms = permutations * muls / muls_per_ms
+    integer_ms = permutations * (muls - fp64) / muls_per_ms
+    fp64_ms = permutations * fp64 / muls_per_ms
+    ops_ms = max(integer_ms, fp64_ms)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    design_ms = permutations * max(design_muls - design_fp64, design_fp64) / muls_per_ms
     return {
         "bound_ms": max(ops_ms, bytes_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "operations_bound_ms": ops_ms,
+        "integer_bound_ms": integer_ms,
+        "fp64_bound_ms": fp64_ms,
         "bytes_bound_ms": bytes_ms,
-        "design_bound_ms": max(permutations * design_muls / muls_per_ms, bytes_ms),
+        "design_bound_ms": max(design_ms, bytes_ms),
         "permutations": permutations,
         "bytes": nbytes,
     }
@@ -2957,11 +2975,6 @@ WRAP_CALLS = _WrapCalls()
 EVAL_TERM_MULS = 2 + 2 + 2 + 3 + 4
 
 
-# the round-state kernel's group sizes (threads a state) and their kernels'
-# names in csrc/poseidon.cu
-EXPAND_GROUPS = {1: "single", 2: "pair", 4: "quad"}
-
-
 def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     """csrc/logup.cu's EvalAir entries and csrc/poseidon.cu's round-state
     kernel on the inputs the wraps of the run gave them (WRAP_CALLS: the
@@ -2969,13 +2982,11 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     card's N=4 parity wrap's), each held exactly against its plain twin on the whole output
     (eval_aux_plain's (10, n) aux rows: rows 0-7 for the terms entry, rows
     8-9 for the scan over the terms entry's row sums, all ten for
-    eval_aux_cuda; expand_plain: the 106 columns, at both group sizes);
+    eval_aux_cuda; expand_plain: the 106 columns);
     at the N=128 wrap's shapes (`wrap_rows`: WrapAir's and EvalAir's rows)
     each timed (the median of five rounds, a raw-launch burst for the two
-    eval entries) beside its plain twin's time and its bound;
-    poseidon_expand at EXPAND_GROUP threads a state, every group size's
-    time and registers under `groups`. Adds rows eval_terms, eval_scan and
-    poseidon_expand."""
+    eval entries) beside its plain twin's time and its bound. Adds rows
+    eval_terms, eval_scan and poseidon_expand."""
     from tendermintx_tpu_torch.ops import poseidon as ps
     from tendermintx_tpu_torch.ops.goldilocks import GF
     from tendermintx_tpu_torch.stark import evalair as ev
@@ -3006,10 +3017,8 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
         check_eval(*args)
         checked_eval.append({"rows": n, "max_abs_err": 0.0})
     for n, states in sorted(WRAP_CALLS.expand.items()):
-        want = ps.expand_plain(states)
-        for group in EXPAND_GROUPS:
-            _check_equal(expand_fn(states, group), want, f"poseidon_expand at {n} states, {group} threads a state")
-        checked_expand.append({"rows": n, "groups": list(EXPAND_GROUPS), "max_abs_err": 0.0})
+        _check_equal(expand_fn(states), ps.expand_plain(states), f"poseidon_expand at {n} states")
+        checked_expand.append({"rows": n, "max_abs_err": 0.0})
 
     trace, srows, gamma, delta = WRAP_CALLS.eval[eval_n]
     out, partial = check_eval(trace, srows, gamma, delta)
@@ -3028,16 +3037,14 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     aux = _time_rounds(lambda: ev.eval_aux_cuda(trace, srows, gamma, delta), 20)
     states = WRAP_CALLS.expand[wrap_n]
     _, expand_plain_ms = _timed_once(lambda: ps.expand_plain(states))
-    groups = {g: {**_time_rounds(lambda: expand_fn(states, g), 20),
-                  **_registers_of(build["poseidon"]["ptxas"], f"tmx_poseidon_expand_{EXPAND_GROUPS[g]}")}
-              for g in EXPAND_GROUPS}
-    expand = groups[ps.EXPAND_GROUP]
+    expand = _time_rounds(lambda: expand_fn(states), 20)
     # reads: the 8 trace and 8 static rows; writes: the 8 term rows and the
     # 2 row-sum rows; the scan reads the row sums and writes S
     terms_bound = _field_bound(n * 4 * EVAL_TERM_MULS + INV_MULS, 8 * n * (8 + 8 + 8 + 2), muls_per_ms)
     scan_bound = _field_bound(0, 8 * n * (2 + 2), muls_per_ms)
     expand_bound = _bound(wrap_n, 8 * wrap_n * (ps.WIDTH + ps.EXPAND_COLS), clock_mhz, EXPAND_MULS_PER_STATE,
-                          DESIGN_EXPAND_MULS_PER_STATE)
+                          DESIGN_EXPAND_MULS_PER_STATE, EXPAND_MDS_PRODUCTS_PER_STATE,
+                          DESIGN_EXPAND_MDS_PRODUCTS_PER_STATE)
     common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/logup.cu", "library_ms": None,
               "library": "none: no PyTorch call computes GF(p^2) inverses or scans", "max_abs_err": 0.0,
               "checked": checked_eval}
@@ -3060,8 +3067,8 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
             "replaces_program": "expand_perm_states (jitted at :275 as _expand_jit)",
             "library_ms": None, "library": "none: no PyTorch call computes Poseidon rounds",
             "max_abs_err": 0.0, "checked": checked_expand, "shape": [wrap_n, ps.WIDTH], **expand,
-            "plain_ms": expand_plain_ms, **expand_bound, "group": ps.EXPAND_GROUP,
-            "groups": {g: {**t, "bound_share": expand_bound["bound_ms"] / t["ms"]} for g, t in groups.items()},
+            "plain_ms": expand_plain_ms, **expand_bound,
+            **_registers_of(build["poseidon"]["ptxas"], "tmx_poseidon_expand"),
         },
     }
     for row in out_rows.values():
@@ -3148,13 +3155,15 @@ def phase_grind(rows: dict, build: dict) -> dict:
     timed = _time_rounds(lambda: grind_fn(t_seed, t_bits, 0, span, dev), 20)
     timed["burst_ms"] = _grind_burst_ms(t_seed, t_bits, span, dev)
     _, plain_ms = _timed_once(lambda: ps.grind_plain(t_seed, t_bits, 0, span, dev))
-    bound = _bound(t_nonce + 1, 0, clock_mhz)
+    grind_bound = lambda n: _bound(n, 0, clock_mhz, fp64=MDS_PRODUCTS_PER_PERMUTATION,
+                                   design_fp64=DESIGN_MDS_PRODUCTS_PER_PERMUTATION)
+    bound = grind_bound(t_nonce + 1)
     row = {
         "route": "cuda", "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
         "replaces": "tendermintx_tpu/stark/fri.py:624", "replaces_program": "_grind_fn",
         "library_ms": None, "library": "none: no PyTorch call computes Poseidon",
         "max_abs_err": 0.0, "shape": [span], "seed": t_seed, "pow_bits": t_bits, "nonce": t_nonce, **timed,
-        "plain_ms": plain_ms, **bound, "span_bound_ms": _bound(span, 0, clock_mhz)["bound_ms"],
+        "plain_ms": plain_ms, **bound, "span_bound_ms": grind_bound(span)["bound_ms"],
         **_registers_of(build["poseidon"]["ptxas"], "tmx_poseidon_grind"),
         "checked": {"spans": len(calls), "searches": len({c[:2] for c in calls}), "past": past},
     }
@@ -3973,8 +3982,6 @@ def main(argv: list[str]) -> int:
             entry["checked"] = rows[entry["name"]]["checked"]
         if entry["name"] == "poseidon_grind":
             entry.update({k: rows["poseidon_grind"][k] for k in ("pow_bits", "nonce", "span_bound_ms")})
-        if entry["name"] == "poseidon_expand":
-            entry.update({k: rows["poseidon_expand"][k] for k in ("group", "groups")})
     emit({"kernels": kernels})
     emit({
         "ok": True,

@@ -58,51 +58,45 @@
 //                              25-28). Replaces the XLA program of
 //                              tendermintx_tpu/stark/recursion.py:220
 //                              `expand_perm_states` (jitted at :275 as
-//                              `_expand_jit`). Bound: operations (2^15 states
-//                              at 6,176 multiply-adds, the permutation's
-//                              6,656 less the last full round, which it does
-//                              not run: 0.0121 ms; the 31 MB it moves 0.009
-//                              ms). What holds it back is the integer pipe,
-//                              not occupancy: IMAD and IADD3 share its 64
-//                              lanes a clock an SM, and a thread a state
-//                              issued ~30,000 integer instructions a state
-//                              (ptxas turns each MDS row's multiply-add
-//                              chain into products and three-input adds),
-//                              ~94% of the pipe's rate at 2^15 states. So
-//                              the MDS sums run on the FP64 pipe (exact, see
-//                              half_to_double), which halves the integer work
-//                              of a partial round. A state runs on G = 1, 2
-//                              or 4 threads (the wrapper passes
-//                              ops/poseidon.py: EXPAND_GROUP, 1): the same
-//                              lane of G neighbouring warps, rank t owning
-//                              lanes and MDS rows t L .. t L + L - 1 (L =
-//                              12 / G), so that every MDS entry stays an
-//                              immediate with no divergence (a split inside
-//                              a warp would make the rows, and so the
-//                              entries, differ from thread to thread). Each
-//                              round a rank S-boxes its lanes (in a partial
-//                              round rank 0 alone, lane 0, whose terms every
-//                              rank adds last), turns their halves into
-//                              doubles, writes those to shared memory, meets
-//                              its group at a named barrier and reads the
-//                              other lanes' doubles (see expand_rank). On
-//                              an H100 the splits issue as many instructions
-//                              as one thread a state but lose at the
-//                              barriers, a rank idling while the other
-//                              finishes its round, so G = 1 is the fastest
-//                              (PERF.md). Each rank stores
-//                              its own lanes' columns canonical, rank 0 also
-//                              p4..p25, so a warp's store to a column is 32
-//                              neighbouring words (whole 32-byte sectors);
+//                              `_expand_jit`). Bound: bytes, the 31 MB it
+//                              moves at 2^15 states (0.0092 ms); its
+//                              operations, rounds 0-28 in the sparse
+//                              partial-round form, are 4,116 integer
+//                              multiply-adds and 2,060 MDS products a
+//                              state, each on a pipe of 64 a clock an SM
+//                              (0.0081 ms). What held the ported kernel
+//                              back was the integer pipe, not occupancy:
+//                              IMAD and IADD3 share its 64 lanes a clock
+//                              an SM, and a thread a state issued ~30,000
+//                              integer instructions a state (ptxas turns
+//                              each MDS row's multiply-add chain into
+//                              products and three-input adds), ~94% of
+//                              the pipe's rate at 2^15 states. So the MDS
+//                              sums run on the FP64 pipe (exact, see
+//                              half_to_double), which halves the integer
+//                              work of a partial round, and a partial
+//                              round sums lanes 1-11 while lane 0 goes
+//                              through its S-box. One thread a state: a
+//                              state split over 2 or 4 threads (the same
+//                              lane of neighbouring warps, exchanging
+//                              doubles through shared memory at named
+//                              barriers) issued as many instructions and
+//                              lost at the barriers, so it measured slower
+//                              on an H100 (PERF.md). A warp's store to a
+//                              column is 32 neighbouring words (whole
+//                              32-byte sectors), canonical;
 //   tmx_poseidon_grind         the FRI's proof-of-work search over
 //                              candidates start .. start + span - 1: the
 //                              smallest i < span whose poseidon([seed,
 //                              start + i, 0, ...]) has lane 0's low
 //                              pow_bits zero, or none. Replaces the XLA
 //                              program of tendermintx_tpu/stark/fri.py:624
-//                              `_grind_fn`. Bound: operations (6,656
-//                              multiply-adds a candidate, for the nonce + 1
-//                              candidates the search needs at least). One
+//                              `_grind_fn`. Bound: operations, for the
+//                              nonce + 1 candidates the search needs at
+//                              least: in the sparse partial-round form
+//                              4,308 integer multiply-adds and 2,348 MDS
+//                              products a candidate, the MDS on the FP64
+//                              pipe as here, each pipe 64 a clock an SM. One
 //                              thread a candidate over a whole batch hashed
 //                              ~4x the expected search (2^18 at 16 bits)
 //                              whatever the nonce. Now one launch of about
@@ -368,8 +362,8 @@ __device__ __forceinline__ void lanes_to_doubles(const uint64_t (&s)[WIDTH], dou
     }
 }
 
-// acc += row I's terms over the lanes of the sequence, lane 0's left out
-// where Skip0 (a partial round adds it last, after its S-box).
+// acc += row I's terms, lane 0's left out where Skip0 (a partial round of
+// the round-state kernel adds them last, after lane 0's S-box).
 template <int I, bool Skip0, int... J>
 __device__ __forceinline__ void row_sums(double& acc_lo, double& acc_hi, const double (&lo)[WIDTH],
                                          const double (&hi)[WIDTH], std::integer_sequence<int, J...>) {
@@ -383,35 +377,33 @@ __device__ __forceinline__ void row_sums(double& acc_lo, double& acc_hi, const d
     (term(std::integral_constant<int, J>{}), ...);
 }
 
-// The sums of rows Base + k (k < L) over the lanes of Order.
-template <int Base, bool Skip0, class Order, int... K>
-__device__ __forceinline__ void rows_sums(double (&acc_lo)[sizeof...(K)], double (&acc_hi)[sizeof...(K)],
-                                          const double (&lo)[WIDTH], const double (&hi)[WIDTH],
-                                          std::integer_sequence<int, K...>) {
-    (row_sums<Base + K, Skip0>(acc_lo[K], acc_hi[K], lo, hi, Order{}), ...);
+template <bool Skip0, int... I>
+__device__ __forceinline__ void rows_sums(double (&acc_lo)[WIDTH], double (&acc_hi)[WIDTH], const double (&lo)[WIDTH],
+                                          const double (&hi)[WIDTH], std::integer_sequence<int, I...>) {
+    (row_sums<I, Skip0>(acc_lo[I], acc_hi[I], lo, hi, Lanes{}), ...);
 }
 
 // The sums plus lane 0's terms.
-template <int Base, int... K>
-__device__ __forceinline__ void rows_lane0(double (&acc_lo)[sizeof...(K)], double (&acc_hi)[sizeof...(K)],
-                                           double lo0, double hi0, std::integer_sequence<int, K...>) {
-    ((acc_lo[K] = fma(double(Mds<Base + K, 0>::value), lo0, acc_lo[K])), ...);
-    ((acc_hi[K] = fma(double(Mds<Base + K, 0>::value), hi0, acc_hi[K])), ...);
+template <int... I>
+__device__ __forceinline__ void rows_lane0(double (&acc_lo)[WIDTH], double (&acc_hi)[WIDTH], double lo0, double hi0,
+                                           std::integer_sequence<int, I...>) {
+    ((acc_lo[I] = fma(double(Mds<I, 0>::value), lo0, acc_lo[I])), ...);
+    ((acc_hi[I] = fma(double(Mds<I, 0>::value), hi0, acc_hi[I])), ...);
 }
 
-// own[k] = row Base + k from its two sums, plus rc_next[Base + k].
-template <int Base, int... K>
-__device__ __forceinline__ void rows_reduce(uint64_t (&own)[sizeof...(K)], const double (&acc_lo)[sizeof...(K)],
-                                            const double (&acc_hi)[sizeof...(K)], const uint64_t* rc_next,
-                                            std::integer_sequence<int, K...>) {
-    ((own[K] = mds_reduce(double_to_u64(acc_lo[K]), double_to_u64(acc_hi[K]), rc_next[Base + K])), ...);
+// s[i] = row i from its two sums, plus rc_next[i].
+template <int... I>
+__device__ __forceinline__ void rows_reduce(uint64_t (&s)[WIDTH], const double (&acc_lo)[WIDTH],
+                                            const double (&acc_hi)[WIDTH], const uint64_t* rc_next,
+                                            std::integer_sequence<int, I...>) {
+    ((s[I] = mds_reduce(double_to_u64(acc_lo[I]), double_to_u64(acc_hi[I]), rc_next[I])), ...);
 }
 
 __device__ __forceinline__ void mds_layer_f64(uint64_t (&s)[WIDTH], const uint64_t* rc_next) {
     double lo[WIDTH], hi[WIDTH], acc_lo[WIDTH] = {}, acc_hi[WIDTH] = {};
     lanes_to_doubles(s, lo, hi);
-    rows_sums<0, false, Lanes>(acc_lo, acc_hi, lo, hi, Lanes{});
-    rows_reduce<0>(s, acc_lo, acc_hi, rc_next, Lanes{});
+    rows_sums<false>(acc_lo, acc_hi, lo, hi, Lanes{});
+    rows_reduce(s, acc_lo, acc_hi, rc_next, Lanes{});
 }
 
 // permute_state with the MDS layers on the FP64 pipe: the grinding
@@ -516,77 +508,30 @@ constexpr int FIRST_PARTIAL = HALF_FULL_ROUNDS, END_PARTIAL = HALF_FULL_ROUNDS +
 // the first column of p4..p25, of w26 and of w27..w29 in the (106, n) output
 constexpr int COL_P = 3 * WIDTH, COL_W26 = COL_P + PARTIAL_ROUNDS, COL_W27 = COL_W26 + WIDTH;
 
-// Lanes Base .. 11, then 0 .. Base - 1: a rank's row sums take its own
-// lanes, in registers before the exchange, first.
-template <int Base, int... J>
-constexpr auto rotated(std::integer_sequence<int, J...>) {
-    return std::integer_sequence<int, (J + Base) % WIDTH...>{};
-}
+// candidates a warp claims at a time: one a thread
+constexpr int GRIND_CHUNK = 32;
 
-// The exchange buffers of a group: [round parity][lo, hi][lane][state].
-using Exchange = double[2][2][WIDTH][WARP];
+}  // namespace
 
-// Rank T of a group of G warps on the group's 32 states, one a lane: the
-// thread holds lanes T L .. T L + L - 1 of state b (`own`) and computes
-// those MDS rows. A full round S-boxes its lanes, turns their halves into
-// doubles, writes those into the buffers of the round's parity, meets the
-// group at named barrier A and reads the other lanes' doubles. A partial
-// round publishes lanes 1-11 so; then rank 0 S-boxes lane 0 (after storing
-// it as p_r), publishes it and arrives at barrier B, while every rank sums
-// its rows over lanes 1-11; the other ranks wait at B for lane 0 alone. No
-// S-box or conversion is done twice. Two buffers by round parity make these
-// barriers enough: a rank writes a buffer again only after passing the
-// next round's barrier A, which every reader of it reaches after its reads.
-template <int G, int T>
-__device__ __forceinline__ void expand_rank(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                                            int64_t n, int64_t b, int group, int lane, Exchange* x) {
-    constexpr int L = WIDTH / G;
-    using Own = std::make_integer_sequence<int, L>;
-    using Order = decltype(rotated<T * L>(Lanes{}));
-    const int bar_a = 1 + 2 * group, bar_b = bar_a + 1;
-    const bool live = b < n;
-    uint64_t own[L];
+// (n, 12) -> (106, n), one thread a state (see the top). A partial round
+// sums the terms of lanes 1-11 while lane 0 goes through its S-box, and
+// adds lane 0's terms last.
+extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+tmx_poseidon_expand_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
+    const int64_t b = thread_index();
+    if (b >= n) return;
+    uint64_t s[WIDTH];
 #pragma unroll
-    for (int k = 0; k < L; ++k) own[k] = live ? in[b * WIDTH + T * L + k] : 0;
-    const auto store = [&](int col, uint64_t v) {
-        if (live) out[col * n + b] = v >= P ? v - P : v;
-    };
-    const auto store_own = [&](int col0) {
+    for (int j = 0; j < WIDTH; ++j) s[j] = in[b * WIDTH + j];
+    const auto store = [&](int col, uint64_t v) { out[col * n + b] = v >= P ? v - P : v; };
+    const auto store_state = [&](int col0) {
 #pragma unroll
-        for (int k = 0; k < L; ++k) store(col0 + T * L + k, own[k]);
-    };
-    double lo[WIDTH], hi[WIDTH], acc_lo[L], acc_hi[L];
-    // own lanes (but lane 0 where !with0) into doubles and the buffers;
-    // then barrier A and the other ranks' lanes (but lane 0)
-    const auto exchange = [&](int r, bool with0) {
-#pragma unroll
-        for (int k = 0; k < L; ++k) {
-            if (T * L + k == 0 && !with0) continue;
-            lo[T * L + k] = half_to_double((uint32_t)own[k]);
-            hi[T * L + k] = half_to_double((uint32_t)(own[k] >> 32));
-            if constexpr (G > 1) {
-                (*x)[r & 1][0][T * L + k][lane] = lo[T * L + k];
-                (*x)[r & 1][1][T * L + k][lane] = hi[T * L + k];
-            }
-        }
-        if constexpr (G > 1) {
-            asm volatile("bar.sync %0, %1;" ::"r"(bar_a), "r"(G * WARP) : "memory");
-#pragma unroll
-            for (int j = 0; j < WIDTH; ++j) {
-                if (j / L == T || (j == 0 && !with0)) continue;
-                lo[j] = (*x)[r & 1][0][j][lane];
-                hi[j] = (*x)[r & 1][1][j][lane];
-            }
-        }
+        for (int j = 0; j < WIDTH; ++j) store(col0 + j, s[j]);
     };
     const auto full_round = [&](int r, const uint64_t* rc_next) {
 #pragma unroll
-        for (int k = 0; k < L; ++k) own[k] = sbox(add_const(own[k], c_rc[r][T * L + k]));
-        exchange(r, true);
-#pragma unroll
-        for (int k = 0; k < L; ++k) acc_lo[k] = acc_hi[k] = 0.0;
-        rows_sums<T * L, false, Order>(acc_lo, acc_hi, lo, hi, Own{});
-        rows_reduce<T * L>(own, acc_lo, acc_hi, rc_next, Own{});
+        for (int j = 0; j < WIDTH; ++j) s[j] = sbox(add_const(s[j], c_rc[r][j]));
+        mds_layer_f64(s, rc_next);
     };
     // S1..S3 after rounds 0-2, taken after an MDS adding the zero row; round
     // 3's MDS adds round 4's constants
@@ -594,98 +539,30 @@ __device__ __forceinline__ void expand_rank(const uint64_t* __restrict__ in, uin
     for (int r = 0; r < FIRST_PARTIAL; ++r) {
         const bool stored = r + 1 < FIRST_PARTIAL;
         full_round(r, c_rc[stored ? N_ROUNDS : r + 1]);
-        if (stored) store_own(r * WIDTH);
+        if (stored) store_state(r * WIDTH);
     }
     // p4..p25, lane 0 before its S-box; after round 25 the zero row, for w26
 #pragma unroll 1
     for (int r = FIRST_PARTIAL; r < END_PARTIAL; ++r) {
-        exchange(r, false);
-        if constexpr (T == 0) {
-            store(COL_P + r - FIRST_PARTIAL, own[0]);
-            own[0] = sbox(own[0]);
-            lo[0] = half_to_double((uint32_t)own[0]);
-            hi[0] = half_to_double((uint32_t)(own[0] >> 32));
-            if constexpr (G > 1) {
-                (*x)[r & 1][0][0][lane] = lo[0];
-                (*x)[r & 1][1][0][lane] = hi[0];
-                asm volatile("bar.arrive %0, %1;" ::"r"(bar_b), "r"(G * WARP) : "memory");
-            }
-        }
+        double lo[WIDTH], hi[WIDTH], acc_lo[WIDTH] = {}, acc_hi[WIDTH] = {};
 #pragma unroll
-        for (int k = 0; k < L; ++k) acc_lo[k] = acc_hi[k] = 0.0;
-        rows_sums<T * L, true, Order>(acc_lo, acc_hi, lo, hi, Own{});
-        if constexpr (T > 0) {
-            asm volatile("bar.sync %0, %1;" ::"r"(bar_b), "r"(G * WARP) : "memory");
-            lo[0] = (*x)[r & 1][0][0][lane];
-            hi[0] = (*x)[r & 1][1][0][lane];
+        for (int j = 1; j < WIDTH; ++j) {
+            lo[j] = half_to_double((uint32_t)s[j]);
+            hi[j] = half_to_double((uint32_t)(s[j] >> 32));
         }
-        rows_lane0<T * L>(acc_lo, acc_hi, lo[0], hi[0], Own{});
-        rows_reduce<T * L>(own, acc_lo, acc_hi, c_rc[r + 1 < END_PARTIAL ? r + 1 : N_ROUNDS], Own{});
+        store(COL_P + r - FIRST_PARTIAL, s[0]);
+        s[0] = sbox(s[0]);
+        rows_sums<true>(acc_lo, acc_hi, lo, hi, Lanes{});
+        rows_lane0(acc_lo, acc_hi, half_to_double((uint32_t)s[0]), half_to_double((uint32_t)(s[0] >> 32)), Lanes{});
+        rows_reduce(s, acc_lo, acc_hi, c_rc[r + 1 < END_PARTIAL ? r + 1 : N_ROUNDS], Lanes{});
     }
-    store_own(COL_W26);
+    store_state(COL_W26);
     // w27..w29 after rounds 26-28
 #pragma unroll 1
     for (int r = END_PARTIAL; r < N_ROUNDS - 1; ++r) {
         full_round(r, c_rc[N_ROUNDS]);
-        store_own(COL_W27 + (r - END_PARTIAL) * WIDTH);
+        store_state(COL_W27 + (r - END_PARTIAL) * WIDTH);
     }
-}
-
-// (n, 12) -> (106, n) with each state on G threads, the same lane of G
-// neighbouring warps (see the top); a block of THREADS holds THREADS / 32 /
-// G groups of 32 states. A group wholly past n returns before its first
-// barrier; a ragged group's threads past n run on zeros and store nothing.
-template <int G>
-__device__ __forceinline__ void expand_groups(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
-                                              int64_t n) {
-    constexpr int GROUPS = THREADS / WARP / G;
-    const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP, group = warp / G, t = warp % G;
-    const int64_t base = ((int64_t)blockIdx.x * GROUPS + group) * WARP;
-    if (base >= n) return;
-    const int64_t b = base + lane;
-    if constexpr (G == 1) {
-        expand_rank<1, 0>(in, out, n, b, group, lane, nullptr);
-    } else {
-        __shared__ Exchange x[GROUPS];
-        if (t == 0) {
-            expand_rank<G, 0>(in, out, n, b, group, lane, &x[group]);
-        } else if constexpr (G == 2) {
-            expand_rank<G, 1>(in, out, n, b, group, lane, &x[group]);
-        } else {
-            if (t == 1) {
-                expand_rank<G, 1>(in, out, n, b, group, lane, &x[group]);
-            } else if (t == 2) {
-                expand_rank<G, 2>(in, out, n, b, group, lane, &x[group]);
-            } else {
-                expand_rank<G, 3>(in, out, n, b, group, lane, &x[group]);
-            }
-        }
-    }
-}
-
-// candidates a warp claims at a time: one a thread
-constexpr int GRIND_CHUNK = 32;
-
-}  // namespace
-
-// One thread a state (no exchange): 1,024 warps for 2^15 states, the
-// wrapper's default.
-extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-tmx_poseidon_expand_single_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
-    expand_groups<1>(in, out, n);
-}
-
-// Pairs: 2,048 warps for the wrap's 2^15 states, at most 128 registers.
-extern "C" __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-tmx_poseidon_expand_pair_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
-    expand_groups<2>(in, out, n);
-}
-
-// Quads: 4,096 warps for 2^15 states, at most 64 registers so that all are
-// resident at once (32 warps an SM).
-extern "C" __global__ void __launch_bounds__(THREADS, 2 * MIN_BLOCKS)
-tmx_poseidon_expand_quad_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n) {
-    expand_groups<4>(in, out, n);
 }
 
 // The grinding search (see the top). scratch[0] counts the chunks claimed,
@@ -757,23 +634,12 @@ extern "C" int tmx_poseidon_merkle_layer(const void* in, void* out, int64_t n_ou
     return (int)cudaGetLastError();
 }
 
-// group: 1, 2 or 4 threads a state
-extern "C" int tmx_poseidon_expand(const void* in, void* out, int64_t n, int64_t group, void* stream) {
-    if (group != 1 && group != 2 && group != 4) return (int)cudaErrorInvalidValue;
+extern "C" int tmx_poseidon_expand(const void* in, void* out, int64_t n, void* stream) {
     if (n <= 0) return 0;
-    const int64_t per_block = THREADS / group;  // states
-    const int64_t blocks = (n + per_block - 1) / per_block;
-    if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    if (group == 1) {
-        tmx_poseidon_expand_single_kernel<<<(int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint64_t*)in, (uint64_t*)out, n);
-    } else if (group == 2) {
-        tmx_poseidon_expand_pair_kernel<<<(int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint64_t*)in, (uint64_t*)out, n);
-    } else {
-        tmx_poseidon_expand_quad_kernel<<<(int)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-            (const uint64_t*)in, (uint64_t*)out, n);
-    }
+    int blocks;
+    if (int e = blocks_for(n, &blocks)) return e;
+    tmx_poseidon_expand_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint64_t*)in, (uint64_t*)out, n);
     return (int)cudaGetLastError();
 }
 

@@ -276,7 +276,7 @@ def _library():
         (lib.tmx_poseidon_permute, 1),
         (lib.tmx_poseidon_sponge_cols, 2),
         (lib.tmx_poseidon_merkle_layer, 1),
-        (lib.tmx_poseidon_expand, 2),
+        (lib.tmx_poseidon_expand, 1),
     ):
         fn.restype = ctypes.c_int
         fn.argtypes = [ptr, ptr] + [i64] * n_ints + [ptr]
@@ -439,11 +439,6 @@ def merkle_layer(layer: GF) -> GF:
 
 # S1..S3, p4..p25, w26..w29: the WrapAir columns COL_S..N_PERM_COLS
 EXPAND_COLS = 3 * WIDTH + PARTIAL_ROUNDS + 4 * WIDTH
-# threads a state in csrc/poseidon.cu's round-state kernel: 1, or 2 or 4
-# (the same lane of that many neighbouring warps, each with 12 / group
-# lanes and MDS rows). One thread a state is the fastest on an H100: the
-# splits wait at their group's barrier on lane 0's S-box (PERF.md).
-EXPAND_GROUP = 1
 
 
 def expand_plain(states: torch.Tensor) -> torch.Tensor:
@@ -470,20 +465,18 @@ def expand_plain(states: torch.Tensor) -> torch.Tensor:
     return torch.cat(cols, dim=0).contiguous()
 
 
-def expand_cuda(states: torch.Tensor, group: int = EXPAND_GROUP) -> torch.Tensor:
+def expand_cuda(states: torch.Tensor) -> torch.Tensor:
     """Launch the round-state kernel on contiguous (R, 12) int64 CUDA
-    states -> (106, R), each state on `group` (1, 2 or 4) threads."""
+    states -> (106, R), one thread a state."""
     global expand_kernel_launches
     _check_cuda_operand(states, "expand_cuda", 8)
     if states.dim() != 2 or states.shape[1] != WIDTH:
         raise ValueError(f"expand_cuda takes (R, {WIDTH}) states, got {tuple(states.shape)}")
-    if group not in (1, 2, 4):
-        raise ValueError(f"expand_cuda runs a state on 1, 2 or 4 threads, not {group}")
     n = int(states.shape[0])
     out = torch.empty((EXPAND_COLS, n), dtype=torch.int64, device=states.device)
     if n == 0:
         return out
-    _launch("tmx_poseidon_expand", states, out, n, group)
+    _launch("tmx_poseidon_expand", states, out, n)
     expand_kernel_launches += 1
     return out
 

@@ -1612,13 +1612,12 @@ def test_eval_kernels_refuse_instead_of_falling_back(dev):
     assert _eval_counts() == before
 
 
-# ragged state counts about a group (32 states), a block (128, 64 or 32)
-# and the wrap's 2^15
+# ragged state counts about a warp (32 states), a block (128) and the
+# wrap's 2^15
 @pytest.mark.parametrize("n", [1, 3, 7, 33, 129, 4099, 1 << 15, (1 << 15) + 5])
 def test_expand_kernel_matches_plain(dev, n):
     """expand_perm_states on card states: one launch, exactly the plain
-    round pieces' 106 columns, with each state on EXPAND_GROUP threads and
-    on each other group size; the last full round on w29 gives the
+    round pieces' 106 columns; the last full round on w29 gives the
     permutation."""
     from tendermintx_tpu_torch.stark import recursion as rec
 
@@ -1626,10 +1625,7 @@ def test_expand_kernel_matches_plain(dev, n):
     before = ps.expand_kernel_launches
     got = rec.expand_perm_states(gl.GF(s))
     assert ps.expand_kernel_launches == before + 1
-    want = ps.expand_plain(s)
-    assert torch.equal(got.v, want)
-    for group in (1, 2, 4):
-        assert torch.equal(ps.expand_cuda(s, group), want)
+    assert torch.equal(got.v, ps.expand_plain(s))
     rc, mds_t = ps.plain_params(dev)
     assert torch.equal(ps.full_round_plain(got.v[94:].t().contiguous(), rc[29], mds_t), ps.permute_cuda(s))
 
@@ -1644,9 +1640,6 @@ def test_expand_kernel_refuses_instead_of_falling_back(dev):
     for bad in (s[:, :11].contiguous(), s.reshape(-1), s.t().contiguous().t()):
         with pytest.raises(ValueError):
             ps.expand_cuda(bad)
-    for group in (0, 3, 8):
-        with pytest.raises(ValueError):
-            ps.expand_cuda(s, group)
     assert ps.expand_kernel_launches == before
 
 

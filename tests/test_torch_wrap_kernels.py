@@ -12,6 +12,7 @@ layout of EvalArgs against the source; and the CPU dispatch. The card's
 kernels are held against the twins in tests/test_torch_cuda.py. Tolerance:
 exact equality (field arithmetic)."""
 
+import functools
 import os
 import re
 
@@ -304,156 +305,105 @@ def _double_to_u64(v: np.ndarray) -> np.ndarray:
     return (v + _TWO_52).view(np.uint64) & np.uint64((1 << 52) - 1)
 
 
-def _run_barriers(ranks: list, G: int, rng):
-    """Runs rank generators that yield ("sync", b), wait until G ranks
-    have reached this phase of named barrier b, or ("arrive", b), counted
-    at once (PTX bar.sync / bar.arrive with G warps): each step is one
-    runnable rank's code up to its next barrier, in a random order."""
-    arrived, phase, waiting, live = {}, [{} for _ in ranks], {}, set(range(len(ranks)))
-    while live:
-        runnable = sorted(i for i in live if i not in waiting or arrived[waiting[i]] == G)
-        assert runnable, "the ranks deadlock"
-        i = runnable[rng.integers(len(runnable))]
-        waiting.pop(i, None)
-        try:
-            kind, bar = next(ranks[i])
-        except StopIteration:
-            live.discard(i)
-            continue
-        ph = phase[i].get(bar, 0)
-        phase[i][bar] = ph + 1
-        arrived[bar, ph] = arrived.get((bar, ph), 0) + 1
-        if kind == "sync":
-            waiting[i] = (bar, ph)
-
-
-def _expand_split_model(states: list[list[int]], G: int, rng) -> tuple[np.ndarray, int]:
-    """csrc/poseidon.cu: expand_groups<G> / expand_rank<G, T> on R states:
-    groups of 32 states, one a lane, each over G warps; rank T owns lanes
-    and MDS rows T L .. T L + L - 1 (L = 12 / G), its row sums over the
-    lanes from its own on (float64, exact below 2^53; in through the bits
-    of 2^52 + x less 2^52, out through the mantissa of v + 2^52). A full
-    round S-boxes the own lanes, writes their doubles into buffer r % 2,
-    syncs on barrier A and reads the other lanes. A partial round writes
-    the own lanes but lane 0, syncs on A and reads the others but lane 0;
-    rank 0 then stores lane 0 (p_r), S-boxes it, writes it and arrives at
-    barrier B; every rank sums its rows over lanes 1-11; the others sync on
-    B and read lane 0; lane 0's terms last. The ranks run in random orders
-    (_run_barriers). Returns the (106, R) output and the number of warp
-    stores; each store must be one column's words of the group's 32
-    consecutive states from a multiple of 32, each word stored once."""
+def _expand_kernel_model(states: np.ndarray) -> np.ndarray:
+    """csrc/poseidon.cu: tmx_poseidon_expand_kernel on R states, one thread
+    a state (vectorised over the states here), in its order of stores. A
+    full round S-boxes s + rc[r]; an MDS layer sums each row over the 12
+    lanes' 32-bit halves as float64 (exact below 2^53; in through the bits
+    of 2^52 + x less 2^52, out through the mantissa of v + 2^52) and adds
+    the next round's constants or the zero row: rounds 0-2 are stored (S1..
+    S3), round 3's MDS adds round 4's constants. A partial round takes
+    lanes 1-11 into doubles, stores lane 0 (p_r), S-boxes it and sums the
+    rows over lanes 1-11, then lane 0's terms last (the zero row after round
+    25: w26, stored); rounds 26-28 as rounds 0-2 (w27..w29). Every store of
+    column c of state b goes to word c R + b of the flat output, canonical,
+    each word once. Returns that output as (106, R)."""
     R = len(states)
-    L = ps.WIDTH // G
     rc, mds = ps.round_constants(), ps.mds_matrix()
     zero = [0] * ps.WIDTH
-    out = np.full((ps.EXPAND_COLS, R), -1, dtype=object)
-    stores = 0
+    flat = np.full(ps.EXPAND_COLS * R, -1, dtype=object)
+    rows = np.arange(R)
+    s = [[int(v) for v in states[:, j]] for j in range(ps.WIDTH)]  # lane j of every state
 
-    def store(col, base, vals, live):
-        nonlocal stores
-        assert base % 32 == 0 and live == list(range(base, base + len(live)))
-        for b in live:
-            assert out[col, b] == -1
-            out[col, b] = int(vals[b - base]) % P
-        stores += 1
+    def store(col, vals):
+        idx = col * R + rows
+        assert (flat[idx] == -1).all()
+        flat[idx] = [v % P for v in vals]
 
     def halves(vals):
-        u = np.array([int(v) for v in vals], dtype=object)
+        u = np.array(vals, dtype=object)
         return (_half_to_double(np.array(u & 0xFFFFFFFF, dtype=np.uint64)),
                 _half_to_double(np.array(u >> 32, dtype=np.uint64)))
 
-    def rank(T, base, x):
-        live = [b for b in range(base, base + 32) if b < R]
-        sbox = lambda a: [_sbox(int(v) % P) for v in a]
-        own = [[states[b][T * L + k] if b < R else 0 for b in range(base, base + 32)] for k in range(L)]
-        order = [(j + T * L) % ps.WIDTH for j in range(ps.WIDTH)]
-        h = [None] * ps.WIDTH
-
-        def publish(r, lanes):
+    def sums(acc, h, lanes):
+        for i in range(ps.WIDTH):
             for j in lanes:
-                h[j] = halves(own[j - T * L])
-                x[r % 2][j] = h[j]
-
-        def sums(lanes):
-            acc = [[np.zeros(32), np.zeros(32)] for _ in range(L)]
-            for k in range(L):
-                for j in lanes:
-                    for half in (0, 1):
-                        acc[k][half] = np.float64(mds[T * L + k][j]) * h[j][half] + acc[k][half]
-            return acc
-
-        def reduce(acc, k_next):
-            new = []
-            for k in range(L):
-                lo, hi = (_double_to_u64(a).astype(object) for a in acc[k])
-                assert max(lo.max(), hi.max()) < 2**43
-                new.append([(int(a) + (int(c) << 32) + k_next[T * L + k]) % P for a, c in zip(lo, hi)])
-            return new
-
-        def full_round(r, k_next):
-            nonlocal own
-            own = [sbox([(int(v) + rc[r][T * L + k]) % P for v in own[k]]) for k in range(L)]
-            publish(r, range(T * L, T * L + L))
-            yield "sync", "A"
-            for j in range(ps.WIDTH):
-                if j // L != T:
-                    h[j] = x[r % 2][j]
-            own = reduce(sums(order), k_next)
-
-        for r in range(4):
-            yield from full_round(r, zero if r < 3 else rc[4])
-            if r < 3:
-                for k in range(L):
-                    store(r * ps.WIDTH + T * L + k, base, own[k], live)
-        for r in range(4, 26):
-            publish(r, [j for j in range(T * L, T * L + L) if j])
-            yield "sync", "A"
-            for j in range(1, ps.WIDTH):
-                if j // L != T:
-                    h[j] = x[r % 2][j]
-            if T == 0:
-                store(3 * ps.WIDTH + r - 4, base, own[0], live)
-                own[0] = sbox(own[0])
-                publish(r, [0])
-                yield "arrive", "B"
-            acc = sums([j for j in order if j])
-            if T > 0:
-                yield "sync", "B"
-                h[0] = x[r % 2][0]
-            for k in range(L):
                 for half in (0, 1):
-                    acc[k][half] = np.float64(mds[T * L + k][0]) * h[0][half] + acc[k][half]
-            own = reduce(acc, rc[r + 1] if r < 25 else zero)
-        for k in range(L):
-            store(3 * ps.WIDTH + 22 + T * L + k, base, own[k], live)
-        for r in range(26, 29):
-            yield from full_round(r, zero)
-            for k in range(L):
-                store(3 * ps.WIDTH + 22 + ps.WIDTH * (r - 25) + T * L + k, base, own[k], live)
+                    acc[i][half] = np.float64(mds[i][j]) * h[j][half] + acc[i][half]
 
-    for base in range(0, R, 32):
-        x = [[None] * ps.WIDTH, [None] * ps.WIDTH]
-        _run_barriers([rank(T, base, x) for T in range(G)], G, rng)
-    return out, stores
+    def reduce(acc, k_next):
+        out = []
+        for i in range(ps.WIDTH):
+            lo, hi = (_double_to_u64(a).astype(object) for a in acc[i])
+            assert max(lo.max(), hi.max()) < 2**43
+            out.append([(int(a) + (int(c) << 32) + k_next[i]) % P for a, c in zip(lo, hi)])
+        return out
+
+    def full_round(r, k_next):
+        nonlocal s
+        s = [[_sbox((v + rc[r][j]) % P) for v in s[j]] for j in range(ps.WIDTH)]
+        acc = [[np.zeros(R), np.zeros(R)] for _ in range(ps.WIDTH)]
+        sums(acc, [halves(lane) for lane in s], range(ps.WIDTH))
+        s = reduce(acc, k_next)
+
+    def store_state(col0):
+        for j in range(ps.WIDTH):
+            store(col0 + j, s[j])
+
+    for r in range(4):
+        full_round(r, zero if r < 3 else rc[4])
+        if r < 3:
+            store_state(r * ps.WIDTH)
+    for r in range(4, 26):
+        h = [None] + [halves(s[j]) for j in range(1, ps.WIDTH)]
+        store(3 * ps.WIDTH + r - 4, s[0])
+        s[0] = [_sbox(v) for v in s[0]]
+        acc = [[np.zeros(R), np.zeros(R)] for _ in range(ps.WIDTH)]
+        sums(acc, h, range(1, ps.WIDTH))
+        h[0] = halves(s[0])
+        sums(acc, h, [0])
+        s = reduce(acc, rc[r + 1] if r < 25 else zero)
+    store_state(3 * ps.WIDTH + 22)
+    for r in range(26, 29):
+        full_round(r, zero)
+        store_state(3 * ps.WIDTH + 22 + ps.WIDTH * (r - 25))
+    assert (flat != -1).all()
+    return flat.reshape(ps.EXPAND_COLS, R)
 
 
-@pytest.mark.parametrize("G", [1, 2, 4])
-def test_expand_kernel_model_matches_expand_plain(G):
-    """The round-state kernel's model on 69 states (two whole groups and a
-    ragged one, edge values included) at G threads a state: every word of
-    the (106, R) output stored once, by one rank's store of 32 consecutive
-    states' words of one column (whole 32-byte sectors), equal to
-    expand_plain's columns and the JAX package's expand_perm_states; the
-    source's group sizes."""
+_EXPAND_STATES = _felts(np.random.default_rng(4), (69, ps.WIDTH))
+
+
+@functools.cache
+def _jax_expand() -> list:
+    return np.asarray(jrec.expand_perm_states(JGF.from_ints(_EXPAND_STATES)).to_ints()).tolist()
+
+
+@pytest.mark.parametrize("R", [1, 33, 69])
+def test_expand_kernel_model_matches_expand_plain(R):
+    """The round-state kernel's model on R states (one, a warp and one, two
+    warps and a ragged third; edge values included): every word of the
+    (106, R) output stored once, equal to expand_plain's columns and the
+    JAX package's expand_perm_states; the source's kernel and entry, which
+    take no more than the states and their count."""
     src = _source("poseidon.cu")
-    assert ps.EXPAND_GROUP in (1, 2, 4) and f"expand_groups<{G}>" in src
-    rng = np.random.default_rng(3 + G)
-    states = _felts(rng, (69, ps.WIDTH))
-    got, stores = _expand_split_model([[int(v) for v in row] for row in states], G, rng)
-    assert stores == 3 * (ps.EXPAND_COLS - 22) + 3 * 22
+    assert "tmx_poseidon_expand_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out, int64_t n)" in src
+    assert 'int tmx_poseidon_expand(const void* in, void* out, int64_t n, void* stream)' in src
+    states = _EXPAND_STATES[:R]
+    got = _expand_kernel_model(states)
     want = _u(ps.expand_plain(GF.from_ints(states).v))
     assert len(want) == ps.EXPAND_COLS == rec.N_PERM_COLS - rec.COL_S
-    assert got.tolist() == want == np.asarray(jrec.expand_perm_states(JGF.from_ints(states)).to_ints()).tolist()
+    assert got.tolist() == want == [row[:R] for row in _jax_expand()]
 
 
 def test_fp64_mds_rows_are_exact():

@@ -63,10 +63,8 @@ kernels are timed in rounds the same way at the N=128 wrap's shapes
 burst too; plain: `_eval_terms`, and the three programs of the aux rows
 as `aux_plain_ms`), `eval_scan` (`eval_scan_cuda` over the terms kernel's
 row sums, its burst too; plain: `_eval_scan`), `poseidon_expand`
-(`expand_cuda`, at each group size where the checkout splits a state
-over a group of threads, `groups`; plain: `expand_plain`, or
-`expand_perm_states` in a checkout without the kernel) and
-`poseidon_grind`: 16-bit searches of the first GRIND_SEEDS seeds from
+(`expand_cuda`; plain: `expand_plain`, or `expand_perm_states` in a
+checkout without the kernel) and `poseidon_grind`: 16-bit searches of the first GRIND_SEEDS seeds from
 chip_smoke.py's SEED, each one `grind_cuda` launch from 0 over the
 checkout's GRIND_SPAN (a 2^18 GRIND_BATCH in a checkout that hashes a
 whole batch) with its read-back, its burst and `kernel_ms`, beside the
@@ -373,12 +371,9 @@ def main(argv=None) -> int:
             states = cs._random_felts((R, 12), gen, dev)
             row = {"shape": [R, 12]}
             if hasattr(ps, "expand_cuda"):
-                row["plain_ms"] = median_ms(lambda: ps.expand_plain(states))
-                # a checkout whose kernel takes no group size runs one thread a state
-                for group in (1, 2, 4) if hasattr(ps, "EXPAND_GROUP") else (None,):
-                    run = (lambda g=group: ps.expand_cuda(states, g)) if group else (lambda: ps.expand_cuda(states))
-                    row.setdefault("groups", {})[group or 1] = {"rounds": timed_rounds(run, reps_for(run)),
-                                                                "kernel_ms": kernel_ms(run)}
+                run = lambda: ps.expand_cuda(states)
+                row.update(plain_ms=median_ms(lambda: ps.expand_plain(states)),
+                           rounds=timed_rounds(run, reps_for(run)), kernel_ms=kernel_ms(run))
             else:
                 row["plain_ms"] = median_ms(lambda: rec.expand_perm_states(GF(states)))
             out["poseidon_expand"] = row
