@@ -164,18 +164,20 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
                  same wrap once more (host tables warm), byte-identical;
                  with --profile that second wrap runs under torch.profiler
                  and the line times the ranges around its round-state and
-                 EvalAir kernels (expand_perm_states, eval_terms,
-                 eval_scan: the reference's programs that were plain torch
-                 before). The wrap launches EvalAir's terms kernel once,
-                 the scan's two kernels and the round-state kernel once;
-                 no other path but runtime launches them;
-  8b. wrap_kernels - csrc/logup.cu's eval_terms and eval_scan and
-                 csrc/poseidon.cu's poseidon_expand (one thread a state)
-                 on the inputs the wraps gave them (the latest call of each
-                 shape), exact against their plain twins on the whole
-                 outputs; at the N=128 wrap's shapes (EvalAir 2^17 rows,
-                 WrapAir 2^15 states) timed beside the twins, with bounds
-                 and registers;
+                 EvalAir kernels (expand_perm_states, eval_aux: the
+                 reference's programs that were plain torch before). The
+                 wrap launches EvalAir's aux kernel once and the
+                 round-state kernel once; no other path but runtime
+                 launches them;
+  8b. wrap_kernels - csrc/logup.cu's eval_aux (the four terms and their
+                 running sum in one launch) and csrc/poseidon.cu's
+                 poseidon_expand (one thread a state) on the inputs the
+                 wraps gave them (the latest call of each shape), exact
+                 against their plain twins on the whole outputs, eval_aux
+                 also at a ragged row count and with two planted zero
+                 denominators at the N=128 wrap's shape; at the N=128
+                 wrap's shapes (EvalAir 2^17 rows, WrapAir 2^15 states)
+                 timed beside the twins, with bounds and registers;
   9. runtime   - the port's entry points on the card at N=128, in this
                  process: ``cli build`` and a witness-only ``cli prove`` of
                  skip 2 -> 6 (valid, header 6), its witness kernels'
@@ -252,6 +254,7 @@ The line before the last is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import json
 import logging
@@ -1765,8 +1768,6 @@ def _witness_cases(dev) -> tuple[tuple, tuple]:
     table limb of 8192 and a k_q limb of -1. Ladder inputs are the six
     int64 arrays; binding inputs those and sig_r, sig_s, sig_pk, the
     SHA-512 digests (uint8) and k_q."""
-    import hashlib
-
     from tendermintx_tpu_torch.inputs.conversion import get_validator_data_from_block, signature_lanes
     from tendermintx_tpu_torch.inputs.testchain import TestChain
     from tendermintx_tpu_torch.ops import ed25519 as ed
@@ -2468,8 +2469,7 @@ LAUNCH_COUNTERS = {
     "sha512_challenge": ("tendermintx_tpu_torch.ops.sha512", "sha512_challenge_kernel_launches"),
     "straus_verify": ("tendermintx_tpu_torch.ops.ed25519", "straus_kernel_launches"),
     "bind_witness": ("tendermintx_tpu_torch.ops.ed25519", "bind_kernel_launches"),
-    "eval_terms": ("tendermintx_tpu_torch.stark.evalair", "eval_terms_kernel_launches"),
-    "eval_scan": ("tendermintx_tpu_torch.stark.evalair", "eval_scan_kernel_launches"),
+    "eval_aux": ("tendermintx_tpu_torch.stark.evalair", "eval_aux_kernel_launches"),
     "poseidon_expand": ("tendermintx_tpu_torch.ops.poseidon", "expand_kernel_launches"),
     "poseidon_grind": ("tendermintx_tpu_torch.ops.poseidon", "grind_kernel_launches"),
 }
@@ -2487,7 +2487,7 @@ LOGUP_ENTRIES = ("logup_terms", "logup_scan")
 NOT_INJECTED_BY = ("fri_inject",)
 # the recursion wrap's kernels (EvalAir's aux columns, WrapAir's round
 # states): only a path that wraps launches them
-WRAP_ENTRIES = ("eval_terms", "eval_scan", "poseidon_expand")
+WRAP_ENTRIES = ("eval_aux", "poseidon_expand")
 
 
 class _NttCalls:
@@ -2682,9 +2682,9 @@ def _check_batch_fri(launches: dict, batch, config, path: str, shards: int = 1):
 
 
 def _check_wrap_launches(launches: dict, wraps: int, path: str):
-    """A wrap on the card launches EvalAir's terms kernel once, the scan's
-    two kernels and WrapAir's round-state kernel once."""
-    want = {"eval_terms": wraps, "eval_scan": 2 * wraps, "poseidon_expand": wraps}
+    """A wrap on the card launches EvalAir's aux kernel once and WrapAir's
+    round-state kernel once."""
+    want = {"eval_aux": wraps, "poseidon_expand": wraps}
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"the {path} path launched {got}; {wraps} wrap(s) give {want}")
@@ -2929,7 +2929,7 @@ def phase_hashes(sc: SkipChain, parity: dict, card: str) -> tuple[dict, dict]:
 
 class _WrapCalls:
     """While installed: the inputs of the latest call of each shape of the
-    wrap's kernel wrappers (stark/evalair.py: eval_terms_cuda, the trace,
+    wrap's kernel wrappers (stark/evalair.py: eval_aux_cuda, the trace,
     static rows and challenges; ops/poseidon.py: expand_cuda, the states)
     and every grinding span (ops/poseidon.py: grind_cuda) with its result,
     so that phase_wrap_kernels and phase_grind hold the kernels against
@@ -2948,13 +2948,13 @@ class _WrapCalls:
         from tendermintx_tpu_torch.ops.goldilocks import GF
         from tendermintx_tpu_torch.stark import evalair as ev
 
-        terms, expand, grind = ev.eval_terms_cuda, ps.expand_cuda, ps.grind_cuda
-        self.originals = {"eval_terms": terms, "eval_scan": ev.eval_scan_cuda, "expand": expand, "grind": grind}
+        aux, expand, grind = ev.eval_aux_cuda, ps.expand_cuda, ps.grind_cuda
+        self.originals = {"eval_aux": aux, "expand": expand, "grind": grind}
         copy = lambda g: GF2(GF(g.c0.v.clone()), GF(g.c1.v.clone()))
 
-        def eval_terms(trace, rows, gamma, delta, out):
+        def eval_aux(trace, rows, gamma, delta):
             self.eval[int(trace.v.shape[-1])] = (GF(trace.v.clone()), rows, copy(gamma), copy(delta))
-            return terms(trace, rows, gamma, delta, out)
+            return aux(trace, rows, gamma, delta)
 
         def expand_states(states):
             self.expand[int(states.shape[0])] = states.clone()
@@ -2965,7 +2965,7 @@ class _WrapCalls:
             self.grinds.append((seed, pow_bits, start, span, nonce))
             return nonce
 
-        ev.eval_terms_cuda, ps.expand_cuda, ps.grind_cuda = eval_terms, expand_states, grind_span
+        ev.eval_aux_cuda, ps.expand_cuda, ps.grind_cuda = eval_aux, expand_states, grind_span
 
 
 WRAP_CALLS = _WrapCalls()
@@ -2975,91 +2975,122 @@ WRAP_CALLS = _WrapCalls()
 EVAL_TERM_MULS = 2 + 2 + 2 + 3 + 4
 
 
+def _alone_ms(fn, reps: int = 50) -> float | None:
+    """torch.profiler's device time of the port's kernels (names holding
+    tmx_) over `reps` calls of `fn`, a call: the kernels alone, without
+    the gaps between launches; None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages() if "tmx_" in e.key)
+    return us / 1e3 / reps if us else None
+
+
+def _planted_eval_case(trace, srows, delta, cells) -> tuple:
+    """The EvalAir inputs with gamma equal to cell (k, r)'s a + delta v0 +
+    delta^2 v1 for the first of `cells`, copied to the others' (k', r')
+    (trace pair and address): every such term has a zero denominator."""
+    from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.ops.goldilocks import GF, tensor_from_u64, tensor_to_u64
+
+    v, rows = trace.v.clone(), srows.clone()
+    (k, r), *others = cells
+    for k2, r2 in others:
+        v[2 * k2 : 2 * k2 + 2, r2] = v[2 * k : 2 * k + 2, r]
+        rows[k2, r2] = rows[k, r]
+    d = tensor_to_u64(torch.cat([delta.c0.v, delta.c1.v])).tolist()
+    d2 = ((d[0] * d[0] + 7 * d[1] * d[1]) % GL_P, 2 * d[0] * d[1] % GL_P)
+    v0, v1 = tensor_to_u64(v[2 * k : 2 * k + 2, r]).tolist()
+    g = [(int(rows[k, r]) + d[0] * v0 + d2[0] * v1) % GL_P, (d[1] * v0 + d2[1] * v1) % GL_P]
+    gamma = GF2(*(GF(tensor_from_u64(np.array([x], dtype=np.uint64), v.device)) for x in g))
+    return GF(v), rows, gamma
+
+
 def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
-    """csrc/logup.cu's EvalAir entries and csrc/poseidon.cu's round-state
+    """csrc/logup.cu's EvalAir kernel and csrc/poseidon.cu's round-state
     kernel on the inputs the wraps of the run gave them (WRAP_CALLS: the
     latest call of each shape, the N=128 wrap's and, where it differs, the
-    card's N=4 parity wrap's), each held exactly against its plain twin on the whole output
-    (eval_aux_plain's (10, n) aux rows: rows 0-7 for the terms entry, rows
-    8-9 for the scan over the terms entry's row sums, all ten for
-    eval_aux_cuda; expand_plain: the 106 columns);
-    at the N=128 wrap's shapes (`wrap_rows`: WrapAir's and EvalAir's rows)
-    each timed (the median of five rounds, a raw-launch burst for the two
-    eval entries) beside its plain twin's time and its bound. Adds rows
-    eval_terms, eval_scan and poseidon_expand."""
+    card's N=4 parity wrap's), each held exactly against its plain twin on
+    the whole output (eval_aux_plain's (10, n) aux rows, from two launches
+    back to back, the look-back's scratch left zeroed; expand_plain: the
+    106 columns); eval_aux also at the N=128 shape less 37 rows (a ragged
+    last tile) and there with two zero denominators planted in one
+    thread's rows; at the N=128 wrap's shapes (`wrap_rows`: WrapAir's and
+    EvalAir's rows) each timed (the median of five rounds, a raw-launch
+    burst and torch.profiler's kernel time alone for eval_aux) beside its
+    plain twin's time and its bound. Adds rows eval_aux and
+    poseidon_expand."""
     from tendermintx_tpu_torch.ops import poseidon as ps
     from tendermintx_tpu_torch.ops.goldilocks import GF
     from tendermintx_tpu_torch.stark import evalair as ev
-    from tendermintx_tpu_torch.stark.lookup import scan_tiles
 
     dev = torch.device("cuda", 0)
     clock_mhz = float(_nvidia_smi("clocks.max.sm"))
     muls_per_ms = MULS_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * clock_mhz * 1e3
-    terms_fn, scan_fn, expand_fn = (WRAP_CALLS.originals[k] for k in ("eval_terms", "eval_scan", "expand"))
+    aux_fn, expand_fn = WRAP_CALLS.originals["eval_aux"], WRAP_CALLS.originals["expand"]
     wrap_n, eval_n = wrap_rows
     if eval_n not in WRAP_CALLS.eval or wrap_n not in WRAP_CALLS.expand:
         raise AssertionError(f"the N=128 wrap's shapes {wrap_rows} were not recorded: {list(WRAP_CALLS.eval)}, "
                              f"{list(WRAP_CALLS.expand)}")
 
-    def check_eval(trace, srows, gamma, delta):
+    def check_eval(trace, srows, gamma, delta, what: str) -> torch.Tensor:
         n = int(trace.v.shape[-1])
         want = ev.eval_aux_plain(trace, srows, gamma, delta).v
-        out = torch.empty((ev.N_AUX, n), dtype=torch.int64, device=dev)
-        partial = terms_fn(trace, srows, gamma, delta, out)
-        _check_equal(out[:8], want[:8], f"eval_terms at {n} rows")
-        scan_fn(partial, out)
-        _check_equal(out[8:], want[8:], f"eval_scan at {n} rows")
-        _check_equal(ev.eval_aux_cuda(trace, srows, gamma, delta).v, want, f"the EvalAir aux rows at {n} rows")
-        return out, partial
+        for _ in range(2):
+            _check_equal(aux_fn(trace, srows, gamma, delta).v, want, f"eval_aux at {n} rows{what}")
+        tiles, _ = ev._lookback_scratch(dev, -(-n // ev.EVAL_TILE))
+        if bool(tiles.any()):
+            raise AssertionError(f"eval_aux at {n} rows{what} left its look-back scratch non-zero")
+        return want
 
     checked_eval, checked_expand = [], []
     for n, args in sorted(WRAP_CALLS.eval.items()):
-        check_eval(*args)
+        check_eval(*args, "")
         checked_eval.append({"rows": n, "max_abs_err": 0.0})
+    trace, srows, gamma, delta = WRAP_CALLS.eval[eval_n]
+    ragged = eval_n - 37
+    check_eval(GF(trace.v[:, :ragged]), srows[:, :ragged].contiguous(), gamma, delta, " (ragged)")
+    checked_eval.append({"rows": ragged, "ragged": True, "max_abs_err": 0.0})
+    r = eval_n // 3 // ev.EVAL_TILE * ev.EVAL_TILE + 42  # a thread's first row; its next, r + EVAL_THREADS
+    cells = [(1, r), (3, r + ev.EVAL_THREADS)]
+    p_trace, p_rows, p_gamma = _planted_eval_case(trace, srows, delta, cells)
+    want = check_eval(p_trace, p_rows, p_gamma, delta, " (planted zero denominators)")
+    if any(int(want[2 * k + c, rr]) for k, rr in cells for c in (0, 1)):
+        raise AssertionError("the planted zero denominators gave non-zero terms")
+    checked_eval.append({"rows": eval_n, "planted_zero": cells, "max_abs_err": 0.0})
     for n, states in sorted(WRAP_CALLS.expand.items()):
         _check_equal(expand_fn(states), ps.expand_plain(states), f"poseidon_expand at {n} states")
         checked_expand.append({"rows": n, "max_abs_err": 0.0})
 
-    trace, srows, gamma, delta = WRAP_CALLS.eval[eval_n]
-    out, partial = check_eval(trace, srows, gamma, delta)
     n = eval_n
-    v0 = GF(trace.v[[ev.E_OUT, ev.E_AV, ev.E_BV, ev.E_CV]])
-    v1 = GF(trace.v[[ev.E_OUT + 1, ev.E_AV + 1, ev.E_BV + 1, ev.E_CV + 1]])
-    plain_terms, _ = _timed_once(lambda: ev._eval_terms(GF(srows[:4]), GF(srows[4:]), v0, v1, gamma, delta))
-    _, terms_plain_ms = _timed_once(lambda: ev._eval_terms(GF(srows[:4]), GF(srows[4:]), v0, v1, gamma, delta))
-    _, scan_plain_ms = _timed_once(lambda: ev._eval_scan(plain_terms))
+    run = lambda: aux_fn(trace, srows, gamma, delta)
+    _timed_once(lambda: ev.eval_aux_plain(trace, srows, gamma, delta))
     _, aux_plain_ms = _timed_once(lambda: ev.eval_aux_plain(trace, srows, gamma, delta))
-    terms = _time_rounds(lambda: terms_fn(trace, srows, gamma, delta, out), 20)
-    terms["burst_ms"] = _launch_burst_ms(ev, "_eval_launch", "_eval_library",
-                                         lambda: terms_fn(trace, srows, gamma, delta, out))
-    scan = _time_rounds(lambda: scan_fn(partial, out), 20)
-    scan["burst_ms"] = _launch_burst_ms(ev, "_eval_launch", "_eval_library", lambda: scan_fn(partial, out))
-    aux = _time_rounds(lambda: ev.eval_aux_cuda(trace, srows, gamma, delta), 20)
+    aux = _time_rounds(run, 20)
+    aux["burst_ms"] = _launch_burst_ms(ev, "_eval_launch", "_eval_library", run)
+    aux["alone_ms"] = _alone_ms(run)
     states = WRAP_CALLS.expand[wrap_n]
     _, expand_plain_ms = _timed_once(lambda: ps.expand_plain(states))
     expand = _time_rounds(lambda: expand_fn(states), 20)
-    # reads: the 8 trace and 8 static rows; writes: the 8 term rows and the
-    # 2 row-sum rows; the scan reads the row sums and writes S
-    terms_bound = _field_bound(n * 4 * EVAL_TERM_MULS + INV_MULS, 8 * n * (8 + 8 + 8 + 2), muls_per_ms)
-    scan_bound = _field_bound(0, 8 * n * (2 + 2), muls_per_ms)
+    # reads: the 8 trace and 8 static rows; writes: the 10 aux rows
+    aux_bound = _field_bound(n * 4 * EVAL_TERM_MULS + INV_MULS, 8 * n * (8 + 8 + 10), muls_per_ms)
     expand_bound = _bound(wrap_n, 8 * wrap_n * (ps.WIDTH + ps.EXPAND_COLS), clock_mhz, EXPAND_MULS_PER_STATE,
                           DESIGN_EXPAND_MULS_PER_STATE, EXPAND_MDS_PRODUCTS_PER_STATE,
                           DESIGN_EXPAND_MDS_PRODUCTS_PER_STATE)
-    common = {"route": "cuda", "source": "tendermintx_tpu_torch/csrc/logup.cu", "library_ms": None,
-              "library": "none: no PyTorch call computes GF(p^2) inverses or scans", "max_abs_err": 0.0,
-              "checked": checked_eval}
     out_rows = {
-        "eval_terms": {
-            **common, "replaces": "tendermintx_tpu/stark/evalair.py:945",
-            "replaces_program": "_eval_terms_kernel (:945) and _eval_assemble_kernel (:987)",
-            "shape": [8, n], **terms, "plain_ms": terms_plain_ms, **terms_bound,
-            **_registers_of(build["logup"]["ptxas"], "tmx_eval_terms"),
-            "aux": {**aux, "plain_ms": aux_plain_ms},
-        },
-        "eval_scan": {
-            **common, "replaces": "tendermintx_tpu/stark/evalair.py:966", "replaces_program": "_eval_scan_kernel",
-            "shape": [2, 1, n], "tiles": list(scan_tiles(n)), **scan, "plain_ms": scan_plain_ms, **scan_bound,
-            **_registers_of(build["logup"]["ptxas"], "tmx_logup_tile_sums", "tmx_logup_scan"),
+        "eval_aux": {
+            "route": "cuda", "source": "tendermintx_tpu_torch/csrc/logup.cu",
+            "replaces": "tendermintx_tpu/stark/evalair.py:945",
+            "replaces_program": "_eval_terms_kernel (:945), _eval_scan_kernel (:966) and _eval_assemble_kernel (:987)",
+            "library_ms": None, "library": "none: no PyTorch call computes GF(p^2) inverses or scans",
+            "max_abs_err": 0.0, "checked": checked_eval, "shape": [8, n],
+            "tiles": [ev.EVAL_TILE, -(-n // ev.EVAL_TILE)], "rows_a_thread": ev.EVAL_ROWS, **aux,
+            "plain_ms": aux_plain_ms, **aux_bound, **_registers_of(build["logup"]["ptxas"], "tmx_eval_aux"),
         },
         "poseidon_expand": {
             "route": "cuda", "source": "tendermintx_tpu_torch/csrc/poseidon.cu",
@@ -3073,6 +3104,8 @@ def phase_wrap_kernels(rows: dict, build: dict, wrap_rows: list[int]) -> dict:
     }
     for row in out_rows.values():
         row["bound_share"] = row["bound_ms"] / row["ms"]
+    if out_rows["eval_aux"]["alone_ms"]:
+        out_rows["eval_aux"]["alone_bound_share"] = aux_bound["bound_ms"] / out_rows["eval_aux"]["alone_ms"]
     emit({"phase": "wrap_kernels", **out_rows})
     rows.update(out_rows)
     return out_rows
@@ -3176,7 +3209,7 @@ def phase_grind(rows: dict, build: dict) -> dict:
 # the torch.profiler ranges around the wrap's former plain programs, now
 # around the kernels that replace them (stark/recursion.py: witness_trace,
 # stark/evalair.py: eval_aux_cuda)
-PLAIN_RANGES = ("expand_perm_states", "eval_terms", "eval_scan")
+PLAIN_RANGES = ("expand_perm_states", "eval_aux")
 
 
 def _range_times(prof, names) -> dict:
@@ -3271,6 +3304,7 @@ def phase_wrap(sc: SkipChain, proof, profile: bool) -> tuple[dict, dict, bytes]:
         "second_wrap_profiled": profile,
         f"n{sc.n}_wrapped_verify_seconds": t3 - t2,
         f"n{sc.n}_wrapped_proof_gz_bytes": len(blob),
+        "wrapped_sha256": hashlib.sha256(blob).hexdigest(),
         "unwrapped_proof_gz_bytes": len(proof.to_bytes()),
         "wrapped_proof_json_bytes": len(json.dumps(wrapped.to_dict(), separators=(",", ":"))),
         "wrap_rows": [st.n_rows for st in wrapped.batch.wrapper.statements],
@@ -3930,8 +3964,8 @@ def main(argv: list[str]) -> int:
                          else count(cold_launches, name) + count(warm_launches, name))
         entry = {"name": name, **{k: row[k] for k in kept}, "launches": main_launches,
                  "launches_by_path": {path: count(launches, name) for path, launches in paths.items()}}
-        entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "tiles", "registers", "spill_bytes",
-                                          "check_lanes") if k in row})
+        entry.update({k: row[k] for k in ("ms_min", "ms_max", "burst_ms", "alone_ms", "alone_bound_share", "tiles",
+                                          "rows_a_thread", "registers", "spill_bytes", "check_lanes") if k in row})
         if name in WITNESS_ENTRIES and "shapes" in row:
             entry["shapes"] = [{k: r[k] for k in ("shape", "ms", "burst_ms", "plain_ms", "bound_ms", "bound_by")}
                                for r in row["shapes"]]

@@ -60,11 +60,11 @@
 // groups' sums for their second read) and scans its tile a chunk of
 // SCAN_THREADS consecutive rows at a time (one a thread, read coalesced):
 // a warp-shuffle scan within the warps, then of the warps' totals, plus
-// the carry. Chosen over a single pass with decoupled look-back: at 2^15
-// rows the second read costs less than a launch, and two plain kernels
-// need no tile counter or status words to reset, and no block waits on
-// another. Field arithmetic is exact in any order, so every value equals
-// the plain torch version's bit for bit.
+// the carry. For these LogUp statements, chosen over a single pass with
+// decoupled look-back: at 2^15 rows the second read costs less than a
+// launch, and two plain kernels need no tile counter or status words to
+// reset, and no block waits on another. Field arithmetic is exact in any
+// order, so every value equals the plain torch version's bit for bit.
 //
 // EvalAir's memory argument (stark/evalair.py, the recursion wrap's second
 // statement) has the same shape on four fixed columns: for gamma, delta in
@@ -73,28 +73,65 @@
 //   t_k = m_k / (gamma - (a_k + delta v0_k + delta^2 v1_k)),  k = w, a, b, c
 //
 // over the trace's value pairs (v0_k, v1_k) and the tape's static address
-// and multiplicity rows a_k, m_k, and S = the running sum of tw - ta - tb - tc:
+// and multiplicity rows a_k, m_k, and S = the running sum of tw - ta - tb - tc.
+// tmx_eval_aux writes all ten rows [tw, ta, tb, tc, S] of the (10, n)
+// output, interleaved (c0, c1), in one launch. It replaces the XLA
+// programs of tendermintx_tpu/stark/evalair.py:945 `_eval_terms_kernel`,
+// :966 `_eval_scan_kernel` and :987 `_eval_assemble_kernel`.
 //
-//   tmx_eval_terms   a thread a row: its four denominators D_k, their norms
-//                    and Y_k = m_k conj(D_k), the four divisions together
-//                    by batch_div (a zero norm gives the term 0, as numer *
-//                    inv(0) does in the reference), each term straight into
-//                    its interleaved (c0, c1) rows 0-7 of the (10, n)
-//                    output, and the row's signed sum into a (2, 1, n)
-//                    scratch. v0 and v1 are read from the trace's rows in
-//                    place (no gathered copy);
-//   tmx_eval_scan    S into rows 8-9: the two scan kernels above, over the
-//                    one group of four terms.
+// Bound: bytes. At the wrap's 2^17 rows it reads 8 trace rows and 8 static
+// rows and writes 10 rows: 27.3 MB, 0.0081 ms at 3.35 TB/s; the least
+// multiplies (one inversion for the launch) take 0.0016 ms. A thread a row
+// dividing its 4 terms by one inversion issued ~3,800 SASS integer
+// instructions a row, half of them the inversion's 73 serial products, and
+// so ran at the integer pipe's rate, 28% of the bound; the scan then took
+// two more launches and a (2, n) scratch written once and read twice.
+// The design:
 //
-// They replace the XLA programs of tendermintx_tpu/stark/evalair.py:945
-// `_eval_terms_kernel`, :966 `_eval_scan_kernel` and :987
-// `_eval_assemble_kernel` (the interleaving copy is gone). Bound: bytes. At
-// the wrap's 2^17 rows a launch reads 8 trace rows and 8 static rows and
-// writes 8 term rows and the scratch's 2 (the scan reads the scratch twice
-// and writes S): ~31 MB, ~0.009 ms at 3.35 TB/s, against ~240 32-bit
-// multiply-adds a row (0.002 ms). One thread a row keeps every read and
-// write coalesced along the rows; batch_div over the row's 4 terms spends
-// one inversion on them.
+//   * A thread takes EVAL_ROWS rows, EVAL_THREADS apart (row b EVAL_TILE +
+//     j EVAL_THREADS + t for j < EVAL_ROWS), so every load and store stays
+//     coalesced, and divides their 4 EVAL_ROWS terms together by one
+//     inversion (Montgomery's trick with the multiplicity folded in): on
+//     the way up each term's D, its norm N = D0^2 - W D1^2 and u = m times
+//     the norms before it; one inversion of the product (goldilocks.cuh's
+//     chain on mul_nc's values, canonical once at the end); on the way down
+//     c = u / (the norms up to it) = m / N and the term c conj(D): 6 field
+//     products a term where m conj(D) first, then batch_div, takes 8. A
+//     zero norm (D = 0) is taken as 1 in the product, so the batch's other
+//     terms stay exact, and its term c conj(D) is 0, as numer * inv(0) is
+//     in the reference. Rows past n take norm 1 and m 0 and are not
+//     stored. v0 and v1 are read from the trace's rows in place.
+//   * Each row's signed sum tw - ta - tb - tc stays in registers. The block
+//     scans its tile in row order: each chunk j (EVAL_THREADS consecutive
+//     rows) by a warp-shuffle scan in each warp; the chunks' warp totals,
+//     EVAL_ROWS x EVAL_WARPS <= 32 of them, by one shuffle scan of warp 0,
+//     which gives the tile's sum. S = the row's scan + the totals before its
+//     (chunk, warp) + the sum of every earlier tile.
+//   * The sum of the earlier tiles comes in the same pass, by decoupled
+//     look-back: each block takes its tile from an atomic counter, so tiles
+//     start in order and no block waits on one that has not started; warp
+//     0 publishes the tile's sum (status 1) at once, then reads the status
+//     of the 32 LOOK_TILES tiles below it at once, waits for those nearer
+//     than the nearest that has published its inclusive prefix (status 2)
+//     to publish their sums, adds them and that prefix, and publishes its
+//     own prefix. At the wrap's 2^17 rows every tile is resident at once
+//     and publishes its sum at about the same time, so prefixes are rare
+//     when a block looks back: a step of 256 tiles reaches tile 0's in one
+//     round trip where windows of 32 took up to 8 in turn. Values
+//     go out before their status word by st.release.gpu and are read after
+//     it by ld.acquire.gpu. The last block done (a second counter) sets
+//     both counters and every status word back to 0, so the scratch is
+//     ready for the next launch on the stream with no memset launch.
+//     Chosen over a cooperative launch: that needs a grid no larger than
+//     the resident blocks, so a block would loop over several tiles and
+//     could not keep their row sums in registers across the grid barrier.
+//
+// EVAL_ROWS = 2 and EVAL_THREADS = 512 were chosen on an H100 (PERF.md, PR
+// 20): more rows a thread cut the integer work a row (the inversion's 73
+// products shared by 4 EVAL_ROWS terms) but leave fewer warps to hide the
+// carry chains' latency: at 2^17 rows 2 rows a thread keep 16 warps an SM,
+// 3 and 4 fewer and ran slower, 8 spilled. 512 threads make 128 tiles,
+// all resident, which beat 256 and 128 threads at the same warps an SM.
 //
 // Each entry has a plain C interface, launches on the caller's stream and
 // returns cudaGetLastError(); the kernels allocate nothing.
@@ -114,6 +151,16 @@ constexpr int THREADS = 128;  // stark/lookup.py: _LOGUP_THREADS
 constexpr int SCAN_THREADS = 256;  // stark/lookup.py: _SCAN_THREADS
 constexpr int SCAN_WARPS = SCAN_THREADS / 32;
 constexpr int EVAL_TERMS = 4;  // stark/evalair.py: the w, a, b and c terms
+constexpr int EVAL_THREADS = 512;  // stark/evalair.py: EVAL_THREADS
+constexpr int EVAL_ROWS = 2;  // stark/evalair.py: EVAL_ROWS, rows a thread
+constexpr int EVAL_WARPS = EVAL_THREADS / 32;
+constexpr int EVAL_TILE = EVAL_THREADS * EVAL_ROWS;  // rows a block
+static_assert(EVAL_ROWS * EVAL_WARPS <= 32, "warp 0 scans the tile's (chunk, warp) totals");
+// rows a launch: the tiles are counted and indexed in 32 bits, far inside
+constexpr int64_t EVAL_MAX_ROWS = (int64_t(1) << 31) - 1;  // stark/evalair.py: EVAL_MAX_ROWS
+// a tile's status word: nothing yet, its sum, its inclusive prefix
+constexpr uint32_t TILE_EMPTY = 0, TILE_SUM = 1, TILE_PREFIX = 2;
+constexpr int LOOK_TILES = 8;  // tiles a lane reads a look-back step: 256 a step
 
 }  // namespace
 
@@ -149,11 +196,10 @@ struct EvalArgs {
     const uint64_t* delta0;
     const uint64_t* delta1;
     int64_t n;
-    uint64_t* out;        // (10, n): [tw.c0, tw.c1, ..., tc.c1, S.c0, S.c1]
-    uint64_t* partial;    // (2, 1, n)
-    int64_t tile;         // the scan's rows a tile, a multiple of SCAN_THREADS
-    int64_t n_tiles;
-    uint64_t* tile_sums;  // (2, n_tiles)
+    uint64_t* out;     // (10, n): [tw.c0, tw.c1, ..., tc.c1, S.c0, S.c1]
+    int64_t n_tiles;   // ceil(n / EVAL_TILE)
+    uint32_t* tiles;   // (2 + n_tiles): the tile counter, the done counter, each tile's status; all 0 between launches
+    uint64_t* sums;    // (n_tiles, 4): each tile's sum and inclusive prefix, (c0, c1) each
 };
 
 namespace {
@@ -380,35 +426,225 @@ __global__ void __launch_bounds__(SCAN_THREADS) tmx_logup_scan_kernel(LogupArgs 
     }
 }
 
-// EvalAir's four terms at row r (see the top)
-__global__ void __launch_bounds__(THREADS) tmx_eval_terms_kernel(EvalArgs a) {
-    const int64_t r = int64_t(blockIdx.x) * THREADS + threadIdx.x;
-    if (r >= a.n) return;
+__device__ __forceinline__ uint64_t ldcg(const uint64_t* p) {
+    return __ldcg(reinterpret_cast<const unsigned long long*>(p));
+}
+
+__device__ __forceinline__ void st_release(uint32_t* p, uint32_t v) {
+    asm volatile("st.release.gpu.global.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
+    uint32_t v;
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+// a c for c < 2^32, canonical: the 96-bit product lo + 2^64 hi (hi < c)
+// is lo + hi (2^32 - 1), and hi (2^32 - 1) < p
+__device__ __forceinline__ uint64_t mul_small(uint64_t a, uint32_t c) {
+    return tmx_gl::add(tmx_gl::canon(a * c), __umul64hi(a, c) * tmx_gl::EPS);
+}
+
+// x^(2^K) by mul_nc
+template <int K>
+__device__ __forceinline__ uint64_t sqn_nc(uint64_t x) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) x = tmx_gl::mul_nc(x, x);
+    return x;
+}
+
+// 1/a, and 0 for 0: goldilocks.cuh's inv chain on mul_nc's values, which
+// stay below 2^64, made canonical once at the end (the power is unique)
+__device__ __forceinline__ uint64_t inv_nc(uint64_t a) {
+    const uint64_t t2 = tmx_gl::mul_nc(sqn_nc<1>(a), a);
+    const uint64_t t4 = tmx_gl::mul_nc(sqn_nc<2>(t2), t2);
+    const uint64_t t8 = tmx_gl::mul_nc(sqn_nc<4>(t4), t4);
+    const uint64_t t16 = tmx_gl::mul_nc(sqn_nc<8>(t8), t8);
+    const uint64_t t24 = tmx_gl::mul_nc(sqn_nc<8>(t16), t8);
+    const uint64_t t28 = tmx_gl::mul_nc(sqn_nc<4>(t24), t4);
+    const uint64_t t30 = tmx_gl::mul_nc(sqn_nc<2>(t28), t2);
+    const uint64_t t31 = tmx_gl::mul_nc(sqn_nc<1>(t30), a);
+    const uint64_t v = sqn_nc<1>(t31);  // a^(2^32 - 2)
+    return tmx_gl::canon(tmx_gl::mul_nc(sqn_nc<32>(v), tmx_gl::mul_nc(v, a)));
+}
+
+// the inclusive scan of x over the warp's lanes
+__device__ __forceinline__ E2 warp_scan(E2 x, int lane) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+        const E2 y = shfl_up(x, off);
+        if (lane >= off) x = tmx_ext::add(x, y);
+    }
+    return x;
+}
+
+// The sum of every row before tile `tile` > 0, in every lane of the warp.
+// A step reads the status of the 32 LOOK_TILES tiles below `top` at once
+// (lane l the tiles top - l - 32 i), finds the nearest that has published
+// its inclusive prefix (before tile 0, a prefix of 0), waits until every
+// nearer tile has published its sum, and adds those sums and that prefix;
+// with no prefix among them, it waits for all and adds all, and steps down.
+__device__ E2 look_back(const EvalArgs& a, int64_t tile, int lane) {
+    constexpr int SPAN = 32 * LOOK_TILES;
+    const uint32_t* status = a.tiles + 2;
+    E2 before{0, 0};
+    for (int64_t top = tile - 1;; top -= SPAN) {
+        uint32_t s[LOOK_TILES];
+#pragma unroll
+        for (int i = 0; i < LOOK_TILES; ++i) {
+            const int64_t p = top - lane - 32 * i;
+            s[i] = p < 0 ? TILE_PREFIX : ld_acquire(status + p);
+        }
+        int stop;  // the nearest prefix's distance below top, SPAN for none
+        for (;;) {
+            stop = SPAN;
+#pragma unroll
+            for (int i = LOOK_TILES - 1; i >= 0; --i) {
+                const unsigned b = __ballot_sync(0xFFFFFFFFu, s[i] == TILE_PREFIX);
+                if (b) stop = 32 * i + __ffs(b) - 1;
+            }
+            bool wait = false;
+#pragma unroll
+            for (int i = 0; i < LOOK_TILES; ++i) wait |= s[i] == TILE_EMPTY && 32 * i + lane < stop;
+            if (!__any_sync(0xFFFFFFFFu, wait)) break;
+#pragma unroll
+            for (int i = 0; i < LOOK_TILES; ++i)
+                if (s[i] == TILE_EMPTY && 32 * i + lane < stop) s[i] = ld_acquire(status + top - lane - 32 * i);
+        }
+        E2 v{0, 0};
+#pragma unroll
+        for (int i = 0; i < LOOK_TILES; ++i) {
+            const int dist = 32 * i + lane;
+            const int64_t p = top - dist;
+            if (p >= 0 && dist <= stop) {
+                const uint64_t* w = a.sums + 4 * p + (dist == stop ? 2 : 0);
+                v = tmx_ext::add(v, E2{ldcg(w), ldcg(w + 1)});
+            }
+        }
+#pragma unroll
+        for (int m = 16; m; m >>= 1) v = tmx_ext::add(v, shfl_xor(v, m));
+        before = tmx_ext::add(before, v);
+        if (stop < SPAN) return before;
+    }
+}
+
+// EvalAir's ten aux rows over one tile of EVAL_TILE rows (see the top)
+__global__ void __launch_bounds__(EVAL_THREADS) tmx_eval_aux_kernel(EvalArgs a) {
+    constexpr int CHUNKS = EVAL_ROWS * EVAL_WARPS;
+    __shared__ uint64_t tot0[CHUNKS], tot1[CHUNKS];  // each (chunk, warp)'s total, then the sum before it
+    __shared__ uint64_t before0, before1;            // the sum of every row before the tile
+    __shared__ uint32_t tile_s, last_s;
+    const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+    if (t == 0) tile_s = atomicAdd(a.tiles, 1u);  // tiles start in order
+    __syncthreads();
+    const int64_t tile = tile_s;
+    const int64_t r0 = tile * EVAL_TILE + t;  // chunk j's row: r0 + j EVAL_THREADS
     const E2 g{ld(a.gamma0), ld(a.gamma1)}, d{ld(a.delta0), ld(a.delta1)};
     const E2 e = tmx_ext::mul(d, d);  // delta^2
-    uint64_t nrm[EVAL_TERMS];
-    E2 y[EVAL_TERMS];
+    // each term's D, N(D) and, on the way up, m times the norms before it
+    constexpr int Q = EVAL_ROWS * EVAL_TERMS;
+    uint64_t D0[Q], D1[Q], nrm[Q], u[Q];
+    uint64_t pre = 1;  // the product of the norms so far, below 2^64
 #pragma unroll
-    for (int k = 0; k < EVAL_TERMS; ++k) {
-        const uint64_t v0 = ld(a.trace + (2 * k) * a.trace_ld + r), v1 = ld(a.trace + (2 * k + 1) * a.trace_ld + r);
-        const uint64_t addr = ld(a.rows + k * a.n + r), m = ld(a.rows + (EVAL_TERMS + k) * a.n + r);
-        const uint64_t D0 = tmx_gl::sub(tmx_gl::sub(g.c0, addr), dot2(d.c0, v0, e.c0, v1));
-        const uint64_t D1 = tmx_gl::sub(g.c1, dot2(d.c1, v0, e.c1, v1));
-        const uint64_t nwd1 = tmx_gl::neg(tmx_gl::mul(D1, tmx_ext::W));  // -W D1
-        nrm[k] = dot2(D0, D0, nwd1, D1);
-        y[k] = E2{tmx_gl::mul(m, D0), tmx_gl::neg(tmx_gl::mul(m, D1))};
+    for (int j = 0; j < EVAL_ROWS; ++j) {
+        const int64_t r = r0 + j * EVAL_THREADS;
+#pragma unroll
+        for (int k = 0; k < EVAL_TERMS; ++k) {
+            const int q = j * EVAL_TERMS + k;
+            uint64_t m = 0;
+            D0[q] = D1[q] = 0;
+            nrm[q] = 1;  // rows past n: N 1, m 0
+            if (r < a.n) {
+                const uint64_t v0 = ld(a.trace + (2 * k) * a.trace_ld + r);
+                const uint64_t v1 = ld(a.trace + (2 * k + 1) * a.trace_ld + r);
+                const uint64_t addr = ld(a.rows + k * a.n + r);
+                m = ld(a.rows + (EVAL_TERMS + k) * a.n + r);
+                D0[q] = tmx_gl::sub(tmx_gl::sub(g.c0, addr), dot2(d.c0, v0, e.c0, v1));
+                D1[q] = tmx_gl::sub(g.c1, dot2(d.c1, v0, e.c1, v1));
+                nrm[q] = dot2(D0[q], D0[q], tmx_gl::neg(mul_small(D1[q], tmx_ext::W)), D1[q]);
+                if (nrm[q] == 0) nrm[q] = 1;  // D = 0: the term c conj(D) is 0, the batch's others exact
+            }
+            u[q] = q ? tmx_gl::mul_nc(m, pre) : m;
+            pre = q ? tmx_gl::mul_nc(pre, nrm[q]) : nrm[q];
+        }
     }
-    tmx_ext::batch_div(nrm, y);  // m / D, 0 for D = 0
-    E2 sum = y[0];
+    // on the way down, acc = 1 / (N_0 ... N_q): m_q / N_q = u_q acc, and the
+    // term m_q conj(D_q) / N(D_q)
+    uint64_t acc = inv_nc(pre);
+    E2 y[Q];
 #pragma unroll
-    for (int k = 1; k < EVAL_TERMS; ++k) sum = tmx_ext::sub(sum, y[k]);
-#pragma unroll
-    for (int k = 0; k < EVAL_TERMS; ++k) {
-        a.out[(2 * k) * a.n + r] = y[k].c0;
-        a.out[(2 * k + 1) * a.n + r] = y[k].c1;
+    for (int q = Q - 1; q >= 0; --q) {
+        const uint64_t c = tmx_gl::mul_nc(u[q], acc);
+        if (q) acc = tmx_gl::mul_nc(acc, nrm[q]);
+        y[q] = E2{tmx_gl::mul(c, D0[q]), tmx_gl::neg(tmx_gl::mul(c, D1[q]))};
     }
-    a.partial[r] = sum.c0;
-    a.partial[a.n + r] = sum.c1;
+    E2 s[EVAL_ROWS];  // each row's tw - ta - tb - tc, then its scan over the warp's rows of the chunk
+#pragma unroll
+    for (int j = 0; j < EVAL_ROWS; ++j) {
+        const int64_t r = r0 + j * EVAL_THREADS;
+        const int q = j * EVAL_TERMS;
+        s[j] = tmx_ext::sub(tmx_ext::sub(tmx_ext::sub(y[q], y[q + 1]), y[q + 2]), y[q + 3]);
+        if (r < a.n) {
+#pragma unroll
+            for (int k = 0; k < EVAL_TERMS; ++k) {
+                a.out[(2 * k) * a.n + r] = y[q + k].c0;
+                a.out[(2 * k + 1) * a.n + r] = y[q + k].c1;
+            }
+        }
+        s[j] = warp_scan(s[j], lane);
+        if (lane == 31) {
+            tot0[j * EVAL_WARPS + warp] = s[j].c0;
+            tot1[j * EVAL_WARPS + warp] = s[j].c1;
+        }
+    }
+    __syncthreads();
+    if (warp == 0) {
+        const E2 x = warp_scan(lane < CHUNKS ? E2{tot0[lane], tot1[lane]} : E2{0, 0}, lane);
+        const E2 sum{__shfl_sync(0xFFFFFFFFu, (unsigned long long)x.c0, 31),
+                     __shfl_sync(0xFFFFFFFFu, (unsigned long long)x.c1, 31)};  // the tile's
+        const E2 prev = shfl_up(x, 1);
+        if (lane < CHUNKS) {
+            tot0[lane] = lane ? prev.c0 : 0;
+            tot1[lane] = lane ? prev.c1 : 0;
+        }
+        E2 before{0, 0};
+        if (tile > 0) {
+            if (lane == 0) {
+                a.sums[4 * tile] = sum.c0;
+                a.sums[4 * tile + 1] = sum.c1;
+                st_release(a.tiles + 2 + tile, TILE_SUM);
+            }
+            before = look_back(a, tile, lane);
+        }
+        if (lane == 0) {
+            const E2 incl = tmx_ext::add(before, sum);
+            a.sums[4 * tile + 2] = incl.c0;
+            a.sums[4 * tile + 3] = incl.c1;
+            st_release(a.tiles + 2 + tile, TILE_PREFIX);
+            before0 = before.c0;
+            before1 = before.c1;
+            __threadfence();  // this block's reads and publications come before its count
+            last_s = atomicAdd(a.tiles + 1, 1u) == uint32_t(a.n_tiles - 1);
+            __threadfence();
+        }
+    }
+    __syncthreads();
+    const E2 before{before0, before1};
+#pragma unroll
+    for (int j = 0; j < EVAL_ROWS; ++j) {
+        const int64_t r = r0 + j * EVAL_THREADS;
+        if (r < a.n) {
+            const int c = j * EVAL_WARPS + warp;
+            const E2 S = tmx_ext::add(tmx_ext::add(s[j], E2{tot0[c], tot1[c]}), before);
+            a.out[(2 * EVAL_TERMS) * a.n + r] = S.c0;
+            a.out[(2 * EVAL_TERMS + 1) * a.n + r] = S.c1;
+        }
+    }
+    if (last_s) {  // every block is past its look-back: reset the scratch for the next launch
+        for (int64_t i = t; i < a.n_tiles; i += EVAL_THREADS) a.tiles[2 + i] = TILE_EMPTY;
+        if (t == 0) a.tiles[0] = a.tiles[1] = 0;
+    }
 }
 
 bool valid(const LogupArgs& a) {
@@ -446,31 +682,11 @@ int launch_scan(const LogupArgs& a, void* stream) {
 
 extern "C" int tmx_logup_scan(const LogupArgs* args, void* stream) { return launch_scan(*args, stream); }
 
-extern "C" int tmx_eval_terms(const EvalArgs* args, void* stream) {
+extern "C" int tmx_eval_aux(const EvalArgs* args, void* stream) {
     const EvalArgs& a = *args;
-    const int64_t blocks = (a.n + THREADS - 1) / THREADS;
-    if (a.n < 1 || a.trace_ld < a.n || blocks > INT_MAX || !a.trace || !a.rows || !a.gamma0 || !a.gamma1 ||
-        !a.delta0 || !a.delta1 || !a.out || !a.partial)
+    if (a.n < 1 || a.n > EVAL_MAX_ROWS || a.trace_ld < a.n || a.n_tiles != (a.n + EVAL_TILE - 1) / EVAL_TILE ||
+        !a.trace || !a.rows || !a.gamma0 || !a.gamma1 || !a.delta0 || !a.delta1 || !a.out || !a.tiles || !a.sums)
         return (int)cudaErrorInvalidValue;
-    tmx_eval_terms_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(a);
+    tmx_eval_aux_kernel<<<(unsigned)a.n_tiles, EVAL_THREADS, 0, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
-}
-
-// The scan of the LogUp statements with the EvalAir output as one group of
-// EVAL_TERMS terms and no checked columns: S goes to the rows after the four
-// term pairs, as a lookup's follows its n_batches + width.
-extern "C" int tmx_eval_scan(const EvalArgs* args, void* stream) {
-    const EvalArgs& e = *args;
-    LogupArgs a{};
-    a.n = e.n;
-    a.width = EVAL_TERMS;
-    a.span = 1;
-    a.group = TERMS;
-    a.n_groups = 1;
-    a.out = e.out;
-    a.partial = e.partial;
-    a.tile = e.tile;
-    a.n_tiles = e.n_tiles;
-    a.tile_sums = e.tile_sums;
-    return launch_scan(a, stream);
 }

@@ -31,9 +31,10 @@ Op set (MAC fusion halves the raw tape; see ``_optimize``):
 
 Columns: committed OUT/AV/BV/CV (ext pairs, 8 base); aux TW/TA/TB/TC/S
 (LogUp terms + running sum, 10 base); 20 public schedule columns.
-Constraint degree 3. The aux columns are csrc/logup.cu's eval entries on a
-CUDA trace (one launch for the terms, one scan call) and their plain torch
-twins on a CPU trace (the reference's jitted ``_eval_*_kernel`` programs).
+Constraint degree 3. The aux columns are csrc/logup.cu's tmx_eval_aux on a
+CUDA trace (one launch: the terms and their running sum) and their plain
+torch twins on a CPU trace (the reference's jitted ``_eval_*_kernel``
+programs).
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ from torch.profiler import record_function
 from ..ops.ext import GF2, W
 from ..ops.goldilocks import GF, P, tensor_from_u64
 from .air import Air, Frame
-from .lookup import _logup_library, _prefix_sum, scan_tiles
+from .lookup import _logup_library, _prefix_sum
 
 # opcodes
 LOAD, ADD, SUB, MUL, CMUL, MAC, MSUB, CMAC = range(8)
@@ -783,7 +784,7 @@ class EvalAir(Air):
 
     def aux_columns(self, trace: GF, challenges, publics):
         """LogUp terms tw/ta/tb/tc + running sum S: the plain torch
-        programs for a CPU trace, csrc/logup.cu's eval entries for a CUDA
+        programs for a CPU trace, csrc/logup.cu's tmx_eval_aux for a CUDA
         one."""
         gamma, delta = challenges
         t = trace.device.type
@@ -936,12 +937,17 @@ def _eval_assemble(terms: GF2, S: GF2) -> GF:
     return GF(torch.cat([inter, torch.stack([S.c0.v, S.c1.v])], dim=0))
 
 
-# -- aux columns on the card: csrc/logup.cu's eval entries --------------------
+# -- aux columns on the card: csrc/logup.cu's tmx_eval_aux ---------------------
 
-# incremented exactly where each entry is launched, by the CUDA kernels it
-# launches (tmx_eval_scan: the LogUp scan's tile-sum and scan kernels, 2)
-eval_terms_kernel_launches = 0
-eval_scan_kernel_launches = 0
+# csrc/logup.cu: a block of EVAL_THREADS threads takes EVAL_ROWS rows a
+# thread, a tile of EVAL_TILE rows; a launch takes at most EVAL_MAX_ROWS
+EVAL_THREADS = 512
+EVAL_ROWS = 2
+EVAL_TILE = EVAL_THREADS * EVAL_ROWS
+EVAL_MAX_ROWS = (1 << 31) - 1
+
+# incremented exactly where eval_aux_cuda launches its kernel
+eval_aux_kernel_launches = 0
 
 
 class _EvalArgs(ctypes.Structure):
@@ -951,17 +957,16 @@ class _EvalArgs(ctypes.Structure):
         ("trace", ctypes.c_void_p), ("trace_ld", ctypes.c_int64), ("rows", ctypes.c_void_p),
         ("gamma0", ctypes.c_void_p), ("gamma1", ctypes.c_void_p),
         ("delta0", ctypes.c_void_p), ("delta1", ctypes.c_void_p),
-        ("n", ctypes.c_int64), ("out", ctypes.c_void_p), ("partial", ctypes.c_void_p),
-        ("tile", ctypes.c_int64), ("n_tiles", ctypes.c_int64), ("tile_sums", ctypes.c_void_p),
+        ("n", ctypes.c_int64), ("out", ctypes.c_void_p),
+        ("n_tiles", ctypes.c_int64), ("tiles", ctypes.c_void_p), ("sums", ctypes.c_void_p),
     ]
 
 
 @cache
 def _eval_library():
     lib = _logup_library()
-    for fn in ("tmx_eval_terms", "tmx_eval_scan"):
-        getattr(lib, fn).restype = ctypes.c_int
-        getattr(lib, fn).argtypes = [ctypes.POINTER(_EvalArgs), ctypes.c_void_p]
+    lib.tmx_eval_aux.restype = ctypes.c_int
+    lib.tmx_eval_aux.argtypes = [ctypes.POINTER(_EvalArgs), ctypes.c_void_p]
     return lib
 
 
@@ -973,6 +978,23 @@ def _eval_launch(fn: str, args: _EvalArgs, dev):
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
 
 
+# the look-back's scratch a (device, stream): (2 + capacity) int32 words, the
+# tile counter, the done counter and each tile's status, zeroed once and left
+# zeroed by every launch; and (capacity, 4) int64 words, each tile's sum and
+# inclusive prefix. A stream's launches run in order, so they share it.
+_LOOKBACK: dict = {}
+
+
+def _lookback_scratch(dev, n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    got = _LOOKBACK.get(key)
+    if got is None or got[1].shape[0] < n_tiles:
+        cap = max(1024, 1 << (n_tiles - 1).bit_length())
+        got = (torch.zeros(2 + cap, dtype=torch.int32, device=dev), torch.empty((cap, 4), dtype=torch.int64, device=dev))
+        _LOOKBACK[key] = got
+    return got
+
+
 def _check_operand(t: torch.Tensor, dev, shape: tuple, what: str):
     if t.device != dev or t.dtype != torch.int64:
         raise TypeError(f"eval aux: {what} must be an int64 tensor on {dev}, got {t.dtype} on {t.device}")
@@ -981,60 +1003,32 @@ def _check_operand(t: torch.Tensor, dev, shape: tuple, what: str):
                          f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
-def eval_terms_cuda(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2, out: torch.Tensor) -> torch.Tensor:
-    """One launch: the four terms' interleaved rows 0-7 of the (10, n)
-    `out`; returns the (2, 1, n) row sums tw - ta - tb - tc."""
-    global eval_terms_kernel_launches
+def eval_aux_cuda(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2) -> GF:
+    """The (10, n) aux rows on the card in one launch of tmx_eval_aux: the
+    four terms' interleaved rows 0-7 and S in rows 8-9."""
+    global eval_aux_kernel_launches
     v = trace.v
     dev = v.device
     if dev.type != "cuda" or v.dtype != torch.int64:
-        raise TypeError(f"eval_terms_cuda takes an int64 CUDA trace, got {v.dtype} on {dev}")
-    if v.dim() != 2 or int(v.shape[0]) != N_MAIN or int(v.shape[1]) < 1:
-        raise ValueError(f"eval_terms_cuda: the trace is {tuple(v.shape)}; ({N_MAIN}, n >= 1) wanted")
+        raise TypeError(f"eval_aux_cuda takes an int64 CUDA trace, got {v.dtype} on {dev}")
+    if v.dim() != 2 or int(v.shape[0]) != N_MAIN or not 1 <= int(v.shape[1]) <= EVAL_MAX_ROWS:
+        raise ValueError(f"eval_aux_cuda: the trace is {tuple(v.shape)}; ({N_MAIN}, 1 <= n <= {EVAL_MAX_ROWS}) wanted")
     n = int(v.shape[1])
     if n > 1 and v.stride(1) != 1:
-        raise ValueError("eval_terms_cuda: the trace must have unit stride along its rows")
+        raise ValueError("eval_aux_cuda: the trace must have unit stride along its rows")
     _check_operand(rows, dev, (len(_AUX_ROWS), n), "the static rows")
-    _check_operand(out, dev, (N_AUX, n), "the output")
     for what, x in (("gamma c0", gamma.c0.v), ("gamma c1", gamma.c1.v), ("delta c0", delta.c0.v),
                     ("delta c1", delta.c1.v)):
         if x.device != dev or x.dtype != torch.int64 or x.numel() != 1:
-            raise TypeError(f"eval_terms_cuda: {what} must be one int64 word on {dev}")
-    partial = torch.empty((2, 1, n), dtype=torch.int64, device=dev)
+            raise TypeError(f"eval_aux_cuda: {what} must be one int64 word on {dev}")
+    out = torch.empty((N_AUX, n), dtype=torch.int64, device=dev)
+    n_tiles = -(-n // EVAL_TILE)
+    tiles, sums = _lookback_scratch(dev, n_tiles)
     args = _EvalArgs(trace=v.data_ptr(), trace_ld=int(v.stride(0)), rows=rows.data_ptr(),
                      gamma0=gamma.c0.v.data_ptr(), gamma1=gamma.c1.v.data_ptr(),
                      delta0=delta.c0.v.data_ptr(), delta1=delta.c1.v.data_ptr(),
-                     n=n, out=out.data_ptr(), partial=partial.data_ptr())
-    _eval_launch("tmx_eval_terms", args, dev)
-    eval_terms_kernel_launches += 1
-    return partial
-
-
-def eval_scan_cuda(partial: torch.Tensor, out: torch.Tensor):
-    """S into rows 8-9 of `out` from the (2, 1, n) row sums (the other rows
-    are not read): the LogUp scan's two kernels over scan_tiles(n), their
-    tile sums in a (2, tiles) scratch."""
-    global eval_scan_kernel_launches
-    dev = out.device
-    if dev.type != "cuda":
-        raise TypeError(f"eval_scan_cuda takes CUDA tensors, got {dev}")
-    n = int(out.shape[-1]) if out.dim() == 2 else 0
-    _check_operand(out, dev, (N_AUX, n), "the output")
-    _check_operand(partial, dev, (2, 1, n), "the row sums")
-    tile, n_tiles = scan_tiles(n)
-    tile_sums = torch.empty((2, n_tiles), dtype=torch.int64, device=dev)
-    args = _EvalArgs(n=n, out=out.data_ptr(), partial=partial.data_ptr(), tile=tile, n_tiles=n_tiles,
-                     tile_sums=tile_sums.data_ptr())
-    _eval_launch("tmx_eval_scan", args, dev)
-    eval_scan_kernel_launches += 2
-
-
-def eval_aux_cuda(trace: GF, rows: torch.Tensor, gamma: GF2, delta: GF2) -> GF:
-    """The (10, n) aux rows on the card: the terms kernel writes rows 0-7
-    and the row sums, the scan rows 8-9; one torch.profiler range each."""
-    out = torch.empty((N_AUX, int(trace.v.shape[-1])), dtype=torch.int64, device=trace.device)
-    with record_function("eval_terms"):
-        partial = eval_terms_cuda(trace, rows, gamma, delta, out)
-    with record_function("eval_scan"):
-        eval_scan_cuda(partial, out)
+                     n=n, out=out.data_ptr(), n_tiles=n_tiles, tiles=tiles.data_ptr(), sums=sums.data_ptr())
+    with record_function("eval_aux"):
+        _eval_launch("tmx_eval_aux", args, dev)
+    eval_aux_kernel_launches += 1
     return GF(out)

@@ -1534,31 +1534,28 @@ def _eval_inputs(n: int, seed: int, dev):
 def _eval_counts():
     from tendermintx_tpu_torch.stark import evalair as ev
 
-    return (ev.eval_terms_kernel_launches, ev.eval_scan_kernel_launches)
+    return ev.eval_aux_kernel_launches
 
 
 def _eval_check(trace, rows, gamma, delta):
-    """eval_aux_cuda (one terms launch, the scan's two kernels) against
-    eval_aux_plain, exact on the whole (10, n) output; each entry alone
-    against its rows of it (the terms entry's rows 0-7, the scan over its
-    row sums rows 8-9)."""
+    """eval_aux_cuda against eval_aux_plain, exact on the whole (10, n)
+    output, twice back to back on the stream: one launch each, the same
+    rows, and the look-back's counters and status words left at 0."""
     from tendermintx_tpu_torch.stark import evalair as ev
 
     want = ev.eval_aux_plain(trace, rows, gamma, delta).v
     before = _eval_counts()
     got = ev.eval_aux_cuda(trace, rows, gamma, delta)
-    assert _eval_counts() == (before[0] + 1, before[1] + 2)
-    assert torch.equal(got.v, want)
-    out = torch.empty_like(got.v)
-    partial = ev.eval_terms_cuda(trace, rows, gamma, delta, out)
-    assert torch.equal(out[:8], want[:8]) and tuple(partial.shape) == (2, 1, int(want.shape[-1]))
-    ev.eval_scan_cuda(partial, out)
-    assert torch.equal(out[8:], want[8:])
+    again = ev.eval_aux_cuda(trace, rows, gamma, delta)
+    assert _eval_counts() == before + 2
+    assert torch.equal(got.v, want) and torch.equal(again.v, want)
+    tiles, _ = ev._lookback_scratch(trace.device, -(-int(want.shape[-1]) // ev.EVAL_TILE))
+    assert not bool(tiles.any())
     return got
 
 
-# ragged row counts about a block (128) and a scan chunk (256), several
-# tiles of several chunks, and the wrap's 2^17 rows
+# ragged row counts about a block's tile (512 rows) and a chunk (128),
+# tiles past one and two look-back windows of 32, and the wrap's 2^17 rows
 @pytest.mark.parametrize("n", [1, 7, 255, 257, 5000, 33_000, 1 << 17])
 def test_eval_kernels_match_plain(dev, n):
     _eval_check(*_eval_inputs(n, 500 + n, dev))
@@ -1566,14 +1563,21 @@ def test_eval_kernels_match_plain(dev, n):
 
 def test_eval_kernels_read_a_strided_trace_and_a_zero_denominator(dev):
     """The trace as rows of a wider tensor (row stride n + 5), and gamma
-    equal to one cell's a + delta v0 + delta^2 v1: that term is 0, as in
-    the plain twin."""
+    equal to one cell's a + delta v0 + delta^2 v1, that cell copied to
+    another term of the same thread's next row: both terms are 0, as in
+    the plain twin, and the thread's other terms exact."""
     from tendermintx_tpu_torch.ops.ext import GF2
+    from tendermintx_tpu_torch.stark import evalair as ev
 
-    n, r, k = 1000, 333, 1
+    n, k, k2 = 1000, 1, 3
+    r = 333 // ev.EVAL_TILE * ev.EVAL_TILE + 333 % ev.EVAL_THREADS  # a thread's first row
+    r2 = r + ev.EVAL_THREADS  # its next
+    assert r2 < n and r2 // ev.EVAL_TILE == r // ev.EVAL_TILE
     trace, rows, _, delta = _eval_inputs(n, 77, dev)
     wide = _felts((8, n + 5), 78, dev)
     wide[:, :n] = trace.v
+    wide[2 * k2 : 2 * k2 + 2, r2] = wide[2 * k : 2 * k + 2, r]
+    rows[k2, r2] = rows[k, r]
     trace = gl.GF(wide[:, :n])
     assert not trace.v.is_contiguous()
     d = gl.tensor_to_u64(torch.cat([delta.c0.v, delta.c1.v])).tolist()
@@ -1584,7 +1588,8 @@ def test_eval_kernels_read_a_strided_trace_and_a_zero_denominator(dev):
     gamma = GF2(gl.GF(gl.tensor_from_u64(np.array(g[:1], dtype=np.uint64), dev)),
                 gl.GF(gl.tensor_from_u64(np.array(g[1:], dtype=np.uint64), dev)))
     got = _eval_check(trace, rows, gamma, delta)
-    assert int(got.v[2 * k, r]) == 0 and int(got.v[2 * k + 1, r]) == 0
+    for kk, rr in ((k, r), (k2, r2)):
+        assert int(got.v[2 * kk, rr]) == 0 and int(got.v[2 * kk + 1, rr]) == 0
 
 
 def test_eval_kernels_refuse_instead_of_falling_back(dev):
@@ -1592,23 +1597,19 @@ def test_eval_kernels_refuse_instead_of_falling_back(dev):
 
     n = 64
     trace, rows, gamma, delta = _eval_inputs(n, 9, dev)
-    out = torch.empty((10, n), dtype=torch.int64, device=dev)
     before = _eval_counts()
     for bad in (dict(trace=gl.GF(trace.v.cpu())), dict(trace=gl.GF(trace.v.to(torch.int32))),
-                dict(rows=rows.cpu()), dict(gamma=type(gamma)(gl.GF(gamma.c0.v.cpu()), gamma.c1))):
+                dict(rows=rows.cpu()), dict(gamma=type(gamma)(gl.GF(gamma.c0.v.cpu()), gamma.c1)),
+                dict(delta=type(delta)(delta.c0, gl.GF(delta.c1.v.to(torch.int32))))):
         args = dict(trace=trace, rows=rows, gamma=gamma, delta=delta) | bad
         with pytest.raises(TypeError):
-            ev.eval_terms_cuda(args["trace"], args["rows"], args["gamma"], args["delta"], out)
+            ev.eval_aux_cuda(args["trace"], args["rows"], args["gamma"], args["delta"])
     for bad in (dict(trace=gl.GF(trace.v[:7])), dict(trace=gl.GF(trace.v.t().contiguous().t())),
-                dict(rows=rows[:, :-1]), dict(rows=rows.t().contiguous().t()), dict(out=out[:9])):
-        args = dict(trace=trace, rows=rows, out=out) | bad
+                dict(rows=rows[:, :-1]), dict(rows=rows.t().contiguous().t()),
+                dict(trace=gl.GF(trace.v[:, :0]))):
+        args = dict(trace=trace, rows=rows) | bad
         with pytest.raises(ValueError):
-            ev.eval_terms_cuda(args["trace"], args["rows"], gamma, delta, args["out"])
-    partial = torch.zeros((2, 1, n), dtype=torch.int64, device=dev)
-    for p, o, err in ((partial.cpu(), out.cpu(), TypeError), (partial[:, :, :-1], out, ValueError),
-                      (partial, out[:, :-1], ValueError), (partial.to(torch.int32), out, TypeError)):
-        with pytest.raises(err):
-            ev.eval_scan_cuda(p, o)
+            ev.eval_aux_cuda(args["trace"], args["rows"], gamma, delta)
     assert _eval_counts() == before
 
 
@@ -1728,15 +1729,14 @@ class MixAir(Air):
 def _wrap_counts():
     from tendermintx_tpu_torch.stark import evalair as ev
 
-    return (ev.eval_terms_kernel_launches, ev.eval_scan_kernel_launches, ps.expand_kernel_launches,
-            ps.grind_kernel_launches)
+    return (ev.eval_aux_kernel_launches, ps.expand_kernel_launches, ps.grind_kernel_launches)
 
 
 def test_toy_wrap_on_card_equals_cpu(dev):
     """The toy two-statement batch of tests/test_torch_recursion.py wrapped
     on the card and on the CPU: the same bytes; the card's wrap runs the
-    eval terms kernel once, the scan's two kernels, the round-state kernel
-    once and one grinding launch a span searched; the CPU's none."""
+    eval aux kernel once, the round-state kernel once and one grinding
+    launch a span searched; the CPU's none."""
     import json
 
     from tendermintx_tpu_torch.stark import recursion as rec
@@ -1761,7 +1761,7 @@ def test_toy_wrap_on_card_equals_cpu(dev):
     before = _wrap_counts()
     card = rec.wrap_batch(airs, base, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg, device=dev)
     grinds = card.wrapper.fri_proof.pow_nonce // fri.GRIND_SPAN + 1
-    assert tuple(a - b for a, b in zip(_wrap_counts(), before)) == (1, 2, 1, grinds)
+    assert tuple(a - b for a, b in zip(_wrap_counts(), before)) == (1, 1, grinds)
     launched = _wrap_counts()
     host = rec.wrap_batch(airs, base, cfg, transcript_seed=[11, 22], wrap_config=wrap_cfg, device="cpu")
     assert _wrap_counts() == launched
@@ -1808,4 +1808,4 @@ def test_n4_wrap_on_card_equals_cpu(dev, tmp_path):
     before = _wrap_counts()
     assert n4_wrapped_sha256(tmp_path, dev) == N4_CPU_WRAPPED_SHA256
     got = tuple(a - b for a, b in zip(_wrap_counts(), before))
-    assert got[:3] == (1, 2, 1) and got[3] >= 2  # the prove's grind and the wrap's
+    assert got[:2] == (1, 1) and got[2] >= 2  # the prove's grind and the wrap's

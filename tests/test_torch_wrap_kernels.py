@@ -3,8 +3,10 @@ csrc/logup.cu's EvalAir entries (stark/evalair.py: _eval_terms, _eval_scan,
 _eval_assemble, eval_aux_plain) against the JAX
 package's _eval_terms_kernel, _eval_scan_kernel and _eval_assemble_kernel
 at 2^4, 2^8 and 2^11 rows, with random gamma and delta and with a planted
-zero denominator; Python models of the eval kernels' schedule (the four
-terms' batch division, the scan's tiles) against the twins; the grinding
+zero denominator; a Python model of the fused eval kernel's schedule
+(each thread's rows divided by one inversion, the block's scan, the tiles'
+look-back in random completion orders) against the twins and the JAX
+programs; the grinding
 search (ops/poseidon.py: grind_plain, stark/fri.py: grind) against the JAX
 package's _grind_fn and check_grind at pow_bits 1-10; a Python model of
 csrc/poseidon.cu's round-state kernel against expand_plain; the ctypes
@@ -32,10 +34,9 @@ from tendermintx_tpu_torch.ops.ext import GF2, W, ext_mul
 from tendermintx_tpu_torch.ops.goldilocks import GF, P, tensor_from_u64
 from tendermintx_tpu_torch.stark import evalair as ev
 from tendermintx_tpu_torch.stark import fri
-from tendermintx_tpu_torch.stark import lookup as lk
 from tendermintx_tpu_torch.stark import recursion as rec
 
-from test_torch_logup import _batch_div_model, _dot2, _scan_model
+from test_torch_logup import _dot2
 
 EDGES = [0, 1, P - 1, 2**32 - 1, 2**32, P - 2**32]
 
@@ -106,48 +107,225 @@ def test_eval_programs_match_jax(n, planted):
     assert _u(ev.eval_aux_plain(t, r, _gf2(gamma), _gf2(delta)).v) == want
 
 
-def _eval_kernel_model(trace, rows, gamma, delta, r: int) -> tuple[list, tuple]:
-    """csrc/logup.cu: tmx_eval_terms_kernel at row r: delta^2, each term's
-    D = gamma - (a + delta v0 + delta^2 v1) from the trace's rows 2k and
-    2k + 1, N(D) = D0^2 - W D1^2 and Y = (m D0, -m D1), the four divisions
-    Y / N(D) together (batch_div), then tw - ta - tb - tc."""
+def _eval_row_model(trace, rows, gamma, delta, r: int) -> list[tuple]:
+    """csrc/logup.cu: tmx_eval_aux_kernel's terms at row r before the
+    division: delta^2, each term's D = gamma - (a + delta v0 + delta^2 v1)
+    from the trace's rows 2k and 2k + 1, N(D) = D0^2 - W D1^2 and its
+    multiplicity m, as (D, N, m)."""
     e = ext_mul(delta, delta)
-    norms, ys = [], []
+    out = []
     for k in range(4):
         v0, v1 = int(trace[2 * k, r]), int(trace[2 * k + 1, r])
         a, m = int(rows[k, r]), int(rows[4 + k, r])
         D0 = (gamma[0] - a - _dot2(delta[0], v0, e[0], v1)) % P
         D1 = (gamma[1] - _dot2(delta[1], v0, e[1], v1)) % P
-        norms.append(_dot2(D0, D0, -W * D1 % P, D1))
-        ys.append((m * D0 % P, -m * D1 % P))
-    t = _batch_div_model(norms, ys)
-    return t, tuple((t[0][c] - t[1][c] - t[2][c] - t[3][c]) % P for c in range(2))
+        out.append(((D0, D1), _dot2(D0, D0, -W * D1 % P, D1), m))
+    return out
+
+
+def _batch_model(terms: list[tuple]) -> list[tuple]:
+    """tmx_eval_aux_kernel's division of a thread's terms (D, N, m): on the
+    way up each term's u = m times the norms before it (a zero norm, D = 0,
+    made 1: its term c conj(D) is 0 whatever c), one inversion of all the
+    norms' product, on the way down acc = 1 / (N_0 ... N_q), c = u acc = m
+    / N and the term c conj(D)."""
+    u, norms, pre = [], [], 1
+    for _, nrm, m in terms:
+        nrm = nrm or 1
+        u.append(m * pre % P)
+        norms.append(nrm)
+        pre = pre * nrm % P
+    acc = pow(pre, P - 2, P)
+    out = [None] * len(terms)
+    for q in range(len(terms) - 1, -1, -1):
+        c = u[q] * acc % P
+        acc = acc * norms[q] % P
+        D = terms[q][0]
+        out[q] = (c * D[0] % P, -c * D[1] % P)
+    return out
+
+
+def _add(a: tuple, b: tuple) -> tuple:
+    return ((a[0] + b[0]) % P, (a[1] + b[1]) % P)
+
+
+def _inclusive(xs: list) -> list:
+    out, acc = [], (0, 0)
+    for x in xs:
+        acc = _add(acc, x)
+        out.append(acc)
+    return out
+
+
+def _eval_tile_model(trace, rows, gamma, delta, n: int, b: int) -> tuple[dict, dict, tuple]:
+    """tmx_eval_aux_kernel's tile b before its look-back, at the source's
+    EVAL_THREADS and EVAL_ROWS: thread t's rows b tile + j threads + t
+    (j < rows), their 4 rows terms divided together (_batch_model: one
+    inversion; rows past n norm 1 and m 0), each row's tw - ta - tb - tc;
+    each chunk j scanned within its warps, the (chunk, warp) totals scanned
+    by warp 0. Returns each row's four terms, each row's sum within the
+    tile (its warp scan plus the totals before its (chunk, warp)) and the
+    tile's sum."""
+    threads, per = ev.EVAL_THREADS, ev.EVAL_ROWS
+    warps = threads // 32
+    base = b * ev.EVAL_TILE
+    terms, diff = {}, {}
+    for t in range(threads):
+        mine = [base + j * threads + t for j in range(per)]
+        batch = [x for r in mine
+                 for x in (_eval_row_model(trace, rows, gamma, delta, r) if r < n else [((0, 0), 1, 0)] * 4)]
+        div = _batch_model(batch)
+        for j, r in enumerate(mine):
+            q = div[4 * j : 4 * j + 4]
+            diff[r] = tuple((q[0][c] - q[1][c] - q[2][c] - q[3][c]) % P for c in range(2))
+            if r < n:
+                terms[r] = q
+    scans, totals = {}, []
+    for j in range(per):
+        for w in range(warps):
+            lanes = [base + j * threads + w * 32 + lane for lane in range(32)]
+            run = _inclusive([diff[r] for r in lanes])
+            scans.update(zip(lanes, run))
+            totals.append(run[-1])
+    before = [(0, 0), *_inclusive(totals)]
+    local = {r: _add(scans[r], before[((r - base) // threads) * warps + (r - base) % threads // 32])
+             for r in scans if r < n}
+    return terms, local, before[-1]
+
+
+def _look_back_model(sums: list, resident: int, rng, look: int) -> tuple[list, list, tuple]:
+    """tmx_eval_aux_kernel's single pass over tiles whose sums are `sums`,
+    as interleaved steps: at most `resident` blocks run at once, each
+    started when a slot is free and taking the next tile from the counter;
+    a random running block takes one step at a time: publish its sum
+    (status 1; tile 0 skips it); read the status of the 32 `look` tiles
+    below a window's top (before tile 0, a prefix of 0), then, a step at a
+    time, find the nearest inclusive prefix (status 2) among what it read
+    and read again each tile nearer than it that read 0, until none is 0;
+    add those tiles' sums and that prefix (with no prefix, all the
+    window's sums, and the next window); publish its prefix; count itself
+    done. The last block done zeroes the counters and every status word.
+    Returns the sum before each tile, the status words and the two
+    counters at the end."""
+    n_tiles, span = len(sums), 32 * look
+    status, agg, pre = [0] * n_tiles, [None] * n_tiles, [None] * n_tiles
+    counters = [0, 0]  # the tile counter, the done counter
+    before = [None] * n_tiles
+
+    def block():
+        tile = counters[0]
+        counters[0] += 1
+        yield
+        if tile:
+            agg[tile] = sums[tile]
+            status[tile] = 1
+            yield
+        acc, top = (0, 0), tile - 1
+        while tile:
+            seen = [2 if top - dist < 0 else status[top - dist] for dist in range(span)]
+            while True:
+                stop = seen.index(2) if 2 in seen else span
+                if 0 not in seen[:stop]:
+                    break
+                yield
+                seen = [s or status[top - dist] if dist < stop else s for dist, s in enumerate(seen)]
+            for dist in range(min(stop + 1, span)):
+                if top - dist >= 0:
+                    acc = _add(acc, pre[top - dist] if dist == stop else agg[top - dist])
+            if stop < span:
+                break
+            top -= span
+            yield
+        before[tile] = acc
+        pre[tile] = _add(acc, sums[tile])
+        status[tile] = 2
+        yield
+        counters[1] += 1
+        if counters[1] == n_tiles:
+            status[:] = [0] * n_tiles
+            counters[:] = [0, 0]
+
+    running, started, steps = [], 0, 0
+    while started < n_tiles or running:
+        while started < n_tiles and len(running) < resident:
+            running.append(block())
+            started += 1
+        i = int(rng.integers(len(running)))
+        try:
+            next(running[i])
+        except StopIteration:
+            running.pop(i)
+        steps += 1
+        assert steps < 1000 * (n_tiles + 1) ** 2, "the look-back does not end"
+    return before, status, tuple(counters)
 
 
 @pytest.mark.parametrize("planted", [False, True])
-def test_eval_kernel_model_matches_the_twins(planted, monkeypatch):
-    """The terms kernel's model at every row equals eval_aux_plain's term
-    rows (the planted zero denominator's term 0); the scan's model over the
-    model's row sums, at the eval scan's tiles and at tiles of several
-    chunks and a ragged last tile, equals eval_aux_plain's S rows (of a
-    prefix of m rows, S's first m)."""
-    n = 1 << 11
+def test_eval_kernel_model_matches_the_twins(planted):
+    """The fused kernel's model over a ragged row count (its last tile
+    part empty), its tiles' look-back in random completion orders with 1,
+    2 and all tiles resident: the ten aux rows equal eval_aux_plain's and
+    the JAX package's _eval_terms_kernel / _eval_scan_kernel rows exactly;
+    planted: two zero norms in one thread's batch (gamma equal to a cell's
+    a + delta v0 + delta^2 v1, and that cell copied to another term of the
+    thread's next row), each term 0 and the batch's others exact."""
+    for name in ("EVAL_THREADS", "EVAL_ROWS"):
+        assert _source_int("logup.cu", name) == getattr(ev, name)
+    look = _source_int("logup.cu", "LOOK_TILES")
+    assert ev.EVAL_TILE == ev.EVAL_THREADS * ev.EVAL_ROWS and ev.EVAL_ROWS * ev.EVAL_THREADS // 32 <= 32
+    n = 4 * ev.EVAL_TILE + 37
     trace, rows, gamma, delta = _eval_case(n, 7, planted)
+    r, k = n // 2, 2  # _eval_case's planted zero
+    r2, k2 = r + ev.EVAL_THREADS, 0
+    assert r // ev.EVAL_TILE == r2 // ev.EVAL_TILE and r % ev.EVAL_THREADS == r2 % ev.EVAL_THREADS
+    if planted:
+        trace[2 * k2 : 2 * k2 + 2, r2] = trace[2 * k : 2 * k + 2, r]
+        rows[k2, r2] = rows[k, r]
     aux = _u(ev.eval_aux_plain(GF.from_ints(trace), tensor_from_u64(rows.astype(np.uint64)), _gf2(gamma),
                                _gf2(delta)).v)
-    sums = [[], []]
-    for r in range(n):
-        terms, s = _eval_kernel_model(trace, rows, gamma, delta, r)
-        assert terms == [(aux[2 * k][r], aux[2 * k + 1][r]) for k in range(4)]
-        for c in range(2):
-            sums[c].append(s[c])
-        if planted and r == n // 2:
-            assert terms[2] == (0, 0)
-    for m, tiles in ((n, 128), (n, 3), (1000, 2), (257, 128)):
-        monkeypatch.setattr(lk, "_SCAN_TILES", tiles)
-        tile, n_tiles = lk.scan_tiles(m)
-        assert tile % lk._SCAN_THREADS == 0 and (n_tiles - 1) * tile < m <= n_tiles * tile
-        assert [_scan_model(sums[c][:m], tile, n_tiles) for c in range(2)] == [aux[8 + c][:m] for c in range(2)]
+    vals = JGF.from_ints(np.concatenate([trace[0::2], trace[1::2]]))
+    jterms = jev._eval_terms_kernel(JGF.from_ints(rows[:4]), JGF.from_ints(rows[4:]), vals, _jgf2(gamma),
+                                    _jgf2(delta))
+    jS = jev._eval_scan_kernel(jterms)
+    jrows = [row for k_ in range(4) for row in (_ju(jterms.c0)[k_], _ju(jterms.c1)[k_])] + [_ju(jS.c0), _ju(jS.c1)]
+    assert jrows == aux
+    n_tiles = -(-n // ev.EVAL_TILE)
+    tiles = [_eval_tile_model(trace, rows, gamma, delta, n, b) for b in range(n_tiles)]
+    got = [[None] * n for _ in range(10)]
+    for terms, _, _ in tiles:
+        for row, q in terms.items():
+            for kk in range(4):
+                got[2 * kk][row], got[2 * kk + 1][row] = q[kk]
+    rng = np.random.default_rng(11)
+    for resident in (1, 2, n_tiles):
+        before, status, counters = _look_back_model([s for _, _, s in tiles], resident, rng, look)
+        assert status == [0] * n_tiles and counters == (0, 0)
+        for b, (_, local, _) in enumerate(tiles):
+            for row, v in local.items():
+                got[8][row], got[9][row] = _add(v, before[b])
+        assert got == aux
+    if planted:
+        assert [(got[2 * k][r], got[2 * k + 1][r]), (got[2 * k2][r2], got[2 * k2 + 1][r2])] == [(0, 0), (0, 0)]
+        assert all(got[2 * kk][row] or got[2 * kk + 1][row] for kk in range(4) for row in (r, r2)
+                   if (kk, row) not in ((k, r), (k2, r2)) and rows[4 + kk, row])
+
+
+@pytest.mark.parametrize("n_tiles, look", [(1, None), (2, None), (97, None), (300, None), (97, 1)])
+def test_look_back_model_gives_every_prefix(n_tiles, look):
+    """The look-back's model over random tile sums, at the source's
+    LOOK_TILES (a step of 256 tiles: one step, and past one) and at one
+    tile a lane (windows of 32: past one and two), 1, 3 and all tiles
+    resident, in random orders: the sum before every tile equals the
+    sequential prefix, and the counters and status words end at 0, ready
+    for the next launch."""
+    look = look or _source_int("logup.cu", "LOOK_TILES")
+    rng = np.random.default_rng(n_tiles)
+    sums = [tuple(int(v) for v in _felts(rng, 2)) for _ in range(n_tiles)]
+    want = [(0, 0), *_inclusive(sums)][:-1]
+    for resident in (1, 3, n_tiles):
+        for _ in range(20 if n_tiles < 300 else 2):
+            before, status, counters = _look_back_model(sums, resident, rng, look)
+            assert before == want and status == [0] * n_tiles and counters == (0, 0)
 
 
 def test_eval_args_layout_matches_the_source():
@@ -437,8 +615,8 @@ def test_cpu_tensors_take_the_plain_twins():
                    m=np.ones(n - 1, dtype=np.uint32))
     air = ev.EvalAir(tape)
     assert tape.n_rows == n
-    counts = lambda: (ev.eval_terms_kernel_launches, ev.eval_scan_kernel_launches, ps.expand_kernel_launches,
-                      ps.grind_kernel_launches, ps.permute_kernel_launches)
+    counts = lambda: (ev.eval_aux_kernel_launches, ps.expand_kernel_launches, ps.grind_kernel_launches,
+                      ps.permute_kernel_launches)
     before = counts()
     t, chal = GF.from_ints(trace), [_gf2(gamma), _gf2(delta)]
     got = air.aux_columns(t, chal, [])
@@ -448,11 +626,8 @@ def test_cpu_tensors_take_the_plain_twins():
     assert _u(rec.expand_perm_states(states).v) == _u(ps.expand_plain(states.v))
     assert fri.grind(11, 6, "cpu") == fri.grind(11, 6)
     assert counts() == before
-    out = torch.empty((ev.N_AUX, n), dtype=torch.int64)
     with pytest.raises(TypeError):
-        ev.eval_terms_cuda(t, air.aux_rows("cpu"), *chal, out)
-    with pytest.raises(TypeError):
-        ev.eval_scan_cuda(torch.zeros((2, 1, n), dtype=torch.int64), out)
+        ev.eval_aux_cuda(t, air.aux_rows("cpu"), *chal)
     with pytest.raises(TypeError):
         ps.expand_cuda(states.v)
     meta = GF(torch.zeros((8, n), dtype=torch.int64, device="meta"))

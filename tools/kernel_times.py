@@ -4,7 +4,7 @@ main-path shape on one card, and the LogUp and OOD kernels round by round.
     python3 tools/kernel_times.py [--root DIR] [--label NAME]
         [--only ntt,deep,logup,ood,deep_inverses,logup_scan,ext_powers,fri_fold,fri_inject,
                 sha256_blocks,sha256_validator_root,sha256_header_proofs,sha512_blocks,sha512_challenge,
-                straus_verify,bind_witness,witness_programs,eval_terms,eval_scan,poseidon_expand,
+                straus_verify,bind_witness,witness_programs,eval_aux,poseidon_expand,
                 poseidon_grind] [--rounds R]
 
 Imports tendermintx_tpu_torch from DIR (default: this checkout) and, from
@@ -59,10 +59,10 @@ without the challenge kernel it counts no launches. The recursion wrap's
 kernels are timed in rounds the same way at the N=128 wrap's shapes
 (`_ood_shapes()`' EvalAir and WrapAir rows) on random inputs, each with
 `kernel_ms`, and beside each the checkout's plain program on the card
-(`plain_ms`, the median of R calls): `eval_terms` (`eval_terms_cuda`, its
-burst too; plain: `_eval_terms`, and the three programs of the aux rows
-as `aux_plain_ms`), `eval_scan` (`eval_scan_cuda` over the terms kernel's
-row sums, its burst too; plain: `_eval_scan`), `poseidon_expand`
+(`plain_ms`, the median of R calls): `eval_aux` (`eval_aux_cuda`, the
+EvalAir aux rows: one launch where the checkout has
+`eval_aux_kernel_launches`, with its burst, else the terms kernel and the
+scan's two, `kernel_ms` summing them; plain: `eval_aux_plain`), `poseidon_expand`
 (`expand_cuda`; plain: `expand_plain`, or `expand_perm_states` in a
 checkout without the kernel) and `poseidon_grind`: 16-bit searches of the first GRIND_SEEDS seeds from
 chip_smoke.py's SEED, each one `grind_cuda` launch from 0 over the
@@ -145,21 +145,7 @@ def main(argv=None) -> int:
     def reps_for(fn) -> int:
         return max(3, min(50, int(200 / max(cs._timed_once(fn)[1], 1e-3))))
 
-    def kernel_ms(fn, reps: int = 50) -> float | None:
-        """torch.profiler's device time of the port's kernels (names
-        holding tmx_) over `reps` calls of `fn`, a call: the kernels
-        alone, without the gaps between launches; None where the trace
-        holds no device time."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages() if "tmx_" in e.key)
-        return us / 1e3 / reps if us else None
+    kernel_ms = cs._alone_ms
 
     only = args.only.split(",")
     if "ntt" in only:
@@ -330,7 +316,7 @@ def main(argv=None) -> int:
                 rows.append({"shape": list(shape), "rounds": timed_rounds(run, reps_for(run), burst),
                              "kernel_ms": kernel_ms(run), **({"composition": True} if composition else {})})
             out[name] = rows
-    wrap_kernels = [k for k in ("eval_terms", "eval_scan", "poseidon_expand", "poseidon_grind") if k in only]
+    wrap_kernels = [k for k in ("eval_aux", "poseidon_expand", "poseidon_grind") if k in only]
     if wrap_kernels:
         from tendermintx_tpu_torch.ops import poseidon as ps
         from tendermintx_tpu_torch.stark import evalair as ev
@@ -346,27 +332,13 @@ def main(argv=None) -> int:
                            torch.randint(0, 1 << 32, (1, n), generator=gen, device=dev),
                            torch.randint(0, 2, (3, n), generator=gen, device=dev)])
         gamma, delta = GF2(GF(felt()), GF(felt())), GF2(GF(felt()), GF(felt()))
-        v0, v1 = GF(trace.v[0::2]), GF(trace.v[1::2])
-        terms = lambda: ev._eval_terms(GF(srows[:4]), GF(srows[4:]), v0, v1, gamma, delta)
-        kernels = hasattr(ev, "eval_terms_cuda")
-        eval_burst = (ev, "_eval_launch", "_eval_library")
-        if "eval_terms" in only:
-            row = {"shape": [8, n], "plain_ms": median_ms(terms),
-                   "aux_plain_ms": median_ms(lambda: ev._eval_assemble(t := terms(), ev._eval_scan(t)))}
-            if kernels:
-                aux = torch.empty((10, n), dtype=torch.int64, device=dev)
-                run = lambda: ev.eval_terms_cuda(trace, srows, gamma, delta, aux)
-                row.update(rounds=timed_rounds(run, reps_for(run), eval_burst), kernel_ms=kernel_ms(run))
-            out["eval_terms"] = row
-        if "eval_scan" in only:
-            t = terms()
-            row = {"shape": [2, 1, n], "plain_ms": median_ms(lambda: ev._eval_scan(t))}
-            if kernels:
-                aux = torch.empty((10, n), dtype=torch.int64, device=dev)
-                partial = ev.eval_terms_cuda(trace, srows, gamma, delta, aux)
-                run = lambda: ev.eval_scan_cuda(partial, aux)
-                row.update(rounds=timed_rounds(run, reps_for(run), eval_burst), kernel_ms=kernel_ms(run))
-            out["eval_scan"] = row
+        if "eval_aux" in only:
+            fused = hasattr(ev, "eval_aux_kernel_launches")
+            run = lambda: ev.eval_aux_cuda(trace, srows, gamma, delta)
+            burst = (ev, "_eval_launch", "_eval_library") if fused else None
+            out["eval_aux"] = {"shape": [8, n], "launches": 1 if fused else 3,
+                               "plain_ms": median_ms(lambda: ev.eval_aux_plain(trace, srows, gamma, delta)),
+                               "rounds": timed_rounds(run, reps_for(run), burst), "kernel_ms": kernel_ms(run)}
         if "poseidon_expand" in only:
             states = cs._random_felts((R, 12), gen, dev)
             row = {"shape": [R, 12]}

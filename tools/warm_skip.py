@@ -26,8 +26,9 @@ the wrap FRI's host fold tables cold (`wrap_fri_tables`, chip_smoke.py's
 constants that csrc/fri.cu's fold takes instead), then wraps the proof
 once more under torch.profiler (`second_wrap_seconds`, host tables warm)
 and reports chip_smoke.py's `_range_times` of the wrap's program ranges
-(`ranges`: expand_perm_states, eval_terms, eval_scan and, in a checkout
-that still assembles the EvalAir aux rows in torch, eval_assemble), their
+(`ranges`: expand_perm_states and eval_aux, or in an earlier checkout
+eval_terms, eval_scan and, where it still assembles the EvalAir aux rows
+in torch, eval_assemble), their
 card time being that of the kernels launched inside them.
 """
 
@@ -172,7 +173,7 @@ def _first_wrap(proof) -> dict:
     if again.to_bytes() != wrapped.to_bytes():
         raise AssertionError("two wraps of one proof differ")
     names = {e.name for e in prof.events()}
-    ranges = [r for r in ("expand_perm_states", "eval_terms", "eval_scan", "eval_assemble") if r in names]
+    ranges = [r for r in ("expand_perm_states", "eval_aux", "eval_terms", "eval_scan", "eval_assemble") if r in names]
     return {
         "n128_wrap_seconds": seconds,
         "wrapped_sha256": hashlib.sha256(wrapped.to_bytes()).hexdigest(),
